@@ -3,15 +3,23 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
-source, in parallel), holds each kernel of the main path against its plain
-PyTorch version at the main path's full shapes (zaremba-medium: T=35, B=20,
-H=D=650, block size 1, p=0.5, float32) and times it, checks the recurrence
-kernels once more in dense, FIXED and ragged modes and at H=1500
-(zaremba-large), checks on a small input that the kernel engines agree with
-the plain stepwise oracle, then drives the main path — the training step of
-``repro_torch.launch.train`` for zaremba-medium at full width under
-``case3:0.5:pallas`` — with the fused and the scheduled engine, and asserts
-that every kernel's launch counter grew.
+source, in parallel) and holds each kernel of the two ported paths against
+its plain PyTorch version at that path's full shapes, and times it:
+
+  * zaremba-medium (T=35, B=20, H=D=650, block size 1, p=0.5): K1/K2
+    gather matmul, K3/K4 LSTM scan (also in dense, FIXED and ragged modes
+    and at H=1500, zaremba-large);
+  * luong-nmt (T=S=50, B=64, H=E=512, 2 layers, block size 1, p=0.3):
+    K1/K2 and K3/K4 at the encoder's and decoder's shapes, and K7/K8, the
+    fused decoder scan (also in dense, FIXED, off, mixed and ragged modes on
+    small inputs).
+
+Then it checks on small inputs that the kernel engines agree with the plain
+stepwise oracle (both models), and drives each main path — the training
+step of ``repro_torch.launch.train`` at full width, zaremba-medium under
+``case3:0.5:pallas`` and luong-nmt (batch 64, max_len 50) under
+``case3:0.3:pallas`` — with the fused and the scheduled engine, asserting
+that every kernel's launch counter grew in that path's run.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -37,8 +45,10 @@ import torch  # noqa: E402
 F32_FLOPS = 67e12
 HBM_BYTES = 3.35e12
 
-T, B, H, D, P = 35, 20, 650, 650, 0.5
+T, B, H, D, P = 35, 20, 650, 650, 0.5          # zaremba-medium
+NT_, NB, NH, NS, NP = 50, 64, 512, 50, 0.3      # luong-nmt: T=S, B, H=E, p
 STEPS = 5
+LM, NMT = "zaremba-medium", "luong-nmt"
 
 
 def smi_line() -> str:
@@ -112,33 +122,47 @@ def keep_table(gen, rows, hidden, rate):
                         for _ in range(rows)]).cuda()
 
 
-def check_gather_matmul(gen, out):
+def row_name(counter, arch):
+    """JSON row name: the launch counter's name, tagged with the arch where
+    a kernel of the zaremba path is timed at the luong-nmt shapes too."""
+    return counter if arch == LM or counter.startswith("decoder_scan") \
+        else f"{counter}@{arch}"
+
+
+def add_row(out, counter, arch, src, replaces, err, ms, pms, lms, nbytes,
+            flops, l2):
+    b, by = bound_ms(nbytes, flops)
+    name = row_name(counter, arch)
+    print(f"  {name}: {ms:.4f} ms  plain {pms:.4f} ms  library "
+          f"{'n/a' if lms is None else f'{lms:.4f} ms'}  bound {b:.4f} ms "
+          f"({by}), L2 {l2}")
+    out[name] = dict(name=name, route="cuda", source=src, replaces=replaces,
+                     max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b,
+                     bound_by=by, library_ms=lms, l2=l2, arch=arch,
+                     counter=counter)
+
+
+def check_gather_matmul(gen, out, arch=LM, T=T, B=B, H=H, D=D, P=P,
+                        extras=True):
     from repro_torch.kernels import gather_matmul as gm
-    k = int(round(H * (1 - P)))
+    k = H - math.ceil(P * H)
     U = torch.randn(H, 4 * H, generator=gen).cuda() * 0.05
     W = torch.randn(D, 4 * H, generator=gen).cuda() * 0.05
     kb1 = keep_table(gen, 1, H, P)[0]
     kbT = keep_table(gen, T, D, P)
-    scale = 2.0
+    scale = H / k
     uniq = int(torch.unique(kbT).numel())
-    print(f"K1/K2 gather_matmul: M={B} k={k} N={4 * H} T={T} "
+    print(f"K1/K2 gather_matmul ({arch}): M={B} k={k} N={4 * H} T={T} "
           f"(rows of W kept at some step: {uniq})")
 
     def row(name, route_src, replaces, got, want, tol, fn, plain, lib,
             nbytes, flops, cold_l2):
-        err = compare(name, got, want, tol)
+        err = compare(row_name(name, arch), got, want, tol)
         ms = time_ms(fn, cold_l2=cold_l2)
         pms = time_ms(plain, cold_l2=cold_l2)
         lms = time_ms(lib, cold_l2=cold_l2) if lib is not None else None
-        b, by = bound_ms(nbytes, flops)
-        l2 = "cold" if cold_l2 else "warm"
-        print(f"  {name}: {ms:.4f} ms  plain {pms:.4f} ms  library "
-              f"{'n/a' if lms is None else f'{lms:.4f} ms'}  bound {b:.4f} ms "
-              f"({by}), L2 {l2}")
-        out[name] = dict(name=name, route="cuda", source=route_src,
-                         replaces=replaces, max_abs_err=err, ms=ms,
-                         plain_ms=pms, bound_ms=b, bound_by=by,
-                         library_ms=lms, l2=l2)
+        add_row(out, name, arch, route_src, replaces, err, ms, pms, lms,
+                nbytes, flops, "cold" if cold_l2 else "warm")
 
     src = "src/repro_torch/csrc/gather_matmul.cu"
     # K1 runs once per time step on the same U, so its caller finds U in L2
@@ -181,6 +205,8 @@ def check_gather_matmul(gen, out):
         f(), p(), 2e-4, f, p, lambda: torch.matmul(dyT, W.t()),
         4 * (T * B * 4 * H + uniq * 4 * H + T * k + T * B * k),
         2 * T * B * k * 4 * H, True)
+    if not extras:
+        return
     # b_cols (FFN-out variant; no model of this slice calls it) and the
     # a-gathered FP variant: correctness only.
     a2 = torch.randn(B, D, generator=gen).cuda()
@@ -229,7 +255,7 @@ def scan_inputs(gen, T_, B_, H_, rate, mode, fixed=False, ragged=False):
 
 
 def check_scan(gen, T_, B_, H_, rate, mode, *, fixed=False, ragged=False,
-               out=None, tag=""):
+               out=None, tag="", arch=LM):
     from repro_torch.kernels import cell_scan as cs_mod
     from repro_torch.kernels import lstm_scan as ls
     cell = ls.lstm_cell_spec(0.0)
@@ -270,15 +296,118 @@ def check_scan(gen, T_, B_, H_, rate, mode, *, fixed=False, ragged=False,
         # once per layer and step, after other work: timed with a cold L2
         ms = time_ms(fk, cold_l2=True)
         pms = time_ms(fp, reps=5, warmup=1, cold_l2=True)
-        b, by = bound_ms(nbytes, flops)
-        print(f"  {name}: {ms:.4f} ms  plain {pms:.4f} ms  bound {b:.4f} ms "
-              f"({by}), L2 cold")
-        out[name] = dict(name=name, route="cuda", source=src, replaces=rep,
-                         max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b,
-                         bound_by=by, library_ms=None, l2="cold")
+        add_row(out, name, arch, src, rep, err, ms, pms, None, nbytes, flops,
+                "cold")
 
 
-def check_engines_small():
+def decoder_inputs(gen, T_, B_, S_, H_, kind, rate, bs, ragged):
+    """K7/K8 operands on the card: nl=2, the last source positions of each
+    row padded (score_bias -1e30), sites of one ``kind`` (off / sf / sp /
+    df / dp structured-or-dense FIXED-or-per-step, or a mixed assignment),
+    and non-zero cotangents for every output, finals included."""
+    from repro_torch.kernels import decoder_scan as ds
+    nl, G = 2, 4 * H_
+    r = lambda *shape, std: (torch.randn(*shape, generator=gen) * std).cuda()
+    pad = torch.arange(S_)[None, :] >= (S_ - 1 - torch.arange(B_)[:, None] % 7)
+    ops = dict(gx0=r(T_, B_, G, std=0.5), us=[r(H_, G, std=0.05) for _ in range(nl)],
+               ws=[r(H_, G, std=0.05)], bs=[r(G, std=0.05)], w_feed=r(H_, G, std=0.05),
+               w_comb=r(2 * H_, H_, std=0.05), enc_proj=r(B_, S_, H_, std=0.3),
+               enc_out=r(B_, S_, H_, std=0.3),
+               score_bias=torch.where(pad, -1e30, 0.0).float().cuda(),
+               h0=r(nl, B_, H_, std=0.5), c0=r(nl, B_, H_, std=0.5),
+               feed0=r(B_, H_, std=0.5))
+    sites = []
+    for i in range(2 * nl):
+        k = ("off", "sf", "sp", "dp")[i % 4] if kind == "mixed" else kind
+        if k == "off":
+            sites.append((None, None, 1, 1.0))
+        elif k in ("sf", "sp"):
+            from repro_torch.core import masks
+            nb = H_ // bs
+            kb = torch.stack([masks.sample_keep_blocks(gen, H_, rate, bs)
+                              for _ in range(1 if k == "sf" else T_)]).cuda()
+            sites.append((kb, None, bs, nb / kb.shape[1]))
+        else:
+            rows = 1 if k == "df" else T_
+            m = (torch.rand(rows, B_, H_, generator=gen) >= rate).float().cuda()
+            sites.append((None, m, 1, 1.0 / (1.0 - rate)))
+    pairs = [ds._mk_site(*s_) for s_ in sites]
+    descs = tuple(p_[0] for p_ in pairs)
+    tables = tuple(None if t_ is None else t_.contiguous() for _, t_ in pairs)
+    lengths = (torch.randint(0, T_ + 1, (B_,), generator=gen, dtype=torch.int32).cuda()
+               if ragged else None)
+    dout = (r(T_, B_, H_, std=1.0), r(nl, B_, H_, std=1.0), r(nl, B_, H_, std=1.0),
+            r(B_, H_, std=1.0))
+    return descs, tables, ops, lengths, dout
+
+
+def check_decoder(gen, T_, B_, S_, H_, kind, *, rate=0.5, bs=4, ragged=False,
+                  out=None, tag=""):
+    """K7/K8 against the plain decoder_scan on the same inputs: every
+    forward output (h~, gates, h, c, alpha) and every gradient (dgx0,
+    dW_feed, dU, dW, db, dW_comb, d enc_proj, d enc_out, dh0, dc0,
+    dfeed0)."""
+    from repro_torch.kernels import decoder_scan as ds
+    descs, tables, o, lengths, dout = decoder_inputs(gen, T_, B_, S_, H_, kind,
+                                                     rate, bs, ragged)
+    fargs = (descs, tables, o["gx0"], o["us"], o["ws"], o["bs"], o["w_feed"],
+             o["w_comb"], o["enc_proj"], o["enc_out"], o["score_bias"], o["h0"],
+             o["c0"], o["feed0"], lengths)
+    fwd_k = lambda: ds.kernel_fwd(*fargs)
+    fwd_p = lambda: ds.plain_fwd(*fargs)
+    print(f"decoder_scan T={T_} B={B_} S={S_} H={H_} nl=2 {kind}"
+          f"{' ragged' if ragged else ''}")
+    res = fwd_p()
+    e_f = compare("  decoder_scan_fwd " + tag, fwd_k(), res, 1e-3)
+    bargs = (descs, tables, res, dout, o["us"], o["ws"], o["w_feed"], o["w_comb"],
+             o["enc_proj"], o["enc_out"], o["h0"], o["c0"], o["feed0"], lengths)
+    flat = lambda g: [x for v in g for x in (v if isinstance(v, list) else [v])]
+    bwd_k = lambda: ds.kernel_bwd(*bargs)
+    bwd_p = lambda: ds.plain_bwd(*bargs)
+    e_b = compare("  decoder_scan_bwd " + tag, flat(bwd_k()), flat(bwd_p()), 1e-3)
+    if out is None:
+        return
+    # the work this call's data needs: kept rows per site, kept units per step
+    nl, G, H2 = 2, 4 * H_, 2 * H_
+    kept = [H_ if t_ is None or d.mode == "dense" else t_.shape[1]
+            for d, t_ in zip(descs, tables)]
+    uniq = [H_ if t_ is None or d.mode == "dense" else int(torch.unique(t_).numel())
+            for d, t_ in zip(descs, tables)]
+    ids = sum(0 if t_ is None else t_.numel() for t_ in tables)
+    att = 2 * B_ * S_ * H_
+    f_flops = T_ * (sum(2 * B_ * k * G for k in kept) + 2 * att + 2 * B_ * H2 * H_)
+    b_flops = T_ * (sum(4 * B_ * k * G for k in kept) + 5 * att
+                    + 2 * (2 * B_ * H2 * H_))
+    wbytes = sum(u * G for u in uniq) + H2 * H_ + (nl - 1) * G
+    f_bytes = 4 * (T_ * B_ * G + wbytes + 2 * B_ * S_ * H_ + B_ * S_
+                   + (2 * nl + 1) * B_ * H_ + ids
+                   + T_ * B_ * H_ + T_ * B_ * S_ + nl * T_ * B_ * G
+                   + 2 * nl * T_ * B_ * H_)
+    b_bytes = 4 * (T_ * B_ * H_ + (2 * nl + 1) * B_ * H_ + nl * T_ * B_ * G
+                   + 2 * nl * T_ * B_ * H_ + T_ * B_ * H_ + T_ * B_ * S_
+                   + (2 * nl + 1) * B_ * H_ + wbytes + 2 * B_ * S_ * H_ + ids
+                   + T_ * B_ * G + 2 * nl * H_ * G + (nl - 1) * G + H2 * H_
+                   + 2 * B_ * S_ * H_ + (2 * nl + 1) * B_ * H_)
+    src = "src/repro_torch/csrc/decoder_scan.cu"
+    for name, fk, fp, err, nbytes, flops, rep in (
+            ("decoder_scan_fwd", fwd_k, fwd_p, e_f, f_bytes, f_flops,
+             "src/repro/kernels/decoder_scan.py:413"),
+            ("decoder_scan_bwd", bwd_k, bwd_p, e_b, b_bytes, b_flops,
+             "src/repro/kernels/decoder_scan.py:598")):
+        # once per training step, after other work: timed with a cold L2
+        ms = time_ms(fk, cold_l2=True)
+        pms = time_ms(fp, reps=3, warmup=1, cold_l2=True)
+        add_row(out, name, NMT, src, rep, err, ms, pms, None, nbytes, flops,
+                "cold")
+
+
+def nmt_small_batch(cfg, dev):
+    from repro_torch.data import synthetic
+    d = synthetic.nmt_pairs(4, cfg.src_vocab, cfg.tgt_vocab, max_len=10, seed=1)
+    return {k: torch.from_numpy(v).to(dev) for k, v in d.items()}
+
+
+def check_engines_small(arch=LM):
     """On a small input, the kernel engines (fused, scheduled under
     :pallas) agree with the plain stepwise oracle (:xla) for loss and every
     gradient, on the card and against the CPU."""
@@ -286,71 +415,102 @@ def check_engines_small():
     from repro_torch.configs import adapters
     from repro_torch.launch.steps import value_and_grad
     from repro_torch.optim import tree_leaves
-    spec = configs.get_arch("zaremba-medium")
+    spec = configs.get_arch(arch)
+    plan = "case3:0.5:bs8" if arch == LM else "case3:0.3:bs8"
     g = torch.Generator().manual_seed(1)
-    batch_cpu = {"tokens": torch.randint(0, 128, (4, 8), generator=g),
-                 "labels": torch.randint(0, 128, (4, 8), generator=g)}
+    if arch == LM:
+        batch_cpu = {"tokens": torch.randint(0, 128, (4, 8), generator=g),
+                     "labels": torch.randint(0, 128, (4, 8), generator=g)}
+    else:
+        batch_cpu = nmt_small_batch(spec.smoke(), "cpu")
     results = {}
     for name, engine, impl, dev in (("stepwise/xla/cpu", "stepwise", "xla", "cpu"),
                                     ("stepwise/xla/cuda", "stepwise", "xla", "cuda"),
                                     ("scheduled/pallas/cuda", "scheduled", "pallas", "cuda"),
                                     ("fused/pallas/cuda", "fused", "pallas", "cuda")):
         cfg = adapters.apply_engine(spec, adapters.apply_dropout(
-            spec, spec.smoke(), f"case3:0.5:bs8:{impl}"), engine)
-        params = adapters.init_params("lstm_lm", torch.Generator().manual_seed(0),
+            spec, spec.smoke(), f"{plan}:{impl}"), engine)
+        params = adapters.init_params(spec.kind, torch.Generator().manual_seed(0),
                                       cfg, device=dev)
         batch = {k: v.to(dev) for k, v in batch_cpu.items()}
-        lfn = value_and_grad(lambda p, b, **kw: adapters.loss_fn("lstm_lm")(p, b, cfg, **kw))
+        lfn = value_and_grad(lambda p, b, **kw: adapters.loss_fn(spec.kind)(p, b, cfg, **kw))
         loss, grads = lfn(params, batch, seed=7, step=3)
         results[name] = [loss.cpu()] + [g.cpu() for g in tree_leaves(grads)]
-    print("engines on a small input (zaremba-medium smoke, case3:0.5:bs8)")
+    print(f"engines on a small input ({arch} smoke, {plan})")
     ref = results["stepwise/xla/cpu"]
     for name, got in results.items():
         if name != "stepwise/xla/cpu":
             compare(f"  {name} vs stepwise/xla/cpu (loss + grads)", got, ref, 1e-4)
 
 
+MAIN_PATHS = (
+    # arch, batch, seq, plan, full-width cfg check
+    (LM, B, T, "case3:0.5:pallas",
+     lambda c: (c.vocab, c.embed, c.hidden, c.num_layers) == (10000, 650, 650, 2)),
+    (NMT, NB, NT_, "case3:0.3:pallas",
+     lambda c: (c.src_vocab, c.tgt_vocab, c.embed, c.hidden, c.num_layers)
+     == (50000, 50000, 512, 512, 2)),
+)
+
+NEED = {"fused": ("gather_matmul_stepped/fp", "gather_matmul_stepped/bp",
+                  "lstm_scan_fwd", "lstm_scan_bwd"),
+        "scheduled": ("gather_matmul/fp", "gather_matmul/bp",
+                      "gather_matmul_stepped/fp", "gather_matmul_stepped/bp")}
+NEED_NMT_FUSED = ("decoder_scan_fwd", "decoder_scan_bwd")
+# per training step, as the code implies: luong-nmt fused launches K7 and K8
+# once, K3/K4 once per encoder layer, K2 FP/BP for both encoder layers and
+# the decoder's hoisted layer-0 NR
+EXPECT_NMT_FUSED = {"decoder_scan_fwd": 1, "decoder_scan_bwd": 1,
+                    "lstm_scan_fwd": 2, "lstm_scan_bwd": 2,
+                    "gather_matmul_stepped/fp": 3, "gather_matmul_stepped/bp": 3}
+
+
 def drive_main_path():
+    """Each path's training step at full width with both engines; returns
+    {arch: {engine: {counter: launches}}}, {"arch/engine": [ms]}."""
+    from repro_torch.kernels import decoder_scan as dsk
     from repro_torch.kernels import gather_matmul as gm
     from repro_torch.kernels import lstm_scan as ls
     from repro_torch.launch import train
 
+    counters = (gm.LAUNCHES, ls.LAUNCHES, dsk.LAUNCHES)
+
     def reset():
-        for d in (gm.LAUNCHES, ls.LAUNCHES):
+        for d in counters:
             for key in d:
                 d[key] = 0
 
     def counts():
-        return {**gm.LAUNCHES, **ls.LAUNCHES}
+        return {k_: v for d in counters for k_, v in d.items()}
 
-    need = {"fused": ("gather_matmul_stepped/fp", "gather_matmul_stepped/bp",
-                      "lstm_scan_fwd", "lstm_scan_bwd"),
-            "scheduled": ("gather_matmul/fp", "gather_matmul/bp",
-                          "gather_matmul_stepped/fp", "gather_matmul_stepped/bp")}
-    total = {key: 0 for key in counts()}
-    step_ms = {}
-    for engine in ("fused", "scheduled"):
-        print(f"main path: zaremba-medium, batch {B}, unroll {T}, "
-              f"case3:0.5:pallas, engine {engine}, {STEPS} steps")
-        reset()
-        res = train.run(["--arch", "zaremba-medium", "--batch", str(B),
-                         "--seq", str(T), "--dropout", "case3:0.5:pallas",
-                         "--engine", engine, "--steps", str(STEPS),
-                         "--seed", "0"])
-        c = counts()
-        cfg = res["cfg"]
-        assert (cfg.vocab, cfg.embed, cfg.hidden, cfg.num_layers) == (10000, 650, 650, 2)
-        assert len(res["losses"]) == STEPS
-        assert all(math.isfinite(x) for x in res["losses"]), res["losses"]
-        assert all(torch.isfinite(p).all() for p in _leaves(res["params"]))
-        missing = [key for key in need[engine] if c[key] == 0]
-        assert not missing, f"{engine}: kernels never launched: {missing}"
-        print(f"  launches ({engine}, {STEPS} steps): "
-              + ", ".join(f"{k_}={v}" for k_, v in c.items() if v))
-        for key in total:
-            total[key] += c[key]
-        step_ms[engine] = res["ms"]
-    return total, step_ms
+    totals, step_ms = {}, {}
+    for arch, batch, seq, plan, full_width in MAIN_PATHS:
+        for engine in ("fused", "scheduled"):
+            print(f"main path: {arch}, batch {batch}, seq {seq}, {plan}, "
+                  f"engine {engine}, {STEPS} steps")
+            reset()
+            res = train.run(["--arch", arch, "--batch", str(batch),
+                             "--seq", str(seq), "--dropout", plan,
+                             "--engine", engine, "--steps", str(STEPS),
+                             "--seed", "0"])
+            c = counts()
+            assert full_width(res["cfg"]), res["cfg"]
+            assert len(res["losses"]) == STEPS
+            assert all(math.isfinite(x) for x in res["losses"]), res["losses"]
+            assert all(torch.isfinite(p).all() for p in _leaves(res["params"]))
+            need = NEED[engine] + (NEED_NMT_FUSED if (arch, engine) == (NMT, "fused") else ())
+            missing = [key for key in need if c[key] == 0]
+            assert not missing, f"{arch}/{engine}: kernels never launched: {missing}"
+            print(f"  launches per step ({arch}/{engine}): "
+                  + ", ".join(f"{k_}={v / STEPS:g}" for k_, v in c.items() if v))
+            if (arch, engine) == (NMT, "fused"):
+                off = {k_: (c[k_] / STEPS, n) for k_, n in EXPECT_NMT_FUSED.items()
+                       if c[k_] != n * STEPS}
+                print("  luong-nmt fused launches per step "
+                      + ("as expected" if not off else f"differ from the expected: {off}"))
+            totals.setdefault(arch, {})[engine] = c
+            step_ms[f"{arch}/{engine}"] = res["ms"]
+    return totals, step_ms
 
 
 def steady_median(ms):
@@ -389,7 +549,8 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  [{name}] {line.strip()}")
     print("kernels: K1 gather_matmul, K2 gather_matmul_stepped, "
-          "K3 lstm_scan_fwd, K4 lstm_scan_bwd")
+          "K3 lstm_scan_fwd, K4 lstm_scan_bwd, K7 decoder_scan_fwd, "
+          "K8 decoder_scan_bwd")
 
     gen = torch.Generator().manual_seed(0)
     rows = {}
@@ -401,14 +562,28 @@ def main() -> int:
     check_scan(gen, 9, 5, 48, 0.5, "structured", ragged=True, tag="(ragged)")
     check_scan(gen, 9, 5, 48, 0.5, "dense", fixed=True, ragged=True, tag="(dense FIXED ragged)")
     check_scan(gen, T, B, 1500, 0.65, "structured", tag="(zaremba-large H=1500)")
+    # luong-nmt: K1/K2 at the decoder's and encoder's shapes, K3/K4 at the
+    # encoder's, K7/K8 at the decoder's, then K7/K8 in every site mode
+    check_gather_matmul(gen, rows, NMT, NT_, NB, NH, NH, NP, extras=False)
+    check_scan(gen, NT_, NB, NH, NP, "structured", out=rows, tag="(luong-nmt encoder)",
+               arch=NMT)
+    check_decoder(gen, NT_, NB, NS, NH, "sp", rate=NP, bs=1, out=rows, tag="(main path)")
+    for kind in ("dp", "df", "sf", "off", "mixed"):
+        check_decoder(gen, 7, 5, 6, 40, kind, tag=f"({kind})")
+    check_decoder(gen, 7, 5, 6, 40, "mixed", ragged=True, tag="(mixed ragged)")
+    check_decoder(gen, 9, 6, 5, 48, "sp", ragged=True, tag="(ragged)")
     check_engines_small()
+    check_engines_small(NMT)
 
-    total, step_ms = drive_main_path()
-    for engine, ms in step_ms.items():
-        print(f"step ms ({engine}): " + ", ".join(f"{x:.2f}" for x in ms))
+    counts, step_ms = drive_main_path()
+    for key, ms in step_ms.items():
+        print(f"step ms ({key}): " + ", ".join(f"{x:.2f}" for x in ms))
     kernels = []
     for name, r in rows.items():
-        r["launches"] = total[name]
+        per = counts[r.pop("arch")]
+        counter = r.pop("counter")
+        r["launches"] = sum(c[counter] for c in per.values())
+        r["launches_per_step"] = {e: c[counter] / STEPS for e, c in per.items()}
         if r["launches"] == 0:
             raise AssertionError(f"{name} never launched on the main path")
         kernels.append(r)

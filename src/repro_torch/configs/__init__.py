@@ -1,5 +1,5 @@
 """Architecture registry: ``--arch <id>`` -> ArchSpec (the paper's LSTM LMs
-in this slice of the port)."""
+and the Luong NMT model in the port so far)."""
 from __future__ import annotations
 
 from repro_torch.configs import paper_models

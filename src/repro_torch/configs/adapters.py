@@ -1,4 +1,4 @@
-"""Uniform model API over arch kinds (port of the lstm_lm part of
+"""Uniform model API over arch kinds (port of the lstm_lm and nmt parts of
 repro.configs.adapters): ``loss_fn``, ``init_params``, and the ``--dropout``
 / ``--engine`` overrides."""
 from __future__ import annotations
@@ -8,15 +8,16 @@ import dataclasses
 from repro_torch.configs.base import ArchSpec
 from repro_torch.core.dropout_plan import DropoutPlan
 from repro_torch.core.lstm import ENGINES
-from repro_torch.models import lstm_lm
+from repro_torch.models import lstm_lm, seq2seq
 
-_MODULES = {"lstm_lm": lstm_lm}
+_MODULES = {"lstm_lm": lstm_lm, "nmt": seq2seq}
 
 # Canonical application sites per kind: what ``case3:0.5:bs128`` turns on.
-DROPOUT_SITES = {"lstm_lm": ("embed", "nr", "rh", "out")}
+DROPOUT_SITES = {"lstm_lm": ("embed", "nr", "rh", "out"),
+                 "nmt": ("nr", "rh", "out")}
 
 # Kinds with a time-recurrent scan the engine knob applies to.
-ENGINE_KINDS = ("lstm_lm",)
+ENGINE_KINDS = ("lstm_lm", "nmt")
 
 
 def init_params(kind: str, generator, cfg, *, device="cpu"):

@@ -1,9 +1,10 @@
-"""The paper's LSTM LM configs (port of the lstm_lm part of
+"""The paper's configs (port of the lstm_lm and nmt parts of
 repro.configs.paper_models), selectable via ``--arch``."""
 from repro_torch.configs.base import ArchSpec
 from repro_torch.core.dropout_plan import DropoutPlan
 from repro_torch.core.sdrop import DropoutSpec
-from repro_torch.models import lstm_lm
+from repro_torch.models import lstm_lm, seq2seq
+
 
 def _st(rate, bs=1):
     return DropoutSpec(rate=rate, block_size=bs)
@@ -34,4 +35,14 @@ AWD_LSTM = ArchSpec(
     full=lambda **kw: lstm_lm.awd_lstm(**kw),
     smoke=lambda **kw: lstm_lm.awd_lstm(vocab=128, embed=32, hidden=48, **kw))
 
-PAPER_SPECS = [ZAREMBA_MEDIUM, ZAREMBA_LARGE, AWD_LSTM]
+# Luong et al. 2015 / OpenNMT: vocab 50000 each side, embed = hidden = 512,
+# 2 layers; Case III p=0.3 on NR, RH and the encoder/decoder outputs.
+LUONG_NMT = ArchSpec(
+    name="luong-nmt", family="rnn", kind="nmt",
+    full=lambda **kw: seq2seq.NMTConfig(
+        plan=_plan(0.3, sites=("nr", "rh", "out")), **kw),
+    smoke=lambda **kw: seq2seq.NMTConfig(
+        src_vocab=96, tgt_vocab=96, embed=32, hidden=32,
+        plan=_plan(0.3, 8, sites=("nr", "rh", "out")), **kw))
+
+PAPER_SPECS = [ZAREMBA_MEDIUM, ZAREMBA_LARGE, AWD_LSTM, LUONG_NMT]

@@ -28,12 +28,15 @@
 // owned units never leaves shared memory; one grid.sync() per step
 // publishes h_t. The backward keeps the same ownership: after one
 // grid.sync() per step all dgates are visible, each CTA streams them
-// through shared memory in 1024-column chunks (cp.async) and computes
-// dh_{t-1} and dU only for its own kept rows j, so dU needs no atomics;
-// its rows of U and dU stay in shared memory when they fit. Cross-CTA data
-// is read through L2 only (__ldcg, cp.async.cg). Accumulations keep several
-// independent chains per thread: with one CTA of 8 warps per SM there is
-// little else to hide shared-memory latency behind.
+// through shared memory in column chunks (cp.async, rows padded off the
+// same bank) and computes dh_{t-1} and dU only for its own kept rows j, so
+// dU needs no atomics; its rows of U and dU stay in shared memory when
+// they fit. Kept rows go in groups of four: WG holds a group's four rows of
+// a column in registers, BP a (row, four units) tile, both with 16-byte
+// shared loads. Cross-CTA data is read through L2 only (__ldcg,
+// cp.async.cg); the forward issues each batch of staging loads with no
+// branch between them, so they are in flight together. With one CTA of 8
+// warps per SM there is little else to hide latency behind.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -43,7 +46,6 @@ namespace {
 
 constexpr int NT = 256;   // threads per CTA
 constexpr int RB = 32;    // batch rows per register chunk (forward)
-constexpr int OPT = 4;    // dh outputs per thread when B*J > NT (backward)
 constexpr int LD = 16;    // global loads in flight per thread when staging
 constexpr size_t SMEM_MAX = 227 * 1024;
 
@@ -61,6 +63,8 @@ struct ScanArgs {
 };
 
 __device__ __forceinline__ float sigm(float x) { return 1.f / (1.f + expf(-x)); }
+
+__host__ __device__ inline size_t al4(size_t n) { return (n + 3) & ~size_t(3); }
 
 // 16-byte global -> shared copy through L2 only (.cg): the source may have
 // been written by another SM before the last grid barrier.
@@ -119,19 +123,26 @@ lstm_fwd_kernel(const float* __restrict__ gx, const float* __restrict__ U,
     if (p.mode == 1)
       for (int kk = tid; kk < KC; kk += NT) uid[kk] = ids[(size_t)row_i * p.k + kk];
     __syncthreads();
-    // LD loads in flight per thread: the loads are L2 round trips
+    // LD loads in flight per thread (the loads are L2 round trips): all of a
+    // batch are issued unconditionally, with no branch between them
     for (int e0 = tid; e0 < B * KC; e0 += LD * NT) {
       float v[LD];
 #pragma unroll
       for (int u = 0; u < LD; ++u) {
-        const int e = e0 + u * NT;
-        v[u] = 0.f;
-        if (e < B * KC) {
-          const int b = e / KC, kk = e % KC;
-          const int col = p.mode == 1 ? uid[kk] : kk;
-          v[u] = __ldcg(hprev + (size_t)b * H + col);
-          if (p.mode == 2) v[u] *= mask[((size_t)row_m * B + b) * H + kk] * p.scale;
+        const int e = min(e0 + u * NT, B * KC - 1);
+        const int b = e / KC, kk = e - b * KC;
+        v[u] = __ldcg(hprev + (size_t)b * H + (p.mode == 1 ? uid[kk] : kk));
+      }
+      if (p.mode == 2) {
+        float m[LD];
+#pragma unroll
+        for (int u = 0; u < LD; ++u) {
+          const int e = min(e0 + u * NT, B * KC - 1);
+          const int b = e / KC, kk = e - b * KC;
+          m[u] = mask[((size_t)row_m * B + b) * H + kk];
         }
+#pragma unroll
+        for (int u = 0; u < LD; ++u) v[u] *= m[u] * p.scale;
       }
 #pragma unroll
       for (int u = 0; u < LD; ++u)
@@ -218,16 +229,19 @@ lstm_bwd_kernel(const float* __restrict__ dy, const float* __restrict__ dcT,
   const int Jc = min(J, H - j0);
   const int BJ = B * J;
   const int CH = p.ch;
+  const int CHP = CH + 4;               // padded row stride: rows in other banks
+  const int JK = (J + 3) / 4 * 4;       // kept own units, padded to float4
   // 16-byte aligned regions first (cp.async targets)
-  float* dgs = smem;                    // B x CH dgates chunk
-  float* Ur = dgs + (size_t)B * CH;     // RES: J x G own rows of U
+  float* dgs = smem;                    // B x CHP dgates chunk
+  float* Ur = dgs + (size_t)B * CHP;    // RES: J x G own rows of U
   float* dUr = Ur + (RES ? (size_t)J * G : 0);  // RES: J x G own rows of dU
-  float* us = dUr + (RES ? (size_t)J * G : 0);  // !RES: J x CH rows of U (kept)
-  float* dhc = us + (RES ? 0 : (size_t)J * CH);  // B x J: dL/dh carry of own units
+  float* us = dUr + (RES ? (size_t)J * G : 0);  // !RES: JK x CH rows of U (kept)
+  float* dhc = us + (RES ? 0 : (size_t)JK * CH);  // B x J: dL/dh carry of own units
   float* dcc = dhc + BJ;                // B x J: dL/dc carry
   float* hp = dcc + BJ;                 // B x J: h_{r-1} of own units (masked)
-  float* red = hp + BJ;                 // NT partial dh sums
-  int* flag = reinterpret_cast<int*>(red + NT);  // J
+  float* hpk = smem + al4(hp + BJ - smem);  // B x JK: hp of the kept own units, compact
+  float* red = hpk + (size_t)B * JK;    // 4 NT partial dh sums
+  int* flag = reinterpret_cast<int*>(red + 4 * NT);  // J
   int* kl = flag + J;                   // J: local ids of kept own units
   int* nkl_s = kl + J;                  // 1
   const int tid = threadIdx.x;
@@ -299,21 +313,29 @@ lstm_bwd_kernel(const float* __restrict__ dy, const float* __restrict__ dcT,
     __threadfence();
     grid.sync();
 
-    // phase 2: dh_{r-1} and dU for the kept own rows j, over dgates chunks
+    // phase 2: dh_{r-1} and dU for the kept own rows j, over dgates chunks.
+    // Kept rows go in groups of 4: WG keeps a group's 4 rows of a column in
+    // registers (hp of the group as one 16-byte load), BP computes a tile
+    // (row b, 4 kept units) over a K-split of the chunk with 16-byte loads.
     const int nkl = *nkl_s;
-    const int O = B * nkl;
-    const int S2 = O == 0 ? 1 : (O <= NT ? NT / O : 1);
+    const int ngr = (nkl + 3) / 4;                 // groups of kept units
+    const int tiles = B * ngr;
+    const int KS = tiles == 0 ? 1 : NT / tiles;
+    const int tile = tiles == 0 ? 0 : tid % tiles, ks = tiles == 0 ? NT : tid / tiles;
+    const int tb = tiles == 0 ? 0 : tile / ngr, tgr = tiles == 0 ? 0 : tile % ngr;
     const float sc = p.mode == 1 ? p.scale : 1.f;
-    float acc[OPT];
-#pragma unroll
-    for (int i = 0; i < OPT; ++i) acc[i] = 0.f;
+    for (int e = tid; e < B * JK; e += NT) {
+      const int b = e / JK, qi = e % JK;
+      hpk[e] = qi < nkl ? hp[b * J + kl[qi]] : 0.f;
+    }
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
     for (int ch0 = 0; ch0 < G; ch0 += CH) {
       const int cw = min(CH, G - ch0);   // G and CH are multiples of 4
       const int n4 = CH / 4;
       // stage the chunk with asynchronous 16-byte copies, all in flight
       for (int e = tid; e < B * n4; e += NT) {
         const int b = e / n4, c4 = (e % n4) * 4;
-        float* dst = dgs + (size_t)b * CH + c4;
+        float* dst = dgs + (size_t)b * CHP + c4;
         if (c4 < cw) {
           cp_async16(dst, dgx + ((size_t)r * B + b) * G + ch0 + c4);
         } else {
@@ -321,10 +343,10 @@ lstm_bwd_kernel(const float* __restrict__ dy, const float* __restrict__ dcT,
         }
       }
       if (!RES) {
-        for (int e = tid; e < nkl * n4; e += NT) {
+        for (int e = tid; e < JK * n4; e += NT) {
           const int q = e / n4, c4 = (e % n4) * 4;
           float* dst = us + (size_t)q * CH + c4;
-          if (c4 < cw) {
+          if (c4 < cw && q < nkl) {
             cp_async16(dst, U + (size_t)(j0 + kl[q]) * G + ch0 + c4);
           } else {
             dst[0] = dst[1] = dst[2] = dst[3] = 0.f;
@@ -333,79 +355,64 @@ lstm_bwd_kernel(const float* __restrict__ dy, const float* __restrict__ dcT,
       }
       cp_async_wait_all();
       __syncthreads();
-      // WG: this thread's (up to 4: CH <= 4 NT) columns of dU for every
-      // kept own row, as independent accumulation chains
-      for (int q = 0; q < nkl; ++q) {
-        const int jl = kl[q];
-        float a[4] = {0.f, 0.f, 0.f, 0.f};
+      // WG: (group, column) per thread, the group's 4 rows in registers
+      const float4* hp4 = reinterpret_cast<const float4*>(hpk);
+      for (int e = tid; e < ngr * cw; e += NT) {
+        const int gr = e / cw, c = e % cw;
+        float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+#pragma unroll 4
         for (int b = 0; b < B; ++b) {
-          const float h = hp[b * J + jl];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            if (tid + i * NT < cw) a[i] = fmaf(h, dgs[b * CH + tid + i * NT], a[i]);
+          const float g = dgs[b * CHP + c];
+          const float4 h = hp4[b * (JK / 4) + gr];
+          a0 = fmaf(h.x, g, a0);
+          a1 = fmaf(h.y, g, a1);
+          a2 = fmaf(h.z, g, a2);
+          a3 = fmaf(h.w, g, a3);
         }
-        float* drow = RES ? dUr + (size_t)jl * G : dU + (size_t)(j0 + jl) * G;
+        const float av[4] = {a0, a1, a2, a3};
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (tid + i * NT < cw) drow[ch0 + tid + i * NT] += a[i] * sc;
-      }
-      // BP: partial dh sums over this chunk
-      if (O > 0) {
-        if (O <= NT) {
-          const int o = tid % O, s = tid / O;
-          if (s < S2) {
-            const int b = o / nkl, q = o % nkl;
-            const float* ur = RES ? Ur + (size_t)kl[q] * G + ch0 : us + (size_t)q * CH;
-            const float* dg = dgs + (size_t)b * CH;
-            float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;   // independent chains
-            int cc = s;
-            for (; cc + 3 * S2 < cw; cc += 4 * S2) {
-              a0 = fmaf(dg[cc], ur[cc], a0);
-              a1 = fmaf(dg[cc + S2], ur[cc + S2], a1);
-              a2 = fmaf(dg[cc + 2 * S2], ur[cc + 2 * S2], a2);
-              a3 = fmaf(dg[cc + 3 * S2], ur[cc + 3 * S2], a3);
-            }
-            for (; cc < cw; cc += S2) a0 = fmaf(dg[cc], ur[cc], a0);
-            acc[0] += (a0 + a1) + (a2 + a3);
+        for (int i = 0; i < 4; ++i) {
+          const int qi = gr * 4 + i;
+          if (qi < nkl) {
+            const int jl = kl[qi];
+            float* drow = RES ? dUr + (size_t)jl * G : dU + (size_t)(j0 + jl) * G;
+            drow[ch0 + c] += av[i] * sc;
           }
-        } else {
+        }
+      }
+      // BP: tile (row tb, kept units 4 tgr .. 4 tgr + 3) over K-split ks
+      if (ks < KS) {
+        const float4* dg4 = reinterpret_cast<const float4*>(dgs + (size_t)tb * CHP);
+        const float4* u4[4];
 #pragma unroll
-          for (int i = 0; i < OPT; ++i) {
-            const int o = tid + i * NT;
-            if (o < O) {
-              const int b = o / nkl, q = o % nkl;
-              const float* ur = RES ? Ur + (size_t)kl[q] * G + ch0 : us + (size_t)q * CH;
-              float a = acc[i];
-              for (int cc = 0; cc < cw; ++cc) a = fmaf(dgs[b * CH + cc], ur[cc], a);
-              acc[i] = a;
-            }
+        for (int i = 0; i < 4; ++i) {
+          const int qi = min(tgr * 4 + i, nkl - 1);
+          u4[i] = reinterpret_cast<const float4*>(
+              RES ? Ur + (size_t)kl[qi] * G + ch0 : us + (size_t)qi * CH);
+        }
+        for (int c4 = ks; c4 < cw / 4; c4 += KS) {
+          const float4 g = dg4[c4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float4 w = u4[i][c4];
+            acc[i] += g.x * w.x + g.y * w.y + g.z * w.z + g.w * w.w;
           }
         }
       }
       __syncthreads();
     }
-    if (O > 0) {
-      if (O <= NT) {
-        red[tid] = acc[0];
-        __syncthreads();
-        for (int o = tid; o < O; o += NT) {
-          float v = 0.f;
-          for (int s = 0; s < S2; ++s) v += red[s * O + o];
-          const int b = o / nkl, jl = kl[o % nkl];
-          if (p.mode == 2) v *= mask[((size_t)row_m * B + b) * H + j0 + jl] * p.scale;
-          dhc[b * J + jl] += v * sc;
-        }
-      } else {
+    if (tiles > 0) {
+      if (ks < KS)
 #pragma unroll
-        for (int i = 0; i < OPT; ++i) {
-          const int o = tid + i * NT;
-          if (o < O) {
-            const int b = o / nkl, jl = kl[o % nkl];
-            float v = acc[i];
-            if (p.mode == 2) v *= mask[((size_t)row_m * B + b) * H + j0 + jl] * p.scale;
-            dhc[b * J + jl] += v * sc;
-          }
-        }
+        for (int i = 0; i < 4; ++i) red[((size_t)ks * tiles + tile) * 4 + i] = acc[i];
+      __syncthreads();
+      for (int o = tid; o < B * nkl; o += NT) {
+        const int b = o / nkl, qi = o % nkl, jl = kl[qi];
+        const int tl = b * ngr + qi / 4;
+        float v = 0.f;
+        for (int k2 = 0; k2 < KS; ++k2) v += red[((size_t)k2 * tiles + tl) * 4 + qi % 4];
+        if (p.mode == 2) v *= mask[((size_t)row_m * B + b) * H + j0 + jl] * p.scale;
+        dhc[b * J + jl] += v * sc;
       }
     }
     __syncthreads();
@@ -431,9 +438,10 @@ size_t fwd_smem(const ScanArgs& p, bool res) {
 }
 
 size_t bwd_smem(const ScanArgs& p, bool res) {
-  return sizeof(float) * ((size_t)p.B * p.ch + (res ? 2 * (size_t)p.J * 4 * p.H
-                                                    : (size_t)p.J * p.ch) +
-                          3 * (size_t)p.B * p.J + NT) +
+  const size_t JK = ((size_t)p.J + 3) / 4 * 4;
+  return sizeof(float) * ((size_t)p.B * (p.ch + 4) + (res ? 2 * (size_t)p.J * 4 * p.H
+                                                    : JK * p.ch) +
+                          al4(3 * (size_t)p.B * p.J) + (size_t)p.B * JK + 4 * NT) +
          sizeof(int) * (2 * (size_t)p.J + 1);
 }
 
@@ -508,7 +516,7 @@ extern "C" int lstm_scan_bwd_f32(const float* dy, const float* dcT, const float*
   if (T <= 0 || B <= 0) return 0;
   ScanArgs p{T, B, H, mode, k, ids_rows, mask_rows, ragged, units_per_cta(H), scale,
              forget_bias, 0};
-  if (4 * p.J > NT || B * p.J > OPT * NT) return (int)cudaErrorInvalidValue;
+  if (4 * p.J > NT || B * ((p.J + 3) / 4) > NT) return (int)cudaErrorInvalidValue;
   // Prefer U and dU rows resident in shared memory, then wide dgates chunks.
   bool res = false;
   for (int pick = 0; pick < 4; ++pick) {

@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile --arch zaremba-medium \
         --batch 20 --seq 35 --dropout case3:0.5:pallas --engine fused
+    PYTHONPATH=src python -m repro_torch.launch.profile --arch luong-nmt \
+        --batch 64 --seq 50 --dropout case3:0.3:pallas --engine fused
 
 Runs a few warm-up steps, then traces ``--steps`` training steps with
 ``torch.profiler`` (CPU and CUDA activities) and prints: the host wall time
@@ -22,6 +24,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.launch import steps as steps_mod
 from repro_torch.launch import train as train_mod
+from repro_torch.models import lstm_lm, seq2seq
 
 
 def _device_us(evt) -> float:
@@ -32,21 +35,23 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def sampling_host_ms(cfg, batch: int, seq: int, seed: int,
+def sampling_host_ms(kind: str, cfg, batch: int, seq: int, seed: int,
                      reps: int = 5) -> float:
-    """Host ms to draw every mask an lstm_lm training step consumes (the
-    embed/out applications and each layer's NR/RH schedules), median of
-    ``reps``; the copies to the card are asynchronous and not waited for."""
+    """Host ms to draw every mask a training step consumes (the model's
+    ``dropout_sites``: the non-recurrent applications and each layer's
+    schedules), median of ``reps``; the copies to the card are asynchronous
+    and not waited for."""
+    sites = (seq2seq.dropout_sites(cfg, batch, seq, seq) if kind == "nmt"
+             else lstm_lm.dropout_sites(cfg, batch, seq))
     times = []
     for step in range(reps):
         t0 = time.perf_counter()
         ctx = cfg.plan.bind(seed, step, device="cuda")
-        ctx.state("embed", (batch, seq), cfg.embed)
-        ctx.state("out", (batch, seq), cfg.hidden)
-        for layer in range(cfg.num_layers):
-            d = cfg.embed if layer == 0 else cfg.hidden
-            ctx.schedule(f"lstm/layer{layer}/nr", seq, batch, d)
-            ctx.schedule(f"lstm/layer{layer}/rh", seq, batch, cfg.hidden)
+        for name, how, steps, b, dim in sites:
+            if how == "schedule":
+                ctx.schedule(name, steps, b, dim)
+            else:
+                ctx.state(name, b, dim)
         times.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
     return sorted(times)[len(times) // 2]
@@ -69,7 +74,8 @@ def main(argv=None) -> dict:
     state = opt.init(params)
     step_fn = steps_mod.make_train_step(spec, cfg, opt,
                                         use_dropout=not args.no_dropout)
-    batch_fn = train_mod.make_batch_fn(cfg, args.batch, args.seq, args.seed,
+    batch_fn = train_mod.make_batch_fn(spec.kind, cfg, args.batch, args.seq,
+                                       args.seed,
                                        torch.device("cuda"))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -97,7 +103,7 @@ def main(argv=None) -> dict:
         print(f"  {ms:9.4f} ms/step  {count / args.steps:7.1f} calls/step  {name[:90]}")
         top.append({"name": name[:120], "ms_per_step": ms,
                     "calls_per_step": count / args.steps})
-    sampling = sampling_host_ms(cfg, args.batch, args.seq, args.seed)
+    sampling = sampling_host_ms(spec.kind, cfg, args.batch, args.seq, args.seed)
     print(f"  host time to sample one step's dropout masks: {sampling:.3f} ms")
     out = {"engine": cfg.engine, "wall_ms": wall, "busy_ms": busy,
            "idle_share": max(0.0, 1 - busy / wall), "top": top,

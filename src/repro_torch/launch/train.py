@@ -2,6 +2,10 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch zaremba-medium \
         --batch 20 --seq 35 --dropout case3:0.5:pallas --engine fused
+    PYTHONPATH=src python -m repro_torch.launch.train --arch luong-nmt \
+        --batch 64 --seq 50 --dropout case3:0.3:pallas --engine fused
+
+``--seq`` is the unroll of an LM and the ``max_len`` of an NMT pair.
 
 Runs on the current CUDA device; ``--device cpu`` runs on the CPU (the
 kernels' plain versions). Without a GPU and without ``--device cpu`` it
@@ -23,17 +27,36 @@ from repro_torch.device import resolve_device
 from repro_torch.launch import steps as steps_mod
 
 
-def make_batch_fn(cfg, batch: int, seq: int, seed: int, device):
-    """step -> {"tokens", "labels"} (B, S) int32: contiguous windows of a
-    deterministic ``lm_stream`` (the reference's lstm_lm batches)."""
+def _to_device(d: dict, device) -> dict:
+    """numpy arrays -> tensors on ``device``; on CUDA through pinned memory
+    and asynchronous copies, so the host runs ahead."""
+    out = {}
+    for k, v in d.items():
+        x = torch.from_numpy(v)
+        if device.type == "cuda":
+            x = x.pin_memory().to(device, non_blocking=True)
+        out[k] = x
+    return out
+
+
+def make_batch_fn(kind: str, cfg, batch: int, seq: int, seed: int, device):
+    """step -> the batch dict the reference trainer makes for ``kind``:
+    lstm_lm {"tokens", "labels"} (B, S) int32, contiguous windows of a
+    deterministic ``lm_stream``; nmt ``nmt_pairs(batch, ..., max_len=seq,
+    seed=seed + step)`` (src, tgt_in, tgt_out and their bool masks)."""
+    if kind == "nmt":
+        return lambda step: _to_device(synthetic.nmt_pairs(
+            batch, cfg.src_vocab, cfg.tgt_vocab, max_len=seq,
+            seed=seed + step), device)
+    if kind != "lstm_lm":
+        raise ValueError(f"no batches for kind {kind!r}")
     stream = synthetic.lm_stream(cfg.vocab, batch * (seq + 1) * 64, seed=seed)
 
     def fn(step):
         n = batch * (seq + 1)
         off = (step * n) % (len(stream) - n - 1)
-        chunk = torch.from_numpy(stream[off:off + n].reshape(batch, seq + 1))
-        if device.type == "cuda":      # async copy: the host runs ahead
-            chunk = chunk.pin_memory().to(device, non_blocking=True)
+        chunk = _to_device({"c": stream[off:off + n].reshape(batch, seq + 1)},
+                           device)["c"]
         return {"tokens": chunk[:, :-1], "labels": chunk[:, 1:]}
     return fn
 
@@ -79,7 +102,8 @@ def run(argv=None) -> dict:
     opt_state = opt.init(params)
     train_step = steps_mod.make_train_step(spec, cfg, opt,
                                            use_dropout=not args.no_dropout)
-    batch_fn = make_batch_fn(cfg, args.batch, args.seq, args.seed, device)
+    batch_fn = make_batch_fn(spec.kind, cfg, args.batch, args.seq, args.seed,
+                             device)
     losses, times = [], []
     for step in range(args.steps):
         t0 = time.perf_counter()

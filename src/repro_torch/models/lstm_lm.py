@@ -105,6 +105,20 @@ def forward(params, tokens: torch.Tensor, cfg: LSTMLMConfig, *, state=None,
     return logits.float(), state
 
 
+def dropout_sites(cfg: LSTMLMConfig, batch: int, seq: int):
+    """Every dropout site a forward consumes, as (name, how, steps, batch,
+    dim): "state" for the non-recurrent applications (embed, out),
+    "schedule" for the per-layer NR/RH sites."""
+    sites = [("embed", "state", None, (batch, seq), cfg.embed),
+             ("out", "state", None, (batch, seq), cfg.hidden)]
+    for layer in range(cfg.num_layers):
+        d = cfg.embed if layer == 0 else cfg.hidden
+        sites.append((f"lstm/layer{layer}/nr", "schedule", seq, batch, d))
+        sites.append((f"lstm/layer{layer}/rh", "schedule", seq, batch,
+                      cfg.hidden))
+    return sites
+
+
 def loss_fn(params, batch, cfg: LSTMLMConfig, *, state=None,
             seed: Optional[int] = None, step: int = 0, injected=None):
     """Mean NLL per token (per real token when the batch has "lengths").

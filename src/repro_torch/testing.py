@@ -9,6 +9,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.models import lstm_lm, seq2seq
+
 
 def to_numpy_tree(tree):
     """Nested dicts/lists/tuples of array-likes -> the same of numpy arrays."""
@@ -20,18 +22,10 @@ def to_numpy_tree(tree):
     return np.asarray(tree)
 
 
-def lm_sites(cfg, batch: int, seq: int):
-    """Every dropout site an lstm_lm forward consumes, as
-    (name, how, steps, batch, dim): "state" for the non-recurrent
-    applications (embed, out), "schedule" for the per-layer NR/RH sites."""
-    sites = [("embed", "state", None, (batch, seq), cfg.embed),
-             ("out", "state", None, (batch, seq), cfg.hidden)]
-    for layer in range(cfg.num_layers):
-        d = cfg.embed if layer == 0 else cfg.hidden
-        sites.append((f"lstm/layer{layer}/nr", "schedule", seq, batch, d))
-        sites.append((f"lstm/layer{layer}/rh", "schedule", seq, batch,
-                      cfg.hidden))
-    return sites
+# Every dropout site a model's loss consumes, as (name, how, steps, batch,
+# dim); the lists live beside their models.
+lm_sites = lstm_lm.dropout_sites
+nmt_sites = seq2seq.dropout_sites
 
 
 def injection_from_ctx(ctx, sites) -> dict:

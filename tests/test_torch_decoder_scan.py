@@ -1,0 +1,283 @@
+"""K7/K8 fused NMT decoder scan: the port's plain ``decoder_scan`` against
+the reference's ``decoder_scan(impl="xla")`` and against
+``kernels/ref.py:decoder_scan_ref`` under ``jax.grad``.
+
+Sweeps the in-scan site modes (structured / dense / off / a mixed
+assignment) x time pattern (per-step / FIXED one-row) x ragged target
+``lengths``, with non-zero cotangents on every output, final states
+included: the forward (h~ sequence, h/c/feed finals) and the gradients of
+every differentiable operand. ``decoder_scan_ref`` has no ``lengths``, so
+ragged cases are held to the reference's ``xla`` impl only. One tiny case
+runs the reference's Pallas kernels in interpret mode. The ``cuda``-marked
+tests (skipped without a GPU) hold the CUDA kernels to the plain version.
+
+Tolerances (float32, same arithmetic in a different summation order):
+forward and gradients rtol 1e-4 with atol 1e-6. Kernel vs plain on the
+card, per element: rtol 1e-4 with atol 1e-5 x max(1, max|ref|) over the
+tensor, which implies ``chip_smoke.py``'s gate of 1e-3 x max(1, |ref|).
+It was set from the card's readings at luong-nmt width: largest error
+4.96e-5 in K8's gradients, whose largest element is ~95 (5.2e-7 of it);
+K7 1.19e-6. So a dropped contribution of more than ~1e-5 of a tensor's
+scale fails.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import decoder_scan as t_ds
+from repro_torch.testing import require_cuda
+
+torch.set_num_threads(1)
+
+TOL = dict(rtol=1e-4, atol=1e-6)
+NL = 2
+DIFF = ("gx0", "us", "ws", "bs", "w_feed", "w_comb", "enc_proj", "enc_out",
+        "h0", "c0", "feed0")
+
+
+def _inputs(T, B, S, H, seed=0, w_std=0.3):
+    rng = np.random.default_rng(seed)
+    G = 4 * H
+
+    def m(shape, std=w_std):
+        return (rng.standard_normal(shape) * std).astype(np.float32)
+
+    sb = np.where(np.arange(S) < S - 1, 0.0, -1e30).astype(np.float32)
+    return dict(gx0=m((T, B, G)), us=[m((H, G)) for _ in range(NL)],
+                ws=[m((H, G)) for _ in range(NL - 1)],
+                bs=[m((G,)) for _ in range(NL - 1)], w_feed=m((H, G)),
+                w_comb=m((2 * H, H)), enc_proj=m((B, S, H)),
+                enc_out=m((B, S, H)),
+                score_bias=np.broadcast_to(sb, (B, S)).copy(),
+                h0=m((NL, B, H), 0.5), c0=m((NL, B, H), 0.5),
+                feed0=m((B, H), 0.5))
+
+
+def _sites(kind, T, B, H, bs=4, seed=1):
+    """2*NL numpy sites (keep_blocks | None, mask | None, bs, scale)."""
+    rng = np.random.default_rng(seed)
+    sites = []
+    for i in range(2 * NL):
+        k = ("off", "sf", "sp", "dp")[i % 4] if kind == "mixed" else kind
+        if k == "off":
+            sites.append((None, None, 1, 1.0))
+        elif k in ("sf", "sp"):
+            nb = H // bs
+            rows = 1 if k == "sf" else T
+            kb = np.stack([np.sort(rng.permutation(nb)[:nb // 2])
+                           for _ in range(rows)]).astype(np.int32)
+            sites.append((kb, None, bs, 2.0))
+        else:
+            rows = 1 if k == "df" else T
+            dm = (rng.random((rows, B, H)) > 0.5).astype(np.float32)
+            sites.append((None, dm, 1, 2.0))
+    return sites
+
+
+def _cotangents(T, B, H, seed=2):
+    rng = np.random.default_rng(seed)
+    return dict(wy=rng.standard_normal((T, B, H)).astype(np.float32),
+                wh=rng.standard_normal((NL, B, H)).astype(np.float32),
+                wc=rng.standard_normal((NL, B, H)).astype(np.float32),
+                wf=rng.standard_normal((B, H)).astype(np.float32))
+
+
+def _flat(d):
+    out = []
+    for k in DIFF:
+        v = d[k]
+        out.extend(v if isinstance(v, (list, tuple)) else [v])
+    return out
+
+
+def _port(args, sites, cot, lengths=None, impl="xla", device="cpu"):
+    """Forward outputs and the grads of every DIFF operand, as numpy."""
+    t = {k: ([torch.from_numpy(x).to(device).requires_grad_(k in DIFF) for x in v]
+             if isinstance(v, list) else
+             torch.from_numpy(v).to(device).requires_grad_(k in DIFF))
+         for k, v in args.items()}
+    ts = [(None if kb is None else torch.from_numpy(kb).to(device),
+           None if dm is None else torch.from_numpy(dm).to(device), bs, sc)
+          for kb, dm, bs, sc in sites]
+    lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32)
+    htil, (hf, cf, ff) = t_ds.decoder_scan(**t, sites=ts, impl=impl, lengths=lens)
+    c = {k: torch.from_numpy(v).to(device) for k, v in cot.items()}
+    loss = ((htil * c["wy"]).sum() + (hf * c["wh"]).sum() + (cf * c["wc"]).sum()
+            + (ff * c["wf"]).sum())
+    grads = torch.autograd.grad(loss, _flat(t))
+    as_np = lambda x: x.detach().cpu().numpy()
+    return [as_np(x) for x in (htil, hf, cf, ff)], [as_np(g) for g in grads]
+
+
+def _reference(args, sites, cot, lengths=None, fn="xla", interpret=None):
+    jax = pytest.importorskip("jax")
+    jnp = jax.numpy
+    from repro.kernels import ops, ref
+    J = lambda v: [jnp.asarray(x) for x in v] if isinstance(v, list) else jnp.asarray(v)
+    a = {k: J(v) for k, v in args.items()}
+    for k in ("us", "ws", "bs"):
+        a[k] = tuple(a[k])
+    js = tuple((None if kb is None else jnp.asarray(kb),
+                None if dm is None else jnp.asarray(dm), bs, sc)
+               for kb, dm, bs, sc in sites)
+    if fn == "ref":
+        run = lambda **kw: ref.decoder_scan_ref(**kw, sites=js)
+    else:
+        kw_l = {} if lengths is None else dict(
+            lengths=jnp.asarray(np.asarray(lengths, np.int32)))
+        run = lambda **kw: ops.decoder_scan(**kw, sites=js, impl=fn,
+                                            interpret=interpret, **kw_l)
+    c = {k: jnp.asarray(v) for k, v in cot.items()}
+
+    def loss(d):
+        htil, (hf, cf, ff) = run(**{**a, **d})
+        return (jnp.sum(htil * c["wy"]) + jnp.sum(hf * c["wh"])
+                + jnp.sum(cf * c["wc"]) + jnp.sum(ff * c["wf"]))
+
+    d0 = {k: a[k] for k in DIFF}
+    htil, (hf, cf, ff) = run(**a)
+    g = jax.grad(loss)(d0)
+    grads = []
+    for k in DIFF:
+        v = g[k]
+        grads.extend(v if isinstance(v, tuple) else [v])
+    return ([np.asarray(x) for x in (htil, hf, cf, ff)],
+            [np.asarray(x) for x in grads])
+
+
+def _names():
+    out = []
+    for k in DIFF:
+        n = {"us": NL, "ws": NL - 1, "bs": NL - 1}.get(k)
+        out.extend([k] if n is None else [f"{k}[{i}]" for i in range(n)])
+    return out
+
+
+def _assert_close(got, want, what, tol=TOL):
+    (fo, gr), (fo_r, gr_r) = got, want
+    for a, b, n in zip(fo, fo_r, ("htil", "h_fin", "c_fin", "feed_fin")):
+        np.testing.assert_allclose(a, b, err_msg=f"{what} {n}", **tol)
+    for a, b, n in zip(gr, gr_r, _names()):
+        assert a.shape == b.shape, n
+        np.testing.assert_allclose(a, b, err_msg=f"{what} d{n}", **tol)
+
+
+T, B, S, H = 6, 3, 5, 16
+KINDS = ["off", "sf", "sp", "df", "dp", "mixed"]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_plain_matches_reference(kind):
+    args, sites, cot = _inputs(T, B, S, H), _sites(kind, T, B, H), _cotangents(T, B, H)
+    got = _port(args, sites, cot)
+    _assert_close(got, _reference(args, sites, cot, fn="xla"), f"{kind} vs xla")
+    _assert_close(got, _reference(args, sites, cot, fn="ref"), f"{kind} vs ref")
+
+
+@pytest.mark.parametrize("kind", ["sp", "sf", "dp", "mixed"])
+def test_plain_ragged_matches_reference(kind):
+    args, sites, cot = _inputs(T, B, S, H, seed=3), _sites(kind, T, B, H, seed=4), \
+        _cotangents(T, B, H, seed=5)
+    lengths = [T, 3, 0]
+    got = _port(args, sites, cot, lengths)
+    _assert_close(got, _reference(args, sites, cot, lengths, fn="xla"),
+                  f"{kind} ragged vs xla")
+
+
+def test_ragged_full_lengths_equal_rectangular():
+    args, sites, cot = _inputs(T, B, S, H, seed=6), _sites("mixed", T, B, H), \
+        _cotangents(T, B, H)
+    a = _port(args, sites, cot, [T] * B)
+    b = _port(args, sites, cot)
+    for x, y in zip(a[0] + a[1], b[0] + b[1]):
+        np.testing.assert_array_equal(x, y)
+
+
+def test_plain_matches_pallas_interpret():
+    """One tiny case against the reference's Pallas kernels (interpret)."""
+    T_, B_, S_, H_ = 3, 2, 4, 8
+    args, sites, cot = _inputs(T_, B_, S_, H_, seed=7), \
+        _sites("mixed", T_, B_, H_), _cotangents(T_, B_, H_)
+    _assert_close(_port(args, sites, cot),
+                  _reference(args, sites, cot, fn="pallas", interpret=True),
+                  "mixed vs pallas interpret")
+
+
+def test_site_count_and_table_checks():
+    args = _inputs(3, 2, 4, 8)
+    t = {k: ([torch.from_numpy(x) for x in v] if isinstance(v, list)
+             else torch.from_numpy(v)) for k, v in args.items()}
+    with pytest.raises(ValueError, match="site entries"):
+        t_ds.decoder_scan(**t, sites=[(None, None, 1, 1.0)] * 3)
+    kb = torch.zeros((1, 1), dtype=torch.int32)
+    dm = torch.ones((1, 2, 8))
+    with pytest.raises(ValueError, match="at most one"):
+        t_ds.decoder_scan(**t, sites=[(kb, dm, 1, 1.0)] * 4)
+    with pytest.raises(ValueError, match="impl"):
+        t_ds.decoder_scan(**t, sites=[(None, None, 1, 1.0)] * 4, impl="cuda")
+
+
+@pytest.mark.parametrize("nl", [1, 3])
+def test_kernels_reject_other_depths(nl):
+    """K7/K8 take nl = 2 only: other depths raise before any launch."""
+    T_, B_, S_, H_ = 2, 2, 3, 8
+    G = 4 * H_
+    z = lambda *shape: torch.zeros(shape)
+    us, ws, bs = [z(H_, G)] * nl, [z(H_, G)] * (nl - 1), [z(G)] * (nl - 1)
+    descs = [t_ds.SiteDesc("off", False, 1.0)] * (2 * nl)
+    tables = [None] * (2 * nl)
+    w_feed, w_comb, enc = z(H_, G), z(2 * H_, H_), z(B_, S_, H_)
+    h0, c0, f0 = z(nl, B_, H_), z(nl, B_, H_), z(B_, H_)
+    with pytest.raises(ValueError, match="take 2 layers"):
+        t_ds.kernel_fwd(descs, tables, z(T_, B_, G), us, ws, bs, w_feed, w_comb,
+                        enc, enc, z(B_, S_), h0, c0, f0, None)
+    res = (z(T_, B_, H_), z(nl, T_, B_, G), z(nl, T_, B_, H_),
+           z(nl, T_, B_, H_), z(T_, B_, S_))
+    dout = (z(T_, B_, H_), h0, c0, f0)
+    with pytest.raises(ValueError, match="take 2 layers"):
+        t_ds.kernel_bwd(descs, tables, res, dout, us, ws, w_feed, w_comb, enc,
+                        enc, h0, c0, f0, None)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels (K7/K8) against the plain version, on the card
+# ---------------------------------------------------------------------------
+
+
+def _kernel_vs_plain(kind, T_, B_, S_, H_, bs, lengths=None, rate=0.5):
+    dev = require_cuda()
+    args = _inputs(T_, B_, S_, H_, seed=11, w_std=0.05)
+    rng = np.random.default_rng(12)
+    sites = []
+    for i, k in enumerate(_sites(kind, T_, B_, H_, bs=bs, seed=13)):
+        if k[0] is not None and rate != 0.5:          # exact-k at ``rate``
+            nb = H_ // bs
+            kept = nb - int(np.ceil(rate * nb))
+            kb = np.stack([np.sort(rng.permutation(nb)[:kept])
+                           for _ in range(k[0].shape[0])]).astype(np.int32)
+            k = (kb, None, bs, nb / kept)
+        sites.append(k)
+    cot = _cotangents(T_, B_, H_, seed=14)
+    kern = _port(args, sites, cot, lengths, impl="pallas", device=dev)
+    plain = _port(args, sites, cot, lengths, impl="xla", device=dev)
+    names = ["htil", "h_fin", "c_fin", "feed_fin"] + [f"d{n}" for n in _names()]
+    for a, b, n in zip(kern[0] + kern[1], plain[0] + plain[1], names):
+        np.testing.assert_allclose(a, b, rtol=1e-4, err_msg=f"{kind} {n}",
+                                   atol=1e-5 * max(1.0, float(np.abs(b).max())))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+def test_cuda_kernels_small(kind):
+    _kernel_vs_plain(kind, 7, 5, 6, 40, bs=4)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_small_ragged():
+    _kernel_vs_plain("mixed", 7, 5, 6, 40, bs=4, lengths=[7, 3, 0, 5, 1])
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_at_luong_nmt_width():
+    """T=S=50, B=64, H=512, nl=2, structured per-step at p=0.3, bs=1."""
+    _kernel_vs_plain("sp", 50, 64, 50, 512, bs=1, rate=0.3)
