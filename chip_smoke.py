@@ -12,14 +12,21 @@ its plain PyTorch version at that path's full shapes, and times it:
   * luong-nmt (T=S=50, B=64, H=E=512, 2 layers, block size 1, p=0.3):
     K1/K2 and K3/K4 at the encoder's and decoder's shapes, and K7/K8, the
     fused decoder scan (also in dense, FIXED, off, mixed and ragged modes on
-    small inputs).
+    small inputs);
+  * xlstm-1.3b (T=2048, B=2, 4 heads of dh=512, RH block 64, p=0.25, fresh
+    start): K6, the fused sLSTM scan (also in dense, FIXED, off, ragged and
+    mid-stream handoff modes on small inputs, 3 heads of 16, and with one
+    head of 2048, whose R and dR rows do not fit in shared memory).
 
 Then it checks on small inputs that the kernel engines agree with the plain
-stepwise oracle (both models), and drives each main path — the training
-step of ``repro_torch.launch.train`` at full width, zaremba-medium under
-``case3:0.5:pallas`` and luong-nmt (batch 64, max_len 50) under
-``case3:0.3:pallas`` — with the fused and the scheduled engine, asserting
-that every kernel's launch counter grew in that path's run.
+stepwise oracle (all three models), and drives each main path — the
+training step of ``repro_torch.launch.train`` at full width, zaremba-medium
+under ``case3:0.5:pallas`` and luong-nmt (batch 64, max_len 50) under
+``case3:0.3:pallas``, and ``launch.steps.make_train_step`` on xlstm-1.3b
+cut to 16 blocks (batch 2 x 2048, its own plan with ``impl="pallas"``) —
+with the fused and the scheduled engine, asserting that every kernel's
+launch counter grew in that path's run (and that K6 did not launch under
+the scheduled engine).
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -28,6 +35,8 @@ any failed phase. Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import math
 import os
@@ -47,8 +56,10 @@ HBM_BYTES = 3.35e12
 
 T, B, H, D, P = 35, 20, 650, 650, 0.5          # zaremba-medium
 NT_, NB, NH, NS, NP = 50, 64, 512, 50, 0.3      # luong-nmt: T=S, B, H=E, p
+XT, XB, XNH, XDH, XBS, XP = 2048, 2, 4, 512, 64, 0.25   # xlstm-1.3b sLSTM
+X_LAYERS = 16                                           # depth cut from 48
 STEPS = 5
-LM, NMT = "zaremba-medium", "luong-nmt"
+LM, NMT, XLSTM = "zaremba-medium", "luong-nmt", "xlstm-1.3b"
 
 
 def smi_line() -> str:
@@ -125,8 +136,8 @@ def keep_table(gen, rows, hidden, rate):
 def row_name(counter, arch):
     """JSON row name: the launch counter's name, tagged with the arch where
     a kernel of the zaremba path is timed at the luong-nmt shapes too."""
-    return counter if arch == LM or counter.startswith("decoder_scan") \
-        else f"{counter}@{arch}"
+    own = counter.startswith(("decoder_scan", "slstm_scan"))
+    return counter if arch == LM or own else f"{counter}@{arch}"
 
 
 def add_row(out, counter, arch, src, replaces, err, ms, pms, lms, nbytes,
@@ -401,6 +412,93 @@ def check_decoder(gen, T_, B_, S_, H_, kind, *, rate=0.5, bs=4, ragged=False,
                 "cold")
 
 
+def slstm_inputs(gen, T_, B_, NH_, dh_, rate, mode, bs, fixed, ragged, fresh,
+                 mask_heads):
+    """K6 operands on the card: xg (std 0.5), R at the model's init scale,
+    fresh (zeros, m0 = -1e30) or mid-stream (random h0, c0, m0, n0 > 0)
+    states, an RH mode, optional lengths, and non-zero cotangents."""
+    r = lambda *shape, std: (torch.randn(*shape, generator=gen) * std).cuda()
+    gx = r(T_, B_, NH_, 4 * dh_, std=0.5)
+    R = r(NH_, dh_, 4 * dh_, std=dh_ ** -0.5)
+    if fresh:
+        z = torch.zeros(B_, NH_, dh_, device="cuda")
+        h0, st0 = z, (z, z, torch.full_like(z, -1e30))
+    else:
+        h0 = r(B_, NH_, dh_, std=0.5)
+        st0 = (r(B_, NH_, dh_, std=0.5), r(B_, NH_, dh_, std=1.0).abs() + 0.5,
+               r(B_, NH_, dh_, std=0.3))
+    rows = 1 if fixed else T_
+    ids = mask = lengths = None
+    scale = 1.0
+    if mode == "structured":
+        from repro_torch.core import masks
+        kb = torch.stack([masks.sample_keep_blocks(gen, dh_, rate, bs)
+                          for _ in range(rows)])
+        ids = masks.keep_blocks_to_unit_ids(kb, bs).to(torch.int32).cuda()
+        scale = dh_ / ids.shape[1]
+    elif mode == "dense":
+        mask = (torch.rand(rows, B_, mask_heads, dh_, generator=gen)
+                >= rate).float().cuda()
+        scale = 1.0 / (1.0 - rate)
+    if ragged:
+        lengths = torch.randint(0, T_ + 1, (B_,), generator=gen,
+                                dtype=torch.int32).cuda()
+    dy = r(T_, B_, NH_, dh_, std=1.0)
+    dstT = tuple(r(B_, NH_, dh_, std=1.0) for _ in range(3))
+    return gx, R, h0, st0, ids, mask, lengths, scale, dy, dstT
+
+
+def check_slstm(gen, T_, B_, NH_, dh_, rate, mode, *, bs=1, fixed=False,
+                ragged=False, fresh=False, mask_heads=1, out=None, tag=""):
+    """K6 forward (hs, gates, c, n, m) and backward (dxg, dR, dh0, dc0, dn0,
+    dm0) against the plain cell_scan with SLSTM_CELL on the same inputs."""
+    from repro_torch.kernels import cell_scan as cs_mod
+    from repro_torch.kernels import slstm_scan as ss
+    gx, R, h0, st0, ids, mask, lengths, scale, dy, dstT = slstm_inputs(
+        gen, T_, B_, NH_, dh_, rate, mode, bs, fixed, ragged, fresh, mask_heads)
+    rh = (ids, mask, lengths, scale)
+    fwd_k = lambda: ss.slstm_scan_fwd_cuda(gx, R, h0, st0, *rh)
+    fwd_p = lambda: cs_mod.plain_fwd(ss.SLSTM_CELL, gx, R, h0, st0, *rh)
+    hs, gates, sts = fwd_k()
+    hs_p, gates_p, sts_p = fwd_p()
+    print(f"slstm_scan T={T_} B={B_} heads={NH_} dh={dh_} {mode}"
+          f"{' FIXED' if fixed else ''}{' ragged' if ragged else ''}"
+          f"{' fresh' if fresh else ' handoff'}")
+    e_f = compare("  slstm_scan_fwd " + tag, [hs, gates, *sts],
+                  [hs_p, gates_p, *sts_p], 1e-3)
+    saved = (gates_p, sts_p, st0, hs_p, h0, R)
+    bwd_k = lambda: ss.slstm_scan_bwd_cuda(dy, dstT, *saved, *rh)
+    bwd_p = lambda: cs_mod.plain_bwd(ss.SLSTM_CELL, dy, dstT, *saved, *rh)
+    dgx, dR, dh0, dst0 = bwd_k()
+    dgx_p, dR_p, dh0_p, dst0_p = bwd_p()
+    e_b = compare("  slstm_scan_bwd " + tag, [dgx, dR, dh0, *dst0],
+                  [dgx_p, dR_p, dh0_p, *dst0_p], 1e-3)
+    if out is None:
+        return
+    # the work this call's data needs: k kept units a step, R rows kept at
+    # some step
+    k = ids.shape[1] if ids is not None else dh_
+    uniq = int(torch.unique(ids).numel()) if ids is not None else dh_
+    G, st = 4 * dh_, B_ * NH_ * dh_
+    idsz = 0 if ids is None else ids.numel()
+    f_bytes = 4 * (T_ * B_ * NH_ * G + NH_ * uniq * G + 4 * st + idsz
+                   + 4 * T_ * st + T_ * B_ * NH_ * G)
+    b_bytes = 4 * (T_ * st + 3 * st + T_ * B_ * NH_ * G + 3 * T_ * st + 3 * st
+                   + T_ * st + st + NH_ * uniq * G + idsz
+                   + T_ * B_ * NH_ * G + NH_ * dh_ * G + 4 * st)
+    src = "src/repro_torch/csrc/slstm_scan.cu"
+    for name, fk, fp, err, nbytes, flops, rep in (
+            ("slstm_scan_fwd", fwd_k, fwd_p, e_f, f_bytes,
+             2 * T_ * B_ * NH_ * k * G, "src/repro/kernels/cell_scan.py:172"),
+            ("slstm_scan_bwd", bwd_k, bwd_p, e_b, b_bytes,
+             4 * T_ * B_ * NH_ * k * G, "src/repro/kernels/cell_scan.py:215")):
+        # once per sLSTM block and step, after other work: cold L2
+        ms = time_ms(fk, cold_l2=True)
+        pms = time_ms(fp, reps=3, warmup=1, cold_l2=True)
+        add_row(out, name, XLSTM, src, rep, err, ms, pms, None, nbytes, flops,
+                "cold")
+
+
 def nmt_small_batch(cfg, dev):
     from repro_torch.data import synthetic
     d = synthetic.nmt_pairs(4, cfg.src_vocab, cfg.tgt_vocab, max_len=10, seed=1)
@@ -410,37 +508,54 @@ def nmt_small_batch(cfg, dev):
 def check_engines_small(arch=LM):
     """On a small input, the kernel engines (fused, scheduled under
     :pallas) agree with the plain stepwise oracle (:xla) for loss and every
-    gradient, on the card and against the CPU."""
+    gradient, on the card and against the CPU (1e-4 x max(1, |ref|)).
+    xlstm's oracle runs in float64, with 1e-3 x max(1, |ref|): at this size
+    its mLSTM cell amplifies float32 rounding to ~1e-4 of a gradient's
+    largest entry, on the CPU and on the card alike."""
     from repro_torch import configs
     from repro_torch.configs import adapters
     from repro_torch.launch.steps import value_and_grad
     from repro_torch.optim import tree_leaves
     spec = configs.get_arch(arch)
-    plan = "case3:0.5:bs8" if arch == LM else "case3:0.3:bs8"
+    plan = {LM: "case3:0.5:bs8", NMT: "case3:0.3:bs8", XLSTM: "case3:0.5:bs4"}[arch]
     g = torch.Generator().manual_seed(1)
-    if arch == LM:
+    if arch != NMT:
         batch_cpu = {"tokens": torch.randint(0, 128, (4, 8), generator=g),
                      "labels": torch.randint(0, 128, (4, 8), generator=g)}
     else:
         batch_cpu = nmt_small_batch(spec.smoke(), "cpu")
+    f64 = arch == XLSTM
+    oracle, tol = (("stepwise/xla/cpu/float64", 1e-3) if f64
+                   else ("stepwise/xla/cpu", 1e-4))
     results = {}
-    for name, engine, impl, dev in (("stepwise/xla/cpu", "stepwise", "xla", "cpu"),
+    for name, engine, impl, dev in ((oracle, "stepwise", "xla", "cpu"),
                                     ("stepwise/xla/cuda", "stepwise", "xla", "cuda"),
                                     ("scheduled/pallas/cuda", "scheduled", "pallas", "cuda"),
                                     ("fused/pallas/cuda", "fused", "pallas", "cuda")):
         cfg = adapters.apply_engine(spec, adapters.apply_dropout(
             spec, spec.smoke(), f"{plan}:{impl}"), engine)
+        if name.endswith("float64"):
+            cfg = dataclasses.replace(cfg, param_dtype=torch.float64,
+                                      compute_dtype=torch.float64)
         params = adapters.init_params(spec.kind, torch.Generator().manual_seed(0),
                                       cfg, device=dev)
+        if arch == XLSTM:
+            # the mLSTM causal conv is zero at init, which makes every mLSTM
+            # cell output 0: perturb it so that the check covers the cell
+            pg = torch.Generator().manual_seed(2)
+            for leaf in ("conv_w", "conv_b"):
+                shape = params["mlstm"][leaf].shape
+                params["mlstm"][leaf] = (torch.randn(shape, generator=pg) * 0.1).to(
+                    device=dev, dtype=cfg.param_dtype)
         batch = {k: v.to(dev) for k, v in batch_cpu.items()}
         lfn = value_and_grad(lambda p, b, **kw: adapters.loss_fn(spec.kind)(p, b, cfg, **kw))
         loss, grads = lfn(params, batch, seed=7, step=3)
         results[name] = [loss.cpu()] + [g.cpu() for g in tree_leaves(grads)]
     print(f"engines on a small input ({arch} smoke, {plan})")
-    ref = results["stepwise/xla/cpu"]
+    ref = results[oracle]
     for name, got in results.items():
-        if name != "stepwise/xla/cpu":
-            compare(f"  {name} vs stepwise/xla/cpu (loss + grads)", got, ref, 1e-4)
+        if name != oracle:
+            compare(f"  {name} vs {oracle} (loss + grads)", got, ref, tol)
 
 
 MAIN_PATHS = (
@@ -513,6 +628,74 @@ def drive_main_path():
     return totals, step_ms
 
 
+def drive_xlstm():
+    """xlstm-1.3b at full width, cut to X_LAYERS blocks, batch XB x XT, its
+    own plan (nr p=0.25 bs 128, rh p=0.25 bs 64) with impl="pallas", STEPS
+    training steps per engine through ``steps.make_train_step`` with the
+    trainer's batches. Returns {engine: counts}, {engine: [ms]},
+    {engine: peak bytes}, and each run's losses."""
+    from repro_torch import configs
+    from repro_torch.configs import adapters
+    from repro_torch.core.dropout_plan import DropoutPlan
+    from repro_torch.kernels import decoder_scan as dsk
+    from repro_torch.kernels import gather_matmul as gm
+    from repro_torch.kernels import lstm_scan as ls
+    from repro_torch.kernels import slstm_scan as ss
+    from repro_torch.launch import steps, train
+
+    counters = (gm.LAUNCHES, ls.LAUNCHES, dsk.LAUNCHES, ss.LAUNCHES)
+    spec = configs.get_arch(XLSTM)
+    base = spec.full(num_layers=X_LAYERS)
+    plan = DropoutPlan({n: sp.with_(impl="pallas") for n, sp in base.plan.sites})
+    dev = torch.device("cuda")
+    totals, step_ms, peak, losses = {}, {}, {}, {}
+    for engine in ("fused", "scheduled"):
+        cfg = dataclasses.replace(base, plan=plan, engine=engine)
+        assert (cfg.d_model, cfg.n_heads, cfg.dh_s, cfg.inner, cfg.vocab,
+                cfg.conv_kernel, cfg.chunk, cfg.slstm_every) == (
+                    2048, 4, 512, 4096, 50304, 4, 256, 8), cfg
+        print(f"main path: {XLSTM}, {X_LAYERS} blocks, batch {XB}, seq {XT}, "
+              f"plan {cfg.plan.to_dict()}, engine {engine}, {STEPS} steps")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = adapters.init_params(
+            spec.kind, torch.Generator(device="cuda").manual_seed(0), cfg,
+            device=dev)
+        opt = steps.default_opt(1e-3)
+        state = opt.init(params)
+        step_fn = steps.make_train_step(spec, cfg, opt)
+        batch_fn = train.make_batch_fn(spec.kind, cfg, XB, XT, 0, dev)
+        torch.cuda.synchronize()
+        for d in counters:
+            for key in d:
+                d[key] = 0
+        ms, ls_ = [], []
+        for step in range(STEPS):
+            t0 = time.perf_counter()
+            params, state, loss = step_fn(params, state, batch_fn(step), step, 0)
+            ls_.append(float(loss))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            print(f"  step {step}: loss {ls_[-1]:.4f}  {ms[-1]:.1f} ms")
+        c = {k_: v for d in counters for k_, v in d.items()}
+        assert all(math.isfinite(x) for x in ls_), ls_
+        assert all(torch.isfinite(p).all() for p in _leaves(params))
+        k6 = c["slstm_scan_fwd"] + c["slstm_scan_bwd"]
+        if engine == "fused":
+            assert c["slstm_scan_fwd"] > 0 and c["slstm_scan_bwd"] > 0, c
+        else:
+            assert k6 == 0, f"K6 launched under the scheduled engine: {c}"
+        peak[engine] = torch.cuda.max_memory_allocated()
+        print(f"  launches per step ({XLSTM}/{engine}): "
+              + (", ".join(f"{k_}={v / STEPS:g}" for k_, v in c.items() if v)
+                 or "none of the port's kernels")
+              + f"; peak memory {peak[engine] / 2**30:.2f} GiB")
+        totals[engine], step_ms[engine], losses[engine] = c, ms, ls_
+        del params, state
+    return totals, step_ms, peak, losses
+
+
 def steady_median(ms):
     """Median step time without the first two steps: the first fills the
     allocator's pools and the libraries' caches, and the second is still
@@ -546,11 +729,12 @@ def main() -> int:
           f"({', '.join(f'{k}: {v:.1f} s' for k, v in built.items()) or 'cached'})")
     for name, log in _build.BUILD_LOG.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(w in line for w in ("Compiling entry", "registers", "spill",
+                                       "smem")):
                 print(f"  [{name}] {line.strip()}")
     print("kernels: K1 gather_matmul, K2 gather_matmul_stepped, "
-          "K3 lstm_scan_fwd, K4 lstm_scan_bwd, K7 decoder_scan_fwd, "
-          "K8 decoder_scan_bwd")
+          "K3 lstm_scan_fwd, K4 lstm_scan_bwd, K6 slstm_scan_fwd/bwd, "
+          "K7 decoder_scan_fwd, K8 decoder_scan_bwd")
 
     gen = torch.Generator().manual_seed(0)
     rows = {}
@@ -572,10 +756,37 @@ def main() -> int:
         check_decoder(gen, 7, 5, 6, 40, kind, tag=f"({kind})")
     check_decoder(gen, 7, 5, 6, 40, "mixed", ragged=True, tag="(mixed ragged)")
     check_decoder(gen, 9, 6, 5, 48, "sp", ragged=True, tag="(ragged)")
+    # xlstm-1.3b: K6 at the cell's shape, then every mode on small inputs
+    check_slstm(gen, XT, XB, XNH, XDH, XP, "structured", bs=XBS, fresh=True,
+                out=rows, tag="(main path)")
+    check_slstm(gen, 6, 3, 3, 16, 0.5, "dense", tag="(dense)")
+    check_slstm(gen, 6, 3, 3, 16, 0.5, "dense", fixed=True, mask_heads=3,
+                fresh=True, tag="(dense FIXED per-head)")
+    check_slstm(gen, 6, 3, 3, 16, 0.5, "structured", bs=4, fixed=True,
+                fresh=True, tag="(FIXED)")
+    check_slstm(gen, 6, 3, 3, 16, 0.5, "off", fresh=True, tag="(off)")
+    check_slstm(gen, 9, 5, 3, 16, 0.5, "structured", bs=2, ragged=True,
+                tag="(ragged)")
+    check_slstm(gen, 9, 9, 3, 16, 0.5, "dense", ragged=True,
+                tag="(dense ragged, two row chunks)")
+    check_slstm(gen, 9, 4, 3, 16, 0.5, "structured", bs=1, tag="(handoff)")
+    check_slstm(gen, 6, 2, 1, 2048, XP, "structured", bs=XBS, fresh=True,
+                tag="(one head of 2048: R and dR through L2)")
     check_engines_small()
     check_engines_small(NMT)
+    check_engines_small(XLSTM)
 
     counts, step_ms = drive_main_path()
+    gc.collect()
+    torch.cuda.empty_cache()
+    x_counts, x_ms, x_peak, _ = drive_xlstm()
+    counts[XLSTM] = x_counts
+    for engine, ms in x_ms.items():
+        step_ms[f"{XLSTM}/{engine}"] = ms
+        med = steady_median(ms)
+        print(f"{XLSTM}/{engine}: steady median {med:.2f} ms/step, "
+              f"{XB * XT / med * 1e3:.1f} tokens/s, peak memory "
+              f"{x_peak[engine]} bytes ({x_peak[engine] / 2**30:.2f} GiB)")
     for key, ms in step_ms.items():
         print(f"step ms ({key}): " + ", ".join(f"{x:.2f}" for x in ms))
     kernels = []
@@ -590,7 +801,8 @@ def main() -> int:
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels,
                       "step_ms": {k: steady_median(v)
-                                  for k, v in step_ms.items()}}))
+                                  for k, v in step_ms.items()},
+                      "xlstm_peak_bytes": x_peak}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

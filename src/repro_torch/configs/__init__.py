@@ -1,11 +1,11 @@
-"""Architecture registry: ``--arch <id>`` -> ArchSpec (the paper's LSTM LMs
-and the Luong NMT model in the port so far)."""
+"""Architecture registry: ``--arch <id>`` -> ArchSpec (the paper's LSTM LMs,
+the Luong NMT model and xlstm-1.3b in the port so far)."""
 from __future__ import annotations
 
-from repro_torch.configs import paper_models
+from repro_torch.configs import paper_models, xlstm_1_3b
 from repro_torch.configs.base import ArchSpec
 
-REGISTRY = {s.name: s for s in paper_models.PAPER_SPECS}
+REGISTRY = {s.name: s for s in [*paper_models.PAPER_SPECS, xlstm_1_3b.SPEC]}
 
 
 def get_arch(name: str) -> ArchSpec:

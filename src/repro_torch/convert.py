@@ -2,9 +2,10 @@
 
 The reference's parameter pytrees (nested dicts/lists of arrays, given here
 as numpy arrays) and the port's share leaves and layouts one to one — LSTM
-W (D, 4H), U (H, 4H), gate order i,f,g,o — so conversion is a leaf-wise
-copy. ``from_reference`` builds the port's tensors on a device;
-``to_reference`` returns numpy arrays.
+W (D, 4H), U (H, 4H), gate order i,f,g,o; xLSTM's stacked per-family
+leaves, R (H, dh, 4dh) — so conversion is a leaf-wise copy.
+``from_reference`` builds the port's tensors on a device; ``to_reference``
+returns numpy arrays.
 """
 from __future__ import annotations
 
@@ -13,7 +14,10 @@ import torch
 
 
 def from_reference(tree, device="cpu", dtype=None):
-    """Nested dicts/lists/tuples of numpy arrays -> the same of tensors."""
+    """Nested dicts/lists/tuples of numpy arrays -> the same of tensors
+    (None subtrees, e.g. an xLSTM family without blocks, stay None)."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: from_reference(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -25,6 +29,8 @@ def from_reference(tree, device="cpu", dtype=None):
 
 def to_reference(tree):
     """Nested dicts/lists/tuples of tensors -> the same of numpy arrays."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: to_reference(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

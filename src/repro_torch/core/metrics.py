@@ -19,3 +19,37 @@ def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     0.0, not NaN (the denominator is clamped to 1)."""
     m = mask.to(torch.float32)
     return (values.to(torch.float32) * m).sum() / torch.clamp(m.sum(), min=1.0)
+
+
+def lm_loss(logits_fn, feats: torch.Tensor, labels: torch.Tensor,
+            loss_chunks: int = 8) -> torch.Tensor:
+    """Softmax cross-entropy of ``logits_fn(f)`` (float32 (B, s, V)) over
+    ``loss_chunks`` sequence chunks ``f`` of ``feats (B, S, D)`` (lowered to
+    a divisor of S), summed and divided by B*S: the port's copy of
+    ``repro.models.transformer.lm_loss``."""
+    B, S, _ = feats.shape
+    n = loss_chunks
+    while S % n:
+        n -= 1
+    total = feats.new_zeros((), dtype=torch.float32)
+    for f, lab in zip(feats.chunk(n, dim=1), labels.chunk(n, dim=1)):
+        lp = torch.log_softmax(logits_fn(f), dim=-1)
+        total = total - lp.gather(-1, lab.long()[..., None]).sum()
+    return total / (B * S)
+
+
+def masked_lm_loss(w: torch.Tensor, feats: torch.Tensor, labels: torch.Tensor,
+                   mask: torch.Tensor, *, chunk: int = 1024) -> torch.Tensor:
+    """Mean softmax cross-entropy of ``feats @ w`` over real tokens (``mask``
+    (B, T) nonzero), in chunks of ``chunk`` flattened tokens; an all-pad
+    batch gives 0.0."""
+    f2 = feats.reshape(-1, feats.shape[-1])
+    l2 = labels.reshape(-1).long()
+    m2 = mask.reshape(-1).to(torch.float32)
+    total = feats.new_zeros((), dtype=torch.float32)
+    for i in range(0, f2.shape[0], chunk):
+        logits = f2[i:i + chunk].float() @ w.float()
+        nll = (torch.logsumexp(logits, -1)
+               - logits.gather(-1, l2[i:i + chunk, None])[:, 0])
+        total = total + (nll * m2[i:i + chunk]).sum()
+    return total / torch.clamp(m2.sum(), min=1.0)

@@ -6,7 +6,8 @@ one launch of a hand-written cooperative CUDA kernel
 (``csrc/lstm_scan.cu``: K3 forward, K4 reverse-time backward) for CUDA
 tensors, and as the plain forward / plain hand-written reverse of
 kernels/cell_scan.py for CPU tensors. Gate order i, f, g, o; layouts as the
-reference: gx (T, B, 4H) with the bias folded in, U (H, 4H), h0/c0 (B, H).
+reference: gx (T, B, 4H) with the bias folded in, U (H, 4H), h0/c0 (B, H),
+run through the headed cell_scan as its one-head case.
 
 The kernels take float32 only; the wrappers raise on anything else, on
 tensors of mixed devices, and on a non-zero CUDA status after the launch.
@@ -161,6 +162,27 @@ def lstm_scan_bwd_cuda(dy, dstT, gates, st_seqs, states0, hs, h0, u, ids,
     return dgx, du, dh0, (dc0,)
 
 
+def _one_head_fwd(gx, u, h0, states0, ids, mask, lengths, scale, *,
+                  forget_bias):
+    """K3 on cell_scan's headed layout (heads = 1)."""
+    hs, gates, (cs,) = lstm_scan_fwd_cuda(
+        gx[:, :, 0], u[0], h0[:, 0], (states0[0][:, 0],), ids,
+        None if mask is None else mask[:, :, 0], lengths, scale,
+        forget_bias=forget_bias)
+    return hs[:, :, None], gates[:, :, None], (cs[:, :, None],)
+
+
+def _one_head_bwd(dy, dstT, gates, st_seqs, states0, hs, h0, u, ids, mask,
+                  lengths, scale, *, forget_bias):
+    """K4 on cell_scan's headed layout (heads = 1)."""
+    dgx, du, dh0, (dc0,) = lstm_scan_bwd_cuda(
+        dy[:, :, 0], (dstT[0][:, 0],), gates[:, :, 0], (st_seqs[0][:, :, 0],),
+        (states0[0][:, 0],), hs[:, :, 0], h0[:, 0], u[0], ids,
+        None if mask is None else mask[:, :, 0], lengths, scale,
+        forget_bias=forget_bias)
+    return dgx[:, :, None], du[None], dh0[:, None], (dc0[:, None],)
+
+
 @functools.lru_cache(maxsize=None)
 def lstm_cell_spec(forget_bias: float = 0.0) -> CellSpec:
     """The vanilla LSTM as a CellSpec, with its CUDA kernels."""
@@ -169,8 +191,8 @@ def lstm_cell_spec(forget_bias: float = 0.0) -> CellSpec:
         name="lstm", num_states=1,
         pointwise_fwd=functools.partial(_pointwise_fwd, **fb),
         pointwise_bwd=functools.partial(_pointwise_bwd, **fb),
-        kernel_fwd=functools.partial(lstm_scan_fwd_cuda, **fb),
-        kernel_bwd=functools.partial(lstm_scan_bwd_cuda, **fb))
+        kernel_fwd=functools.partial(_one_head_fwd, **fb),
+        kernel_bwd=functools.partial(_one_head_bwd, **fb))
 
 
 def lstm_scan(gx: torch.Tensor, u: torch.Tensor, h0: torch.Tensor,
@@ -185,7 +207,8 @@ def lstm_scan(gx: torch.Tensor, u: torch.Tensor, h0: torch.Tensor,
     Returns ``(hs (T, B, H), (h_fin, c_fin))``.
     """
     hs, (h_fin, (c_fin,)) = cell_scan(
-        gx, u, h0, (c0,), cell=lstm_cell_spec(float(forget_bias)),
-        keep_blocks=keep_blocks, dense_mask=dense_mask, block_size=block_size,
-        scale=scale, impl=impl, lengths=lengths)
-    return hs, (h_fin, c_fin)
+        gx[:, :, None], u[None], h0[:, None], (c0[:, None],),
+        cell=lstm_cell_spec(float(forget_bias)), keep_blocks=keep_blocks,
+        dense_mask=None if dense_mask is None else dense_mask[:, :, None],
+        block_size=block_size, scale=scale, impl=impl, lengths=lengths)
+    return hs[:, :, 0], (h_fin[:, 0], c_fin[:, 0])

@@ -4,6 +4,9 @@
         --batch 20 --seq 35 --dropout case3:0.5:pallas --engine fused
     PYTHONPATH=src python -m repro_torch.launch.profile --arch luong-nmt \
         --batch 64 --seq 50 --dropout case3:0.3:pallas --engine fused
+    PYTHONPATH=src python -m repro_torch.launch.profile --arch xlstm-1.3b \
+        --layers 16 --batch 2 --seq 2048 --dropout case3:0.25:bs64:pallas \
+        --engine fused --steps 2
 
 Runs a few warm-up steps, then traces ``--steps`` training steps with
 ``torch.profiler`` (CPU and CUDA activities) and prints: the host wall time
@@ -24,7 +27,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.launch import steps as steps_mod
 from repro_torch.launch import train as train_mod
-from repro_torch.models import lstm_lm, seq2seq
+from repro_torch.models import lstm_lm, seq2seq, xlstm
 
 
 def _device_us(evt) -> float:
@@ -38,11 +41,13 @@ def _device_us(evt) -> float:
 def sampling_host_ms(kind: str, cfg, batch: int, seq: int, seed: int,
                      reps: int = 5) -> float:
     """Host ms to draw every mask a training step consumes (the model's
-    ``dropout_sites``: the non-recurrent applications and each layer's
-    schedules), median of ``reps``; the copies to the card are asynchronous
+    ``dropout_sites``: the non-recurrent applications, per layer index where
+    the model draws them so, and each recurrence's schedules), median of
+    ``reps``; the copies to the card are asynchronous
     and not waited for."""
-    sites = (seq2seq.dropout_sites(cfg, batch, seq, seq) if kind == "nmt"
-             else lstm_lm.dropout_sites(cfg, batch, seq))
+    sites = {"nmt": lambda: seq2seq.dropout_sites(cfg, batch, seq, seq),
+             "xlstm": lambda: xlstm.dropout_sites(cfg, batch, seq),
+             "lstm_lm": lambda: lstm_lm.dropout_sites(cfg, batch, seq)}[kind]()
     times = []
     for step in range(reps):
         t0 = time.perf_counter()
@@ -51,7 +56,7 @@ def sampling_host_ms(kind: str, cfg, batch: int, seq: int, seed: int,
             if how == "schedule":
                 ctx.schedule(name, steps, b, dim)
             else:
-                ctx.state(name, b, dim)
+                ctx.state(name, b, dim, t=steps if how == "state_t" else None)
         times.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
     return sorted(times)[len(times) // 2]

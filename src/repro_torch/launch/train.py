@@ -4,8 +4,12 @@
         --batch 20 --seq 35 --dropout case3:0.5:pallas --engine fused
     PYTHONPATH=src python -m repro_torch.launch.train --arch luong-nmt \
         --batch 64 --seq 50 --dropout case3:0.3:pallas --engine fused
+    PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-1.3b \
+        --layers 16 --batch 2 --seq 2048 --dropout case3:0.25:bs64:pallas \
+        --engine fused
 
-``--seq`` is the unroll of an LM and the ``max_len`` of an NMT pair.
+``--seq`` is the unroll of an LM and the ``max_len`` of an NMT pair;
+``--layers`` overrides the arch's depth.
 
 Runs on the current CUDA device; ``--device cpu`` runs on the CPU (the
 kernels' plain versions). Without a GPU and without ``--device cpu`` it
@@ -15,6 +19,7 @@ synchronisation).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -41,14 +46,14 @@ def _to_device(d: dict, device) -> dict:
 
 def make_batch_fn(kind: str, cfg, batch: int, seq: int, seed: int, device):
     """step -> the batch dict the reference trainer makes for ``kind``:
-    lstm_lm {"tokens", "labels"} (B, S) int32, contiguous windows of a
-    deterministic ``lm_stream``; nmt ``nmt_pairs(batch, ..., max_len=seq,
+    lstm_lm and xlstm {"tokens", "labels"} (B, S) int32, contiguous windows
+    of a deterministic ``lm_stream``; nmt ``nmt_pairs(batch, ..., max_len=seq,
     seed=seed + step)`` (src, tgt_in, tgt_out and their bool masks)."""
     if kind == "nmt":
         return lambda step: _to_device(synthetic.nmt_pairs(
             batch, cfg.src_vocab, cfg.tgt_vocab, max_len=seq,
             seed=seed + step), device)
-    if kind != "lstm_lm":
+    if kind not in ("lstm_lm", "xlstm"):
         raise ValueError(f"no batches for kind {kind!r}")
     stream = synthetic.lm_stream(cfg.vocab, batch * (seq + 1) * 64, seed=seed)
 
@@ -68,6 +73,8 @@ def parse_args(argv=None):
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=32)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="number of layers (blocks); 0 keeps the arch's own")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=1)
@@ -89,6 +96,8 @@ def run(argv=None) -> dict:
     device = resolve_device(args.device)
     spec = configs.get_arch(args.arch)
     cfg = spec.smoke() if args.smoke else spec.full()
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     if args.dropout:
         cfg = adapters.apply_dropout(spec, cfg, args.dropout)
         print(f"[dropout] plan override {args.dropout!r} -> sites "

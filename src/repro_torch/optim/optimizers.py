@@ -25,7 +25,9 @@ OptState = Any
 
 def tree_map(fn, tree, *rest):
     """Map ``fn`` over matching leaves of dict/list/tuple trees (dict keys
-    in sorted order, as JAX flattens them)."""
+    in sorted order, as JAX flattens them); a None subtree stays None."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in sorted(tree)}
@@ -36,6 +38,8 @@ def tree_map(fn, tree, *rest):
 
 
 def tree_leaves(tree) -> list:
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):

@@ -9,11 +9,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.models import lstm_lm, seq2seq
+from repro_torch.models import lstm_lm, seq2seq, xlstm
 
 
 def to_numpy_tree(tree):
-    """Nested dicts/lists/tuples of array-likes -> the same of numpy arrays."""
+    """Nested dicts/lists/tuples of array-likes -> the same of numpy arrays
+    (None stays None)."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: to_numpy_tree(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -26,28 +29,39 @@ def to_numpy_tree(tree):
 # dim); the lists live beside their models.
 lm_sites = lstm_lm.dropout_sites
 nmt_sites = seq2seq.dropout_sites
+xlstm_sites = xlstm.dropout_sites
 
 
 def injection_from_ctx(ctx, sites) -> dict:
     """{site: numpy table} sampled by a bound reference ``DropoutCtx``: a
     (rows, nk) keep-block table or a (rows, *batch, dim) dense mask, one
-    row for a "state" site. Inactive sites are left out."""
-    out = {}
+    row for a "state" site, row t for each "state_t" application at time
+    index t (rows no application reads are zeros). Inactive sites are left
+    out."""
+    out, at_t = {}, {}
     for name, how, steps, batch, dim in sites:
         if how == "schedule":
             s = ctx.schedule(name, steps, batch, dim)
             table = s.keep_blocks if s.keep_blocks is not None else s.dense_mask
         else:
-            st = ctx.state(name, batch, dim)
+            st = ctx.state(name, batch, dim, t=steps if how == "state_t" else None)
             table = st.keep_blocks if st.keep_blocks is not None else st.dense_mask
+            if table is not None and how == "state_t":
+                at_t.setdefault(name, {})[steps] = np.asarray(table)
+                continue
             table = None if table is None else np.asarray(table)[None]
         if table is not None:
             out[name] = np.asarray(table)
+    for name, rows in at_t.items():
+        blank = np.zeros_like(next(iter(rows.values())))
+        out[name] = np.stack([rows.get(t, blank) for t in range(max(rows) + 1)])
     return out
 
 
 def to_torch(tree, device="cpu"):
-    """numpy tree -> tensors (ints stay ints)."""
+    """numpy tree -> tensors (ints stay ints, None stays None)."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: to_torch(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
