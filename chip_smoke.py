@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
-source, in parallel) and holds each kernel of the two ported paths against
-its plain PyTorch version at that path's full shapes, and times it:
+source, in parallel) and holds each kernel of the ported paths against its
+plain PyTorch version at that path's full shapes, and times it:
 
   * zaremba-medium (T=35, B=20, H=D=650, block size 1, p=0.5): K1/K2
     gather matmul, K3/K4 LSTM scan (also in dense, FIXED and ragged modes
@@ -16,17 +16,26 @@ its plain PyTorch version at that path's full shapes, and times it:
   * xlstm-1.3b (T=2048, B=2, 4 heads of dh=512, RH block 64, p=0.25, fresh
     start): K6, the fused sLSTM scan (also in dense, FIXED, off, ragged and
     mid-stream handoff modes on small inputs, 3 heads of 16, and with one
-    head of 2048, whose R and dR rows do not fit in shared memory).
+    head of 2048, whose R and dR rows do not fit in shared memory);
+  * qwen3-8b (B=1, S=4096, 32 query heads over 16 kv heads after
+    kv_repeat, head_dim 128, causal): K9 flash forward, K10 dq, K11 dk/dv,
+    with ``scaled_dot_product_attention`` timed beside them as the library
+    yardstick (also non-causal, windowed, MQA, G=4, ragged, Sq != Sk,
+    head_dim 16 / 64 / 256 and bfloat16 modes on small inputs).
 
 Then it checks on small inputs that the kernel engines agree with the plain
-stepwise oracle (all three models), and drives each main path — the
+stepwise oracle (the three recurrent models) and that the qwen3 smoke
+config with ``attn_impl="flash"`` agrees with ``attn_impl="xla"``, and
+drives each main path — the
 training step of ``repro_torch.launch.train`` at full width, zaremba-medium
 under ``case3:0.5:pallas`` and luong-nmt (batch 64, max_len 50) under
 ``case3:0.3:pallas``, and ``launch.steps.make_train_step`` on xlstm-1.3b
-cut to 16 blocks (batch 2 x 2048, its own plan with ``impl="pallas"``) —
-with the fused and the scheduled engine, asserting that every kernel's
-launch counter grew in that path's run (and that K6 did not launch under
-the scheduled engine).
+cut to 16 blocks (batch 2 x 2048, its own plan with ``impl="pallas"``)
+with the fused and the scheduled engine, and qwen3-8b cut to 4 layers
+(batch 1 x 4096, its own plan) with ``attn_impl="flash"`` and then
+``"xla"`` — asserting that every kernel's launch counter grew in that
+path's run (and that K6 did not launch under the scheduled engine, nor
+K9-K11 under xla).
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -58,8 +67,10 @@ T, B, H, D, P = 35, 20, 650, 650, 0.5          # zaremba-medium
 NT_, NB, NH, NS, NP = 50, 64, 512, 50, 0.3      # luong-nmt: T=S, B, H=E, p
 XT, XB, XNH, XDH, XBS, XP = 2048, 2, 4, 512, 64, 0.25   # xlstm-1.3b sLSTM
 X_LAYERS = 16                                           # depth cut from 48
+QB, QS, QHQ, QHKV, QD = 1, 4096, 32, 16, 128   # qwen3-8b attention (kv_repeat 2)
+Q_LAYERS = 4                                    # depth cut from 36
 STEPS = 5
-LM, NMT, XLSTM = "zaremba-medium", "luong-nmt", "xlstm-1.3b"
+LM, NMT, XLSTM, QWEN = "zaremba-medium", "luong-nmt", "xlstm-1.3b", "qwen3-8b"
 
 
 def smi_line() -> str:
@@ -136,7 +147,7 @@ def keep_table(gen, rows, hidden, rate):
 def row_name(counter, arch):
     """JSON row name: the launch counter's name, tagged with the arch where
     a kernel of the zaremba path is timed at the luong-nmt shapes too."""
-    own = counter.startswith(("decoder_scan", "slstm_scan"))
+    own = counter.startswith(("decoder_scan", "slstm_scan", "flash_"))
     return counter if arch == LM or own else f"{counter}@{arch}"
 
 
@@ -499,6 +510,99 @@ def check_slstm(gen, T_, B_, NH_, dh_, rate, mode, *, bs=1, fixed=False,
                 "cold")
 
 
+def check_flash(gen, B_, Sq_, Sk_, Hq_, Hkv_, d_, *, causal=True, window=None,
+                dtype=torch.float32, out=None, tag=""):
+    """K9 (o, lse), K10 (dq) and K11 (dk, dv) against their plain versions
+    on the same inputs; both backward passes take the plain forward's lse
+    and delta. float32 within 1e-3 x max(1, |ref|), bfloat16 within 3e-2
+    (the reference's bf16 tolerance)."""
+    from repro_torch.kernels import flash_attention as fa
+    r = lambda *shape: torch.randn(*shape, generator=gen).to("cuda", dtype)
+    q, k, v, do = (r(B_, Sq_, Hq_, d_), r(B_, Sk_, Hkv_, d_),
+                   r(B_, Sk_, Hkv_, d_), r(B_, Sq_, Hq_, d_))
+    tol = 1e-3 if dtype == torch.float32 else 3e-2
+    print(f"flash_attention B={B_} Sq={Sq_} Sk={Sk_} Hq={Hq_} Hkv={Hkv_} d={d_} "
+          f"{'causal' if causal else 'full'}"
+          f"{'' if window is None else f' window {window}'} {dtype}")
+    o_p, lse_p = fa.attention_plain(q, k, v, causal, window)
+    delta = fa.flash_delta(o_p, do)
+    bargs = (q, k, v, do, lse_p, delta, causal, window)
+    fwd_k = lambda: fa.flash_fwd_cuda(q, k, v, causal, window)
+    fwd_p = lambda: fa.attention_plain(q, k, v, causal, window)
+    dq_k = lambda: fa.flash_dq_cuda(*bargs)
+    dq_p = lambda: fa.flash_dq_plain(*bargs)
+    dkv_k = lambda: fa.flash_dkv_cuda(*bargs)
+    dkv_p = lambda: fa.flash_dkv_plain(*bargs)
+    e9 = compare("  flash_fwd " + tag, list(fwd_k()), [o_p, lse_p], tol)
+    e10 = compare("  flash_dq " + tag, dq_k(), dq_p(), tol)
+    e11 = compare("  flash_dkv " + tag, list(dkv_k()), list(dkv_p()), tol)
+    if out is None:
+        return
+    # the work this call's data needs: the visible (query, key) pairs
+    pairs = int(fa._visible(Sq_, Sk_, causal, window, "cuda").sum())
+    prod = 2 * B_ * Hq_ * pairs * d_              # flops of one product
+    es = torch.finfo(dtype).bits // 8
+    qb, kb = B_ * Sq_ * Hq_ * d_ * es, B_ * Sk_ * Hkv_ * d_ * es
+    rows = 4 * B_ * Hq_ * Sq_                     # one float32 per query row
+    assert window is None, "the library yardstick has no window"
+    lib_f, lib_b = sdpa_yardstick(q, k, v, do, causal)
+    src = "src/repro_torch/csrc/flash_attention.cu"
+    rep = "src/repro/kernels/flash_attention.py:"
+    for name, fk, fp, err, nbytes, flops, lms, line in (
+            ("flash_fwd", fwd_k, fwd_p, e9, qb + 2 * kb + qb + rows, 2 * prod,
+             lib_f, "45"),
+            ("flash_dq", dq_k, dq_p, e10, 3 * qb + 2 * kb + 2 * rows, 3 * prod,
+             lib_b, "127"),
+            ("flash_dkv", dkv_k, dkv_p, e11, 2 * qb + 4 * kb + 2 * rows,
+             4 * prod, lib_b, "158")):
+        # once per layer and pass, after other work: cold L2
+        ms = time_ms(fk, cold_l2=True)
+        pms = time_ms(fp, cold_l2=True)
+        add_row(out, name, QWEN, src, rep + line, err, ms, pms, lms, nbytes,
+                flops, "cold")
+        if name != "flash_fwd":
+            out[name]["library_covers"] = "flash_dq + flash_dkv (one backward)"
+
+
+def sdpa_yardstick(q, k, v, do, causal):
+    """Cold-L2 times of ``scaled_dot_product_attention``'s forward and of
+    its backward (dq, dk, dv together) on (B, H, S, d) views of the same
+    inputs, grouped-query through ``enable_gqa``; used nowhere in the
+    port."""
+    import torch.nn.functional as F
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    fwd = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                 enable_gqa=True)
+    o = fwd()
+    bwd = lambda: torch.autograd.grad(o, (qt, kt, vt), do.transpose(1, 2),
+                                      retain_graph=True)
+    return time_ms(fwd, cold_l2=True), time_ms(bwd, cold_l2=True)
+
+
+def check_flash_modes(gen):
+    """K9-K11 on small inputs: non-causal, windows, MQA, G = 4, sequences
+    that are not multiples of the tile, Sq != Sk, head dims 16 / 64 / 256,
+    bfloat16."""
+    bf = torch.bfloat16
+    for args, kw, tag in (
+            ((2, 64, 64, 4, 2, 64), dict(causal=False), "(non-causal)"),
+            ((1, 64, 64, 2, 2, 16), dict(window=8), "(window 8)"),
+            ((1, 64, 64, 2, 2, 16), dict(window=16), "(window 16)"),
+            ((1, 64, 64, 2, 2, 32), dict(causal=False, window=8), "(non-causal window 8)"),
+            ((1, 1024, 1024, 4, 2, 128), dict(window=256), "(window 256)"),
+            ((2, 128, 128, 4, 1, 64), {}, "(MQA)"),
+            ((1, 256, 256, 8, 2, 128), {}, "(G=4)"),
+            ((1, 48, 48, 4, 2, 64), {}, "(S=48)"),
+            ((2, 100, 100, 4, 2, 128), {}, "(S=100)"),
+            ((1, 80, 144, 4, 2, 64), {}, "(Sq < Sk)"),
+            ((1, 144, 80, 4, 2, 64), {}, "(Sq > Sk)"),
+            ((1, 96, 96, 4, 2, 16), {}, "(d=16)"),
+            ((1, 160, 160, 4, 2, 256), {}, "(d=256)"),
+            ((2, 128, 128, 4, 2, 128), dict(dtype=bf), "(bf16)"),
+            ((1, 100, 100, 4, 2, 64), dict(dtype=bf, window=32), "(bf16 window)")):
+        check_flash(gen, *args, tag=tag, **kw)
+
+
 def nmt_small_batch(cfg, dev):
     from repro_torch.data import synthetic
     d = synthetic.nmt_pairs(4, cfg.src_vocab, cfg.tgt_vocab, max_len=10, seed=1)
@@ -696,6 +800,117 @@ def drive_xlstm():
     return totals, step_ms, peak, losses
 
 
+def check_qwen_small():
+    """On a small input, the qwen3 smoke config with ``attn_impl="flash"``
+    (K9-K11) against ``attn_impl="xla"`` (the port's chunked attention) on
+    the card, and both against the xla run on the CPU: loss and every
+    gradient within 1e-4 x max(1, |ref|)."""
+    from repro_torch import configs
+    from repro_torch.configs import adapters
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.optim import tree_leaves
+    spec = configs.get_arch(QWEN)
+    g = torch.Generator().manual_seed(1)
+    batch_cpu = {"tokens": torch.randint(0, 128, (2, 24), generator=g),
+                 "labels": torch.randint(0, 128, (2, 24), generator=g)}
+    results = {}
+    for impl, dev in (("xla", "cpu"), ("xla", "cuda"), ("flash", "cuda")):
+        cfg = spec.smoke(attn_impl=impl)
+        params = adapters.init_params(spec.kind, torch.Generator().manual_seed(0),
+                                      cfg, device=dev)
+        batch = {k_: v.to(dev) for k_, v in batch_cpu.items()}
+        lfn = value_and_grad(lambda p, b, **kw: adapters.loss_fn(spec.kind)(p, b, cfg, **kw))
+        before = dict(fa.LAUNCHES)
+        loss, grads = lfn(params, batch, seed=7, step=3)
+        launched = {k_: fa.LAUNCHES[k_] - before[k_] for k_ in before}
+        want = cfg.num_layers if impl == "flash" and dev == "cuda" else 0
+        # with remat="full" each layer's forward runs twice (K9 x 2)
+        assert launched == {"flash_fwd": 2 * want, "flash_dq": want,
+                            "flash_dkv": want}, launched
+        results[f"{impl}/{dev}"] = [loss.cpu()] + [x.cpu() for x in tree_leaves(grads)]
+    print("qwen3 smoke on a small input (attn_impl flash vs xla)")
+    compare("  flash/cuda vs xla/cuda (loss + grads)", results["flash/cuda"],
+            results["xla/cuda"], 1e-4)
+    for name in ("xla/cuda", "flash/cuda"):
+        compare(f"  {name} vs xla/cpu (loss + grads)", results[name],
+                results["xla/cpu"], 1e-4)
+
+
+def drive_transformer():
+    """qwen3-8b at full width, cut to Q_LAYERS layers, float32, batch QB x
+    QS, its own plan (nr p=0.25 block 128), remat "full": STEPS training
+    steps through ``steps.make_train_step`` with the trainer's batches, with
+    ``attn_impl="flash"`` (the main path: K9 twice a layer, forward and
+    recompute, K10 and K11 once) and then with ``attn_impl="xla"`` (the
+    step's yardstick, no kernel). Returns {impl: counts}, {impl: [ms]},
+    {impl: peak bytes}."""
+    from repro_torch import configs
+    from repro_torch.configs import adapters
+    from repro_torch.kernels import decoder_scan as dsk
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gather_matmul as gm
+    from repro_torch.kernels import lstm_scan as ls
+    from repro_torch.kernels import slstm_scan as ss
+    from repro_torch.launch import steps, train
+
+    counters = (gm.LAUNCHES, ls.LAUNCHES, dsk.LAUNCHES, ss.LAUNCHES, fa.LAUNCHES)
+    spec = configs.get_arch(QWEN)
+    dev = torch.device("cuda")
+    totals, step_ms, peak = {}, {}, {}
+    for impl in ("flash", "xla"):
+        cfg = spec.full(num_layers=Q_LAYERS, attn_impl=impl)
+        assert (cfg.d_model, cfg.n_heads, cfg.n_kv_eff, cfg.hd, cfg.d_ff,
+                cfg.vocab, cfg.remat) == (4096, QHQ, QHKV, QD, 12288, 151936,
+                                          "full"), cfg
+        print(f"main path: {QWEN}, {Q_LAYERS} layers, batch {QB}, seq {QS}, "
+              f"plan {cfg.plan.to_dict()}, attn_impl {impl}, {STEPS} steps")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = adapters.init_params(
+            spec.kind, torch.Generator(device="cuda").manual_seed(0), cfg,
+            device=dev)
+        opt = steps.default_opt(1e-3)
+        state = opt.init(params)
+        step_fn = steps.make_train_step(spec, cfg, opt)
+        batch_fn = train.make_batch_fn(spec.kind, cfg, QB, QS, 0, dev)
+        torch.cuda.synchronize()
+        for d in counters:
+            for key in d:
+                d[key] = 0
+        ms, ls_ = [], []
+        for step in range(STEPS):
+            t0 = time.perf_counter()
+            params, state, loss = step_fn(params, state, batch_fn(step), step, 0)
+            ls_.append(float(loss))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            print(f"  step {step}: loss {ls_[-1]:.4f}  {ms[-1]:.1f} ms")
+        c = {k_: v for d in counters for k_, v in d.items()}
+        assert all(math.isfinite(x) for x in ls_), ls_
+        assert all(torch.isfinite(p).all() for p in _leaves(params))
+        flash = {k_: c[k_] for k_ in fa.LAUNCHES}
+        if impl == "flash":
+            missing = [k_ for k_, v in flash.items() if v == 0]
+            assert not missing, f"flash kernels never launched: {missing}"
+            want = {"flash_fwd": 2 * Q_LAYERS * STEPS,
+                    "flash_dq": Q_LAYERS * STEPS, "flash_dkv": Q_LAYERS * STEPS}
+            print("  flash launches per step "
+                  + ("as expected" if flash == want else
+                     f"differ from the expected {want}: {flash}"))
+        else:
+            assert not any(flash.values()), f"flash kernels launched under xla: {c}"
+        peak[impl] = torch.cuda.max_memory_allocated()
+        print(f"  launches per step ({QWEN}/{impl}): "
+              + (", ".join(f"{k_}={v / STEPS:g}" for k_, v in c.items() if v)
+                 or "none of the port's kernels")
+              + f"; peak memory {peak[impl] / 2**30:.2f} GiB")
+        totals[impl], step_ms[impl] = c, ms
+        del params, state
+    return totals, step_ms, peak
+
+
 def steady_median(ms):
     """Median step time without the first two steps: the first fills the
     allocator's pools and the libraries' caches, and the second is still
@@ -734,7 +949,8 @@ def main() -> int:
                 print(f"  [{name}] {line.strip()}")
     print("kernels: K1 gather_matmul, K2 gather_matmul_stepped, "
           "K3 lstm_scan_fwd, K4 lstm_scan_bwd, K6 slstm_scan_fwd/bwd, "
-          "K7 decoder_scan_fwd, K8 decoder_scan_bwd")
+          "K7 decoder_scan_fwd, K8 decoder_scan_bwd, K9 flash_fwd, "
+          "K10 flash_dq, K11 flash_dkv")
 
     gen = torch.Generator().manual_seed(0)
     rows = {}
@@ -772,9 +988,14 @@ def main() -> int:
     check_slstm(gen, 9, 4, 3, 16, 0.5, "structured", bs=1, tag="(handoff)")
     check_slstm(gen, 6, 2, 1, 2048, XP, "structured", bs=XBS, fresh=True,
                 tag="(one head of 2048: R and dR through L2)")
+    # qwen3-8b: K9-K11 at the attention's shape, then every mode on small
+    # inputs
+    check_flash(gen, QB, QS, QS, QHQ, QHKV, QD, out=rows, tag="(main path)")
+    check_flash_modes(gen)
     check_engines_small()
     check_engines_small(NMT)
     check_engines_small(XLSTM)
+    check_qwen_small()
 
     counts, step_ms = drive_main_path()
     gc.collect()
@@ -787,6 +1008,16 @@ def main() -> int:
         print(f"{XLSTM}/{engine}: steady median {med:.2f} ms/step, "
               f"{XB * XT / med * 1e3:.1f} tokens/s, peak memory "
               f"{x_peak[engine]} bytes ({x_peak[engine] / 2**30:.2f} GiB)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    q_counts, q_ms, q_peak = drive_transformer()
+    counts[QWEN] = q_counts
+    for impl, ms in q_ms.items():
+        step_ms[f"{QWEN}/{impl}"] = ms
+        med = steady_median(ms)
+        print(f"{QWEN}/{impl}: steady median {med:.2f} ms/step, "
+              f"{QB * QS / med * 1e3:.1f} tokens/s, peak memory "
+              f"{q_peak[impl]} bytes ({q_peak[impl] / 2**30:.2f} GiB)")
     for key, ms in step_ms.items():
         print(f"step ms ({key}): " + ", ".join(f"{x:.2f}" for x in ms))
     kernels = []
@@ -802,7 +1033,8 @@ def main() -> int:
     print(json.dumps({"kernels": kernels,
                       "step_ms": {k: steady_median(v)
                                   for k, v in step_ms.items()},
-                      "xlstm_peak_bytes": x_peak}))
+                      "xlstm_peak_bytes": x_peak,
+                      "qwen3_peak_bytes": q_peak}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

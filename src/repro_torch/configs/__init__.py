@@ -1,11 +1,12 @@
 """Architecture registry: ``--arch <id>`` -> ArchSpec (the paper's LSTM LMs,
-the Luong NMT model and xlstm-1.3b in the port so far)."""
+the Luong NMT model, xlstm-1.3b and qwen3-8b in the port so far)."""
 from __future__ import annotations
 
-from repro_torch.configs import paper_models, xlstm_1_3b
+from repro_torch.configs import paper_models, qwen3_8b, xlstm_1_3b
 from repro_torch.configs.base import ArchSpec
 
-REGISTRY = {s.name: s for s in [*paper_models.PAPER_SPECS, xlstm_1_3b.SPEC]}
+REGISTRY = {s.name: s for s in [*paper_models.PAPER_SPECS, xlstm_1_3b.SPEC,
+                                qwen3_8b.SPEC]}
 
 
 def get_arch(name: str) -> ArchSpec:

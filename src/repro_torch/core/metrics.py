@@ -6,6 +6,7 @@
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 
 def length_mask(lengths: torch.Tensor, seq_len: int) -> torch.Tensor:
@@ -26,15 +27,24 @@ def lm_loss(logits_fn, feats: torch.Tensor, labels: torch.Tensor,
     """Softmax cross-entropy of ``logits_fn(f)`` (float32 (B, s, V)) over
     ``loss_chunks`` sequence chunks ``f`` of ``feats (B, S, D)`` (lowered to
     a divisor of S), summed and divided by B*S: the port's copy of
-    ``repro.models.transformer.lm_loss``."""
+    ``repro.models.transformer.lm_loss``, each chunk recomputed in the
+    backward."""
     B, S, _ = feats.shape
     n = loss_chunks
     while S % n:
         n -= 1
+    def chunk_nll(f, lab):
+        lp = torch.log_softmax(logits_fn(f), dim=-1)
+        return lp.gather(-1, lab.long()[..., None]).sum()
+
     total = feats.new_zeros((), dtype=torch.float32)
     for f, lab in zip(feats.chunk(n, dim=1), labels.chunk(n, dim=1)):
-        lp = torch.log_softmax(logits_fn(f), dim=-1)
-        total = total - lp.gather(-1, lab.long()[..., None]).sum()
+        # each chunk's logits are recomputed in the backward, as the
+        # reference's jax.checkpoint'ed chunk: only one chunk's float32
+        # logits and log-softmax are alive at a time
+        nll = (checkpoint(chunk_nll, f, lab, use_reentrant=False)
+               if torch.is_grad_enabled() else chunk_nll(f, lab))
+        total = total - nll
     return total / (B * S)
 
 

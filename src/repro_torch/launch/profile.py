@@ -7,17 +7,24 @@
     PYTHONPATH=src python -m repro_torch.launch.profile --arch xlstm-1.3b \
         --layers 16 --batch 2 --seq 2048 --dropout case3:0.25:bs64:pallas \
         --engine fused --steps 2
+    PYTHONPATH=src python -m repro_torch.launch.profile --arch qwen3-8b \
+        --layers 4 --batch 1 --seq 4096 --variant qwen3_flash --steps 2
 
+``--variant`` applies one of ``VARIANTS`` to the config, as the reference's
+``launch/perf.py`` experiments do (``qwen3_flash``: ``attn_impl="flash"``).
 Runs a few warm-up steps, then traces ``--steps`` training steps with
 ``torch.profiler`` (CPU and CUDA activities) and prints: the host wall time
 per step (ending in a device synchronisation), the device-busy time per
 step (the sum of kernel, copy and memset durations on the card; one stream,
-so they do not overlap), the idle share, and the kernels that take the most
-device time, and the host time to sample one step's dropout masks. The
+so they do not overlap), the idle share, the kernels that take the most
+device time, the device time per group (each of the port's own kernels,
+the library's matrix products, the rest), and the host time to sample one
+step's dropout masks. The
 last line is the same as one JSON object. CUDA only.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import time
 
@@ -27,7 +34,11 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.launch import steps as steps_mod
 from repro_torch.launch import train as train_mod
-from repro_torch.models import lstm_lm, seq2seq, xlstm
+from repro_torch.models import lstm_lm, seq2seq, transformer, xlstm
+
+VARIANTS = {
+    "qwen3_flash": lambda c: dataclasses.replace(c, attn_impl="flash"),
+}
 
 
 def _device_us(evt) -> float:
@@ -36,6 +47,16 @@ def _device_us(evt) -> float:
         if v is not None:
             return float(v)
     return 0.0
+
+
+def kernel_group(name: str) -> str:
+    """The port's kernels (each in the top-level anonymous namespace of its
+    csrc/*.cu) by their function name; cuBLAS/CUTLASS products as "matrix
+    products"; everything else (PyTorch's own kernels) as "other"."""
+    tag = "void (anonymous namespace)::"
+    if name.startswith(tag):
+        return name[len(tag):].split("<", 1)[0].split("(", 1)[0]
+    return "matrix products" if "gemm" in name.lower() else "other"
 
 
 def sampling_host_ms(kind: str, cfg, batch: int, seq: int, seed: int,
@@ -47,6 +68,7 @@ def sampling_host_ms(kind: str, cfg, batch: int, seq: int, seed: int,
     and not waited for."""
     sites = {"nmt": lambda: seq2seq.dropout_sites(cfg, batch, seq, seq),
              "xlstm": lambda: xlstm.dropout_sites(cfg, batch, seq),
+             "transformer": lambda: transformer.dropout_sites(cfg, batch, seq),
              "lstm_lm": lambda: lstm_lm.dropout_sites(cfg, batch, seq)}[kind]()
     times = []
     for step in range(reps):
@@ -67,11 +89,13 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--variant", default="", choices=["", *VARIANTS])
     own, rest = ap.parse_known_args(argv)
     args = train_mod.parse_args(rest)
     if not torch.cuda.is_available() or (args.device or "cuda") != "cuda":
         raise RuntimeError("profile runs on a CUDA device only")
-    res = train_mod.run(rest + ["--steps", str(own.warmup), "--log-every", "1000"])
+    res = train_mod.run(rest + ["--steps", str(own.warmup), "--log-every", "1000"],
+                        cfg_fn=VARIANTS.get(own.variant))
     # continue from the warmed-up parameters for the traced steps
     cfg, params = res["cfg"], res["params"]
     spec = train_mod.configs.get_arch(args.arch)
@@ -100,7 +124,9 @@ def main(argv=None) -> dict:
         raise RuntimeError("the profiler recorded no device time")
     busy = sum(r[1] for r in rows) / args.steps / 1e3
     rows.sort(key=lambda r: -r[1])
-    print(f"engine {cfg.engine}: wall {wall:.3f} ms/step, device busy "
+    # the recurrent engine, or the attention of a transformer
+    label = getattr(cfg, "engine", None) or f"attn_impl={cfg.attn_impl}"
+    print(f"{label}: wall {wall:.3f} ms/step, device busy "
           f"{busy:.3f} ms/step, idle share {max(0.0, 1 - busy / wall):.3f}")
     top = []
     for name, us, count in rows[:own.top]:
@@ -108,10 +134,17 @@ def main(argv=None) -> dict:
         print(f"  {ms:9.4f} ms/step  {count / args.steps:7.1f} calls/step  {name[:90]}")
         top.append({"name": name[:120], "ms_per_step": ms,
                     "calls_per_step": count / args.steps})
+    groups = {}
+    for name, us, _ in rows:
+        g = kernel_group(name)
+        groups[g] = groups.get(g, 0.0) + us / args.steps / 1e3
+    for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"  group {g}: {ms:.3f} ms/step ({ms / busy:.3f} of busy)")
     sampling = sampling_host_ms(spec.kind, cfg, args.batch, args.seq, args.seed)
     print(f"  host time to sample one step's dropout masks: {sampling:.3f} ms")
-    out = {"engine": cfg.engine, "wall_ms": wall, "busy_ms": busy,
+    out = {"engine": label, "wall_ms": wall, "busy_ms": busy,
            "idle_share": max(0.0, 1 - busy / wall), "top": top,
+           "groups_ms": groups,
            "sampling_host_ms": sampling,
            "device": torch.cuda.get_device_name(0)}
     print(json.dumps(out))

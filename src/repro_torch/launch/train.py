@@ -7,6 +7,8 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-1.3b \
         --layers 16 --batch 2 --seq 2048 --dropout case3:0.25:bs64:pallas \
         --engine fused
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b \
+        --layers 4 --batch 1 --seq 4096
 
 ``--seq`` is the unroll of an LM and the ``max_len`` of an NMT pair;
 ``--layers`` overrides the arch's depth.
@@ -46,14 +48,15 @@ def _to_device(d: dict, device) -> dict:
 
 def make_batch_fn(kind: str, cfg, batch: int, seq: int, seed: int, device):
     """step -> the batch dict the reference trainer makes for ``kind``:
-    lstm_lm and xlstm {"tokens", "labels"} (B, S) int32, contiguous windows
-    of a deterministic ``lm_stream``; nmt ``nmt_pairs(batch, ..., max_len=seq,
-    seed=seed + step)`` (src, tgt_in, tgt_out and their bool masks)."""
+    lstm_lm, xlstm and transformer {"tokens", "labels"} (B, S) int32,
+    contiguous windows of a deterministic ``lm_stream``; nmt
+    ``nmt_pairs(batch, ..., max_len=seq, seed=seed + step)`` (src, tgt_in,
+    tgt_out and their bool masks)."""
     if kind == "nmt":
         return lambda step: _to_device(synthetic.nmt_pairs(
             batch, cfg.src_vocab, cfg.tgt_vocab, max_len=seq,
             seed=seed + step), device)
-    if kind not in ("lstm_lm", "xlstm"):
+    if kind not in ("lstm_lm", "xlstm", "transformer"):
         raise ValueError(f"no batches for kind {kind!r}")
     stream = synthetic.lm_stream(cfg.vocab, batch * (seq + 1) * 64, seed=seed)
 
@@ -90,8 +93,10 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def run(argv=None) -> dict:
-    """Train and return {"losses": [...], "ms": [...], "cfg": cfg}."""
+def run(argv=None, cfg_fn=None) -> dict:
+    """Train and return {"losses": [...], "ms": [...], "cfg": cfg}.
+    ``cfg_fn`` maps the built config to the one trained (a variant such as
+    ``launch.profile.VARIANTS["qwen3_flash"]``)."""
     args = parse_args(argv)
     device = resolve_device(args.device)
     spec = configs.get_arch(args.arch)
@@ -105,6 +110,8 @@ def run(argv=None) -> dict:
     if args.engine:
         cfg = adapters.apply_engine(spec, cfg, args.engine)
         print(f"[engine] recurrent engine -> {cfg.engine!r}")
+    if cfg_fn is not None:
+        cfg = cfg_fn(cfg)
     gen = torch.Generator().manual_seed(args.seed)
     params = adapters.init_params(spec.kind, gen, cfg, device=device)
     opt = steps_mod.default_opt(args.lr)

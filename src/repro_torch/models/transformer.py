@@ -1,0 +1,443 @@
+"""Dense decoder-only transformer — port of the training path of
+``repro.models.transformer`` (qwen3 / minitron / gemma / qwen1.5 style:
+GQA/MQA, qk-norm, QKV bias, SwiGLU / GeGLU, rope).
+
+Parameters are plain dicts of stacked ``(L, ...)`` tensors in the
+reference's tree, so they convert leaf for leaf; the layer stack is a
+Python loop with ``torch.utils.checkpoint`` per block for ``remat="full"``
+(the reference's ``lax.scan`` + ``jax.checkpoint``).
+
+The paper's Case-III structured dropout runs on the non-recurrent
+direction: the normalised residual-stream input of each sub-layer (sites
+``attn/nr`` and ``mlp/nr``, time axis = layer index) is consumed through
+``sdrop_matmul`` by the QKV and FFN-up projections, so their FP/BP/WG run at
+(1-p) FLOPs; ``mlp/ffn_inner`` is the optional structured drop over the FFN
+inner dimension. The masks of layer l are drawn before its checkpointed
+block, so the recompute sees the same kept blocks.
+
+Attention: ``attn_impl="xla"`` (the config's default) is the chunked
+online-softmax attention in plain PyTorch (windowed span included);
+``"flash"`` runs ``kernels/flash_attention.py`` (K9 forward, K10/K11
+backward on the card).
+
+Not ported (raise ``NotImplementedError``): MoE (``moe``), the whisper
+encoder-decoder (``is_encoder_decoder``), embeddings in (``embeds_in``),
+``pos="sinusoidal"``, ``remat="dots"``, ``attn_impl="identity"``, and the
+serving entry points (KV cache, prefill, decode).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.core import metrics
+from repro_torch.core import sparse_matmul as sm
+from repro_torch.core.dropout_plan import DropoutPlan, fit_block
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.optim import tree_map
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    name: str = "transformer"
+    num_layers: int = 2
+    d_model: int = 128
+    n_heads: int = 4
+    n_kv_heads: int = 4
+    head_dim: int = 0            # 0 -> d_model // n_heads
+    d_ff: int = 256
+    vocab: int = 256
+    mlp: str = "swiglu"          # swiglu | geglu | gelu_mlp | relu2
+    norm: str = "rmsnorm"        # rmsnorm | layernorm
+    qk_norm: bool = False        # qwen3
+    qkv_bias: bool = False       # qwen1.5
+    pos: str = "rope"            # rope | none (sinusoidal not ported)
+    rope_theta: float = 10000.0
+    window: Optional[int] = None          # sliding-window attention
+    moe: Optional[Any] = None             # not ported
+    tie_embeddings: bool = False
+    scale_embed: bool = False    # gemma: embed * sqrt(d_model)
+    max_seq: int = 4096
+    is_encoder_decoder: bool = False      # not ported
+    enc_layers: int = 0
+    enc_seq: int = 1500
+    embeds_in: bool = False               # not ported
+    param_dtype: Any = torch.float32
+    compute_dtype: Any = torch.float32
+    attn_impl: str = "xla"       # xla (chunked online softmax) | flash (kernels)
+    q_chunk: int = 512
+    kv_chunk: int = 512
+    loss_chunks: int = 8
+    remat: str = "full"          # full | none ("dots" not ported)
+    plan: DropoutPlan = DropoutPlan()
+    kv_repeat: int = 1           # replicate kv heads (as the reference)
+
+    def __post_init__(self):
+        for field, bad in (("moe", self.moe is not None),
+                           ("is_encoder_decoder", self.is_encoder_decoder),
+                           ("embeds_in", self.embeds_in),
+                           ("pos='sinusoidal'", self.pos == "sinusoidal"),
+                           ("remat='dots'", self.remat == "dots")):
+            if bad:
+                raise NotImplementedError(
+                    f"TransformerConfig {field} is not ported (ROADMAP A12)")
+        if self.attn_impl not in ("xla", "flash"):
+            raise NotImplementedError(f"attn_impl={self.attn_impl!r} is not ported")
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def n_kv_eff(self) -> int:
+        return self.n_kv_heads * self.kv_repeat
+
+
+# ---------------------------------------------------------------------------
+# Positions and norms
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(hd: int, theta: float, device="cpu") -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                         device=device) / hd))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x (..., S, H, hd), positions (..., S): rotate the two HALVES of
+    head_dim (not interleaved pairs), in float32, cast back."""
+    hd = x.shape[-1]
+    ang = positions[..., None].float() * rope_freqs(hd, theta, x.device)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(x.dtype)
+
+
+def norm_apply(kind, g, b, x, eps=1e-6):
+    xf = x.float()
+    if kind == "rmsnorm":
+        y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+        return (y * g).to(x.dtype)
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * g + b).to(x.dtype)
+
+
+def init_norm(cfg: TransformerConfig, dim: int, device="cpu"):
+    pd = dict(dtype=cfg.param_dtype, device=device)
+    p = {"g": torch.ones((dim,), **pd)}
+    if cfg.norm == "layernorm":
+        p["b"] = torch.zeros((dim,), **pd)
+    return p
+
+
+def _norm(cfg, p, x):
+    return norm_apply(cfg.norm, p["g"], p.get("b"), x)
+
+
+# ---------------------------------------------------------------------------
+# Chunked attention (online softmax; sliding window; GQA without kv repeat)
+# ---------------------------------------------------------------------------
+
+
+def _attn_chunk(q, k, v, qpos, kpos, *, causal, window, scale):
+    """One (q-chunk x kv-chunk) tile. q (B, cq, Hkv, G, hd); k, v
+    (B, ck, Hkv, hd). Returns the tile's (running max m, exp-sum l,
+    weighted values o), float32."""
+    s = torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float()) * scale
+    mask = torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos[:, None] >= kpos[None, :]
+    if window is not None:
+        mask &= qpos[:, None] - kpos[None, :] < window
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    m = s.amax(dim=-1)                                       # (B, Hkv, G, cq)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    o = torch.einsum("bkgqs,bskd->bkgqd", p.to(v.dtype).float(), v.float())
+    return m, l, o
+
+
+def _pick(S, c):
+    """The largest divisor of S that is <= c."""
+    c = min(c, S)
+    while S % c:
+        c -= 1
+    return c
+
+
+def chunked_attention(q, k, v, *, causal: bool, window: Optional[int],
+                      q_chunk: int, kv_chunk: int) -> torch.Tensor:
+    """Flash-style attention in plain PyTorch. q (B, Sq, Hq, hd); k, v
+    (B, Sk, Hkv, hd). Sliding-window configs attend over a static
+    (window + q_chunk) kv span per q chunk."""
+    B, Sq, Hq, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = hd ** -0.5
+    cq, ck = _pick(Sq, q_chunk), _pick(Sk, kv_chunk)
+    qr = q.reshape(B, Sq // cq, cq, Hkv, G, hd)
+    use_window = window is not None and window < Sk
+    kw = dict(causal=causal, window=window, scale=scale)
+    outs = []
+    for qi in range(Sq // cq):
+        qc = qr[:, qi]
+        qpos = qi * cq + torch.arange(cq, device=q.device)
+        if use_window:
+            span = min(window + cq, Sk)
+            start = min(max(qi * cq - window, 0), Sk - span)
+            kpos = start + torch.arange(span, device=q.device)
+            m, l, o = _attn_chunk(qc, k[:, start:start + span],
+                                  v[:, start:start + span], qpos, kpos, **kw)
+        else:
+            m = torch.full((B, Hkv, G, cq), -1e30, device=q.device)
+            l = torch.zeros((B, Hkv, G, cq), device=q.device)
+            o = torch.zeros((B, Hkv, G, cq, hd), device=q.device)
+            for kj in range(Sk // ck):
+                kpos = kj * ck + torch.arange(ck, device=q.device)
+                sl = slice(kj * ck, (kj + 1) * ck)
+                m_c, l_c, o_c = _attn_chunk(qc, k[:, sl], v[:, sl], qpos, kpos, **kw)
+                m_n = torch.maximum(m, m_c)
+                r_a, r_c = torch.exp(m - m_n), torch.exp(m_c - m_n)
+                l = l * r_a + l_c * r_c
+                o = o * r_a[..., None] + o_c * r_c[..., None]
+                m = m_n
+        out = o / torch.clamp(l[..., None], min=1e-30)        # (B, Hkv, G, cq, hd)
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, cq, Hq, hd).to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Parameter init (stacked layers)
+# ---------------------------------------------------------------------------
+
+
+def _dense_init(gen, shape, cfg, device, scale=None):
+    """Normal * ``shape[0] ** -0.5`` unless given, as the reference: for a
+    stacked (L, ...) leaf that is the layer count's."""
+    scale = scale if scale is not None else shape[0] ** -0.5
+    w = torch.randn(shape, generator=gen, device=gen.device) * scale
+    return w.to(device=device, dtype=cfg.param_dtype)
+
+
+def init_block_params(gen, cfg: TransformerConfig, num_layers: int,
+                      device="cpu"):
+    """Stacked (L, ...) dense block params."""
+    D, H, KV, hd, F_ = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff
+    L = num_layers
+    pd = dict(dtype=cfg.param_dtype, device=device)
+    w = lambda shape, scale=None: _dense_init(gen, shape, cfg, device, scale)
+    p = {
+        "ln1": {"g": torch.ones((L, D), **pd)},
+        "ln2": {"g": torch.ones((L, D), **pd)},
+        "wq": w((L, D, H * hd)),
+        "wk": w((L, D, KV * hd)),
+        "wv": w((L, D, KV * hd)),
+        "wo": w((L, H * hd, D)),
+    }
+    if cfg.norm == "layernorm":
+        p["ln1"]["b"] = torch.zeros((L, D), **pd)
+        p["ln2"]["b"] = torch.zeros((L, D), **pd)
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((L, H * hd), **pd)
+        p["bk"] = torch.zeros((L, KV * hd), **pd)
+        p["bv"] = torch.zeros((L, KV * hd), **pd)
+    if cfg.qk_norm:
+        p["qn"] = torch.ones((L, hd), **pd)
+        p["kn"] = torch.ones((L, hd), **pd)
+    if cfg.mlp in ("swiglu", "geglu"):
+        p["w_gate"] = w((L, D, F_))
+    p["w_up"] = w((L, D, F_))
+    p["w_down"] = w((L, F_, D), F_ ** -0.5)
+    return p
+
+
+def init_params(gen: torch.Generator, cfg: TransformerConfig, *, device="cpu"):
+    p = {"blocks": init_block_params(gen, cfg, cfg.num_layers, device),
+         "ln_f": init_norm(cfg, cfg.d_model, device),
+         "embed": _dense_init(gen, (cfg.vocab, cfg.d_model), cfg, device, 0.02)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = _dense_init(gen, (cfg.d_model, cfg.vocab), cfg, device)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Block
+# ---------------------------------------------------------------------------
+
+
+def _proj_sdrop(x, w, b, drop_state):
+    """Projection consuming x through NR structured dropout (paper FP/BP/WG):
+    compact (structured), masked dense (random) or dense."""
+    if drop_state is None or drop_state.inactive:
+        y = (x @ w).to(x.dtype)
+    elif drop_state.structured:
+        y = sm.sdrop_matmul(x, w, drop_state.keep_blocks,
+                            rate=drop_state.spec.rate,
+                            block_size=drop_state.spec.block_size,
+                            impl=drop_state.spec.impl, scale=drop_state.scale)
+    else:
+        y = (drop_state.apply(x) @ w).to(x.dtype)
+    return y + b if b is not None else y
+
+
+def _act(cfg, gt, up):
+    if cfg.mlp == "swiglu":
+        return F.silu(gt) * up
+    if cfg.mlp == "geglu":          # jax.nn.gelu's default: the tanh form
+        return F.gelu(gt, approximate="tanh") * up
+    if cfg.mlp == "relu2":
+        return torch.square(F.relu(up))
+    return F.gelu(up, approximate="tanh")
+
+
+def _mlp(pl, h, cfg, drop_state, inner=None):
+    """Dense FFN with NR sdrop on its input; ``inner`` (a structured
+    DropoutState over d_ff) drops FFN-inner blocks: compact up/gate
+    columns and compact down rows."""
+    gated = cfg.mlp in ("swiglu", "geglu")
+    if inner is not None:
+        kw = dict(rate=inner.spec.rate, block_size=inner.spec.block_size)
+        up = sm.sdrop_matmul_out(h, pl["w_up"], inner.keep_blocks, **kw)
+        gt = sm.sdrop_matmul_out(h, pl["w_gate"], inner.keep_blocks, **kw) if gated else None
+        return sm.sdrop_matmul(_act(cfg, gt, up), pl["w_down"], inner.keep_blocks,
+                               x_is_compact=True, scale=inner.scale, **kw)
+    up = _proj_sdrop(h, pl["w_up"], None, drop_state)
+    gt = _proj_sdrop(h, pl["w_gate"], None, drop_state) if gated else None
+    return (_act(cfg, gt, up) @ pl["w_down"]).to(h.dtype)
+
+
+def _qkv(pl, h, cfg, drop_state, positions):
+    B, S, _ = h.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = _proj_sdrop(h, pl["wq"], pl.get("bq"), drop_state).reshape(B, S, H, hd)
+    k = _proj_sdrop(h, pl["wk"], pl.get("bk"), drop_state).reshape(B, S, KV, hd)
+    v = _proj_sdrop(h, pl["wv"], pl.get("bv"), drop_state).reshape(B, S, KV, hd)
+    if cfg.qk_norm:             # RMSNorm over head_dim, before rope
+        q = norm_apply("rmsnorm", pl["qn"], None, q)
+        k = norm_apply("rmsnorm", pl["kn"], None, k)
+    if cfg.pos == "rope" and positions is not None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.kv_repeat > 1:       # jnp.repeat on the head axis: each kv head
+        k = k.repeat_interleave(cfg.kv_repeat, dim=2)     # kv_repeat times
+        v = v.repeat_interleave(cfg.kv_repeat, dim=2)     # in a row
+    return q, k, v
+
+
+def _attend(q, k, v, cfg, causal):
+    if cfg.attn_impl == "flash":
+        return flash_attention(q, k, v, causal, cfg.window, cfg.q_chunk,
+                               cfg.kv_chunk)
+    return chunked_attention(q, k, v, causal=causal, window=cfg.window,
+                             q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+
+
+def block_apply(pl, x, cfg: TransformerConfig, *, causal: bool,
+                drop_states=(None, None, None), positions=None):
+    """One transformer block; ``drop_states`` = (attention-in, mlp-in,
+    FFN-inner) DropoutStates or None."""
+    B, S, _ = x.shape
+    d_attn, d_mlp, inner = drop_states
+    h = _norm(cfg, pl["ln1"], x)
+    q, k, v = _qkv(pl, h, cfg, d_attn, positions)
+    attn = _attend(q, k, v, cfg, causal).reshape(B, S, cfg.n_heads * cfg.hd)
+    x = x + (attn @ pl["wo"]).to(x.dtype)
+    h2 = _norm(cfg, pl["ln2"], x)
+    return x + _mlp(pl, h2, cfg, d_mlp, inner)
+
+
+# ---------------------------------------------------------------------------
+# Dropout states (per layer, per sub-layer, per step)
+# ---------------------------------------------------------------------------
+
+
+def _layer_drop_states(ctx, cfg: TransformerConfig, layer_idx: int, bs_shape):
+    """(attention-in, mlp-in, FFN-inner) states of one layer: NR states
+    over d_model (kept-block ids, or a per-token mask for the random
+    baseline) and the FFN-inner kept blocks over d_ff when that site is
+    structured. The layer index is the time axis: PER_STEP specs re-sample
+    per layer, FIXED ones share one mask across the depth."""
+    if ctx is None or ctx.deterministic:
+        return (None, None, None)
+    inner = fit_block(ctx.spec("mlp/ffn_inner"), cfg.d_ff)
+    if not (ctx.spec("attn/nr").active or ctx.spec("mlp/nr").active
+            or inner.structured):
+        return (None, None, None)
+    st_a = ctx.state("attn/nr", bs_shape, cfg.d_model, t=layer_idx)
+    st_m = ctx.state("mlp/nr", bs_shape, cfg.d_model, t=layer_idx)
+    st_i = (ctx.state("mlp/ffn_inner", bs_shape, cfg.d_ff, t=layer_idx)
+            if inner.structured else None)
+    return (st_a, st_m, st_i)
+
+
+def dropout_sites(cfg: TransformerConfig, batch: int, seq: int):
+    """Every dropout application a forward makes, as (name, "state_t",
+    layer index, batch, dim)."""
+    inner = fit_block(cfg.plan.spec("mlp/ffn_inner"), cfg.d_ff).structured
+    sites = []
+    for li in range(cfg.num_layers):
+        sites.append(("attn/nr", "state_t", li, (batch, seq), cfg.d_model))
+        sites.append(("mlp/nr", "state_t", li, (batch, seq), cfg.d_model))
+        if inner:
+            sites.append(("mlp/ffn_inner", "state_t", li, (batch, seq), cfg.d_ff))
+    return sites
+
+
+# ---------------------------------------------------------------------------
+# Full model
+# ---------------------------------------------------------------------------
+
+
+def _embed_tokens(params, tokens, cfg):
+    x = F.embedding(tokens.long(), params["embed"]).to(cfg.compute_dtype)
+    if cfg.scale_embed:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.compute_dtype)
+    return x
+
+
+def _run_stack(blocks, x, cfg, *, causal, positions, ctx=None):
+    """The layer loop; each block recomputed in the backward when
+    ``remat="full"``. Layer l's masks are drawn outside its checkpoint."""
+    for li in range(cfg.num_layers):
+        pl = tree_map(lambda a: a[li], blocks)
+        ds = _layer_drop_states(ctx, cfg, li, tuple(x.shape[:2]))
+        body = lambda x_, pl=pl, ds=ds: block_apply(
+            pl, x_, cfg, causal=causal, drop_states=ds, positions=positions)
+        x = (checkpoint(body, x, use_reentrant=False)
+             if cfg.remat == "full" and torch.is_grad_enabled() else body(x))
+    return x
+
+
+def forward(params, tokens, cfg: TransformerConfig, *, ctx=None):
+    """tokens (B, S) -> final-norm features (B, S, D)."""
+    x = _embed_tokens(params, tokens, cfg)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    x = _run_stack(params["blocks"], x, cfg, causal=True, positions=positions,
+                   ctx=ctx)
+    return _norm(cfg, params["ln_f"], x)
+
+
+def lm_logits(params, feats, cfg):
+    w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    return feats.float() @ w.float()
+
+
+def loss_fn(params, batch, cfg: TransformerConfig, *, seed: Optional[int] = None,
+            step: int = 0, injected=None):
+    """Mean next-token NLL. ``seed=None`` runs without dropout; ``injected``
+    serves precomputed masks per site (core/dropout_plan.py)."""
+    ctx = cfg.plan.bind(seed, step, device=params["embed"].device,
+                        injected=injected)
+    feats = forward(params, batch["tokens"], cfg, ctx=ctx)
+    return metrics.lm_loss(lambda f: lm_logits(params, f, cfg), feats,
+                           batch["labels"], cfg.loss_chunks)

@@ -9,7 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.models import lstm_lm, seq2seq, xlstm
+from repro_torch.models import lstm_lm, seq2seq, transformer, xlstm
 
 
 def to_numpy_tree(tree):
@@ -30,6 +30,7 @@ def to_numpy_tree(tree):
 lm_sites = lstm_lm.dropout_sites
 nmt_sites = seq2seq.dropout_sites
 xlstm_sites = xlstm.dropout_sites
+transformer_sites = transformer.dropout_sites
 
 
 def injection_from_ctx(ctx, sites) -> dict:
