@@ -20,22 +20,37 @@ plain PyTorch version at that path's full shapes, and times it:
   * qwen3-8b (B=1, S=4096, 32 query heads over 16 kv heads after
     kv_repeat, head_dim 128, causal): K9 flash forward, K10 dq, K11 dk/dv,
     with ``scaled_dot_product_attention`` timed beside them as the library
-    yardstick (also non-causal, windowed, MQA, G=4, ragged, Sq != Sk,
-    head_dim 16 / 64 / 256 and bfloat16 modes on small inputs).
+    yardstick (also non-causal, windowed, MQA, G=4, G=3 (mixtral's group),
+    ragged, Sq != Sk, head_dim 16 / 64 / 256 and bfloat16 modes on small
+    inputs);
+  * mixtral-8x22b (the expert products over the (8 experts x 1280 slots)
+    capacity buffer: x (10240, 6144) by w (8, 6144, 16384), and x (10240,
+    16384) by w (8, 16384, 6144)): K12 grouped matmul, with ``torch.bmm`` on
+    the (E, C, .) buffer timed as the library yardstick (also the reference
+    test's four shapes in float32 and bfloat16, bm not a multiple of the
+    tile, an empty expert, unsorted repeated ids and ragged T, D, F);
+  * zaremba-medium's cell update (B=20, H=650, and H=1500): K5 fused LSTM
+    pointwise, with forget_bias 0 and 1 and odd shapes.
 
 Then it checks on small inputs that the kernel engines agree with the plain
-stepwise oracle (the three recurrent models) and that the qwen3 smoke
-config with ``attn_impl="flash"`` agrees with ``attn_impl="xla"``, and
-drives each main path — the
+stepwise oracle (the three recurrent models), that the qwen3 smoke config
+with ``attn_impl="flash"`` agrees with ``attn_impl="xla"`` and the mixtral
+smoke config with ``moe_impl="pallas"`` with ``"xla"``; runs the
+``lstm_stack`` forward at zaremba-medium width (T=35, B=20, H=D=650, 2
+layers, ``case3:0.5:pallas``) under ``torch.no_grad()`` with the scheduled
+and stepwise engines, ``pointwise_impl="pallas"`` (K5) against ``"xla"``;
+and drives each main path — the
 training step of ``repro_torch.launch.train`` at full width, zaremba-medium
 under ``case3:0.5:pallas`` and luong-nmt (batch 64, max_len 50) under
 ``case3:0.3:pallas``, and ``launch.steps.make_train_step`` on xlstm-1.3b
 cut to 16 blocks (batch 2 x 2048, its own plan with ``impl="pallas"``)
 with the fused and the scheduled engine, and qwen3-8b cut to 4 layers
 (batch 1 x 4096, its own plan) with ``attn_impl="flash"`` and then
+``"xla"``, and mixtral-8x22b cut to 1 of 56 layers (float32, batch 1 x
+4096, its own plan, flash attention) with ``moe_impl="pallas"`` and then
 ``"xla"`` — asserting that every kernel's launch counter grew in that
 path's run (and that K6 did not launch under the scheduled engine, nor
-K9-K11 under xla).
+K9-K11 under xla, nor K12 under the mixtral xla route).
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -69,8 +84,12 @@ XT, XB, XNH, XDH, XBS, XP = 2048, 2, 4, 512, 64, 0.25   # xlstm-1.3b sLSTM
 X_LAYERS = 16                                           # depth cut from 48
 QB, QS, QHQ, QHKV, QD = 1, 4096, 32, 16, 128   # qwen3-8b attention (kv_repeat 2)
 Q_LAYERS = 4                                    # depth cut from 36
+MB, MS, MD, MF, ME, MK = 1, 4096, 6144, 16384, 8, 2   # mixtral-8x22b
+MC = math.ceil(MB * MS * MK / ME * 1.25)              # capacity: 1280 slots
+M_LAYERS = 1                                          # depth cut from 56
 STEPS = 5
 LM, NMT, XLSTM, QWEN = "zaremba-medium", "luong-nmt", "xlstm-1.3b", "qwen3-8b"
+MIXTRAL, STACK = "mixtral-8x22b", "lstm_stack"
 
 
 def smi_line() -> str:
@@ -147,14 +166,15 @@ def keep_table(gen, rows, hidden, rate):
 def row_name(counter, arch):
     """JSON row name: the launch counter's name, tagged with the arch where
     a kernel of the zaremba path is timed at the luong-nmt shapes too."""
-    own = counter.startswith(("decoder_scan", "slstm_scan", "flash_"))
+    own = counter.startswith(("decoder_scan", "slstm_scan", "flash_",
+                              "grouped_matmul", "lstm_pointwise"))
     return counter if arch == LM or own else f"{counter}@{arch}"
 
 
 def add_row(out, counter, arch, src, replaces, err, ms, pms, lms, nbytes,
-            flops, l2):
+            flops, l2, name=None):
     b, by = bound_ms(nbytes, flops)
-    name = row_name(counter, arch)
+    name = name or row_name(counter, arch)
     print(f"  {name}: {ms:.4f} ms  plain {pms:.4f} ms  library "
           f"{'n/a' if lms is None else f'{lms:.4f} ms'}  bound {b:.4f} ms "
           f"({by}), L2 {l2}")
@@ -592,6 +612,8 @@ def check_flash_modes(gen):
             ((1, 1024, 1024, 4, 2, 128), dict(window=256), "(window 256)"),
             ((2, 128, 128, 4, 1, 64), {}, "(MQA)"),
             ((1, 256, 256, 8, 2, 128), {}, "(G=4)"),
+            ((1, 192, 192, 6, 2, 128), {}, "(G=3, mixtral's group)"),
+            ((1, 100, 100, 9, 3, 64), dict(window=40), "(G=3 window)"),
             ((1, 48, 48, 4, 2, 64), {}, "(S=48)"),
             ((2, 100, 100, 4, 2, 128), {}, "(S=100)"),
             ((1, 80, 144, 4, 2, 64), {}, "(Sq < Sk)"),
@@ -684,35 +706,45 @@ EXPECT_NMT_FUSED = {"decoder_scan_fwd": 1, "decoder_scan_bwd": 1,
                     "gather_matmul_stepped/fp": 3, "gather_matmul_stepped/bp": 3}
 
 
+def _counters():
+    """Every kernel wrapper's launch counts (one dict per module)."""
+    from repro_torch.kernels import decoder_scan as dsk
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gather_matmul as gm
+    from repro_torch.kernels import grouped_matmul as gmm
+    from repro_torch.kernels import lstm_pointwise as k5
+    from repro_torch.kernels import lstm_scan as ls
+    from repro_torch.kernels import slstm_scan as ss
+    return (gm.LAUNCHES, ls.LAUNCHES, dsk.LAUNCHES, ss.LAUNCHES, fa.LAUNCHES,
+            gmm.LAUNCHES, gmm.LAUNCHES_BY_SHAPE, k5.LAUNCHES)
+
+
+def reset_counts():
+    for d in _counters():
+        for key in d:
+            d[key] = 0
+
+
+def read_counts():
+    return {k_: v for d in _counters() for k_, v in d.items()}
+
+
 def drive_main_path():
     """Each path's training step at full width with both engines; returns
     {arch: {engine: {counter: launches}}}, {"arch/engine": [ms]}."""
-    from repro_torch.kernels import decoder_scan as dsk
-    from repro_torch.kernels import gather_matmul as gm
-    from repro_torch.kernels import lstm_scan as ls
     from repro_torch.launch import train
-
-    counters = (gm.LAUNCHES, ls.LAUNCHES, dsk.LAUNCHES)
-
-    def reset():
-        for d in counters:
-            for key in d:
-                d[key] = 0
-
-    def counts():
-        return {k_: v for d in counters for k_, v in d.items()}
 
     totals, step_ms = {}, {}
     for arch, batch, seq, plan, full_width in MAIN_PATHS:
         for engine in ("fused", "scheduled"):
             print(f"main path: {arch}, batch {batch}, seq {seq}, {plan}, "
                   f"engine {engine}, {STEPS} steps")
-            reset()
+            reset_counts()
             res = train.run(["--arch", arch, "--batch", str(batch),
                              "--seq", str(seq), "--dropout", plan,
                              "--engine", engine, "--steps", str(STEPS),
                              "--seed", "0"])
-            c = counts()
+            c = read_counts()
             assert full_width(res["cfg"]), res["cfg"]
             assert len(res["losses"]) == STEPS
             assert all(math.isfinite(x) for x in res["losses"]), res["losses"]
@@ -741,13 +773,8 @@ def drive_xlstm():
     from repro_torch import configs
     from repro_torch.configs import adapters
     from repro_torch.core.dropout_plan import DropoutPlan
-    from repro_torch.kernels import decoder_scan as dsk
-    from repro_torch.kernels import gather_matmul as gm
-    from repro_torch.kernels import lstm_scan as ls
-    from repro_torch.kernels import slstm_scan as ss
     from repro_torch.launch import steps, train
 
-    counters = (gm.LAUNCHES, ls.LAUNCHES, dsk.LAUNCHES, ss.LAUNCHES)
     spec = configs.get_arch(XLSTM)
     base = spec.full(num_layers=X_LAYERS)
     plan = DropoutPlan({n: sp.with_(impl="pallas") for n, sp in base.plan.sites})
@@ -771,9 +798,7 @@ def drive_xlstm():
         step_fn = steps.make_train_step(spec, cfg, opt)
         batch_fn = train.make_batch_fn(spec.kind, cfg, XB, XT, 0, dev)
         torch.cuda.synchronize()
-        for d in counters:
-            for key in d:
-                d[key] = 0
+        reset_counts()
         ms, ls_ = [], []
         for step in range(STEPS):
             t0 = time.perf_counter()
@@ -782,7 +807,7 @@ def drive_xlstm():
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
             print(f"  step {step}: loss {ls_[-1]:.4f}  {ms[-1]:.1f} ms")
-        c = {k_: v for d in counters for k_, v in d.items()}
+        c = read_counts()
         assert all(math.isfinite(x) for x in ls_), ls_
         assert all(torch.isfinite(p).all() for p in _leaves(params))
         k6 = c["slstm_scan_fwd"] + c["slstm_scan_bwd"]
@@ -847,14 +872,9 @@ def drive_transformer():
     {impl: peak bytes}."""
     from repro_torch import configs
     from repro_torch.configs import adapters
-    from repro_torch.kernels import decoder_scan as dsk
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import gather_matmul as gm
-    from repro_torch.kernels import lstm_scan as ls
-    from repro_torch.kernels import slstm_scan as ss
     from repro_torch.launch import steps, train
 
-    counters = (gm.LAUNCHES, ls.LAUNCHES, dsk.LAUNCHES, ss.LAUNCHES, fa.LAUNCHES)
     spec = configs.get_arch(QWEN)
     dev = torch.device("cuda")
     totals, step_ms, peak = {}, {}, {}
@@ -876,9 +896,7 @@ def drive_transformer():
         step_fn = steps.make_train_step(spec, cfg, opt)
         batch_fn = train.make_batch_fn(spec.kind, cfg, QB, QS, 0, dev)
         torch.cuda.synchronize()
-        for d in counters:
-            for key in d:
-                d[key] = 0
+        reset_counts()
         ms, ls_ = [], []
         for step in range(STEPS):
             t0 = time.perf_counter()
@@ -887,7 +905,7 @@ def drive_transformer():
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
             print(f"  step {step}: loss {ls_[-1]:.4f}  {ms[-1]:.1f} ms")
-        c = {k_: v for d in counters for k_, v in d.items()}
+        c = read_counts()
         assert all(math.isfinite(x) for x in ls_), ls_
         assert all(torch.isfinite(p).all() for p in _leaves(params))
         flash = {k_: c[k_] for k_ in fa.LAUNCHES}
@@ -909,6 +927,280 @@ def drive_transformer():
         totals[impl], step_ms[impl] = c, ms
         del params, state
     return totals, step_ms, peak
+
+
+def check_grouped(out):
+    """K12 against its plain version (one cuBLAS product per row block):
+    at mixtral-8x22b's two expert-product shapes, cold L2, timed beside
+    ``torch.bmm`` on the (E, C, .) buffer (the library yardstick), within
+    1e-3 x max(1, |ref|); then on small inputs: the reference test's four
+    shapes in float32 and bfloat16 (3e-2), bm not a multiple of the 128-row
+    tile, an empty expert, unsorted repeated ids and ragged T, D, F."""
+    from repro_torch.kernels import grouped_matmul as gm
+    g = torch.Generator(device="cuda").manual_seed(12)
+    T_ = ME * MC
+    blk = torch.arange(ME, dtype=torch.int32, device="cuda")
+    src = "src/repro_torch/csrc/grouped_matmul.cu"
+    for tag, D_, F_ in (("gate/up", MD, MF), ("down", MF, MD)):
+        x = torch.randn(T_, D_, device="cuda", generator=g)
+        w = torch.randn(ME, D_, F_, device="cuda", generator=g) * D_ ** -0.5
+        print(f"grouped_matmul ({MIXTRAL} {tag}): x ({T_}, {D_}) w ({ME}, {D_}, {F_}) "
+              f"bm={MC}")
+        fk = lambda: gm.grouped_matmul(x, w, blk, bm=MC)
+        fp = lambda: gm.grouped_matmul_plain(x, w, blk, bm=MC)
+        xb = x.view(ME, MC, D_)
+        fl = lambda: torch.bmm(xb, w)
+        err = compare(f"  grouped_matmul ({tag})", fk(), fp(), 1e-3)
+        # once per expert product, after other work: timed with a cold L2
+        ms = time_ms(fk, reps=10, warmup=2, cold_l2=True)
+        pms = time_ms(fp, reps=10, warmup=2, cold_l2=True)
+        lms = time_ms(fl, reps=10, warmup=2, cold_l2=True)
+        nbytes = 4 * (T_ * D_ + ME * D_ * F_ + T_ * F_) + 4 * ME
+        name = "grouped_matmul" if tag == "gate/up" else "grouped_matmul/down"
+        # launches: this weight shape's, from the wrapper's per-shape count
+        add_row(out, f"grouped_matmul/{D_}x{F_}", MIXTRAL, src,
+                "src/repro/kernels/grouped_matmul.py:31", err, ms, pms, lms,
+                nbytes, 2 * T_ * D_ * F_, "cold", name=name)
+        del x, w, xb
+    torch.cuda.empty_cache()
+
+    def small(T_, D_, F_, E_, bm, dtype=torch.float32, blk_=None, zero_rows=None,
+              tag=""):
+        gc_ = torch.Generator().manual_seed(T_ + D_)
+        x = torch.randn(T_, D_, generator=gc_)
+        if zero_rows is not None:
+            x[zero_rows] = 0.0
+        w = torch.randn(E_, D_, F_, generator=gc_) * D_ ** -0.5
+        if blk_ is None:
+            blk_ = torch.randint(0, E_, (-(-T_ // bm),), generator=gc_)
+        args = (x.to("cuda", dtype), w.to("cuda", dtype),
+                blk_.to(torch.int32).cuda())
+        got = gm.grouped_matmul(*args, bm=bm)
+        compare(f"  grouped_matmul T={T_} D={D_} F={F_} E={E_} bm={bm} {dtype} {tag}",
+                got, gm.grouped_matmul_plain(*args, bm=bm),
+                1e-3 if dtype == torch.float32 else 3e-2)
+        if zero_rows is not None and not (got[zero_rows] == 0).all():
+            raise AssertionError("grouped_matmul: rows holding no token are not zero")
+
+    print("grouped_matmul small modes")
+    for dtype in (torch.float32, torch.bfloat16):
+        for T_, D_, F_, E_, bm in ((32, 16, 24, 4, 8), (64, 32, 32, 2, 16),
+                                   (128, 64, 128, 8, 16), (24, 8, 8, 3, 8)):
+            small(T_, D_, F_, E_, bm, dtype, tag="(test_grouped sweep)")
+    small(600, 96, 160, 3, 200, tag="(bm not a multiple of the tile)")
+    small(512, 64, 96, 4, 128, blk_=torch.tensor([0, 0, 2, 3]), zero_rows=slice(128, 256),
+          tag="(empty expert 1; a block of zero rows)")
+    small(384, 64, 64, 3, 32, blk_=torch.tensor([2, 0, 2, 2, 1, 0, 0, 1, 2, 1, 1, 0]),
+          tag="(unsorted repeated ids)")
+    small(257, 37, 61, 5, 23, tag="(T, D, F tails; scalar loads)")
+    small(300, 100, 132, 3, 70, dtype=torch.bfloat16, tag="(bf16 tails)")
+    # the kernel against a float64 product on the host, independent of cuBLAS
+    gc_ = torch.Generator().manual_seed(64)
+    x = torch.randn(640, 256, generator=gc_)
+    w = torch.randn(4, 256, 384, generator=gc_) * 256 ** -0.5
+    ids = torch.tensor([3, 1, 1, 0, 2])
+    want = torch.cat([x[i * 128:(i + 1) * 128].double() @ w[e].double()
+                      for i, e in enumerate(ids.tolist())])
+    compare("  grouped_matmul T=640 D=256 F=384 bm=128 vs float64",
+            gm.grouped_matmul(x.cuda(), w.cuda(), ids.to(torch.int32).cuda(), bm=128),
+            want, 1e-4)
+
+
+def check_pointwise(out):
+    """K5 against its plain version within 1e-5 x max(1, |ref|): at
+    zaremba-medium's cell (B=20, H=650) and zaremba-large's (H=1500), with
+    forget_bias 0 and 1, and on odd shapes; timed at (20, 650) with a warm
+    L2 (in the scan, the gates were written just before), beside
+    ``aten._thnn_fused_lstm_cell`` (the library's fused cell update, held to
+    the plain version too)."""
+    from repro_torch.kernels import lstm_pointwise as k5
+    print("lstm_pointwise")
+    g = torch.Generator().manual_seed(5)
+    for B_, H_, fb in ((B, H, 0.0), (B, H, 1.0), (B, 1500, 0.0), (B, 1500, 1.0),
+                       (7, 33, 1.0), (129, 517, 0.0)):
+        gates = (torch.randn(B_, 4 * H_, generator=g) * 2).cuda()
+        c = torch.randn(B_, H_, generator=g).cuda()
+        fk = lambda: k5.lstm_pointwise(gates, c, forget_bias=fb)
+        fp = lambda: k5.lstm_pointwise_plain(gates, c, forget_bias=fb)
+        with torch.no_grad():
+            err = compare(f"  lstm_pointwise B={B_} H={H_} forget_bias={fb:g}",
+                          list(fk()), list(fp()), 1e-5)
+            if (B_, H_, fb) == (B, H, 0.0):
+                # the library yardstick: nn.LSTMCell's fused CUDA cell update,
+                # same [i|f|g|o] order, forget_bias in the f slice of a bias;
+                # its hidden gates are zeros (one more (B, 4H) read)
+                zeros = torch.zeros_like(gates)
+                bias = torch.zeros(4 * H_, device="cuda")
+                bias[H_:2 * H_] = fb
+                zb = torch.zeros_like(bias)
+                cell = torch.ops.aten._thnn_fused_lstm_cell
+                fl = lambda: cell(gates, zeros, c, bias, zb)[:2]
+                compare(f"  aten._thnn_fused_lstm_cell B={B_} H={H_} (library)",
+                        list(fl()), list(fp()), 1e-5)
+                ms, pms = time_ms(fk, reps=50), time_ms(fp, reps=50)
+                lms = time_ms(fl, reps=50)
+                add_row(out, "lstm_pointwise", STACK,
+                        "src/repro_torch/csrc/lstm_pointwise.cu",
+                        "src/repro/kernels/lstm_pointwise.py:23", err, ms, pms,
+                        lms, 4 * (B_ * 4 * H_ + B_ * H_ + 2 * B_ * H_),
+                        16 * B_ * H_, "warm")   # ~16 float32 operations a unit
+
+
+def drive_lstm_stack():
+    """The ``lstm_stack`` forward at zaremba-medium width (T=35, B=20,
+    H=D=650, 2 layers, ``case3:0.5:pallas`` tables: K1 for the in-scan RH
+    product, K2 for the hoisted NR one in the scheduled engine) under
+    ``torch.no_grad()``, engines scheduled and stepwise, with
+    ``pointwise_impl="pallas"`` (K5, the main path of this phase) and
+    ``"xla"``: outputs and final states within 1e-5 x max(1, |ref|), and K5
+    launched exactly 2 x 35 times a call. Returns {engine: counts} of the
+    pallas calls."""
+    from repro_torch.core import lstm as lstm_mod
+    from repro_torch.core.dropout_plan import DropoutPlan
+    g = torch.Generator().manual_seed(35)
+    params = lstm_mod.init_lstm_params(g, D, H, 2, device="cuda")
+    x = torch.randn(T, B, D, generator=g).cuda()
+    state = lstm_mod.LSTMState(*(torch.randn(2, B, H, generator=g).cuda() * 0.3
+                                 for _ in range(2)))
+    plan = DropoutPlan.parse(f"case3:{P}:pallas", sites=("nr", "rh"))
+    totals = {}
+    print(f"lstm_stack forward: T={T} B={B} H=D={H} 2 layers, case3:{P}:pallas")
+    for engine in ("scheduled", "stepwise"):
+        res = {}
+        for impl in ("pallas", "xla"):
+            ctx = plan.bind(0, 3, device="cuda")
+            torch.cuda.synchronize()
+            reset_counts()
+            with torch.no_grad():
+                ys, fin = lstm_mod.lstm_stack(params, x, state, ctx=ctx, engine=engine,
+                                              pointwise_impl=impl)
+            torch.cuda.synchronize()
+            c = read_counts()
+            want = 2 * T if impl == "pallas" else 0
+            assert c["lstm_pointwise"] == want, (engine, impl, c)
+            if impl == "pallas":
+                totals[engine] = c
+            res[impl] = [ys, fin.h, fin.c]
+        print(f"  {engine}: K5 launches per call {totals[engine]['lstm_pointwise']}")
+        compare(f"  lstm_stack {engine} pallas vs xla (ys, h, c)", res["pallas"],
+                res["xla"], 1e-5)
+    return totals
+
+
+def check_mixtral_small():
+    """On a small input, the mixtral smoke config with ``attn_impl="flash"``
+    and ``moe_impl="pallas"`` (K12, K9-K11) against ``moe_impl="xla"`` on
+    the card: loss and every gradient within 1e-4 x max(1, |ref|). Both
+    are also held to a float64 run of the xla route on the CPU (parameters,
+    router and experts in float64; the chunked attention and the vocab head
+    compute in float32 either way) within 1e-3 x max(1, |ref|), and a
+    float32 CPU run is held to the same oracle and printed beside them: at
+    this size the smoke config's experts amplify float32 rounding to ~2e-4
+    of a gradient's largest entry, so float32 on the CPU sits as far from
+    float64 as the card does, and 1e-4 against a float32 CPU run is not a
+    limit that rounding alone keeps."""
+    from repro_torch import configs
+    from repro_torch.configs import adapters
+    from repro_torch.kernels import grouped_matmul as gmm
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.optim import tree_leaves
+    spec = configs.get_arch(MIXTRAL)
+    g = torch.Generator().manual_seed(1)
+    batch_cpu = {"tokens": torch.randint(0, 128, (2, 24), generator=g),
+                 "labels": torch.randint(0, 128, (2, 24), generator=g)}
+    results = {}
+    oracle = "xla/cpu/float64"
+    for impl, attn, dev, dt in (("xla", "xla", "cpu", torch.float64),
+                                ("xla", "xla", "cpu", torch.float32),
+                                ("xla", "flash", "cuda", torch.float32),
+                                ("pallas", "flash", "cuda", torch.float32)):
+        cfg = spec.smoke(attn_impl=attn, moe_impl=impl)
+        if dt == torch.float64:
+            cfg = dataclasses.replace(cfg, param_dtype=dt, compute_dtype=dt,
+                                      moe=dataclasses.replace(cfg.moe, router_dtype=dt))
+        params = adapters.init_params(spec.kind, torch.Generator().manual_seed(0),
+                                      cfg, device=dev)
+        batch = {k_: v.to(dev) for k_, v in batch_cpu.items()}
+        lfn = value_and_grad(lambda p, b, **kw: adapters.loss_fn(spec.kind)(p, b, cfg, **kw))
+        before = gmm.LAUNCHES["grouped_matmul"]
+        loss, grads = lfn(params, batch, seed=7, step=3)
+        launched = gmm.LAUNCHES["grouped_matmul"] - before
+        # 3 expert products a layer, forward and recompute (remat "full")
+        want = 6 * cfg.num_layers if impl == "pallas" else 0
+        assert launched == want, (impl, launched)
+        name = f"xla/cpu/{str(dt)[6:]}" if dev == "cpu" else f"{impl}/{dev}"
+        results[name] = [loss.cpu()] + [x.cpu() for x in tree_leaves(grads)]
+    print("mixtral smoke on a small input (moe_impl pallas vs xla, flash attention)")
+    compare("  pallas/cuda vs xla/cuda (loss + grads)", results["pallas/cuda"],
+            results["xla/cuda"], 1e-4)
+    for name in ("xla/cpu/float32", "xla/cuda", "pallas/cuda"):
+        compare(f"  {name} vs {oracle} (loss + grads)", results[name],
+                results[oracle], 1e-3)
+
+
+def drive_moe():
+    """mixtral-8x22b at full width, cut to M_LAYERS layer, float32, batch MB
+    x MS (train_4k's sequence), its own plan (nr p=0.25 block 128), remat
+    "full", flash attention: STEPS training steps through
+    ``steps.make_train_step`` with the trainer's batches, with
+    ``moe_impl="pallas"`` (the main path: K12 six times a layer, three
+    expert products forward and three in the recompute) and then with
+    ``"xla"`` (``torch.matmul``, the step's yardstick). Returns {impl:
+    counts}, {impl: [ms]}, {impl: peak bytes}, {impl: losses}."""
+    from repro_torch import configs
+    from repro_torch.configs import adapters
+    from repro_torch.launch import steps, train
+    spec = configs.get_arch(MIXTRAL)
+    dev = torch.device("cuda")
+    totals, step_ms, peak, losses = {}, {}, {}, {}
+    for impl in ("pallas", "xla"):
+        cfg = spec.full(num_layers=M_LAYERS, attn_impl="flash", moe_impl=impl)
+        assert (cfg.d_model, cfg.n_heads, cfg.n_kv_eff, cfg.hd, cfg.d_ff, cfg.vocab,
+                cfg.moe.num_experts, cfg.moe.top_k, cfg.window, cfg.remat) == (
+                    MD, 48, 16, 128, MF, 32768, ME, MK, 4096, "full"), cfg
+        print(f"main path: {MIXTRAL}, {M_LAYERS} layer, batch {MB}, seq {MS}, "
+              f"plan {cfg.plan.to_dict()}, moe_impl {impl}, flash, {STEPS} steps")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = adapters.init_params(
+            spec.kind, torch.Generator(device="cuda").manual_seed(0), cfg, device=dev)
+        n_params = sum(p.numel() for p in _leaves(params))
+        opt = steps.default_opt(1e-3)
+        state = opt.init(params)
+        step_fn = steps.make_train_step(spec, cfg, opt)
+        batch_fn = train.make_batch_fn(spec.kind, cfg, MB, MS, 0, dev)
+        torch.cuda.synchronize()
+        reset_counts()
+        ms, ls_ = [], []
+        for step in range(STEPS):
+            t0 = time.perf_counter()
+            params, state, loss = step_fn(params, state, batch_fn(step), step, 0)
+            ls_.append(float(loss))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            print(f"  step {step}: loss {ls_[-1]:.4f}  {ms[-1]:.1f} ms")
+        c = read_counts()
+        assert all(math.isfinite(x) for x in ls_), ls_
+        assert all(torch.isfinite(p).all() for p in _leaves(params))
+        k12 = (M_LAYERS if impl == "pallas" else 0) * STEPS
+        want = {"grouped_matmul": 6 * k12, f"grouped_matmul/{MD}x{MF}": 4 * k12,
+                f"grouped_matmul/{MF}x{MD}": 2 * k12,
+                "flash_fwd": 2 * M_LAYERS * STEPS, "flash_dq": M_LAYERS * STEPS,
+                "flash_dkv": M_LAYERS * STEPS}
+        got = {k_: c.get(k_, 0) for k_ in want}
+        assert got == want, f"{MIXTRAL}/{impl}: launches {got}, expected {want}"
+        peak[impl] = torch.cuda.max_memory_allocated()
+        print(f"  {n_params} parameters; launches per step ({MIXTRAL}/{impl}): "
+              + ", ".join(f"{k_}={v / STEPS:g}" for k_, v in c.items() if v)
+              + f"; peak memory {peak[impl] / 2**30:.2f} GiB")
+        totals[impl], step_ms[impl], losses[impl] = c, ms, ls_
+        del params, state
+    rel = abs(losses["pallas"][0] - losses["xla"][0]) / abs(losses["xla"][0])
+    print(f"  step-0 loss pallas {losses['pallas'][0]:.6f} vs xla "
+          f"{losses['xla'][0]:.6f}: relative difference {rel:.3e} (limit 1e-4)")
+    assert rel <= 1e-4, rel
+    return totals, step_ms, peak, losses
 
 
 def steady_median(ms):
@@ -948,9 +1240,9 @@ def main() -> int:
                                        "smem")):
                 print(f"  [{name}] {line.strip()}")
     print("kernels: K1 gather_matmul, K2 gather_matmul_stepped, "
-          "K3 lstm_scan_fwd, K4 lstm_scan_bwd, K6 slstm_scan_fwd/bwd, "
-          "K7 decoder_scan_fwd, K8 decoder_scan_bwd, K9 flash_fwd, "
-          "K10 flash_dq, K11 flash_dkv")
+          "K3 lstm_scan_fwd, K4 lstm_scan_bwd, K5 lstm_pointwise, "
+          "K6 slstm_scan_fwd/bwd, K7 decoder_scan_fwd, K8 decoder_scan_bwd, "
+          "K9 flash_fwd, K10 flash_dq, K11 flash_dkv, K12 grouped_matmul")
 
     gen = torch.Generator().manual_seed(0)
     rows = {}
@@ -992,12 +1284,18 @@ def main() -> int:
     # inputs
     check_flash(gen, QB, QS, QS, QHQ, QHKV, QD, out=rows, tag="(main path)")
     check_flash_modes(gen)
+    # mixtral-8x22b: K12 at the expert products' shapes, then small modes;
+    # K5 at zaremba-medium's cell
+    check_grouped(rows)
+    check_pointwise(rows)
     check_engines_small()
     check_engines_small(NMT)
     check_engines_small(XLSTM)
     check_qwen_small()
+    check_mixtral_small()
 
     counts, step_ms = drive_main_path()
+    counts[STACK] = drive_lstm_stack()
     gc.collect()
     torch.cuda.empty_cache()
     x_counts, x_ms, x_peak, _ = drive_xlstm()
@@ -1018,14 +1316,29 @@ def main() -> int:
         print(f"{QWEN}/{impl}: steady median {med:.2f} ms/step, "
               f"{QB * QS / med * 1e3:.1f} tokens/s, peak memory "
               f"{q_peak[impl]} bytes ({q_peak[impl] / 2**30:.2f} GiB)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    m_counts, m_ms, m_peak, _ = drive_moe()
+    counts[MIXTRAL] = m_counts
+    for impl, ms in m_ms.items():
+        step_ms[f"{MIXTRAL}/{impl}"] = ms
+        med = steady_median(ms)
+        print(f"{MIXTRAL}/{impl}: steady median {med:.2f} ms/step, "
+              f"{MB * MS / med * 1e3:.1f} tokens/s, peak memory "
+              f"{m_peak[impl]} bytes ({m_peak[impl] / 2**30:.2f} GiB)")
     for key, ms in step_ms.items():
         print(f"step ms ({key}): " + ", ".join(f"{x:.2f}" for x in ms))
     kernels = []
     for name, r in rows.items():
-        per = counts[r.pop("arch")]
+        arch = r.pop("arch")
+        per = counts[arch]
         counter = r.pop("counter")
-        r["launches"] = sum(c[counter] for c in per.values())
-        r["launches_per_step"] = {e: c[counter] / STEPS for e, c in per.items()}
+        r["launches"] = sum(c.get(counter, 0) for c in per.values())
+        if arch == STACK:       # one lstm_stack forward per engine
+            r["launches_per_call"] = {e: c.get(counter, 0) for e, c in per.items()}
+        else:
+            r["launches_per_step"] = {e: c.get(counter, 0) / STEPS
+                                      for e, c in per.items()}
         if r["launches"] == 0:
             raise AssertionError(f"{name} never launched on the main path")
         kernels.append(r)
@@ -1034,7 +1347,8 @@ def main() -> int:
                       "step_ms": {k: steady_median(v)
                                   for k, v in step_ms.items()},
                       "xlstm_peak_bytes": x_peak,
-                      "qwen3_peak_bytes": q_peak}))
+                      "qwen3_peak_bytes": q_peak,
+                      "mixtral_peak_bytes": m_peak}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,7 +8,7 @@ the same function:
   * ``"scheduled"`` — Phase A samples every site's masks for all T steps
     and runs each layer's NR matmul time-batched (K2 under ``:pallas``);
     Phase B loops over time with the RH matmul (K1 under ``:pallas``) and
-    the pointwise update.
+    the pointwise update (K5 under ``pointwise_impl="pallas"``).
   * ``"fused"`` — Phase A as above with the bias folded in; Phase B is one
     persistent-scan kernel launch per layer and direction
     (kernels/lstm_scan.py: K3 forward, K4 backward).
@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.core import layers as L
 from repro_torch.core.dropout_plan import NULL_CTX, DropoutCtx
+from repro_torch.kernels import lstm_pointwise as k5
 from repro_torch.kernels.lstm_scan import lstm_scan
 
 ENGINES = ("scheduled", "stepwise", "fused")
@@ -59,8 +60,13 @@ def zero_state(num_layers: int, batch: int, hidden: int, dtype=torch.float32,
 
 
 def lstm_pointwise(gates: torch.Tensor, c_prev: torch.Tensor, *,
-                   forget_bias: float = 0.0):
-    """Gate nonlinearities + state update (plain torch)."""
+                   forget_bias: float = 0.0, impl: str = "xla"):
+    """Gate nonlinearities + state update: plain torch (``"xla"``) or K5
+    (``"pallas"``, kernels/lstm_pointwise.py, forward only)."""
+    if impl == "pallas":
+        return k5.lstm_pointwise(gates, c_prev, forget_bias=forget_bias)
+    # the reference's xla branch: math in the inputs' dtypes, not K5's plain
+    # version (float32 math, cast back), which differs off float32
     i, f, g, o = gates.chunk(4, dim=-1)
     c = torch.sigmoid(f + forget_bias) * c_prev + torch.sigmoid(i) * torch.tanh(g)
     h = torch.sigmoid(o) * torch.tanh(c)
@@ -68,12 +74,13 @@ def lstm_pointwise(gates: torch.Tensor, c_prev: torch.Tensor, *,
 
 
 def lstm_cell(params, x, h_prev, c_prev, nr_drop, rh_drop, *,
-              forget_bias: float = 0.0):
+              forget_bias: float = 0.0, pointwise_impl: str = "xla"):
     """One LSTM step; nr_drop / rh_drop are DropoutStates (or None)."""
     gx = L.dense_sdrop({"w": params["W"]}, x, nr_drop)
     gh = L.dense_sdrop({"w": params["U"]}, h_prev, rh_drop)
     gates = gx + gh + params["b"]
-    return lstm_pointwise(gates, c_prev, forget_bias=forget_bias)
+    return lstm_pointwise(gates, c_prev, forget_bias=forget_bias,
+                          impl=pointwise_impl)
 
 
 def _freeze(t, lengths, new, old):
@@ -83,7 +90,7 @@ def _freeze(t, lengths, new, old):
 
 
 def _lstm_stack_stepwise(params, x_seq, state, *, ctx, site, forget_bias,
-                         lengths=None):
+                         pointwise_impl, lengths=None):
     num_layers = len(params)
     hidden = state.h.shape[-1]
     T, batch = x_seq.shape[0], x_seq.shape[1]
@@ -96,7 +103,8 @@ def _lstm_stack_stepwise(params, x_seq, state, *, ctx, site, forget_bias,
             nr = ctx.state(f"{site}/layer{layer}/nr", batch, inp.shape[-1], t=t)
             rh = ctx.state(f"{site}/layer{layer}/rh", batch, hidden, t=t)
             h, c = lstm_cell(params[layer], inp, hs[layer], cs[layer], nr, rh,
-                             forget_bias=forget_bias)
+                             forget_bias=forget_bias,
+                             pointwise_impl=pointwise_impl)
             hs[layer] = _freeze(t, lengths, h, hs[layer])
             cs[layer] = _freeze(t, lengths, c, cs[layer])
             inp = hs[layer]
@@ -105,7 +113,7 @@ def _lstm_stack_stepwise(params, x_seq, state, *, ctx, site, forget_bias,
 
 
 def _lstm_stack_scheduled(params, x_seq, state, *, ctx, site, forget_bias,
-                          lengths=None):
+                          pointwise_impl, lengths=None):
     T, batch, _ = x_seq.shape
     hidden = state.h.shape[-1]
     inp = x_seq
@@ -123,7 +131,8 @@ def _lstm_stack_scheduled(params, x_seq, state, *, ctx, site, forget_bias,
             st = rh_const if rh_rows is None else rh_sched.state_for_row(rh_rows[t])
             gh = L.dense_sdrop({"w": p["U"]}, h, st)
             h2, c2 = lstm_pointwise(gx[t] + gh + p["b"], c,
-                                    forget_bias=forget_bias)
+                                    forget_bias=forget_bias,
+                                    impl=pointwise_impl)
             h, c = _freeze(t, lengths, h2, h), _freeze(t, lengths, c2, c)
             ys.append(h)
         h_fin.append(h)
@@ -133,7 +142,7 @@ def _lstm_stack_scheduled(params, x_seq, state, *, ctx, site, forget_bias,
 
 
 def _lstm_stack_fused(params, x_seq, state, *, ctx, site, forget_bias,
-                      lengths=None, scan_impl="xla"):
+                      pointwise_impl, lengths=None):
     T, batch, _ = x_seq.shape
     hidden = state.h.shape[-1]
     inp = x_seq
@@ -143,7 +152,7 @@ def _lstm_stack_fused(params, x_seq, state, *, ctx, site, forget_bias,
         rh_sched = ctx.schedule(f"{site}/layer{layer}/rh", T, batch, hidden)
         # Phase A: time-batched NR gate matmul, bias folded in.
         gx = L.dense_sdrop_scheduled({"w": p["W"], "b": p["b"]}, inp, nr_sched)
-        kw, impl = {}, scan_impl
+        kw, impl = {}, pointwise_impl
         if not rh_sched.inactive:
             impl = rh_sched.spec.impl
             if rh_sched.structured:
@@ -163,22 +172,23 @@ def _lstm_stack_fused(params, x_seq, state, *, ctx, site, forget_bias,
 
 def lstm_stack(params, x_seq: torch.Tensor, state: LSTMState, *,
                ctx: Optional[DropoutCtx] = None, site: str = "lstm",
-               forget_bias: float = 0.0, engine: str = "scheduled",
-               scan_impl: str = "xla",
+               forget_bias: float = 0.0, pointwise_impl: str = "xla",
+               engine: str = "scheduled",
                lengths: Optional[torch.Tensor] = None):
     """Run a multi-layer LSTM over a (T, B, D) sequence.
 
     Returns (outputs (T, B, H), final LSTMState). Layer ``l`` consumes the
-    sites ``{site}/layer{l}/nr`` and ``{site}/layer{l}/rh``. ``scan_impl``
-    picks the fused engine's scan when the RH site is inactive ("pallas" =
-    the CUDA kernels, "xla" = plain torch); an active RH site's spec picks
-    it otherwise, as in the reference.
+    sites ``{site}/layer{l}/nr`` and ``{site}/layer{l}/rh``.
+    ``pointwise_impl`` has the reference's meaning: in the stepwise and
+    scheduled engines it picks the cell update ("pallas" = K5, forward only
+    as in the reference; "xla" = plain torch); in the fused engine it picks
+    the scan when the RH site is inactive (an active RH site's spec picks
+    it otherwise).
     """
     ctx = NULL_CTX if ctx is None else ctx
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; expected one of {ENGINES}")
-    kw = dict(ctx=ctx, site=site, forget_bias=forget_bias, lengths=lengths)
-    if engine == "fused":
-        return _lstm_stack_fused(params, x_seq, state, scan_impl=scan_impl, **kw)
-    run = _lstm_stack_scheduled if engine == "scheduled" else _lstm_stack_stepwise
-    return run(params, x_seq, state, **kw)
+    run = {"fused": _lstm_stack_fused, "scheduled": _lstm_stack_scheduled,
+           "stepwise": _lstm_stack_stepwise}[engine]
+    return run(params, x_seq, state, ctx=ctx, site=site, forget_bias=forget_bias,
+               pointwise_impl=pointwise_impl, lengths=lengths)

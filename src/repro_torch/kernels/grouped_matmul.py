@@ -1,0 +1,133 @@
+"""Grouped (per-expert) matmul (K12) on a hand-written kernel.
+
+Port of ``repro.kernels.grouped_matmul``: over expert-sorted rows,
+
+    y[i] = x[i] @ w[blk_expert[i // bm]]
+
+with x ``(T, D)``, w ``(E, D, F)`` and one expert id per row block of
+``bm`` rows. Unlike the Pallas kernel, any ``bm >= 1`` and any T, D, F are
+taken: the last row block may be shorter and the kernel masks every ragged
+edge. ``bf``/``bk`` are the reference's VMEM tile sizes, accepted and
+unused. A block whose expert id lies outside ``[0, E)`` comes out as zeros
+on both routes.
+
+A CUDA tensor launches ``csrc/grouped_matmul.cu`` (float32 or bfloat16,
+float32 sums, y in x's dtype) and bumps ``LAUNCHES`` (and
+``LAUNCHES_BY_SHAPE`` under ``"grouped_matmul/{D}x{F}"``, which tells a
+layer's gate/up products from its down product); a CPU tensor runs
+``grouped_matmul_plain`` (the loop of the reference's test oracle). The
+wrapper is not differentiable: the MoE layer's ``"pallas"`` route wraps it
+in an autograd.Function whose backward is two library products
+(models/transformer.py), as the reference leaves those products to XLA.
+
+``plan_groups`` is the port's copy of the reference's static buffer layout.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+
+LAUNCHES = {"grouped_matmul": 0}
+LAUNCHES_BY_SHAPE: dict = {}
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def plan_groups(counts: torch.Tensor, bm: int, capacity_blocks: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-expert token counts -> (row offsets into the padded sorted
+    buffer, per-row-block expert ids). Expert e owns the block slots
+    ``[e * capacity_blocks, (e + 1) * capacity_blocks)``, so the layout is
+    static: T_pad = E * capacity_blocks * bm, whatever the counts."""
+    E = counts.shape[0]
+    ar = torch.arange(E, dtype=torch.int32, device=counts.device)
+    return ar * capacity_blocks * bm, ar.repeat_interleave(capacity_blocks)
+
+
+def _check(x, w, blk_expert, bm):
+    if x.dim() != 2 or w.dim() != 3 or w.shape[1] != x.shape[1]:
+        raise ValueError(f"x {tuple(x.shape)}, w {tuple(w.shape)}: expected "
+                         f"(T, D) and (E, D, F)")
+    if int(bm) < 1:
+        raise ValueError(f"bm must be >= 1, got {bm}")
+    nblk = -(-x.shape[0] // int(bm))
+    if blk_expert.dim() != 1 or blk_expert.shape[0] != nblk:
+        raise ValueError(f"blk_expert {tuple(blk_expert.shape)}: expected "
+                         f"({nblk},) for T={x.shape[0]}, bm={bm}")
+    if blk_expert.dtype.is_floating_point or blk_expert.dtype == torch.bool:
+        raise TypeError(f"blk_expert must hold integers, got {blk_expert.dtype}")
+    if len({x.device, w.device, blk_expert.device}) != 1:
+        raise ValueError(f"x, w, blk_expert on {x.device}, {w.device}, "
+                         f"{blk_expert.device}")
+    if x.dtype != w.dtype:
+        raise TypeError(f"x is {x.dtype}, w is {w.dtype}")
+
+
+def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor,
+                         blk_expert: torch.Tensor, *, bm: int) -> torch.Tensor:
+    """K12's plain version: one product per row block, float32 sums, y in
+    x's dtype."""
+    _check(x, w, blk_expert, bm)
+    T, E, F = x.shape[0], w.shape[0], w.shape[2]
+    y = torch.zeros((T, F), dtype=x.dtype, device=x.device)
+    for i, e in enumerate(blk_expert.tolist()):
+        if 0 <= e < E:
+            rows = slice(i * bm, min((i + 1) * bm, T))
+            y[rows] = (x[rows].float() @ w[e].float()).to(x.dtype)
+    return y
+
+
+def _lib():
+    lib = _build.load("grouped_matmul")
+    if not getattr(lib, "_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.grouped_matmul_launch.argtypes = [i, i, p, p, p, p, i, i, i, i, i, p]
+        lib.grouped_matmul_launch.restype = i
+        lib._typed = True
+    return lib
+
+
+def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor,
+                        blk_expert: torch.Tensor, *, bm: int) -> torch.Tensor:
+    """K12 on CUDA tensors: y (T, F) in x's dtype."""
+    _check(x, w, blk_expert, bm)
+    if x.device.type != "cuda":
+        raise ValueError(f"K12 needs CUDA tensors, got {x.device}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"K12 takes float32 or bfloat16, got {x.dtype}")
+    x, w = x.contiguous(), w.contiguous()
+    ids = blk_expert.to(torch.int32).contiguous()
+    T, D = x.shape
+    E, _, F = w.shape
+    align = 16 if x.dtype == torch.float32 else 8
+    vec = (D % 4 == 0 and F % 4 == 0 and x.data_ptr() % align == 0
+           and w.data_ptr() % align == 0)
+    y = torch.empty((T, F), dtype=x.dtype, device=x.device)
+    lib = _lib()
+    code = lib.grouped_matmul_launch(
+        _DTYPES[x.dtype], int(vec), x.data_ptr(), w.data_ptr(), ids.data_ptr(),
+        y.data_ptr(), T, D, F, E, int(bm),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, code, "grouped_matmul")
+    LAUNCHES["grouped_matmul"] += 1
+    key = f"grouped_matmul/{D}x{F}"
+    LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
+    return y
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor, blk_expert: torch.Tensor,
+                   *, bm: int = 128, bf: Optional[int] = None,
+                   bk: Optional[int] = None) -> torch.Tensor:
+    """x (T, D) expert-sorted rows; w (E, D, F); blk_expert (ceil(T / bm),)
+    expert id per row block -> y (T, F)."""
+    del bf, bk
+    _check(x, w, blk_expert, bm)
+    if x.device.type == "cpu":
+        return grouped_matmul_plain(x, w, blk_expert, bm=bm)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return grouped_matmul_cuda(x, w, blk_expert, bm=bm)

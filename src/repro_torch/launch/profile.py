@@ -9,9 +9,13 @@
         --engine fused --steps 2
     PYTHONPATH=src python -m repro_torch.launch.profile --arch qwen3-8b \
         --layers 4 --batch 1 --seq 4096 --variant qwen3_flash --steps 2
+    PYTHONPATH=src python -m repro_torch.launch.profile --arch mixtral-8x22b \
+        --layers 1 --batch 1 --seq 4096 --variant mixtral_pallas --steps 2
 
 ``--variant`` applies one of ``VARIANTS`` to the config, as the reference's
-``launch/perf.py`` experiments do (``qwen3_flash``: ``attn_impl="flash"``).
+``launch/perf.py`` experiments do (``qwen3_flash``: ``attn_impl="flash"``;
+``mixtral_pallas``: flash attention and the expert products on K12;
+``mixtral_xla``: flash attention, the expert products as ``torch.matmul``).
 Runs a few warm-up steps, then traces ``--steps`` training steps with
 ``torch.profiler`` (CPU and CUDA activities) and prints: the host wall time
 per step (ending in a device synchronisation), the device-busy time per
@@ -38,6 +42,10 @@ from repro_torch.models import lstm_lm, seq2seq, transformer, xlstm
 
 VARIANTS = {
     "qwen3_flash": lambda c: dataclasses.replace(c, attn_impl="flash"),
+    "mixtral_pallas": lambda c: dataclasses.replace(c, attn_impl="flash",
+                                                    moe_impl="pallas"),
+    "mixtral_xla": lambda c: dataclasses.replace(c, attn_impl="flash",
+                                                 moe_impl="xla"),
 }
 
 
@@ -126,6 +134,8 @@ def main(argv=None) -> dict:
     rows.sort(key=lambda r: -r[1])
     # the recurrent engine, or the attention of a transformer
     label = getattr(cfg, "engine", None) or f"attn_impl={cfg.attn_impl}"
+    if getattr(cfg, "moe", None) is not None:
+        label += f" moe_impl={cfg.moe_impl}"
     print(f"{label}: wall {wall:.3f} ms/step, device busy "
           f"{busy:.3f} ms/step, idle share {max(0.0, 1 - busy / wall):.3f}")
     top = []

@@ -2,8 +2,10 @@
 
 ``make_train_step`` returns ``(params, opt_state, batch, step, seed) ->
 (params, opt_state, loss)``: loss and grads through autograd (the
-hand-written kernels' backward included), then the optimizer update. PyTorch
-runs eagerly, so there is no jit or sharding here.
+hand-written kernels' backward included), then the optimizer update, in
+place and leaf by leaf (``Optimizer.update_``): the returned params and
+state are the tensors passed in, updated. PyTorch runs eagerly, so there is
+no jit or sharding here.
 """
 from __future__ import annotations
 
@@ -37,9 +39,8 @@ def make_train_step(spec: ArchSpec, cfg, opt: optim.Optimizer, *,
         loss, grads = grad_fn(params, batch,
                               seed=seed if use_dropout else None, step=step,
                               **loss_kw)
-        updates, opt_state = opt.update(grads, opt_state, params)
         with torch.no_grad():
-            params = optim.apply_updates(params, updates)
+            opt_state = opt.update_(grads, opt_state, params)
         return params, opt_state, loss
 
     return train_step

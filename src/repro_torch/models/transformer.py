@@ -1,6 +1,7 @@
-"""Dense decoder-only transformer — port of the training path of
+"""Decoder-only transformer — port of the training path of
 ``repro.models.transformer`` (qwen3 / minitron / gemma / qwen1.5 style:
-GQA/MQA, qk-norm, QKV bias, SwiGLU / GeGLU, rope).
+GQA/MQA, qk-norm, QKV bias, SwiGLU / GeGLU, rope; mixtral / arctic style
+mixture-of-experts FFN).
 
 Parameters are plain dicts of stacked ``(L, ...)`` tensors in the
 reference's tree, so they convert leaf for leaf; the layer stack is a
@@ -20,7 +21,14 @@ online-softmax attention in plain PyTorch (windowed span included);
 ``"flash"`` runs ``kernels/flash_attention.py`` (K9 forward, K10/K11
 backward on the card).
 
-Not ported (raise ``NotImplementedError``): MoE (``moe``), the whisper
+MoE (``moe``, a ``MoEConfig``): ``moe_ffn`` is the reference's sort-based
+capacity routing (static shapes, per-shard with ``local_shards``), with the
+three expert products picked by the port-only field ``moe_impl``: ``"xla"``
+(the default) runs them as ``torch.matmul`` over the ``(S, E, C, .)``
+capacity buffer, ``"pallas"`` runs K12 (``kernels/grouped_matmul.py``) on
+the flattened buffer, one row block of C rows per (shard, expert).
+
+Not ported (raise ``NotImplementedError``): the whisper
 encoder-decoder (``is_encoder_decoder``), embeddings in (``embeds_in``),
 ``pos="sinusoidal"``, ``remat="dots"``, ``attn_impl="identity"``, and the
 serving entry points (KV cache, prefill, decode).
@@ -39,7 +47,19 @@ from repro_torch.core import metrics
 from repro_torch.core import sparse_matmul as sm
 from repro_torch.core.dropout_plan import DropoutPlan, fit_block
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.grouped_matmul import grouped_matmul
 from repro_torch.optim import tree_map
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+    dense_ff: int = 0            # arctic: parallel dense-residual FFN width
+    router_dtype: Any = torch.float32
+    # routing (sort / capacity / scatter) per data shard: 1 = global
+    local_shards: int = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,7 +79,7 @@ class TransformerConfig:
     pos: str = "rope"            # rope | none (sinusoidal not ported)
     rope_theta: float = 10000.0
     window: Optional[int] = None          # sliding-window attention
-    moe: Optional[Any] = None             # not ported
+    moe: Optional[MoEConfig] = None
     tie_embeddings: bool = False
     scale_embed: bool = False    # gemma: embed * sqrt(d_model)
     max_seq: int = 4096
@@ -76,10 +96,10 @@ class TransformerConfig:
     remat: str = "full"          # full | none ("dots" not ported)
     plan: DropoutPlan = DropoutPlan()
     kv_repeat: int = 1           # replicate kv heads (as the reference)
+    moe_impl: str = "xla"        # port only: xla (torch.matmul) | pallas (K12)
 
     def __post_init__(self):
-        for field, bad in (("moe", self.moe is not None),
-                           ("is_encoder_decoder", self.is_encoder_decoder),
+        for field, bad in (("is_encoder_decoder", self.is_encoder_decoder),
                            ("embeds_in", self.embeds_in),
                            ("pos='sinusoidal'", self.pos == "sinusoidal"),
                            ("remat='dots'", self.remat == "dots")):
@@ -88,6 +108,8 @@ class TransformerConfig:
                     f"TransformerConfig {field} is not ported (ROADMAP A12)")
         if self.attn_impl not in ("xla", "flash"):
             raise NotImplementedError(f"attn_impl={self.attn_impl!r} is not ported")
+        if self.moe_impl not in ("xla", "pallas"):
+            raise ValueError(f"moe_impl={self.moe_impl!r}: expected xla or pallas")
 
     @property
     def hd(self) -> int:
@@ -230,7 +252,8 @@ def _dense_init(gen, shape, cfg, device, scale=None):
 
 def init_block_params(gen, cfg: TransformerConfig, num_layers: int,
                       device="cpu"):
-    """Stacked (L, ...) dense block params."""
+    """Stacked (L, ...) block params: attention, then the dense FFN or the
+    MoE router, experts and optional dense-residual FFN."""
     D, H, KV, hd, F_ = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff
     L = num_layers
     pd = dict(dtype=cfg.param_dtype, device=device)
@@ -253,6 +276,18 @@ def init_block_params(gen, cfg: TransformerConfig, num_layers: int,
     if cfg.qk_norm:
         p["qn"] = torch.ones((L, hd), **pd)
         p["kn"] = torch.ones((L, hd), **pd)
+    if cfg.moe is not None:
+        E = cfg.moe.num_experts
+        p["router"] = w((L, D, E))
+        p["we_gate"] = w((L, E, D, F_))
+        p["we_up"] = w((L, E, D, F_))
+        p["we_down"] = w((L, E, F_, D), F_ ** -0.5)
+        if cfg.moe.dense_ff:
+            Fd = cfg.moe.dense_ff
+            p["w_gate"] = w((L, D, Fd))
+            p["w_up"] = w((L, D, Fd))
+            p["w_down"] = w((L, Fd, D), Fd ** -0.5)
+        return p
     if cfg.mlp in ("swiglu", "geglu"):
         p["w_gate"] = w((L, D, F_))
     p["w_up"] = w((L, D, F_))
@@ -267,6 +302,99 @@ def init_params(gen: torch.Generator, cfg: TransformerConfig, *, device="cpu"):
     if not cfg.tie_embeddings:
         p["lm_head"] = _dense_init(gen, (cfg.d_model, cfg.vocab), cfg, device)
     return p
+
+
+# ---------------------------------------------------------------------------
+# MoE: sort-based capacity routing (static shapes)
+# ---------------------------------------------------------------------------
+
+
+class _GroupedExperts(torch.autograd.Function):
+    """The expert product of one weight over the flattened ``(S, E, C, D)``
+    capacity buffer: K12 forward (row block of C rows per (shard, expert)),
+    and the backward the reference gets from XLA's autodiff of its einsum,
+    ``dx = dy @ w[e].T`` and ``dw[e] = sum_s x[s, e].T @ dy[s, e]``, as two
+    library products."""
+
+    @staticmethod
+    def forward(ctx, buf, w):
+        S, E, C, D = buf.shape
+        F_ = w.shape[2]
+        blk = torch.arange(E, dtype=torch.int32, device=buf.device).repeat(S)
+        y = grouped_matmul(buf.reshape(S * E * C, D), w, blk, bm=C)
+        ctx.save_for_backward(buf, w)
+        return y.reshape(S, E, C, F_)
+
+    @staticmethod
+    def backward(ctx, dy):
+        buf, w = ctx.saved_tensors
+        S, E, C, D = buf.shape
+        F_ = w.shape[2]
+        dx = torch.matmul(dy, w.transpose(1, 2))
+        dw = torch.bmm(buf.transpose(0, 1).reshape(E, S * C, D).transpose(1, 2),
+                       dy.transpose(0, 1).reshape(E, S * C, F_))
+        return dx, dw
+
+
+def _expert_product(buf, w, cfg):
+    """(S, E, C, D) @ (E, D, F) -> (S, E, C, F), float32 sums."""
+    if cfg.moe_impl == "pallas":
+        return _GroupedExperts.apply(buf, w)
+    return torch.matmul(buf, w)
+
+
+def moe_ffn(pl, x2d, cfg: TransformerConfig):
+    """x2d (T, D) -> (T, D): route each token to its top-k experts, sort by
+    expert per shard, drop past capacity C, run the grouped SwiGLU FFN and
+    combine the top-k outputs with the renormalised gates (the reference's
+    ``moe_ffn``, step for step). Dropped tokens go to a scratch row that is
+    sliced off, so they contribute zero."""
+    mcfg = cfg.moe
+    T, D = x2d.shape
+    E, K = mcfg.num_experts, mcfg.top_k
+    S = mcfg.local_shards if T % max(mcfg.local_shards, 1) == 0 else 1
+    S = max(S, 1)
+    Tl = T // S
+    C = max(1, int(math.ceil(Tl * K / E * mcfg.capacity_factor)))
+    dev = x2d.device
+
+    x3 = x2d.reshape(S, Tl, D)
+    rd = mcfg.router_dtype
+    probs = torch.softmax(torch.matmul(x3.to(rd), pl["router"].to(rd)), dim=-1)
+    gate_vals, expert_idx = torch.topk(probs, K, dim=-1)       # (S, Tl, K)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
+
+    flat_e = expert_idx.reshape(S, Tl * K)
+    order = torch.argsort(flat_e, dim=-1, stable=True)         # per-shard sort
+    sorted_e = torch.gather(flat_e, 1, order)
+    # position of each token within its expert group (per shard)
+    first = torch.searchsorted(sorted_e, sorted_e, side="left")
+    pos_in_e = torch.arange(Tl * K, device=dev)[None] - first
+    valid = pos_in_e < C
+    dest = torch.where(valid, sorted_e * C + pos_in_e,
+                       torch.full_like(sorted_e, E * C))       # drop -> scratch
+
+    tok_idx = order // K                                       # (S, Tl*K)
+    xs = torch.gather(x3, 1, tok_idx[..., None].expand(S, Tl * K, D))
+    buf = torch.zeros((S, E * C + 1, D), dtype=x2d.dtype, device=dev).scatter(
+        1, dest[..., None].expand(S, Tl * K, D), xs)[:, :-1]
+    buf = buf.reshape(S, E, C, D)
+
+    g = _expert_product(buf, pl["we_gate"], cfg)
+    u = _expert_product(buf, pl["we_up"], cfg)
+    h = (F.silu(g) * u).to(x2d.dtype)
+    y_e = _expert_product(h, pl["we_down"], cfg).to(x2d.dtype)
+
+    # gather back, un-sort, combine top-k with gate weights
+    y_flat2 = y_e.reshape(S, E * C, D)
+    back = torch.clamp(dest, max=E * C - 1)
+    y_sorted = torch.gather(y_flat2, 1, back[..., None].expand(S, Tl * K, D)) \
+        * valid[..., None]
+    inv = torch.argsort(order, dim=-1)
+    y_unsorted = torch.gather(y_sorted, 1, inv[..., None].expand(S, Tl * K, D))
+    y = (y_unsorted.reshape(S, Tl, K, D)
+         * gate_vals[..., None].to(x2d.dtype)).sum(dim=2)
+    return y.reshape(T, D)
 
 
 # ---------------------------------------------------------------------------
@@ -344,15 +472,22 @@ def _attend(q, k, v, cfg, causal):
 def block_apply(pl, x, cfg: TransformerConfig, *, causal: bool,
                 drop_states=(None, None, None), positions=None):
     """One transformer block; ``drop_states`` = (attention-in, mlp-in,
-    FFN-inner) DropoutStates or None."""
-    B, S, _ = x.shape
+    FFN-inner) DropoutStates or None. With ``moe`` the FFN is ``moe_ffn``
+    (plus the dense-residual FFN, which consumes the mlp-in state, when
+    ``dense_ff`` is set)."""
+    B, S, D = x.shape
     d_attn, d_mlp, inner = drop_states
     h = _norm(cfg, pl["ln1"], x)
     q, k, v = _qkv(pl, h, cfg, d_attn, positions)
     attn = _attend(q, k, v, cfg, causal).reshape(B, S, cfg.n_heads * cfg.hd)
     x = x + (attn @ pl["wo"]).to(x.dtype)
     h2 = _norm(cfg, pl["ln2"], x)
-    return x + _mlp(pl, h2, cfg, d_mlp, inner)
+    if cfg.moe is None:
+        return x + _mlp(pl, h2, cfg, d_mlp, inner)
+    y = moe_ffn(pl, h2.reshape(B * S, D), cfg).reshape(B, S, D)
+    if cfg.moe.dense_ff:
+        y = y + _mlp(pl, h2, cfg, d_mlp)
+    return x + y
 
 
 # ---------------------------------------------------------------------------
@@ -365,7 +500,9 @@ def _layer_drop_states(ctx, cfg: TransformerConfig, layer_idx: int, bs_shape):
     over d_model (kept-block ids, or a per-token mask for the random
     baseline) and the FFN-inner kept blocks over d_ff when that site is
     structured. The layer index is the time axis: PER_STEP specs re-sample
-    per layer, FIXED ones share one mask across the depth."""
+    per layer, FIXED ones share one mask across the depth. A MoE layer draws
+    the mlp-in state even when nothing consumes it (no ``dense_ff``), as the
+    reference, and never an FFN-inner one."""
     if ctx is None or ctx.deterministic:
         return (None, None, None)
     inner = fit_block(ctx.spec("mlp/ffn_inner"), cfg.d_ff)
@@ -375,14 +512,15 @@ def _layer_drop_states(ctx, cfg: TransformerConfig, layer_idx: int, bs_shape):
     st_a = ctx.state("attn/nr", bs_shape, cfg.d_model, t=layer_idx)
     st_m = ctx.state("mlp/nr", bs_shape, cfg.d_model, t=layer_idx)
     st_i = (ctx.state("mlp/ffn_inner", bs_shape, cfg.d_ff, t=layer_idx)
-            if inner.structured else None)
+            if inner.structured and cfg.moe is None else None)
     return (st_a, st_m, st_i)
 
 
 def dropout_sites(cfg: TransformerConfig, batch: int, seq: int):
     """Every dropout application a forward makes, as (name, "state_t",
     layer index, batch, dim)."""
-    inner = fit_block(cfg.plan.spec("mlp/ffn_inner"), cfg.d_ff).structured
+    inner = (fit_block(cfg.plan.spec("mlp/ffn_inner"), cfg.d_ff).structured
+             and cfg.moe is None)
     sites = []
     for li in range(cfg.num_layers):
         sites.append(("attn/nr", "state_t", li, (batch, seq), cfg.d_model))

@@ -1,11 +1,16 @@
-"""Optimizers as (init, update) pairs over parameter trees.
+"""Optimizers as (init, update_) pairs over parameter trees.
 
-Port of ``repro.optim.optimizers``: ``update(grads, state, params) ->
-(updates, state)`` followed by ``apply_updates``, with the reference's bias
-correction and eps placement, so the port's update matches the reference's
+Port of ``repro.optim.optimizers``, with the reference's bias correction and
+eps placement, so the port's step matches the reference's
 (``torch.optim.AdamW`` places eps and weight decay differently). Trees are
 nested dicts / lists / tuples of tensors; moments are kept in float32.
-Updates are computed out of place; nothing on the host waits for the card.
+
+Unlike the reference's out-of-place ``update`` + ``apply_updates``,
+``update_(grads, state, params) -> state`` works in place, leaf by leaf: it
+scales ``grads``, moves the moments and adds each leaf's update to
+``params`` where they lie, so a step holds parameters, gradients and
+moments plus one leaf's temporaries. A caller that needs the parameters
+before the step clones them first. Nothing on the host waits for the card.
 """
 from __future__ import annotations
 
@@ -17,7 +22,7 @@ import torch
 
 class Optimizer(NamedTuple):
     init: Callable
-    update: Callable
+    update_: Callable
 
 
 OptState = Any
@@ -47,10 +52,6 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
-def apply_updates(params, updates):
-    return tree_map(lambda p, u: p + u.to(p.dtype), params, updates)
-
-
 def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(x.float()))
                           for x in tree_leaves(tree)))
@@ -60,12 +61,17 @@ def clip_by_global_norm(max_norm: float) -> Optimizer:
     def init(params):
         return ()
 
-    def update(grads, state, params=None):
+    def scale_of(grads):
         g = global_norm(grads)
-        scale = torch.clamp(max_norm / torch.clamp(g, min=1e-12), max=1.0)
-        return tree_map(lambda x: x * scale, grads), state
+        return torch.clamp(max_norm / torch.clamp(g, min=1e-12), max=1.0)
 
-    return Optimizer(init, update)
+    def update_(grads, state, params=None):
+        scale = scale_of(grads)
+        for x in tree_leaves(grads):
+            x.mul_(scale)
+        return state
+
+    return Optimizer(init, update_)
 
 
 def adamw(lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0) -> Optimizer:
@@ -75,23 +81,34 @@ def adamw(lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0) -> Optimizer:
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
                 "step": 0}
 
-    def update(grads, state, params):
+    def constants(state):
         step = state["step"] + 1
         rate = lr(step) if callable(lr) else lr
-        m = tree_map(lambda m, g: b1 * m + (1 - b1) * g.float(),
-                     state["m"], grads)
-        v = tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(g.float()),
-                     state["v"], grads)
         # bias corrections rounded to float32, as the reference computes them
         c1 = float(np.float32(1.0) - np.float32(b1) ** np.float32(step))
         c2 = float(np.float32(1.0) - np.float32(b2) ** np.float32(step))
-        upd = tree_map(
-            lambda m, v, p: -rate * ((m / c1) / (torch.sqrt(v / c2) + eps)
-                                     + weight_decay * p.float()),
-            m, v, params)
-        return upd, {"m": m, "v": v, "step": step}
+        return step, rate, c1, c2
 
-    return Optimizer(init, update)
+    def leaf_(g, m, v, p, rate, c1, c2):
+        """Moves m and v in place and returns the leaf's update
+        -rate * ((m / c1) / (sqrt(v / c2) + eps) + weight_decay * p)."""
+        g = g.float()
+        m.mul_(b1).add_((1 - b1) * g)
+        v.mul_(b2).add_((1 - b2) * torch.square(g))
+        u = m / c1
+        d = torch.sqrt(v / c2).add_(eps)
+        u.div_(d)
+        del d
+        return u.add_(weight_decay * p.float()).mul_(-rate)
+
+    def update_(grads, state, params):
+        step, rate, c1, c2 = constants(state)
+        for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state["m"]),
+                              tree_leaves(state["v"]), tree_leaves(params)):
+            p.add_(leaf_(g, m, v, p, rate, c1, c2).to(p.dtype))
+        return {"m": state["m"], "v": state["v"], "step": step}
+
+    return Optimizer(init, update_)
 
 
 def chain(*opts: Optimizer) -> Optimizer:
@@ -99,11 +116,7 @@ def chain(*opts: Optimizer) -> Optimizer:
     def init(params):
         return tuple(o.init(params) for o in opts)
 
-    def update(grads, states, params):
-        new_states = []
-        for o, s in zip(opts, states):
-            grads, s = o.update(grads, s, params)
-            new_states.append(s)
-        return grads, tuple(new_states)
+    def update_(grads, states, params):
+        return tuple(o.update_(grads, s, params) for o, s in zip(opts, states))
 
-    return Optimizer(init, update)
+    return Optimizer(init, update_)

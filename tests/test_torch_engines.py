@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.core import lstm as t_lstm
 from repro_torch.core.dropout_plan import DropoutPlan
-from repro_torch.optim import adamw, chain, clip_by_global_norm, apply_updates, tree_leaves
+from repro_torch.optim import adamw, chain, clip_by_global_norm, tree_leaves
 
 torch.set_num_threads(1)
 
@@ -80,13 +80,13 @@ def test_adamw_chain_matches_reference():
                           r_optim.adamw(1e-2, weight_decay=0.1))
     t_opt = chain(clip_by_global_norm(1.0), adamw(1e-2, weight_decay=0.1))
     rp = jax.tree.map(jax.numpy.asarray, params)
-    tp = {"a": torch.from_numpy(params["a"]), "b": [torch.from_numpy(params["b"][0])]}
+    tp = {"a": torch.from_numpy(params["a"].copy()),
+          "b": [torch.from_numpy(params["b"][0].copy())]}
     rs, ts = r_opt.init(rp), t_opt.init(tp)
     for g in grads:
         ru, rs = r_opt.update(jax.tree.map(jax.numpy.asarray, g), rs, rp)
         rp = r_optim.apply_updates(rp, ru)
-        tu, ts = t_opt.update({"a": torch.from_numpy(g["a"]),
-                               "b": [torch.from_numpy(g["b"][0])]}, ts, tp)
-        tp = apply_updates(tp, tu)
+        ts = t_opt.update_({"a": torch.from_numpy(g["a"].copy()),
+                            "b": [torch.from_numpy(g["b"][0].copy())]}, ts, tp)
         for a, b in zip(tree_leaves(tp), jax.tree.leaves(rp)):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6, atol=1e-7)
