@@ -52,6 +52,11 @@ with the fused and the scheduled engine, and qwen3-8b cut to 4 layers
 path's run (and that K6 did not launch under the scheduled engine, nor
 K9-K11 under xla, nor K12 under the mixtral xla route).
 
+K1/K2 rows carry the kernel's and the library call's device time from
+``torch.profiler`` (``device_ms``, ``library_device_ms``) beside their
+CUDA-event times, and the wrapper's launch plan; the cluster-split K1 BP
+is launched twice at the zaremba-medium shape and must give the same bits.
+
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero
 (and prints no result) without a CUDA device, outside the repository, or on
@@ -131,6 +136,46 @@ def time_ms(fn, reps: int = 20, warmup: int = 3, cold_l2: bool = False) -> float
     return times[len(times) // 2]
 
 
+def device_ms(fn, reps: int = 20, warmup: int = 3, cold_l2: bool = False) -> float:
+    """Mean device time of the kernels one call of ``fn`` launches, from
+    ``torch.profiler`` over ``reps`` calls (with ``cold_l2`` each after the
+    same flush as ``time_ms``, whose own kernels are left out)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def kernels(prof):
+        return {e.key: (getattr(e, "self_device_time_total", 0.0), e.count)
+                for e in prof.key_averages()
+                if getattr(e, "device_type", None) == DeviceType.CUDA}
+
+    global _flush_buf
+    if cold_l2 and _flush_buf is None:
+        _flush_buf = torch.empty(_FLUSH_BYTES // 4, device="cuda")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    flush = set()
+    if cold_l2:
+        with profile(activities=acts) as prof:
+            _flush_buf.fill_(1.0)
+            torch.cuda.synchronize()
+        flush = set(kernels(prof))
+    # the profiler has been seen to drop kernel records on the card: a run
+    # whose kernel counts are not a multiple of reps is taken again
+    for _ in range(3):
+        with profile(activities=acts) as prof:
+            for _ in range(reps):
+                if cold_l2:
+                    _flush_buf.fill_(1.0)
+                fn()
+            torch.cuda.synchronize()
+        rows = [v for k_, v in kernels(prof).items() if k_ not in flush]
+        if rows and all(n % reps == 0 for _, n in rows):
+            return sum(us for us, _ in rows) / reps / 1e3
+    raise RuntimeError("the profiler lost kernel records in 3 runs")
+
+
 def bound_ms(nbytes: float, flops: float):
     tb, tf = nbytes / HBM_BYTES * 1e3, flops / F32_FLOPS * 1e3
     return (tf, "operations") if tf >= tb else (tb, "bytes")
@@ -172,16 +217,17 @@ def row_name(counter, arch):
 
 
 def add_row(out, counter, arch, src, replaces, err, ms, pms, lms, nbytes,
-            flops, l2, name=None):
+            flops, l2, name=None, **extra):
     b, by = bound_ms(nbytes, flops)
     name = name or row_name(counter, arch)
     print(f"  {name}: {ms:.4f} ms  plain {pms:.4f} ms  library "
           f"{'n/a' if lms is None else f'{lms:.4f} ms'}  bound {b:.4f} ms "
-          f"({by}), L2 {l2}")
+          f"({by}), L2 {l2}"
+          + "".join(f"  {k_} {v}" for k_, v in extra.items()))
     out[name] = dict(name=name, route="cuda", source=src, replaces=replaces,
                      max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b,
                      bound_by=by, library_ms=lms, l2=l2, arch=arch,
-                     counter=counter)
+                     counter=counter, **extra)
 
 
 def check_gather_matmul(gen, out, arch=LM, T=T, B=B, H=H, D=D, P=P,
@@ -198,15 +244,28 @@ def check_gather_matmul(gen, out, arch=LM, T=T, B=B, H=H, D=D, P=P,
           f"(rows of W kept at some step: {uniq})")
 
     def row(name, route_src, replaces, got, want, tol, fn, plain, lib,
-            nbytes, flops, cold_l2):
+            nbytes, flops, cold_l2, plan):
         err = compare(row_name(name, arch), got, want, tol)
         ms = time_ms(fn, cold_l2=cold_l2)
         pms = time_ms(plain, cold_l2=cold_l2)
-        lms = time_ms(lib, cold_l2=cold_l2) if lib is not None else None
+        lms = time_ms(lib, cold_l2=cold_l2)
+        # device time beside the event time: the difference is the host's
+        dms = device_ms(fn, cold_l2=cold_l2)
+        ldms = device_ms(lib, cold_l2=cold_l2)
         add_row(out, name, arch, route_src, replaces, err, ms, pms, lms,
-                nbytes, flops, "cold" if cold_l2 else "warm")
+                nbytes, flops, "cold" if cold_l2 else "warm", device_ms=dms,
+                library_device_ms=ldms,
+                plan=dict(bm=plan.bm, bn=plan.bn, split=plan.split,
+                          ctas=math.prod(plan.grid)))
 
     src = "src/repro_torch/csrc/gather_matmul.cu"
+
+    def plan(mode, T_, a_, b_):
+        """The wrapper's launch plan for this call (tiles, cluster split)."""
+        C_, O_ = (k, 4 * H) if mode == "fp" else (4 * H, k)
+        return gm._plan(mode, T_, B, C_, O_, gm._vec_ok(a_, a_.shape[-1]),
+                        gm._vec_ok(b_, b_.shape[1]), gm._sms(0))
+
     # K1 runs once per time step on the same U, so its caller finds U in L2
     # (timed warm); K2 runs once per layer and phase, after other work
     # (timed cold).
@@ -218,7 +277,8 @@ def check_gather_matmul(gen, out, arch=LM, T=T, B=B, H=H, D=D, P=P,
     p = lambda: gm.gather_matmul_plain(a, U, kb1, **kw)
     row("gather_matmul/fp", src, "src/repro/kernels/gather_matmul.py:40",
         f(), p(), 2e-4, f, p, lambda: torch.matmul(af, U),
-        4 * (B * k + k * 4 * H + k + B * 4 * H), 2 * B * k * 4 * H, False)
+        4 * (B * k + k * 4 * H + k + B * 4 * H), 2 * B * k * 4 * H, False,
+        plan("fp", 1, a, U))
     # K1 BP: its backward, dy @ U[kept].T (compact).
     dy = torch.randn(B, 4 * H, generator=gen).cuda()
     kw = dict(block_size=1, transpose_b=True, alpha=scale)
@@ -226,7 +286,19 @@ def check_gather_matmul(gen, out, arch=LM, T=T, B=B, H=H, D=D, P=P,
     p = lambda: gm.gather_matmul_plain(dy, U, kb1, **kw)
     row("gather_matmul/bp", src, "src/repro/kernels/gather_matmul.py:40",
         f(), p(), 2e-4, f, p, lambda: torch.matmul(dy, U.t()),
-        4 * (B * 4 * H + k * 4 * H + k + B * k), 2 * B * k * 4 * H, False)
+        4 * (B * 4 * H + k * 4 * H + k + B * k), 2 * B * k * 4 * H, False,
+        plan("bp", 1, dy, U))
+    if extras:
+        # the cluster-split BP twice: its partial tiles are summed in rank
+        # order, so the two results must be the same bits
+        pl = plan("bp", 1, dy, U)
+        y1, y2 = f(), f()
+        torch.cuda.synchronize()
+        same = torch.equal(y1, y2)
+        print(f"  gather_matmul/bp cluster split {pl.split}: two launches "
+              f"bit-identical: {same}")
+        if pl.split < 2 or not same:
+            raise AssertionError("the cluster-split BP is not deterministic")
     # K2 FP: Phase A NR, x_c (T, B, k) @ W[kept_t].
     x = torch.randn(T, B, k, generator=gen).cuda()
     xf = torch.zeros(T, B, D, device="cuda").scatter_(
@@ -237,7 +309,7 @@ def check_gather_matmul(gen, out, arch=LM, T=T, B=B, H=H, D=D, P=P,
     row("gather_matmul_stepped/fp", src, "src/repro/kernels/gather_matmul.py:158",
         f(), p(), 2e-4, f, p, lambda: torch.matmul(xf, W),
         4 * (T * B * k + uniq * 4 * H + T * k + T * B * 4 * H),
-        2 * T * B * k * 4 * H, True)
+        2 * T * B * k * 4 * H, True, plan("fp", T, x, W))
     # K2 BP: dy (T, B, 4H) @ W[kept_t].T.
     dyT = torch.randn(T, B, 4 * H, generator=gen).cuda()
     kw = dict(block_size=1, transpose_b=True, alpha=scale)
@@ -246,7 +318,7 @@ def check_gather_matmul(gen, out, arch=LM, T=T, B=B, H=H, D=D, P=P,
     row("gather_matmul_stepped/bp", src, "src/repro/kernels/gather_matmul.py:158",
         f(), p(), 2e-4, f, p, lambda: torch.matmul(dyT, W.t()),
         4 * (T * B * 4 * H + uniq * 4 * H + T * k + T * B * k),
-        2 * T * B * k * 4 * H, True)
+        2 * T * B * k * 4 * H, True, plan("bp", T, dyT, W))
     if not extras:
         return
     # b_cols (FFN-out variant; no model of this slice calls it) and the

@@ -5,7 +5,8 @@ held to ``repro.kernels.ops.gather_matmul*`` (Pallas in interpret mode, as
 tests/test_kernels.py runs it) and to ``repro.kernels.ref``, for FP, BP and
 b_cols, one mask and a (T, nk) table, block sizes 1 and 8. The CUDA kernel
 itself is held to the plain version by the ``cuda``-marked tests (skipped
-without a GPU) and by chip_smoke.py.
+without a GPU) and by chip_smoke.py. The kernel's launch plan (``_plan``:
+tiles, cluster split, copy width) is pure Python and tested here.
 
 Tolerance: float32, the same products summed in another order:
 rtol 1e-5, atol 1e-5 (inputs are O(1), outputs O(sqrt(k))).
@@ -119,9 +120,79 @@ def test_cpu_does_not_count_launches():
     assert gm.LAUNCHES == before
 
 
+# (mode, T, M, C, O) of every K1/K2 call on the main paths: zaremba-medium
+# (M = 20, k = 325, 4H = 2600, T = 35) and luong-nmt (M = 64, k = 358,
+# 4H = 2048, T = 50); C is the contraction, O the output width.
+MAIN_SHAPES = [(mode, T_, M_, *((k_, n_) if mode == "fp" else (n_, k_)))
+               for M_, k_, n_, T_s in ((20, 325, 2600, 35), (64, 358, 2048, 50))
+               for T_ in (1, T_s) for mode in ("fp", "bp")]
+
+
+def _vec(mode, C, O):
+    """The copy widths the wrapper asks for when both base pointers are
+    aligned: a's rows are C floats long, b's N (O in FP, C in BP)."""
+    if mode == "cols":
+        return False, False
+    return C % 4 == 0, (O if mode == "fp" else C) % 4 == 0
+
+
+@pytest.mark.parametrize("mode,T,M,C,O", MAIN_SHAPES + [
+    ("fp", 1, 1, 8, 24), ("bp", 3, 33, 17, 9), ("cols", 1, 65, 64, 7),
+    ("bp", 1, 5, 4, 40), ("fp", 2, 64, 600, 17), ("bp", 1, 20, 100000, 3)])
+def test_plan_covers_each_output_once(mode, T, M, C, O):
+    """Every (t, m, o) output lies in exactly one CTA's tile, and the
+    cluster's splits cover the contraction exactly once, none empty."""
+    pl = gm._plan(mode, T, M, C, O, *_vec(mode, C, O))
+    assert 1 <= pl.split <= gm.MAX_SPLIT
+    assert pl.split == 1 or pl.csplit % 4 == 0
+    gx, gy, gz = pl.grid
+    assert gz == T and gx % pl.split == 0
+    hits = np.zeros((T, M, O), np.int64)
+    cover = np.zeros(C, np.int64)
+    for x in range(gx):
+        tile, rank = divmod(x, pl.split)
+        lo, hi = rank * pl.csplit, min(C, (rank + 1) * pl.csplit)
+        assert lo < hi, f"split {rank} of {pl.split} is empty"
+        if tile == 0:
+            cover[lo:hi] += 1
+        if rank == 0:
+            for y in range(gy):
+                hits[:, y * pl.bm:(y + 1) * pl.bm, tile * pl.bn:(tile + 1) * pl.bn] += 1
+    assert (hits == 1).all()
+    assert (cover == 1).all()
+
+
+@pytest.mark.parametrize("mode,T,M,C,O", MAIN_SHAPES)
+def test_plan_fills_the_card_on_the_main_path(mode, T, M, C, O):
+    """At least one CTA per H100 SM at every main-path shape; row tiles of
+    exactly M (20 or 64 rows)."""
+    pl = gm._plan(mode, T, M, C, O, *_vec(mode, C, O))
+    assert int(np.prod(pl.grid)) >= gm.H100_SMS
+    assert pl.bm == M and pl.grid[1] == 1
+    assert (pl.va, pl.vb) == ((False, True) if mode == "fp" else (True, True))
+
+
+@pytest.mark.parametrize("case", ["fp k=325", "bp N=17", "storage_offset 1"])
+def test_plan_takes_four_byte_copies_where_rows_are_unaligned(case):
+    if case == "fp k=325":       # a_c rows of 325 floats
+        a, b, mode, C, O = torch.zeros(20, 325), torch.zeros(650, 2600), "fp", 325, 2600
+    elif case == "bp N=17":      # dy and b rows of 17 floats
+        a, b, mode, C, O = torch.zeros(4, 17), torch.zeros(48, 17), "bp", 17, 36
+    else:                        # contiguous, but 4 bytes past a 16-byte boundary
+        a = torch.zeros(20 * 2600 + 1)[1:].view(20, 2600)
+        b, mode, C, O = torch.zeros(650, 2600), "bp", 2600, 325
+    assert a.is_contiguous()
+    va = gm._vec_ok(a, a.shape[1])
+    vb = gm._vec_ok(b, b.shape[1])
+    pl = gm._plan(mode, 1, a.shape[0], C, O, va, vb)
+    assert not pl.va
+    assert pl.vb == (case == "fp k=325")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["fp", "fp_compact", "bp"])
-@pytest.mark.parametrize("T,M,H,N,bs,rate", CASES + [(35, 20, 650, 2600, 1, 0.5)])
+@pytest.mark.parametrize("T,M,H,N,bs,rate", CASES + [(35, 20, 650, 2600, 1, 0.5),
+                                                    (50, 64, 512, 2048, 1, 0.3)])
 def test_cuda_kernel_matches_plain(T, M, H, N, bs, rate, variant):
     dev = require_cuda()
     d = _data(T, M, H, N, bs, rate, seed=2)
@@ -152,3 +223,56 @@ def test_cuda_kernel_rejects_non_f32():
     with pytest.raises(TypeError):
         gm.gather_matmul_stepped(a, b, torch.zeros(2, 4, dtype=torch.int32, device=dev),
                                  block_size=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["fp_compact", "bp"])
+@pytest.mark.parametrize("M", [1, 20, 21, 33, 64, 65])
+@pytest.mark.parametrize("T", [1, 4])
+def test_cuda_kernel_row_tiles(T, M, variant):
+    """Row counts at, below and past the 20- and 64-row tiles, one step
+    (cluster split) and several."""
+    dev = require_cuda()
+    d = _data(T, M, 96, 384, 1, 0.5, seed=3)
+    if variant == "bp":
+        a, kw = d["a_out"], dict(transpose_b=True)
+    else:
+        a, kw = np.take_along_axis(d["a_full"], d["ids"][:, None, :], axis=2), dict(a_is_compact=True)
+    a, b, kb = torch.from_numpy(a), torch.from_numpy(d["b"]), torch.from_numpy(d["kb"])
+    want = gm.gather_matmul_stepped(a, b, kb, block_size=1, alpha=1.5, **kw)
+    got = gm.gather_matmul_stepped(a.to(dev), b.to(dev), kb.to(dev), block_size=1,
+                                   alpha=1.5, **kw)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["fp_compact", "bp"])
+def test_cuda_kernel_misaligned_a(variant):
+    """A contiguous a whose first element is 4 bytes past a 16-byte
+    boundary takes the 4-byte copies and agrees with the plain version."""
+    dev = require_cuda()
+    d = _data(1, 20, 648, 2592, 1, 0.5, seed=4)
+    a = d["a_out"][0] if variant == "bp" else d["a_full"][0][:, d["ids"][0]]
+    kw = dict(transpose_b=True) if variant == "bp" else dict(a_is_compact=True)
+    flat = torch.zeros(a.size + 1, device=dev)
+    a_dev = flat[1:].view(a.shape)
+    a_dev.copy_(torch.from_numpy(a))
+    assert a_dev.is_contiguous() and not gm._vec_ok(a_dev, a.shape[1])
+    b, kb = torch.from_numpy(d["b"]), torch.from_numpy(d["kb"][0])
+    want = gm.gather_matmul(torch.from_numpy(a), b, kb, block_size=1, **kw)
+    got = gm.gather_matmul(a_dev, b.to(dev), kb.to(dev), block_size=1, **kw)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_bp_split_is_deterministic():
+    """The cluster-split BP sums its partial tiles in rank order: two
+    launches at the zaremba-medium shape give the same bits."""
+    dev = require_cuda()
+    d = _data(1, 20, 650, 2600, 1, 0.5, seed=5)
+    a, b = torch.from_numpy(d["a_out"][0]).to(dev), torch.from_numpy(d["b"]).to(dev)
+    kb = torch.from_numpy(d["kb"][0]).to(dev)
+    assert gm._plan("bp", 1, 20, 2600, kb.numel(), True, True).split > 1
+    y1 = gm.gather_matmul(a, b, kb, block_size=1, transpose_b=True)
+    y2 = gm.gather_matmul(a, b, kb, block_size=1, transpose_b=True)
+    torch.testing.assert_close(y1, y2, rtol=0, atol=0)
