@@ -25,10 +25,15 @@ plain PyTorch version at that path's full shapes, and times it:
     inputs);
   * mixtral-8x22b (the expert products over the (8 experts x 1280 slots)
     capacity buffer: x (10240, 6144) by w (8, 6144, 16384), and x (10240,
-    16384) by w (8, 16384, 6144)): K12 grouped matmul, with ``torch.bmm`` on
-    the (E, C, .) buffer timed as the library yardstick (also the reference
-    test's four shapes in float32 and bfloat16, bm not a multiple of the
-    tile, an empty expert, unsorted repeated ids and ragged T, D, F);
+    16384) by w (8, 16384, 6144)): K12 grouped matmul, split-precision
+    TF32 ("3xTF32") on the tensor cores, with ``torch.bmm`` on the (E, C,
+    .) buffer timed as the library yardstick; both are held to a float64
+    product over one row block by 256 columns, K12 within 1e-5 x max(1,
+    |ref|) (float32's accuracy, which single-pass TF32 misses), and the
+    float32 instantiation's SASS must hold TF32 HMMA instructions (also
+    the reference test's four shapes in float32 and bfloat16, bm not a
+    multiple of the tile, an empty expert, unsorted repeated ids and
+    ragged T, D, F);
   * zaremba-medium's cell update (B=20, H=650, and H=1500): K5 fused LSTM
     pointwise, with forget_bias 0 and 1 and odd shapes.
 
@@ -69,6 +74,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -78,10 +84,12 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import torch  # noqa: E402
 
-# Peaks of one H100 SXM (NVIDIA data sheet, 700 W): float32 outside the
-# tensor cores, and HBM3 bandwidth. Used only for the bound_ms column.
+# Peaks of one H100 SXM (NVIDIA data sheet, 700 W), used only for the
+# bound_ms column: float32 outside the tensor cores, HBM3 bandwidth, and
+# dense TF32 on the tensor cores (K12's route).
 F32_FLOPS = 67e12
 HBM_BYTES = 3.35e12
+TF32_FLOPS = 495e12
 
 T, B, H, D, P = 35, 20, 650, 650, 0.5          # zaremba-medium
 NT_, NB, NH, NS, NP = 50, 64, 512, 50, 0.3      # luong-nmt: T=S, B, H=E, p
@@ -176,8 +184,8 @@ def device_ms(fn, reps: int = 20, warmup: int = 3, cold_l2: bool = False) -> flo
     raise RuntimeError("the profiler lost kernel records in 3 runs")
 
 
-def bound_ms(nbytes: float, flops: float):
-    tb, tf = nbytes / HBM_BYTES * 1e3, flops / F32_FLOPS * 1e3
+def bound_ms(nbytes: float, flops: float, rate: float = F32_FLOPS):
+    tb, tf = nbytes / HBM_BYTES * 1e3, flops / rate * 1e3
     return (tf, "operations") if tf >= tb else (tb, "bytes")
 
 
@@ -217,8 +225,8 @@ def row_name(counter, arch):
 
 
 def add_row(out, counter, arch, src, replaces, err, ms, pms, lms, nbytes,
-            flops, l2, name=None, **extra):
-    b, by = bound_ms(nbytes, flops)
+            flops, l2, name=None, rate=F32_FLOPS, **extra):
+    b, by = bound_ms(nbytes, flops, rate)
     name = name or row_name(counter, arch)
     print(f"  {name}: {ms:.4f} ms  plain {pms:.4f} ms  library "
           f"{'n/a' if lms is None else f'{lms:.4f} ms'}  bound {b:.4f} ms "
@@ -1005,10 +1013,31 @@ def check_grouped(out):
     """K12 against its plain version (one cuBLAS product per row block):
     at mixtral-8x22b's two expert-product shapes, cold L2, timed beside
     ``torch.bmm`` on the (E, C, .) buffer (the library yardstick), within
-    1e-3 x max(1, |ref|); then on small inputs: the reference test's four
+    1e-3 x max(1, |ref|), and over one row block by 256 columns against a
+    float64 product on the card within 1e-5 (``torch.bmm``'s error printed
+    beside it); the SASS's TF32 HMMA count per instantiation (none in the
+    float32 kernel fails); then on small inputs: the reference test's four
     shapes in float32 and bfloat16 (3e-2), bm not a multiple of the 128-row
-    tile, an empty expert, unsorted repeated ids and ragged T, D, F."""
+    tile, an empty expert, unsorted repeated ids and ragged T, D, F. The
+    bound is the route's: three TF32 products a float32 product."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels import grouped_matmul as gm
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.lib_path("grouped_matmul"))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    hmma, sym = {}, None                 # kernel symbol -> [TF32 HMMA, all HMMA]
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            sym = m.group(1)
+            hmma[sym] = [0, 0]
+        elif sym and "HMMA" in line:
+            hmma[sym][0] += "TF32" in line
+            hmma[sym][1] += 1
+    for sym, (tf, n) in hmma.items():
+        print(f"grouped_matmul sass: {sym}: {tf} TF32 HMMA of {n} HMMA")
+    if not any(tf for k_, (tf, _) in hmma.items() if "grouped_mm_kernelIfLb1E" in k_):
+        raise AssertionError("grouped_matmul: no TF32 HMMA in the float32 kernel's SASS")
     g = torch.Generator(device="cuda").manual_seed(12)
     T_ = ME * MC
     blk = torch.arange(ME, dtype=torch.int32, device="cuda")
@@ -1022,17 +1051,31 @@ def check_grouped(out):
         fp = lambda: gm.grouped_matmul_plain(x, w, blk, bm=MC)
         xb = x.view(ME, MC, D_)
         fl = lambda: torch.bmm(xb, w)
-        err = compare(f"  grouped_matmul ({tag})", fk(), fp(), 1e-3)
+        got = fk()
+        err = compare(f"  grouped_matmul ({tag})", got, fp(), 1e-3)
+        # float32's accuracy: one row block (expert 0) by 256 columns
+        ref = x[:MC].double() @ w[0, :, :256].double()
+        lib_rel = ((fl()[0, :, :256].double() - ref).abs().max().item()
+                   / max(1.0, ref.abs().max().item()))
+        f64 = compare(f"  grouped_matmul ({tag}) vs float64, {MC} x 256", got[:MC, :256],
+                      ref, 1e-5)
+        f64_rel = f64 / max(1.0, ref.abs().max().item())
+        print(f"  torch.bmm ({tag}) vs float64, {MC} x 256: max_rel_err {lib_rel:.3e} "
+              f"(the yardstick's own)")
+        del got, ref
         # once per expert product, after other work: timed with a cold L2
         ms = time_ms(fk, reps=10, warmup=2, cold_l2=True)
         pms = time_ms(fp, reps=10, warmup=2, cold_l2=True)
         lms = time_ms(fl, reps=10, warmup=2, cold_l2=True)
         nbytes = 4 * (T_ * D_ + ME * D_ * F_ + T_ * F_) + 4 * ME
+        # operations: three TF32 products for each float32 product (3xTF32)
+        ops = 3 * 2 * T_ * D_ * F_
         name = "grouped_matmul" if tag == "gate/up" else "grouped_matmul/down"
         # launches: this weight shape's, from the wrapper's per-shape count
         add_row(out, f"grouped_matmul/{D_}x{F_}", MIXTRAL, src,
                 "src/repro/kernels/grouped_matmul.py:31", err, ms, pms, lms,
-                nbytes, 2 * T_ * D_ * F_, "cold", name=name)
+                nbytes, ops, "cold", name=name, rate=TF32_FLOPS,
+                f64_rel_err=f64_rel, library_f64_rel_err=lib_rel)
         del x, w, xb
     torch.cuda.empty_cache()
 

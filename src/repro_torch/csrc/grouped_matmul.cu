@@ -1,205 +1,353 @@
-// Grouped (per-expert) matmul on Hopper (sm_90a).
+// Grouped (per-expert) matmul on Hopper (sm_90a), on TF32 tensor cores.
 //
 // Replaces the Pallas TPU kernel of repro/kernels/grouped_matmul.py:
 //   K12  _kernel via grouped_matmul (pallas_call :69)  -> grouped_mm_kernel
 //   y[i] (T, F) = x[i] (T, D) @ w[blk_expert[i / bm]] (D, F)
 // over expert-sorted rows: row block b (rows b*bm .. b*bm + bm - 1, the last
 // one possibly shorter) multiplies by the weight of expert blk_expert[b].
-// x and w are float32 or bfloat16 (the same type), the sums float32 FFMA,
-// y is written in x's type. Any bm >= 1 and any T, D, F: ragged edges are
-// masked with zeros. A block whose expert id lies outside [0, E) is written
-// as zeros, never read from outside w. Offsets into w are 64-bit
-// (e * D * F exceeds 2^31 at arctic's widths).
+// x and w are float32 or bfloat16 (the same type), the sums float32, y is
+// written in x's type. Any bm >= 1 and any T, D, F: ragged edges are masked
+// with zeros. A block whose expert id lies outside [0, E) is written as
+// zeros, never read from outside w. Offsets into w are 64-bit (e * D * F
+// exceeds 2^31 at arctic's widths).
 //
-// What bounds it on the H100: operations. At mixtral-8x22b's training shape
-// (x (10240, 6144) against w (8, 6144, 16384), bm = 1280) a call is 2.06
-// TFLOP over ~1.3 GB, ~1600 operations per byte against float32's ~20:
-// 30.8 ms at 67 TFLOP/s. The design is the classic register-tiled SIMT
-// GEMM: a CTA of 256 threads owns a 128 x 128 output tile inside ONE row
-// block, so it reads blk_expert once and every row of its tile uses the
-// same weight tile (a row block longer than 128 rows is split into several
-// tiles at its own edges, never joined with the next block's rows). The
-// contraction runs in steps of 16: the x tile is staged transposed and the
-// w tile as it lies, both as float32 rows padded by 4 floats, in two
-// shared-memory buffers, the next step's tiles are loaded into registers
-// while the current one is multiplied, so one barrier a step suffices.
-// Each thread keeps an 8 x 8 block of accumulators (rows ty*4 + {0..3} and
-// 64 + ty*4 + {0..3}, columns likewise with tx), fed by float4 reads that
-// are broadcast (x) or contiguous (w) across a warp: no bank conflicts.
-// wgmma and TMA are later work.
+// What bounds it on the H100: tensor-core operations. At mixtral-8x22b's
+// training shape (x (10240, 6144) against w (8, 6144, 16384), bm = 1280,
+// and its down twin) a call is 2.06 TFLOP over ~4.1 GB of operands. On
+// float32 FFMA (67 TFLOP/s) that is 30.77 ms. Here every product runs as
+// three TF32 products (below): 3 x 2.06 TFLOP at the dense TF32 rate of
+// 495 TFLOP/s is 12.49 ms; at the ~315 TFLOP/s that mma.sync reaches on
+// the card with nothing else to issue (launch/mma_ceiling.py, H100 80GB
+// HBM3 at 700 W) it is ~19.6 ms. What keeps the kernel above that is the
+// work each warp issues beside its mma.sync: the split, the fragment loads
+// and the partial sums.
+//
+// Design:
+//   * Split precision ("3xTF32"). Each float32 operand of an mma fragment is
+//     split into hi + lo (split(): an AND and an FADD), and each fragment
+//     pair issues lo*hi, hi*lo, hi*hi (small terms first, each pass over
+//     all 16 tiles of the warp before the next) with
+//     mma.sync.m16n8k8.tf32 into float32 sums: the dropped lo*lo term and
+//     the truncation of lo are ~2^-20 of a product, so the sums keep
+//     float32's accuracy (single-pass TF32 keeps ~2^-11). A bfloat16 value
+//     is exactly a TF32 value, so bfloat16 inputs take the hi*hi pass
+//     alone.
+//   * The tensor cores' float32 sums truncate (round toward zero) as they
+//     add into the accumulator. Over a whole contraction into one
+//     accumulator that error has one sign and grows with the step count
+//     (~5e-5 x max(1, |ref|) against float64 at D = 6144, where cuBLAS's
+//     FFMA product has 3.5e-6). So each 32-step's products
+//     are summed on the tensor cores from zero, and that partial tile is
+//     added to the running sums with an FADD, which rounds to nearest: 64
+//     FADDs a thread per 192 mma.sync a warp (~1e-6 against float64).
+//   * mma.sync and not wgmma: TF32 wgmma reads both operands K-major from
+//     shared memory, and w lies N-major (F contiguous); mma.sync fragments
+//     are loaded from shared memory in any layout.
+//   * A CTA of 8 warps owns a 128 x 128 output tile inside ONE row block,
+//     so it reads blk_expert once and every row of its tile uses the same
+//     weight tile (a row block longer than 128 rows is split into several
+//     tiles at its own edges, never joined with the next block's rows).
+//     Each warp owns 64 x 32 of it: 4 x 4 m16n8 tiles, 64 accumulators and
+//     64 partial sums a thread, ~220 registers, one CTA an SM.
+//   * The contraction streams in steps of 32 through a 4-deep cp.async
+//     ring in dynamic shared memory (one barrier a step). x tiles
+//     lie [m][k] in rows of 32 + 16/sizeof(T) elements, w tiles [k][n] in
+//     rows of 136, so every fragment load of a warp hits 32 distinct banks
+//     and every row starts on 16 bytes. Where the wrapper's vec condition holds (rows a multiple of 16 bytes,
+//     aligned bases) the copies are 16-byte cp.async.cg, otherwise 4-byte
+//     cp.async.ca for float32 and plain loads for bfloat16 (a bfloat16
+//     pair need not be 4-byte aligned); rows, columns and k past an edge
+//     are zero-filled by the copy's src-size operand, so the main loop has
+//     no tail branch.
+//   * Launch order for L2 reuse. Output tiles are walked in groups of G
+//     row tiles (G = the row block's tile count, 10 at bm = 1280, so a
+//     group is one expert), the row tile fastest inside a group: the ~132
+//     resident CTAs share one expert's x panel and ~13 of its weight
+//     column tiles, each weight column tile is read from HBM once and the
+//     x panel once per wave. HBM bytes a call moves at the mixtral shapes:
+//     w once (3.22 GB), y once (0.67 / 0.25 GB), x at most once per wave of
+//     a group (gate/up: 9.7 waves of the 251.7 MB x, down: 3.6 waves of
+//     671 MB): <= 6.3 / 5.9 GB, where the row-tile-fastest order of the
+//     FFMA kernel this replaced read x once per column tile (~32 GB).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int BMT = 128;     // output rows per CTA
-constexpr int BNT = 128;     // output columns per CTA
-constexpr int BK = 16;       // contraction step
-constexpr int PAD = 4;       // floats of padding per shared row
-constexpr int NT = 256;      // 16 x 16 threads
+constexpr int BM = 128;     // output rows per CTA
+constexpr int BN = 128;     // output columns per CTA
+constexpr int BK = 32;      // contraction step
+constexpr int NT = 256;     // 8 warps: 2 along M x 4 along N
+constexpr int NS = 4;       // cp.async ring depth
+constexpr int WM = 64, WN = 32;           // warp tile
+constexpr int MI = WM / 16, NI = WN / 8;  // m16n8k8 tiles of a warp tile
+constexpr int LDB = BN + 8;               // row of a w tile, elements
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+template <typename T>
+struct Tile {
+  static constexpr int CE = 16 / (int)sizeof(T);  // elements of a 16-byte copy
+  static constexpr int LDA = BK + CE;             // row of an x tile, elements
+  static constexpr int A_ELEMS = BM * LDA;
+  static constexpr int STAGE_ELEMS = A_ELEMS + BK * LDB;
+  static constexpr int SMEM_BYTES = NS * STAGE_ELEMS * (int)sizeof(T);
+};
+
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(s), "l"(src), "r"(full ? 4 : 0));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// a = hi + lo as mma.sync TF32 operands. The tensor cores read a TF32
+// operand's top 19 bits and drop the low 13. hi is a with those bits
+// cleared (one AND), lo = a - hi is exact in float32 (one FADD) and goes in
+// as it is: the core truncates it, an error of at most 2^-10 |lo| <=
+// 2^-20 |a|. (cvt.rna.tf32.f32, which rounds, is ~4 instructions on sm_90,
+// and two a value made the split outweigh the mma.sync.)
+__device__ __forceinline__ void split(float a, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(a);
+  lo = __float_as_uint(a - __uint_as_float(hi & 0xffffe000u));
 }
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
-  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+// d += a (16 x 8, row) * b (8 x 8, col), TF32 in, float32 sums.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b, float c, float d) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&lo);
-  u.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = u;
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
-
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
-// 4 consecutive elements of a row starting at column c (c < n when VEC,
-// which implies n % 4 == 0), zeros past the row's end or for a dead row.
+// One ring stage: the x tile (rows r0 .., k0 .. k0 + BK) and the w tile
+// (k0 .. k0 + BK, columns c0 ..), zeros past every edge.
 template <typename T, bool VEC>
-__device__ __forceinline__ float4 fetch4(const T* row, int c, int n, bool live) {
-  if (VEC) return (live && c < n) ? load4(row + c) : make_float4(0.f, 0.f, 0.f, 0.f);
-  float v[4];
+__device__ __forceinline__ void load_stage(T* As, T* Bs, const T* xr, const T* we, int rows,
+                                           int D, int F, int k0, int c0, int tid) {
+  using TL = Tile<T>;
+  if constexpr (VEC) {
+    constexpr int CE = TL::CE;
+    constexpr int ACH = BK / CE, BCH = BN / CE;  // 16-byte chunks of a row
 #pragma unroll
-  for (int q = 0; q < 4; ++q) v[q] = (live && c + q < n) ? to_f(row[c + q]) : 0.f;
-  return make_float4(v[0], v[1], v[2], v[3]);
+    for (int i = 0; i < BM * ACH / NT; ++i) {
+      const int m = tid / ACH + i * (NT / ACH), k = (tid % ACH) * CE;
+      const bool ok = m < rows && k0 + k < D;
+      cp16(As + m * TL::LDA + k, ok ? xr + (long long)m * D + k0 + k : xr, ok);
+    }
+#pragma unroll
+    for (int i = 0; i < BK * BCH / NT; ++i) {
+      const int k = tid / BCH + i * (NT / BCH), n = (tid % BCH) * CE;
+      const bool ok = k0 + k < D && c0 + n < F;
+      cp16(Bs + k * LDB + n, ok ? we + (long long)(k0 + k) * F + c0 + n : we, ok);
+    }
+  } else {
+#pragma unroll 4
+    for (int i = tid; i < BM * BK; i += NT) {
+      const int m = i / BK, k = i % BK;
+      const bool ok = m < rows && k0 + k < D;
+      const T* src = ok ? xr + (long long)m * D + k0 + k : xr;
+      if constexpr (std::is_same<T, float>::value)
+        cp4(As + m * TL::LDA + k, src, ok);
+      else
+        As[m * TL::LDA + k] = ok ? *src : T(0.f);
+    }
+#pragma unroll 4
+    for (int i = tid; i < BK * BN; i += NT) {
+      const int k = i / BN, n = i % BN;
+      const bool ok = k0 + k < D && c0 + n < F;
+      const T* src = ok ? we + (long long)(k0 + k) * F + c0 + n : we;
+      if constexpr (std::is_same<T, float>::value)
+        cp4(Bs + k * LDB + n, src, ok);
+      else
+        Bs[k * LDB + n] = ok ? *src : T(0.f);
+    }
+  }
 }
 
+// Grid: one CTA per (row tile, column tile), walked in groups of G row
+// tiles with the row tile fastest inside a group (see the note above). A
+// row tile is (row block, tile inside the block): tpb tiles a block.
 template <typename T, bool VEC>
-__global__ void __launch_bounds__(NT, 2)
+__global__ void __launch_bounds__(NT, 1)
 grouped_mm_kernel(const T* __restrict__ x, const T* __restrict__ w,
                   const int* __restrict__ blk_expert, T* __restrict__ y, int Tn, int D,
-                  int F, int E, int bm, int tiles_per_block) {
-  __shared__ __align__(16) float As[2][BK][BMT + PAD];
-  __shared__ __align__(16) float Bs[2][BK][BNT + PAD];
+                  int F, int E, int bm, int tpb, long long row_tiles, int col_tiles,
+                  int group) {
+  using TL = Tile<T>;
+  constexpr bool F32 = std::is_same<T, float>::value;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
 
-  const int blk = blockIdx.x / tiles_per_block;
-  const int sub = blockIdx.x - blk * tiles_per_block;
-  const long long blk_start = (long long)blk * bm;
-  const long long r0 = blk_start + (long long)sub * BMT;
+  const long long pid = blockIdx.x;
+  const long long per_group = (long long)group * col_tiles;
+  const long long first = pid / per_group * group;
+  const long long in_group = pid - first * col_tiles;
+  const int gsize = (int)(row_tiles - first < group ? row_tiles - first : group);
+  const long long rt = first + in_group % gsize;
+  const int c0 = (int)(in_group / gsize) * BN;
+  const long long blk = rt / tpb;
+  const long long blk_start = blk * bm;
+  const long long r0 = blk_start + (rt - blk * tpb) * BM;
   long long r_end = blk_start + bm;
   if (r_end > Tn) r_end = Tn;
-  if (r0 + BMT < r_end) r_end = r0 + BMT;
+  if (r0 + BM < r_end) r_end = r0 + BM;
   if (r0 >= r_end) return;                       // the whole CTA: no barrier yet
   const int rows = (int)(r_end - r0);
-  const int c0 = blockIdx.y * BNT;
   const int e = blk_expert[blk];
   const bool valid_e = e >= 0 && e < E;
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-
-  // global -> register staging: x tile as 2 x (row, 4 k), w tile as 2 x (k, 4 cols)
-  const int a_row = tid / 4, a_k = (tid % 4) * 4;          // rows a_row, a_row + 64
-  const int b_k = tid / 32, b_col = (tid % 32) * 4;        // k rows b_k, b_k + 8
-  const T* xa0 = x + (r0 + a_row) * (long long)D;
-  const T* xa1 = x + (r0 + a_row + 64) * (long long)D;
-  const bool live_a0 = valid_e && a_row < rows, live_a1 = valid_e && a_row + 64 < rows;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;                 // mma fragment coordinates
+  const int wm = (warp % 2) * WM, wn = (warp / 2) * WN;
+  const T* xr = x + r0 * D;
   const T* we = w + (valid_e ? (long long)e * D * F : 0LL);
+  const int nk = valid_e ? (D + BK - 1) / BK : 0;       // an invalid expert reads nothing
 
-  float4 ra[2], rb[2];
-  auto fetch = [&](int k0) {
-    ra[0] = fetch4<T, VEC>(xa0, k0 + a_k, D, live_a0);
-    ra[1] = fetch4<T, VEC>(xa1, k0 + a_k, D, live_a1);
+  // part: one step's products, summed on the tensor cores from zero, then
+  // added to acc by a round-to-nearest FADD (see the note above)
+  float acc[MI][NI][4], part[MI][NI][4];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int k = k0 + b_k + 8 * h;
-      rb[h] = fetch4<T, VEC>(we + (long long)k * F, c0 + b_col, F, valid_e && k < D);
-    }
-  };
-  auto stash = [&](int buf) {
+  for (int i = 0; i < MI; ++i)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = a_row + 64 * h;
-      As[buf][a_k + 0][m] = ra[h].x;
-      As[buf][a_k + 1][m] = ra[h].y;
-      As[buf][a_k + 2][m] = ra[h].z;
-      As[buf][a_k + 3][m] = ra[h].w;
-      *reinterpret_cast<float4*>(&Bs[buf][b_k + 8 * h][b_col]) = rb[h];
-    }
-  };
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = part[i][j][q] = 0.f;
 
-  float acc[8][8];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  fetch(0);
-  stash(0);
-  __syncthreads();
-  int buf = 0;
-  for (int k0 = 0; k0 < D; k0 += BK) {
-    const bool more = k0 + BK < D;
-    if (more) fetch(k0 + BK);
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[buf][kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[buf][kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[buf][kk][64 + tx * 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  for (int s = 0; s < NS - 1; ++s) {
+    if (s < nk) {
+      T* st = smem + s * TL::STAGE_ELEMS;
+      load_stage<T, VEC>(st, st + TL::A_ELEMS, xr, we, rows, D, F, s * BK, c0, tid);
     }
-    if (more) stash(buf ^ 1);
-    __syncthreads();
-    buf ^= 1;
+    cp_commit();
   }
-
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_wait<NS - 2>();
+    __syncthreads();               // step kt landed; step kt - 1's stage is free
+    const int nxt = kt + NS - 1;
+    if (nxt < nk) {
+      T* st = smem + (nxt % NS) * TL::STAGE_ELEMS;
+      load_stage<T, VEC>(st, st + TL::A_ELEMS, xr, we, rows, D, F, nxt * BK, c0, tid);
+    }
+    cp_commit();
+    const T* As = smem + (kt % NS) * TL::STAGE_ELEMS;
+    const T* Bs = As + TL::A_ELEMS;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (m >= rows) continue;
-    T* yr = y + (r0 + m) * (long long)F;
+    for (int kk = 0; kk < BK; kk += 8) {
+      uint32_t ah[MI][4], al[MI][4], bh[NI][2], bl[NI][2];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = c0 + 64 * h + tx * 4;
-      if (VEC) {
-        if (c < F)
-          store4(yr + c, acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
-      } else {
+      for (int i = 0; i < MI; ++i) {
+        const T* a = As + (wm + i * 16 + g) * TL::LDA + kk + t;
+        const float v[4] = {to_f(a[0]), to_f(a[8 * TL::LDA]), to_f(a[4]),
+                            to_f(a[8 * TL::LDA + 4])};
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
-          if (c + q < F) store1(yr + c + q, acc[i][4 * h + q]);
+        for (int q = 0; q < 4; ++q) {
+          if constexpr (F32) {
+            split(v[q], ah[i][q], al[i][q]);
+          } else {
+            ah[i][q] = __float_as_uint(v[q]);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NI; ++j) {
+        const T* b = Bs + (kk + t) * LDB + wn + j * 8 + g;
+        const float v[2] = {to_f(b[0]), to_f(b[4 * LDB])};
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          if constexpr (F32) {
+            split(v[q], bh[j][q], bl[j][q]);
+          } else {
+            bh[j][q] = __float_as_uint(v[q]);
+          }
+        }
+      }
+      // pass p of tile (i, j): 0 lo*hi, 1 hi*lo, 2 hi*hi, pass by pass
+#pragma unroll
+      for (int n = 0; n < 3 * MI * NI; ++n) {
+        const int p = n / (MI * NI), i = n % (MI * NI) / NI, j = n % NI;
+        if (F32 || p == 2) mma(part[i][j], p == 0 ? al[i] : ah[i], p == 1 ? bl[j] : bh[j]);
       }
     }
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NI; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          acc[i][j][q] += part[i][j][q];
+          part[i][j][q] = 0.f;
+        }
   }
+
+  // accumulator q of tile (i, j): row wm + 16 i + g + 8 (q / 2), column
+  // wn + 8 j + 2 t + q % 2
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = wm + i * 16 + g + 8 * h;
+      if (m >= rows) continue;
+      T* yr = y + (r0 + m) * (long long)F;
+#pragma unroll
+      for (int j = 0; j < NI; ++j) {
+        const int c = c0 + wn + j * 8 + 2 * t;
+        if constexpr (VEC) {
+          if (c < F) store2(yr + c, acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+        } else {
+          if (c < F) store1(yr + c, acc[i][j][2 * h]);
+          if (c + 1 < F) store1(yr + c + 1, acc[i][j][2 * h + 1]);
+        }
+      }
+    }
 }
 
-template <typename T>
-int launch(bool vec, const void* x, const void* w, const int* blk_expert, void* y, int Tn,
-           int D, int F, int E, int bm, cudaStream_t s) {
-  const int tiles_per_block = (bm + BMT - 1) / BMT;
+template <typename T, bool VEC>
+int launch_t(const void* x, const void* w, const int* blk_expert, void* y, int Tn, int D,
+             int F, int E, int bm, cudaStream_t s) {
+  const int tpb = ((bm < Tn ? bm : Tn) + BM - 1) / BM;
   const long long nblk = ((long long)Tn + bm - 1) / bm;
-  const long long row_tiles = nblk * tiles_per_block;
-  if (row_tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)row_tiles, (F + BNT - 1) / BNT);
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  if (vec)
-    grouped_mm_kernel<T, true><<<grid, NT, 0, s>>>((const T*)x, (const T*)w, blk_expert,
-                                                   (T*)y, Tn, D, F, E, bm, tiles_per_block);
-  else
-    grouped_mm_kernel<T, false><<<grid, NT, 0, s>>>((const T*)x, (const T*)w, blk_expert,
-                                                    (T*)y, Tn, D, F, E, bm, tiles_per_block);
+  const long long row_tiles = nblk * tpb;
+  const int col_tiles = (F + BN - 1) / BN;
+  const long long ctas = row_tiles * col_tiles;
+  if (ctas > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  // a group is one row block's tiles (several small blocks make up 8),
+  // at most 16 row tiles
+  const int group = tpb > 16 ? 16 : (tpb >= 8 ? tpb : tpb * (8 / tpb));
+  auto kern = grouped_mm_kernel<T, VEC>;
+  const int smem = Tile<T>::SMEM_BYTES;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<(unsigned)ctas, NT, smem, s>>>((const T*)x, (const T*)w, blk_expert, (T*)y, Tn,
+                                        D, F, E, bm, tpb, row_tiles, col_tiles, group);
   return (int)cudaGetLastError();
 }
 
@@ -207,8 +355,9 @@ int launch(bool vec, const void* x, const void* w, const int* blk_expert, void* 
 
 // dtype: 0 float32, 1 bfloat16 (x, w and y alike). x (T, D), w (E, D, F)
 // and y (T, F) contiguous; blk_expert (ceil(T / bm),) int32. vec = 1 when
-// D % 4 == 0, F % 4 == 0 and x, w are aligned for 4-element vector loads.
-// Returns cudaGetLastError() after the launch.
+// D and F are multiples of 16 bytes' worth of elements and x, w start on
+// 16 bytes. Returns the error of cudaFuncSetAttribute or of the launch
+// (cudaGetLastError()).
 extern "C" int grouped_matmul_launch(int dtype, int vec, const void* x, const void* w,
                                      const int* blk_expert, void* y, int Tn, int D, int F,
                                      int E, int bm, void* stream) {
@@ -216,9 +365,12 @@ extern "C" int grouped_matmul_launch(int dtype, int vec, const void* x, const vo
   if (Tn <= 0 || F <= 0) return (int)cudaSuccess;
   if (bm < 1 || D < 0 || E < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return launch<float>(vec != 0, x, w, blk_expert, y, Tn, D, F, E, bm, s);
+  if (dtype == 0)
+    return vec ? launch_t<float, true>(x, w, blk_expert, y, Tn, D, F, E, bm, s)
+               : launch_t<float, false>(x, w, blk_expert, y, Tn, D, F, E, bm, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(vec != 0, x, w, blk_expert, y, Tn, D, F, E, bm, s);
+    return vec ? launch_t<__nv_bfloat16, true>(x, w, blk_expert, y, Tn, D, F, E, bm, s)
+               : launch_t<__nv_bfloat16, false>(x, w, blk_expert, y, Tn, D, F, E, bm, s);
   return (int)cudaErrorInvalidValue;
 }
 

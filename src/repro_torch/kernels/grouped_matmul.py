@@ -12,10 +12,14 @@ unused. A block whose expert id lies outside ``[0, E)`` comes out as zeros
 on both routes.
 
 A CUDA tensor launches ``csrc/grouped_matmul.cu`` (float32 or bfloat16,
-float32 sums, y in x's dtype) and bumps ``LAUNCHES`` (and
+y in x's dtype) and bumps ``LAUNCHES`` (and
 ``LAUNCHES_BY_SHAPE`` under ``"grouped_matmul/{D}x{F}"``, which tells a
 layer's gate/up products from its down product); a CPU tensor runs
 ``grouped_matmul_plain`` (the loop of the reference's test oracle). The
+kernel multiplies on the TF32 tensor cores with float32 sums: a float32
+operand is split into a TF32 high part and a TF32 remainder and each
+product is taken as three TF32 products ("3xTF32"), which keeps float32's
+accuracy; bfloat16 values are TF32 values and take one. The
 wrapper is not differentiable: the MoE layer's ``"pallas"`` route wraps it
 in an autograd.Function whose backward is two library products
 (models/transformer.py), as the reference leaves those products to XLA.
@@ -103,9 +107,9 @@ def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor,
     ids = blk_expert.to(torch.int32).contiguous()
     T, D = x.shape
     E, _, F = w.shape
-    align = 16 if x.dtype == torch.float32 else 8
-    vec = (D % 4 == 0 and F % 4 == 0 and x.data_ptr() % align == 0
-           and w.data_ptr() % align == 0)
+    per16 = 16 // x.element_size()          # elements of a 16-byte copy
+    vec = (D % per16 == 0 and F % per16 == 0 and x.data_ptr() % 16 == 0
+           and w.data_ptr() % 16 == 0)
     y = torch.empty((T, F), dtype=x.dtype, device=x.device)
     lib = _lib()
     code = lib.grouped_matmul_launch(

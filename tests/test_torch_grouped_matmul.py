@@ -9,8 +9,13 @@ without one).
 Inputs are made with numpy from a seed and given to both sides.
 Tolerances: float32 rtol/atol 1e-4 (the reference test's; the same products
 in another summation order), bfloat16 3e-2 (the reference's bf16 tolerance;
-both sides round the float32 sums to bfloat16). On the card: float32
-within 1e-4 x max(1, |ref|) of the plain version, bfloat16 3e-2.
+both sides round the float32 sums to bfloat16). On the card the kernel
+multiplies on the TF32 tensor cores, a float32 operand split into a TF32
+high part and remainder and each product taken as three TF32 products
+("3xTF32"): float32 within 1e-4 x max(1, |ref|) of the plain version,
+bfloat16 3e-2, and at D=6144 within 1e-5 x max(1, |ref|) of a float64
+product, which keeps float32's accuracy and which single-pass TF32 (~3e-4)
+would not meet.
 """
 import numpy as np
 import pytest
@@ -164,6 +169,17 @@ CUDA_CASES = [
     (300, 100, 130, 3, 100, torch.float32),       # bm not a multiple of 128
     (257, 37, 61, 5, 23, torch.float32),          # tails everywhere, scalar loads
     (512, 64, 96, 8, 64, torch.bfloat16),
+    # the tensor-core kernel's tiling: 128 x 128 CTA tiles inside a row
+    # block, contraction steps of 32 through a 4-stage cp.async ring,
+    # 16-byte copies where rows are multiples of 16 bytes, 4-byte (float32)
+    # or plain (bfloat16) loads otherwise
+    (200, 16, 128, 3, 64, torch.float32),         # D below one 32-step
+    (256, 96, 136, 2, 128, torch.float32),        # D below stages x 32; F tail
+    (300, 37, 61, 3, 50, torch.float32),          # 4-byte copies; bm below the tile
+    (700, 45, 130, 4, 200, torch.float32),        # 4-byte copies; bm across the tile
+    (333, 64, 96, 3, 130, torch.bfloat16),        # bf16 16-byte copies; T, bm tails
+    (300, 100, 132, 3, 70, torch.bfloat16),       # bf16 plain loads, tails everywhere
+    (129, 5, 3, 2, 129, torch.bfloat16),          # widths below one copy
 ]
 
 
@@ -193,3 +209,33 @@ def test_cuda_empty_expert_rows_are_exactly_zero():
     got = gm.grouped_matmul(torch.from_numpy(x).to(dev), torch.from_numpy(w).to(dev),
                             torch.from_numpy(blk).to(dev), bm=16)
     assert (got[16:32] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_out_of_range_expert_gives_zeros(dtype):
+    dev = require_cuda()
+    x, w, blk = _inputs(300, 64, 160, 3, 100)
+    blk[1], blk[2] = 3, -1
+    args = (torch.from_numpy(x).to(dev, dtype), torch.from_numpy(w).to(dev, dtype),
+            torch.from_numpy(blk).to(dev))
+    got = gm.grouped_matmul(*args, bm=100)
+    torch.cuda.synchronize()
+    assert (got[100:] == 0).all()
+    want = gm.grouped_matmul_plain(*args, bm=100)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    scale = max(1.0, want.float().abs().max().item())
+    assert (got[:100].float() - want[:100].float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.cuda
+def test_cuda_float32_accuracy_at_mixtral_depth():
+    """D = 6144 (mixtral-8x22b's d_model) against float64: 3xTF32 keeps
+    float32's accuracy, 1e-5 x max(1, |ref|)."""
+    dev = require_cuda()
+    x, w, blk = _inputs(256, 6144, 256, 2, 128, seed=6144)
+    got = gm.grouped_matmul(torch.from_numpy(x).to(dev), torch.from_numpy(w).to(dev),
+                            torch.from_numpy(blk).to(dev), bm=128)
+    want = _oracle(x, w, blk, 128)
+    err = np.abs(got.cpu().double().numpy() - want).max()
+    assert err <= 1e-5 * max(1.0, np.abs(want).max())
