@@ -20,7 +20,12 @@ plain PyTorch version at that path's full shapes, and times it:
   * qwen3-8b (B=1, S=4096, 32 query heads over 16 kv heads after
     kv_repeat, head_dim 128, causal): K9 flash forward, K10 dq, K11 dk/dv,
     with ``scaled_dot_product_attention`` timed beside them as the library
-    yardstick (also non-causal, windowed, MQA, G=4, G=3 (mixtral's group),
+    yardstick; K10 and K11 run on the TF32 tensor cores in split precision
+    (3xTF32), so they are also held to a float64 backward over one (batch,
+    kv head) group within 1e-5 x max(1, |ref|) (SDPA's distance printed
+    beside theirs), launched twice for the same bits, and the SASS of
+    every float32 instantiation must hold TF32 HMMA instructions (also
+    non-causal, windowed, MQA, G=4, G=3 (mixtral's group),
     ragged, Sq != Sk, head_dim 16 / 64 / 256 and bfloat16 modes on small
     inputs);
   * mixtral-8x22b (the expert products over the (8 experts x 1280 slots)
@@ -615,7 +620,11 @@ def check_flash(gen, B_, Sq_, Sk_, Hq_, Hkv_, d_, *, causal=True, window=None,
     """K9 (o, lse), K10 (dq) and K11 (dk, dv) against their plain versions
     on the same inputs; both backward passes take the plain forward's lse
     and delta. float32 within 1e-3 x max(1, |ref|), bfloat16 within 3e-2
-    (the reference's bf16 tolerance)."""
+    (the reference's bf16 tolerance). With ``out`` (the main path's shape):
+    K10 and K11 also against a float64 backward over one (batch, kv head)
+    group within ``FLASH_F64_TOL`` (SDPA's distance printed beside it),
+    launched twice for the same bits, timed beside SDPA, and their SASS
+    must hold TF32 HMMA."""
     from repro_torch.kernels import flash_attention as fa
     r = lambda *shape: torch.randn(*shape, generator=gen).to("cuda", dtype)
     q, k, v, do = (r(B_, Sq_, Hq_, d_), r(B_, Sk_, Hkv_, d_),
@@ -638,6 +647,19 @@ def check_flash(gen, B_, Sq_, Sk_, Hq_, Hkv_, d_, *, causal=True, window=None,
     e11 = compare("  flash_dkv " + tag, list(dkv_k()), list(dkv_p()), tol)
     if out is None:
         return
+    del o_p
+    f64 = flash_f64(fa, q, k, v, do, causal, window)
+    same = (torch.equal(dq_k(), dq_k())
+            and all(torch.equal(x, y) for x, y in zip(dkv_k(), dkv_k())))
+    print(f"  flash_dq, flash_dkv launched twice: {'the same bits' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError("flash backward: two launches gave different bits")
+    hmma = sass_hmma("flash_attention")
+    for name in ("flash_dq_kernel", "flash_dkv_kernel"):
+        for d in fa.HEAD_DIMS:
+            f32 = [tf for sym, (tf, _) in hmma.items() if f"{name}IfLi{d}E" in sym]
+            if not f32 or not all(f32):
+                raise AssertionError(f"{name} (float32, d={d}): no TF32 HMMA in its SASS")
     # the work this call's data needs: the visible (query, key) pairs
     pairs = int(fa._visible(Sq_, Sk_, causal, window, "cuda").sum())
     prod = 2 * B_ * Hq_ * pairs * d_              # flops of one product
@@ -648,20 +670,95 @@ def check_flash(gen, B_, Sq_, Sk_, Hq_, Hkv_, d_, *, causal=True, window=None,
     lib_f, lib_b = sdpa_yardstick(q, k, v, do, causal)
     src = "src/repro_torch/csrc/flash_attention.cu"
     rep = "src/repro/kernels/flash_attention.py:"
-    for name, fk, fp, err, nbytes, flops, lms, line in (
+    # K9 on float32 FFMA; K10 / K11 on the TF32 tensor cores, three TF32
+    # products for each float32 product (3xTF32)
+    for name, fk, fp, err, nbytes, flops, rate, lms, line in (
             ("flash_fwd", fwd_k, fwd_p, e9, qb + 2 * kb + qb + rows, 2 * prod,
-             lib_f, "45"),
-            ("flash_dq", dq_k, dq_p, e10, 3 * qb + 2 * kb + 2 * rows, 3 * prod,
-             lib_b, "127"),
+             F32_FLOPS, lib_f, "45"),
+            ("flash_dq", dq_k, dq_p, e10, 3 * qb + 2 * kb + 2 * rows, 3 * 3 * prod,
+             TF32_FLOPS, lib_b, "127"),
             ("flash_dkv", dkv_k, dkv_p, e11, 2 * qb + 4 * kb + 2 * rows,
-             4 * prod, lib_b, "158")):
+             3 * 4 * prod, TF32_FLOPS, lib_b, "158")):
         # once per layer and pass, after other work: cold L2
         ms = time_ms(fk, cold_l2=True)
         pms = time_ms(fp, cold_l2=True)
-        add_row(out, name, QWEN, src, rep + line, err, ms, pms, lms, nbytes,
-                flops, "cold")
+        extra = {}
         if name != "flash_fwd":
-            out[name]["library_covers"] = "flash_dq + flash_dkv (one backward)"
+            extra = dict(f64_rel_err=f64[name], library_f64_rel_err=f64["sdpa"],
+                         library_covers="flash_dq + flash_dkv (one backward)")
+        add_row(out, name, QWEN, src, rep + line, err, ms, pms, lms, nbytes,
+                flops, "cold", rate=rate, **extra)
+
+
+# K10 / K11 against a float64 backward (float32's accuracy, which
+# single-pass TF32 misses). The FFMA kernels they replaced read dq 3.3e-7,
+# dk 3.7e-6, dv 5.2e-6 there (launch/flash_bwd.py, H100 80GB HBM3 at 700 W),
+# inside this gate, so the gate is not loosened to them.
+FLASH_F64_TOL = 1e-5
+
+
+def flash_f64(fa, q, k, v, do, causal, window, b=0, hk=0):
+    """dq of the group's G query heads and dk, dv of kv head ``hk`` (batch
+    ``b``) from K10 / K11 and from SDPA's backward, against the same
+    backward in float64 on the card (scores, softmax and products in
+    float64). The kernels get the group's lse and delta from that float64
+    forward, rounded to float32, so that only their own arithmetic is
+    measured; SDPA runs its own forward. Fails the kernels beyond
+    ``FLASH_F64_TOL`` x max(1, |ref|); returns {"flash_dq", "flash_dkv",
+    "sdpa": max relative error}."""
+    G = q.shape[2] // k.shape[2]
+    hs = slice(hk * G, (hk + 1) * G)
+    scale = fa.softmax_scale(q.shape[3])
+    lse64, delta64, *want = fa.backward_float64(q, k, v, do, causal, window, b, hk)
+    lse = fa.attention_plain(q, k, v, causal, window)[1]
+    lse[b, hs] = lse64.float()
+    delta = torch.zeros_like(lse)
+    delta[b, hs] = delta64.float()
+    args = (q, k, v, do, lse, delta, causal, window)
+    dq = fa.flash_dq_cuda(*args)[b, :, hs]
+    dk, dv = (x[b, :, hk] for x in fa.flash_dkv_cuda(*args))
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    import torch.nn.functional as F
+    o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, scale=scale,
+                                       enable_gqa=True)
+    sg = torch.autograd.grad(o, (qt, kt, vt), do.transpose(1, 2))
+    sdpa = (sg[0].transpose(1, 2)[b, :, hs], sg[1].transpose(1, 2)[b, :, hk],
+            sg[2].transpose(1, 2)[b, :, hk])
+    rel = lambda got, w: ((got.double() - w).abs().max().item()
+                          / max(1.0, w.abs().max().item()))
+    res = {"flash_dq": rel(dq, want[0]),
+           "flash_dkv": max(rel(dk, want[1]), rel(dv, want[2])),
+           "sdpa": max(rel(x, w) for x, w in zip(sdpa, want))}
+    print(f"  vs float64 over (batch {b}, kv head {hk}), {G} query heads: "
+          f"flash_dq {res['flash_dq']:.3e}, flash_dkv {res['flash_dkv']:.3e} "
+          f"(dk {rel(dk, want[1]):.3e}, dv {rel(dv, want[2]):.3e}); "
+          f"SDPA's backward {res['sdpa']:.3e} (the yardstick's own); "
+          f"tol {FLASH_F64_TOL:g} x max(1, |ref|)")
+    if max(res["flash_dq"], res["flash_dkv"]) > FLASH_F64_TOL:
+        raise AssertionError("flash backward: beyond the float64 gate")
+    return res
+
+
+def sass_hmma(name):
+    """{kernel symbol: [TF32 HMMA, all HMMA]} in the SASS of ``csrc/<name>.cu``'s
+    library (``cuobjdump -sass``)."""
+    from repro_torch.kernels import _build
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.lib_path(name))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    hmma, sym = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            sym = m.group(1)
+            hmma[sym] = [0, 0]
+        elif sym and "HMMA" in line:
+            hmma[sym][0] += "TF32" in line
+            hmma[sym][1] += 1
+    for sym, (tf, n) in hmma.items():
+        if n:
+            print(f"{name} sass: {sym}: {tf} TF32 HMMA of {n} HMMA")
+    return hmma
 
 
 def sdpa_yardstick(q, k, v, do, causal):
@@ -1020,22 +1117,8 @@ def check_grouped(out):
     shapes in float32 and bfloat16 (3e-2), bm not a multiple of the 128-row
     tile, an empty expert, unsorted repeated ids and ragged T, D, F. The
     bound is the route's: three TF32 products a float32 product."""
-    from repro_torch.kernels import _build
     from repro_torch.kernels import grouped_matmul as gm
-    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(_build.lib_path("grouped_matmul"))],
-                          capture_output=True, text=True, check=True, timeout=300).stdout
-    hmma, sym = {}, None                 # kernel symbol -> [TF32 HMMA, all HMMA]
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            sym = m.group(1)
-            hmma[sym] = [0, 0]
-        elif sym and "HMMA" in line:
-            hmma[sym][0] += "TF32" in line
-            hmma[sym][1] += 1
-    for sym, (tf, n) in hmma.items():
-        print(f"grouped_matmul sass: {sym}: {tf} TF32 HMMA of {n} HMMA")
+    hmma = sass_hmma("grouped_matmul")
     if not any(tf for k_, (tf, _) in hmma.items() if "grouped_mm_kernelIfLb1E" in k_):
         raise AssertionError("grouped_matmul: no TF32 HMMA in the float32 kernel's SASS")
     g = torch.Generator(device="cuda").manual_seed(12)

@@ -17,8 +17,10 @@
 //   K11: dv = sum_q p do, dk = sum_q ds q, summed over the group's query
 //        heads inside the kernel (the reference sums per-head float32
 //        results outside it), written in k's type.
-// Inputs are float32 or bfloat16; the arithmetic is float32 FFMA (no tensor
-// cores: the port keeps TF32 off), staged through shared memory as float32.
+// Inputs are float32 or bfloat16. K9 computes in float32 FFMA; K10 and K11
+// run their products on the TF32 tensor cores in split precision, which
+// keeps float32's accuracy (below). Tiles are staged in shared memory as
+// float32.
 //
 // Masked tiles: a kv tile that no row of the CTA's q tile can see (causal:
 // above the diagonal; window: before it) is skipped. The reference visits
@@ -29,22 +31,80 @@
 // wrapper. Keys past Sk (the ragged last tile) get p = 0 exactly; query rows
 // past Sq are computed on zeros and never written.
 //
-// What bounds it on the H100: operations. At qwen3-8b's training shape
+// What bounds them on the H100: operations. At qwen3-8b's training shape
 // (B=1, S=4096, 32 query heads, D=128, causal) a product over the causal
-// half is 68.7e9 multiply-adds against at most ~200 MB of operands, far
-// above float32's ~20 operations per byte. The design keeps every product
-// in shared memory and registers: a CTA of 256 threads (16 x 16) owns a
-// 64-row tile (32 at D=256) of one (batch, head); tiles are staged as
-// float32 rows padded to D + 4 floats, so each thread reads 16-byte vectors
-// along the contraction axis without bank conflicts (rows owned as
-// ty + 16 i and tx + 16 j); each thread keeps a 4 x 4 block of scores and a
-// 4 x D/16 block of the output in registers. K9 grid: q tiles x Hq x B,
-// largest (last) q tiles first; K10 the same; K11: kv tiles x Hkv x B,
-// looping over the group's query heads and the q tiles the masks leave.
-// wgmma, TMA and warp specialisation are later work.
+// half is 68.7e9 multiply-adds against at most ~200 MB of operands.
+//
+// K9 (float32 FFMA): a CTA of 256 threads (16 x 16) owns a 64-row tile (32
+// at D=256) of one (batch, head); tiles are staged as float32 rows padded
+// to D + 4 floats, so each thread reads 16-byte vectors along the
+// contraction axis without bank conflicts (rows owned as ty + 16 i and
+// tx + 16 j); each thread keeps a 4 x 4 block of scores and a 4 x D/16
+// block of the output in registers. Grid: q tiles x Hq x B, largest (last)
+// q tiles first.
+//
+// K10 and K11 (the backward: three and four products):
+//   * Split precision ("3xTF32"), as csrc/grouped_matmul.cu: each float32
+//     operand of an mma.sync.m16n8k8 TF32 fragment is split into hi and a
+//     remainder lo (an AND and an FADD), and each product issues lo*hi,
+//     hi*lo, hi*hi. A bfloat16 input widened to float32 is already a TF32
+//     value, so the products of two inputs (s = q k^T, dp = do v^T) take
+//     hi*hi alone and those with p or ds (float32) take two passes.
+//   * The tensor cores truncate as they add into a float32 accumulator, and
+//     dq sums over up to Sk keys, dk and dv over up to Sq x G queries. So
+//     every product is summed on the tensor cores from zero over one tile
+//     of its contraction (32 of head_dim for s and dp, one kv tile for dq,
+//     one q tile for dk and dv) and that partial tile is added to the
+//     running float32 sums by an FADD, which rounds to nearest.
+//   * mma.sync, not wgmma: TF32 wgmma reads both operands K-major from
+//     shared memory, and three of the five products contract over a
+//     sequence axis whose operand lies d-contiguous (ds k, p^T do, ds^T q).
+//     mma.sync fragments load from shared memory in any orientation.
+//   * Bank conflicts: one float32 copy of each tile, rows of D + 4 floats,
+//     serves both orientations. Where a product contracts over a sequence
+//     axis the 8-wide k-step is paired (k = t is row 2t, k = t + 4 is row
+//     2t + 1; the order of a contraction's terms is free), which is exactly
+//     the column order of the score accumulator, so ds and p^T go from the
+//     accumulators to the next product's A fragments without a shuffle, and
+//     the B fragment rows 2t, 2t + 1 land on banks 8t + g: conflict-free
+//     at D + 4. The d-contracting fragments (q, do, k, v as rows) load by
+//     ldmatrix, four 8 x 4 float32 matrices an instruction, whose 8 rows
+//     of D + 4 floats fall on 8 distinct 16-byte bank groups. No swizzle
+//     and no second copy are needed. p^T and ds^T (K11) pass through shared
+//     memory in rows of BQ + 8 floats, read as 8-byte pairs, also
+//     conflict-free. K11 splits its resident k and v tiles once into a
+//     plane of remainders beside them (up to D = 128), so their fragments
+//     take no arithmetic in the q loop.
+//   * Staging: float32 tiles arrive by 16-byte cp.async, double-buffered:
+//     the next kv tile (K10) or q / do tile (K11) is copied while the
+//     current one computes, one barrier a tile (K11: two, around the p^T /
+//     ds^T exchange). bfloat16 is widened through registers into the same
+//     ring (synchronously).
+//   * K10: a CTA of 8 warps owns 128 query rows (64 at D = 256) of one
+//     (batch, head), 16 rows a warp, and walks kv tiles of 32 keys (16 at
+//     D = 256): each warp computes its rows' s and dp on the tensor cores,
+//     forms ds in registers and adds ds k to its dq rows (all of head_dim;
+//     at D = 256 two warps share 16 rows, 128 columns each, and both
+//     compute the rows' scores). A warp skips a tile none of its rows can
+//     see.
+//   * K11: a CTA of 8 warps owns 64 keys (32 at D = 256) of one (batch, kv
+//     head) and walks the group's query heads and the q tiles of 32 rows (64
+//     at D <= 64) the masks leave. Warps split s^T and dp^T as 16 keys x
+//     the tile's queries / (8 / (keys / 16)), write p^T and ds^T to shared
+//     memory, then split dk and dv as 16 keys x head_dim / (8 / (keys /
+//     16)), each held in registers for the whole loop.
+//   * Launch order: the grid is (heads x B) x tiles with the head fastest,
+//     so CTAs start in order of their work over all heads (K10: the last q
+//     tiles first; K11: the first kv tiles, which the most q rows see) and
+//     the smallest end the run. With the tile fastest (K9's grid), one
+//     head's largest CTA starts only after the heads before it, and under
+//     a causal mask the run waits on it.
+//   * Deterministic: two passes, no atomics; every sum has a fixed order.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -205,19 +265,6 @@ constexpr int fwd_smem_floats() {
   return BQ * SD + kreg + BK * SD;
 }
 
-template <int D>
-constexpr int dq_smem_floats() {
-  constexpr int BQ = Tile<D>::BQ, BK = Tile<D>::BK, SD = D + 4;
-  constexpr int vreg = BK * SD > BQ * (BK + 4) ? BK * SD : BQ * (BK + 4);
-  return 2 * BQ * SD + BK * SD + vreg;
-}
-
-template <int D>
-constexpr int dkv_smem_floats() {
-  constexpr int BQ = Tile<D>::BQ, BK = Tile<D>::BK, SD = D + 4;
-  return 2 * BK * SD + 2 * BQ * SD + 2 * BK * (BQ + 4);
-}
-
 // ---------------------------------------------------------------------------
 // K9: forward
 // ---------------------------------------------------------------------------
@@ -314,78 +361,357 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(FlashArgs a) {
 }
 
 // ---------------------------------------------------------------------------
+// K10 / K11: the backward on TF32 tensor cores, split precision ("3xTF32")
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// R rows [row0, row0 + R) of one (batch, head) slice at `base` (row stride
+// `rs` elements) into shared memory as float32 rows of SD floats, zeros at
+// and past `nrows`. float32 goes by 16-byte cp.async (the wrapper aligns
+// rows and bases to 16 bytes; a row past the edge is zero-filled by the
+// copy's src-size operand), bfloat16 is widened through registers.
+template <typename T, int D, int R, int SD>
+__device__ __forceinline__ void load_rows(float* s, const T* base, long long rs, int row0,
+                                          int nrows) {
+  constexpr int V4 = D / 4;
+#pragma unroll 4
+  for (int idx = threadIdx.x; idx < R * V4; idx += NT) {
+    const int r = idx / V4, c4 = idx - r * V4;
+    const bool ok = row0 + r < nrows;
+    const T* src = ok ? base + (long long)(row0 + r) * rs + c4 * 4 : base;
+    float* dst = s + r * SD + c4 * 4;
+    if constexpr (std::is_same<T, float>::value) {
+      cp16(dst, src, ok);
+    } else {
+      *reinterpret_cast<float4*>(dst) = ok ? load4(src) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+}
+
+// a = hi + lo as mma.sync TF32 operands, as csrc/grouped_matmul.cu splits
+// them: the core reads a TF32 operand's top 19 bits, so hi is a itself
+// (truncated by the core) and lo = a - (a with its low 13 bits cleared), one
+// AND and one FADD, exact in float32; the core truncates lo in turn, an
+// error of at most 2^-20 |a|. Without SPLIT the value is already a TF32
+// value (a bfloat16 input widened to float32) and lo is not read.
+template <bool SPLIT>
+__device__ __forceinline__ void split(float a, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(a);
+  if constexpr (SPLIT) lo = __float_as_uint(a - __uint_as_float(hi & 0xffffe000u));
+  else lo = 0u;
+}
+
+// d += a (16 x 8, row) * b (8 x 8, col), TF32 in, float32 sums. Fragment
+// coordinates: g = lane / 4, t = lane % 4; a0 (g, t), a1 (g + 8, t), a2 (g,
+// t + 4), a3 (g + 8, t + 4); b0 (k t, n g), b1 (k t + 4, n g); d0 (g, 2t),
+// d1 (g, 2t + 1), d2 (g + 8, 2t), d3 (g + 8, 2t + 1).
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The passes of one k-step over N n-tiles, small terms first: lo*hi where
+// A splits, hi*lo where B splits, then hi*hi (lo*lo, ~2^-22 of a product,
+// is dropped).
+template <bool SA, bool SB, int N>
+__device__ __forceinline__ void passes(float (&d)[N][4], const uint32_t (&ah)[4],
+                                       const uint32_t (&al)[4], const uint32_t (&bh)[N][2],
+                                       const uint32_t (&bl)[N][2]) {
+  if constexpr (SA) {
+#pragma unroll
+    for (int n = 0; n < N; ++n) mma(d[n], al, bh[n]);
+  }
+  if constexpr (SB) {
+#pragma unroll
+    for (int n = 0; n < N; ++n) mma(d[n], ah, bl[n]);
+  }
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma(d[n], ah, bh[n]);
+}
+
+// Four 8 x 4 float32 matrices from shared memory (ldmatrix on 16-bit
+// pairs): lanes 8 m .. 8 m + 7 give the 16-byte row addresses of matrix m,
+// and lane i gets word i % 4 of row i / 4 of matrix m in r[m], which is an
+// mma fragment's (g, t) layout. Rows of D + 4 floats put the 8 rows of a
+// matrix on 8 distinct 16-byte bank groups.
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const float* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
+}
+
+// Fragments from shared memory (float32 rows of `ld` floats), split.
+// A (16 x 8) from rows r0 .. r0 + 15 of M, k along the row (M[r][k]).
+template <bool SPLIT>
+__device__ __forceinline__ void frag_a(const float* M, int ld, int r0, int k0, int lane,
+                                       uint32_t (&h)[4], uint32_t (&l)[4]) {
+  const int m = lane >> 3;
+  uint32_t raw[4];
+  ldsm4(raw, M + (r0 + (m & 1) * 8 + (lane & 7)) * ld + k0 + (m >> 1) * 4);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) split<SPLIT>(__uint_as_float(raw[q]), h[q], l[q]);
+}
+// The same A from a tile and its plane of remainders (split once, below):
+// two ldmatrix and no arithmetic.
+template <bool SPLIT>
+__device__ __forceinline__ void frag_a_planes(const float* Mh, const float* Ml, int ld, int r0,
+                                              int k0, int lane, uint32_t (&h)[4],
+                                              uint32_t (&l)[4]) {
+  const int m = lane >> 3;
+  const int off = (r0 + (m & 1) * 8 + (lane & 7)) * ld + k0 + (m >> 1) * 4;
+  ldsm4(h, Mh + off);
+  if constexpr (SPLIT) ldsm4(l, Ml + off);
+}
+// A (16 x 8) from rows r0 .. r0 + 15, k paired: k = t is column k0 + 2t and
+// k = t + 4 column k0 + 2t + 1, one 8-byte load each half (the order of a
+// contraction's terms is free; frag_b_pairs pairs the same way).
+__device__ __forceinline__ void frag_a_pairs(const float* M, int ld, int r0, int k0, int g,
+                                             int t, uint32_t (&h)[4], uint32_t (&l)[4]) {
+  const float2 x = *reinterpret_cast<const float2*>(M + (r0 + g) * ld + k0 + 2 * t);
+  const float2 y = *reinterpret_cast<const float2*>(M + (r0 + g + 8) * ld + k0 + 2 * t);
+  split<true>(x.x, h[0], l[0]);
+  split<true>(y.x, h[1], l[1]);
+  split<true>(x.y, h[2], l[2]);
+  split<true>(y.y, h[3], l[3]);
+}
+// B (8 x 8) as the transpose of rows n0 .. n0 + 7 of M: B[k][n] = M[n0 + n][k0 + k].
+template <bool SPLIT>
+__device__ __forceinline__ void frag_b_rows(const float* M, int ld, int n0, int k0, int g,
+                                            int t, uint32_t (&h)[2], uint32_t (&l)[2]) {
+  const float* p = M + (n0 + g) * ld + k0 + t;
+  split<SPLIT>(p[0], h[0], l[0]);
+  split<SPLIT>(p[4], h[1], l[1]);
+}
+// Two such B (rows n0 .. n0 + 7 and n0 + 8 .. n0 + 15) by one ldmatrix.
+template <bool SPLIT>
+__device__ __forceinline__ void frag_b_rows2(const float* M, int ld, int n0, int k0, int lane,
+                                             uint32_t (&h0)[2], uint32_t (&l0)[2],
+                                             uint32_t (&h1)[2], uint32_t (&l1)[2]) {
+  const int m = lane >> 3;
+  uint32_t raw[4];
+  ldsm4(raw, M + (n0 + (m >> 1) * 8 + (lane & 7)) * ld + k0 + (m & 1) * 4);
+  split<SPLIT>(__uint_as_float(raw[0]), h0[0], l0[0]);
+  split<SPLIT>(__uint_as_float(raw[1]), h0[1], l0[1]);
+  split<SPLIT>(__uint_as_float(raw[2]), h1[0], l1[0]);
+  split<SPLIT>(__uint_as_float(raw[3]), h1[1], l1[1]);
+}
+// B (8 x 8) from rows k0 .. k0 + 7 of M, paired as frag_a_pairs: B[t][n] =
+// M[k0 + 2t][n0 + n], B[t + 4][n] = M[k0 + 2t + 1][n0 + n].
+template <bool SPLIT>
+__device__ __forceinline__ void frag_b_pairs(const float* M, int ld, int k0, int n0, int g,
+                                             int t, uint32_t (&h)[2], uint32_t (&l)[2]) {
+  const float* p = M + (k0 + 2 * t) * ld + n0 + g;
+  split<SPLIT>(p[0], h[0], l[0]);
+  split<SPLIT>(p[ld], h[1], l[1]);
+}
+
+// Whether any (query, key) pair of rows [qa, qb] x keys [ka, kb] is visible
+// (empty ranges are not).
+__device__ __forceinline__ bool block_live(const FlashArgs& a, int qa, int qb, int ka,
+                                           int kb) {
+  return qa <= qb && ka <= kb && (!a.causal || qb >= ka) &&
+         (a.window <= 0 || qa - kb < a.window);
+}
+
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// K10 tiles: BQ query rows, 16 a warp row; BK keys a step; WC warps along
+// head_dim in dq += ds k (at D = 256 two, so that a warp's dq is 16 x 128;
+// both compute the same scores).
+template <int D> struct DqTile {
+  static constexpr int BQ = D <= 128 ? 128 : 64, BK = D <= 128 ? 32 : 16;
+  static constexpr int WC = D <= 128 ? 1 : 2, SD = D + 4;
+  static constexpr int FLOATS = 2 * BQ * SD + 4 * BK * SD;   // q, do, 2 x (k, v)
+};
+
+// K11 tiles: BK keys, 16 a warp row (WK warps); BQ queries a step; the
+// other WO = 8 / WK warps split the scores along the queries and dk, dv
+// along head_dim. p^T and ds^T pass through shared memory (rows of LP).
+// Up to D = 128 the CTA's k and v tiles also get a plane of remainders
+// each (split once for the whole q loop: the A fragments of s^T and dp^T
+// load hi and lo with no arithmetic); at D = 256 they do not fit beside the
+// q / do ring.
+template <int D> struct DkvTile {
+  static constexpr int BK = D <= 128 ? 64 : 32, BQ = D <= 64 ? 64 : 32;
+  static constexpr int WK = BK / 16, WO = 8 / WK, SD = D + 4, LP = BQ + 8;
+  static constexpr bool PLANES = D <= 128;
+  // k, v (and their remainders), 2 x (q, do), p^T, ds^T
+  static constexpr int FLOATS = (PLANES ? 4 : 2) * BK * SD + 4 * BQ * SD + 2 * BK * LP;
+};
+
+// ---------------------------------------------------------------------------
 // K10: dq
 // ---------------------------------------------------------------------------
 
 template <typename T, int D>
-__global__ void __launch_bounds__(NT) flash_dq_kernel(FlashArgs a) {
-  constexpr int BQ = Tile<D>::BQ, BK = Tile<D>::BK, SD = D + 4;
-  constexpr int NI = BQ / 16, NJ = BK / 16, X = D / 16, LP = BK + 4;
+__global__ void __launch_bounds__(NT, 1) flash_dq_kernel(FlashArgs a) {
+  using TL = DqTile<D>;
+  constexpr int BQ = TL::BQ, BK = TL::BK, WC = TL::WC, SD = TL::SD;
+  constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr int NJS = BK / 8;               // score n-tiles (keys) of a warp
+  constexpr int NJQ = D / WC / 8;           // dq n-tiles (head_dim) of a warp
+  constexpr int KC = D < 32 ? D / 8 : 4;    // k-steps of one partial sum over head_dim
+  constexpr int NG = NJQ < 8 ? NJQ : 8;     // dq n-tiles summed together
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
-  float* Ds = Qs + BQ * SD;      // do
-  float* Ks = Ds + BQ * SD;
-  float* Vs = Ks + BK * SD;      // V tile, then the tile's ds (row stride LP)
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int qt = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  float* Ds = Qs + BQ * SD;                 // do
+  float* KV = Ds + BQ * SD;                 // stage s: k at KV + 2 s BK SD, v after it
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = warp / WC * 16, wc = warp % WC * (D / WC);
+  const int qt = gridDim.y - 1 - blockIdx.y, h = blockIdx.x % a.Hq, b = blockIdx.x / a.Hq;
   const int hk = h / (a.Hq / a.Hkv);
   const int q0 = qt * BQ;
-  const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const T* db = static_cast<const T*>(a.dout) + b * a.d_sb + h * a.d_sh;
   const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + hk * a.k_sh;
   const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + hk * a.v_sh;
-  stage<T, D, BQ>(Qs, qb, a.q_ss, q0, a.Sq);
-  stage<T, D, BQ>(Ds, db, a.d_ss, q0, a.Sq);
-  const long long row = ((long long)b * a.Hq + h) * a.Sq;
-  float lse[NI], dl[NI], acc[NI][X];
-#pragma unroll
-  for (int i = 0; i < NI; ++i) {
-    const int qpos = q0 + ty + 16 * i;
-    lse[i] = qpos < a.Sq ? a.lse_in[row + qpos] : 0.f;
-    dl[i] = qpos < a.Sq ? a.delta[row + qpos] : 0.f;
-#pragma unroll
-    for (int x = 0; x < X; ++x) acc[i][x] = 0.f;
-  }
   int lo, hi;
   kv_range(a, q0, min(q0 + BQ, a.Sq) - 1, lo, hi);
-  for (int kt = lo / BK; kt * BK < hi; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();
-    stage<T, D, BK>(Ks, kb, a.k_ss, k0, a.Sk);
-    stage<T, D, BK>(Vs, vb, a.v_ss, k0, a.Sk);
-    __syncthreads();
-    float s[NI][NJ], dp[NI][NJ];
-#pragma unroll
-    for (int i = 0; i < NI; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) s[i][j] = dp[i][j] = 0.f;
-    dot_rows<D, NI, NJ>(s, Qs, Ks, ty, tx);
-    dot_rows<D, NI, NJ>(dp, Ds, Vs, ty, tx);
-#pragma unroll
-    for (int i = 0; i < NI; ++i) {
-      const int qpos = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        const float p = (kpos < a.Sk && qpos < a.Sq && visible(a, qpos, kpos))
-                            ? expf(s[i][j] * a.scale - lse[i]) : 0.f;
-        s[i][j] = p * (dp[i][j] - dl[i]) * a.scale;
-      }
-    }
-    __syncthreads();               // every thread is done reading Vs
-    float* dS = Vs;
-#pragma unroll
-    for (int i = 0; i < NI; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) dS[(ty + 16 * i) * LP + tx + 16 * j] = s[i][j];
-    __syncthreads();
-    acc_rows<D, NI, BK, LP>(acc, dS, Ks, ty, tx);
+  const int kt0 = lo / BK, kt1 = (hi + BK - 1) / BK;
+  load_rows<T, D, BQ, SD>(Qs, static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh, a.q_ss,
+                          q0, a.Sq);
+  load_rows<T, D, BQ, SD>(Ds, static_cast<const T*>(a.dout) + b * a.d_sb + h * a.d_sh,
+                          a.d_ss, q0, a.Sq);
+  if (kt0 < kt1) {
+    load_rows<T, D, BK, SD>(KV, kb, a.k_ss, kt0 * BK, a.Sk);
+    load_rows<T, D, BK, SD>(KV + BK * SD, vb, a.v_ss, kt0 * BK, a.Sk);
   }
+  cp_commit();
+  // this thread's rows: qa + g and qa + g + 8
+  const int qa = q0 + wr, qz = min(qa + 15, a.Sq - 1);
+  const long long row = ((long long)b * a.Hq + h) * a.Sq;
+  float lse[2], dl[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int qpos = qa + g + 8 * e;
+    lse[e] = qpos < a.Sq ? a.lse_in[row + qpos] : 0.f;
+    dl[e] = qpos < a.Sq ? a.delta[row + qpos] : 0.f;
+  }
+  float acc[NJQ][4];
+#pragma unroll
+  for (int n = 0; n < NJQ; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int st = (kt - kt0) & 1;
+    cp_wait_all();
+    __syncthreads();               // tile kt landed; every warp is done with tile kt - 1
+    if (kt + 1 < kt1) {
+      float* nx = KV + (st ^ 1) * 2 * BK * SD;
+      load_rows<T, D, BK, SD>(nx, kb, a.k_ss, (kt + 1) * BK, a.Sk);
+      load_rows<T, D, BK, SD>(nx + BK * SD, vb, a.v_ss, (kt + 1) * BK, a.Sk);
+    }
+    cp_commit();
+    const int k0 = kt * BK;
+    if (!block_live(a, qa, qz, k0, min(k0 + BK, a.Sk) - 1)) continue;
+    const float* Ks = KV + st * 2 * BK * SD;
+    const float* Vs = Ks + BK * SD;
+
+    // s = q k^T and dp = do v^T over head_dim, KC k-steps a partial sum
+    float sc[NJS][4], dp[NJS][4];
+#pragma unroll
+    for (int j = 0; j < NJS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+#pragma unroll 1
+    for (int kc = 0; kc < D; kc += 8 * KC) {
+      float ps[NJS][4], pp[NJS][4];
+#pragma unroll
+      for (int j = 0; j < NJS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ps[j][e] = pp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = kc; kk < kc + 8 * KC; kk += 8) {
+        uint32_t qh[4], ql[4], oh[4], ol[4];
+        uint32_t kh[NJS][2], kl[NJS][2], vh[NJS][2], vl[NJS][2];
+        frag_a<F32>(Qs, SD, wr, kk, lane, qh, ql);
+        frag_a<F32>(Ds, SD, wr, kk, lane, oh, ol);
+#pragma unroll
+        for (int j = 0; j < NJS; j += 2) {
+          frag_b_rows2<F32>(Ks, SD, 8 * j, kk, lane, kh[j], kl[j], kh[j + 1], kl[j + 1]);
+          frag_b_rows2<F32>(Vs, SD, 8 * j, kk, lane, vh[j], vl[j], vh[j + 1], vl[j + 1]);
+        }
+        passes<F32, F32>(ps, qh, ql, kh, kl);
+        passes<F32, F32>(pp, oh, ol, vh, vl);
+      }
+#pragma unroll
+      for (int j = 0; j < NJS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[j][e] += ps[j][e];
+          dp[j][e] += pp[j][e];
+        }
+    }
+
+    // ds = p (dp - delta) scale, p = exp(s scale - lse), as the A fragments
+    // of dq += ds k: accumulator e of n-tile j (row g + 8 (e / 2), key
+    // 8 j + 2 t + e % 2) is A element (e / 2) + 2 (e % 2) of k-step j, keys
+    // paired as frag_b_pairs reads k
+    uint32_t dh[NJS][4], dlo[NJS][4];
+#pragma unroll
+    for (int j = 0; j < NJS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qpos = qa + g + 8 * (e >> 1), kpos = k0 + 8 * j + 2 * t + (e & 1);
+        const float p = (kpos < a.Sk && qpos < a.Sq && visible(a, qpos, kpos))
+                            ? expf(sc[j][e] * a.scale - lse[e >> 1]) : 0.f;
+        const int f = (e >> 1) | ((e & 1) << 1);
+        split<true>(p * (dp[j][e] - dl[e >> 1]) * a.scale, dh[j][f], dlo[j][f]);
+      }
+
+    // dq += ds k over the tile's keys, NG n-tiles at a time, each tile's
+    // sum taken on the tensor cores from zero and added by a
+    // round-to-nearest FADD (the cores truncate as they accumulate)
+#pragma unroll
+    for (int n0 = 0; n0 < NJQ; n0 += NG) {
+      float pq[NG][4];
+#pragma unroll
+      for (int n = 0; n < NG; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pq[n][e] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NJS; ++j) {
+        uint32_t bh[NG][2], bl[NG][2];
+#pragma unroll
+        for (int n = 0; n < NG; ++n)
+          frag_b_pairs<F32>(Ks, SD, 8 * j, wc + 8 * (n0 + n), g, t, bh[n], bl[n]);
+        passes<true, F32>(pq, dh[j], dlo[j], bh, bl);
+      }
+#pragma unroll
+      for (int n = 0; n < NG; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n0 + n][e] += pq[n][e];
+    }
+  }
+  cp_wait_all();
+
   T* out = static_cast<T*>(a.dq);
 #pragma unroll
-  for (int i = 0; i < NI; ++i) {
-    const int qpos = q0 + ty + 16 * i;
-    if (qpos < a.Sq) write_row<T, D>(out + (((long long)b * a.Sq + qpos) * a.Hq + h) * D, acc[i], tx);
+  for (int e = 0; e < 2; ++e) {
+    const int qpos = qa + g + 8 * e;
+    if (qpos >= a.Sq) continue;
+    T* r = out + (((long long)b * a.Sq + qpos) * a.Hq + h) * D + wc + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NJQ; ++n) store2(r + 8 * n, acc[n][2 * e], acc[n][2 * e + 1]);
   }
 }
 
@@ -394,77 +720,225 @@ __global__ void __launch_bounds__(NT) flash_dq_kernel(FlashArgs a) {
 // ---------------------------------------------------------------------------
 
 template <typename T, int D>
-__global__ void __launch_bounds__(NT) flash_dkv_kernel(FlashArgs a) {
-  constexpr int BQ = Tile<D>::BQ, BK = Tile<D>::BK, SD = D + 4;
-  constexpr int NI = BK / 16, NJ = BQ / 16, X = D / 16, LP = BQ + 4;
+__global__ void __launch_bounds__(NT, 1) flash_dkv_kernel(FlashArgs a) {
+  using TL = DkvTile<D>;
+  constexpr int BK = TL::BK, BQ = TL::BQ, WO = TL::WO, SD = TL::SD, LP = TL::LP;
+  constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr int NJ1 = BQ / WO / 8;          // score n-tiles (queries) of a warp
+  constexpr int NJ2 = D / WO / 8;           // dk, dv n-tiles (head_dim) of a warp
+  constexpr int KC = D < 32 ? D / 8 : 4;    // k-steps of one partial sum over head_dim
+  constexpr int NG = NJ2 < 4 ? NJ2 : 4;     // dk, dv n-tiles summed together
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);
   float* Vs = Ks + BK * SD;
-  float* Qs = Vs + BK * SD;
-  float* Ds = Qs + BQ * SD;      // do
-  float* Pt = Ds + BQ * SD;      // p^T  (BK x LP)
-  float* St = Pt + BK * LP;      // ds^T (BK x LP)
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int kt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  float* Kl = Vs + BK * SD;                 // remainders of k and v (TL::PLANES)
+  float* Vl = Kl + BK * SD;
+  float* QD = (TL::PLANES ? Vl : Vs) + BK * SD;   // stage s: q at QD + 2 s BQ SD, do after it
+  float* Pt = QD + 4 * BQ * SD;             // p^T  (BK x LP)
+  float* St = Pt + BK * LP;                 // ds^T (BK x LP)
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wk = warp / WO * 16, wo = warp % WO;
+  const int wq = wo * (BQ / WO), wd = wo * (D / WO);
+  const int kt = blockIdx.y, hk = blockIdx.x % a.Hkv, b = blockIdx.x / a.Hkv;
   const int G = a.Hq / a.Hkv;
   const int k0 = kt * BK, k1 = min(k0 + BK, a.Sk) - 1;
-  stage<T, D, BK>(Ks, static_cast<const T*>(a.k) + b * a.k_sb + hk * a.k_sh, a.k_ss, k0, a.Sk);
-  stage<T, D, BK>(Vs, static_cast<const T*>(a.v) + b * a.v_sb + hk * a.v_sh, a.v_ss, k0, a.Sk);
-  float dk[NI][X], dv[NI][X];
-#pragma unroll
-  for (int i = 0; i < NI; ++i)
-#pragma unroll
-    for (int x = 0; x < X; ++x) dk[i][x] = dv[i][x] = 0.f;
-  // q rows that can see keys [k0, k1]
+  const int ka = k0 + wk, kz = min(ka + 15, a.Sk - 1);   // this warp's keys
+  // q rows that can see keys [k0, k1]: tiles [qt0, qt1) of every query head
+  // of the group, walked as one sequence i = g * nq + (qt - qt0)
   const int qlo = a.causal ? k0 : 0;
   const int qhi = a.window > 0 ? min(a.Sq, k1 + a.window) : a.Sq;
-  for (int g = 0; g < G; ++g) {
-    const int h = hk * G + g;
-    const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-    const T* db = static_cast<const T*>(a.dout) + b * a.d_sb + h * a.d_sh;
-    const long long row = ((long long)b * a.Hq + h) * a.Sq;
-    for (int qt = qlo / BQ; qt * BQ < qhi; ++qt) {
-      const int q0 = qt * BQ;
-      __syncthreads();
-      stage<T, D, BQ>(Qs, qb, a.q_ss, q0, a.Sq);
-      stage<T, D, BQ>(Ds, db, a.d_ss, q0, a.Sq);
-      __syncthreads();
-      float s[NI][NJ], dp[NI][NJ];
-#pragma unroll
-      for (int i = 0; i < NI; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) s[i][j] = dp[i][j] = 0.f;
-      dot_rows<D, NI, NJ>(s, Ks, Qs, ty, tx);    // s^T: kv rows x q rows
-      dot_rows<D, NI, NJ>(dp, Vs, Ds, ty, tx);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int qpos = q0 + tx + 16 * j;
-        const bool qin = qpos < a.Sq;
-        const float lse = qin ? a.lse_in[row + qpos] : 0.f;
-        const float dl = qin ? a.delta[row + qpos] : 0.f;
-#pragma unroll
-        for (int i = 0; i < NI; ++i) {
-          const int kpos = k0 + ty + 16 * i;
-          const float p = (qin && kpos < a.Sk && visible(a, qpos, kpos))
-                              ? expf(s[i][j] * a.scale - lse) : 0.f;
-          Pt[(ty + 16 * i) * LP + tx + 16 * j] = p;
-          St[(ty + 16 * i) * LP + tx + 16 * j] = p * (dp[i][j] - dl) * a.scale;
-        }
+  const int qt0 = qlo / BQ, nq = qhi > qlo ? (qhi + BQ - 1) / BQ - qt0 : 0;
+  const int n_it = G * nq;
+  const T* qh0 = static_cast<const T*>(a.q) + b * a.q_sb + (long long)hk * G * a.q_sh;
+  const T* dh0 = static_cast<const T*>(a.dout) + b * a.d_sb + (long long)hk * G * a.d_sh;
+  if (n_it > 0) {
+    load_rows<T, D, BK, SD>(Ks, static_cast<const T*>(a.k) + b * a.k_sb + hk * a.k_sh,
+                            a.k_ss, k0, a.Sk);
+    load_rows<T, D, BK, SD>(Vs, static_cast<const T*>(a.v) + b * a.v_sb + hk * a.v_sh,
+                            a.v_ss, k0, a.Sk);
+    load_rows<T, D, BQ, SD>(QD, qh0, a.q_ss, qt0 * BQ, a.Sq);
+    load_rows<T, D, BQ, SD>(QD + BQ * SD, dh0, a.d_ss, qt0 * BQ, a.Sq);
+  }
+  cp_commit();
+  if constexpr (F32 && TL::PLANES) {
+    if (n_it > 0) {
+      cp_wait_all();
+      __syncthreads();             // k and v landed (the loop's first barrier orders the planes)
+      for (int idx = threadIdx.x; idx < BK * D / 4; idx += NT) {
+        const int off = idx / (D / 4) * SD + idx % (D / 4) * 4;
+        float4 kx = *reinterpret_cast<const float4*>(Ks + off);
+        float4 vx = *reinterpret_cast<const float4*>(Vs + off);
+        uint32_t h, l[8];
+        split<true>(kx.x, h, l[0]); split<true>(kx.y, h, l[1]);
+        split<true>(kx.z, h, l[2]); split<true>(kx.w, h, l[3]);
+        split<true>(vx.x, h, l[4]); split<true>(vx.y, h, l[5]);
+        split<true>(vx.z, h, l[6]); split<true>(vx.w, h, l[7]);
+        *reinterpret_cast<float4*>(Kl + off) = make_float4(
+            __uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]), __uint_as_float(l[3]));
+        *reinterpret_cast<float4*>(Vl + off) = make_float4(
+            __uint_as_float(l[4]), __uint_as_float(l[5]), __uint_as_float(l[6]), __uint_as_float(l[7]));
       }
-      __syncthreads();
-      acc_rows<D, NI, BQ, LP>(dv, Pt, Ds, ty, tx);
-      acc_rows<D, NI, BQ, LP>(dk, St, Qs, ty, tx);
     }
   }
+  float dk[NJ2][4], dv[NJ2][4];
+#pragma unroll
+  for (int n = 0; n < NJ2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it & 1;
+    const int gq = it / nq, q0 = (qt0 + it % nq) * BQ;
+    cp_wait_all();
+    __syncthreads();               // tile it landed; every warp is done with tile it - 1
+    if (it + 1 < n_it) {
+      const int gn = (it + 1) / nq, qn = (qt0 + (it + 1) % nq) * BQ;
+      float* nx = QD + (st ^ 1) * 2 * BQ * SD;
+      load_rows<T, D, BQ, SD>(nx, qh0 + gn * a.q_sh, a.q_ss, qn, a.Sq);
+      load_rows<T, D, BQ, SD>(nx + BQ * SD, dh0 + gn * a.d_sh, a.d_ss, qn, a.Sq);
+    }
+    cp_commit();
+    const float* Qs = QD + st * 2 * BQ * SD;
+    const float* Ds = Qs + BQ * SD;
+    const long long row = ((long long)b * a.Hq + hk * G + gq) * a.Sq;
+
+    // phase 1: s^T = k q^T and dp^T = v do^T for this warp's 16 keys x
+    // BQ / WO queries, then p^T and ds^T into shared memory
+    {
+      const int qa = q0 + wq, qz = min(qa + BQ / WO - 1, a.Sq - 1);
+      float lq[NJ1][2], dlt[NJ1][2];
+#pragma unroll
+      for (int j = 0; j < NJ1; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int qpos = qa + 8 * j + 2 * t + c;
+          lq[j][c] = qpos < a.Sq ? a.lse_in[row + qpos] : 0.f;
+          dlt[j][c] = qpos < a.Sq ? a.delta[row + qpos] : 0.f;
+        }
+      float sc[NJ1][4], dp[NJ1][4];
+#pragma unroll
+      for (int j = 0; j < NJ1; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+      if (block_live(a, qa, qz, ka, kz)) {
+#pragma unroll 1
+        for (int kc = 0; kc < D; kc += 8 * KC) {
+          float ps[NJ1][4], pp[NJ1][4];
+#pragma unroll
+          for (int j = 0; j < NJ1; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) ps[j][e] = pp[j][e] = 0.f;
+#pragma unroll
+          for (int kk = kc; kk < kc + 8 * KC; kk += 8) {
+            uint32_t kh[4], kl[4], vh[4], vl[4];
+            uint32_t qh[NJ1][2], ql[NJ1][2], oh[NJ1][2], ol[NJ1][2];
+            if constexpr (TL::PLANES) {
+              frag_a_planes<F32>(Ks, Kl, SD, wk, kk, lane, kh, kl);
+              frag_a_planes<F32>(Vs, Vl, SD, wk, kk, lane, vh, vl);
+            } else {
+              frag_a<F32>(Ks, SD, wk, kk, lane, kh, kl);
+              frag_a<F32>(Vs, SD, wk, kk, lane, vh, vl);
+            }
+            if constexpr (NJ1 % 2 == 0) {
+#pragma unroll
+              for (int j = 0; j < NJ1; j += 2) {
+                frag_b_rows2<F32>(Qs, SD, wq + 8 * j, kk, lane, qh[j], ql[j], qh[j + 1],
+                                  ql[j + 1]);
+                frag_b_rows2<F32>(Ds, SD, wq + 8 * j, kk, lane, oh[j], ol[j], oh[j + 1],
+                                  ol[j + 1]);
+              }
+            } else {
+#pragma unroll
+              for (int j = 0; j < NJ1; ++j) {
+                frag_b_rows<F32>(Qs, SD, wq + 8 * j, kk, g, t, qh[j], ql[j]);
+                frag_b_rows<F32>(Ds, SD, wq + 8 * j, kk, g, t, oh[j], ol[j]);
+              }
+            }
+            passes<F32, F32>(ps, kh, kl, qh, ql);
+            passes<F32, F32>(pp, vh, vl, oh, ol);
+          }
+#pragma unroll
+          for (int j = 0; j < NJ1; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              sc[j][e] += ps[j][e];
+              dp[j][e] += pp[j][e];
+            }
+        }
+      }
+      // accumulator e of n-tile j: key wk + g + 8 (e / 2), query
+      // wq + 8 j + 2 t + e % 2
+#pragma unroll
+      for (int j = 0; j < NJ1; ++j)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int kpos = ka + g + 8 * hf;
+          float pv[2], sv[2];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int qpos = qa + 8 * j + 2 * t + c;
+            const float p = (kpos < a.Sk && qpos < a.Sq && visible(a, qpos, kpos))
+                                ? expf(sc[j][2 * hf + c] * a.scale - lq[j][c]) : 0.f;
+            pv[c] = p;
+            sv[c] = p * (dp[j][2 * hf + c] - dlt[j][c]) * a.scale;
+          }
+          const int off = (wk + g + 8 * hf) * LP + wq + 8 * j + 2 * t;
+          store2(Pt + off, pv[0], pv[1]);
+          store2(St + off, sv[0], sv[1]);
+        }
+    }
+    __syncthreads();               // p^T and ds^T of the whole tile are written
+
+    // phase 2: dv += p^T do, dk += ds^T q over the tile's BQ queries for
+    // this warp's 16 keys x D / WO columns, NG n-tiles at a time, each
+    // tile's sum taken from zero and added by an FADD
+    if (block_live(a, q0, min(q0 + BQ, a.Sq) - 1, ka, kz)) {
+#pragma unroll
+      for (int n0 = 0; n0 < NJ2; n0 += NG) {
+        float pv[NG][4], pk[NG][4];
+#pragma unroll
+        for (int n = 0; n < NG; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) pv[n][e] = pk[n][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < BQ; kk += 8) {
+          uint32_t ph[4], pl[4], sh[4], sl[4];
+          uint32_t oh[NG][2], ol[NG][2], qh[NG][2], ql[NG][2];
+          frag_a_pairs(Pt, LP, wk, kk, g, t, ph, pl);
+          frag_a_pairs(St, LP, wk, kk, g, t, sh, sl);
+#pragma unroll
+          for (int n = 0; n < NG; ++n) {
+            frag_b_pairs<F32>(Ds, SD, kk, wd + 8 * (n0 + n), g, t, oh[n], ol[n]);
+            frag_b_pairs<F32>(Qs, SD, kk, wd + 8 * (n0 + n), g, t, qh[n], ql[n]);
+          }
+          passes<true, F32>(pv, ph, pl, oh, ol);
+          passes<true, F32>(pk, sh, sl, qh, ql);
+        }
+#pragma unroll
+        for (int n = 0; n < NG; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            dv[n0 + n][e] += pv[n][e];
+            dk[n0 + n][e] += pk[n][e];
+          }
+      }
+    }
+  }
+  cp_wait_all();
+
   T* dkb = static_cast<T*>(a.dk);
   T* dvb = static_cast<T*>(a.dv);
 #pragma unroll
-  for (int i = 0; i < NI; ++i) {
-    const int kpos = k0 + ty + 16 * i;
+  for (int hf = 0; hf < 2; ++hf) {
+    const int kpos = ka + g + 8 * hf;
     if (kpos >= a.Sk) continue;
-    const long long off = (((long long)b * a.Sk + kpos) * a.Hkv + hk) * D;
-    write_row<T, D>(dkb + off, dk[i], tx);
-    write_row<T, D>(dvb + off, dv[i], tx);
+    const long long off = (((long long)b * a.Sk + kpos) * a.Hkv + hk) * D + wd + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NJ2; ++n) {
+      store2(dkb + off + 8 * n, dk[n][2 * hf], dk[n][2 * hf + 1]);
+      store2(dvb + off + 8 * n, dv[n][2 * hf], dv[n][2 * hf + 1]);
+    }
   }
 }
 
@@ -472,22 +946,24 @@ enum Pass { FWD = 0, DQ = 1, DKV = 2 };
 
 template <typename T, int D>
 int launch(int pass, const FlashArgs& a, cudaStream_t stream) {
-  constexpr int BQ = Tile<D>::BQ, BK = Tile<D>::BK;
   void (*kernel)(FlashArgs);
   int floats;
   dim3 grid;
   if (pass == FWD) {
+    constexpr int BQ = Tile<D>::BQ;
     kernel = flash_fwd_kernel<T, D>;
     floats = fwd_smem_floats<D>();
     grid = dim3((a.Sq + BQ - 1) / BQ, a.Hq, a.B);
   } else if (pass == DQ) {
+    constexpr int BQ = DqTile<D>::BQ;
     kernel = flash_dq_kernel<T, D>;
-    floats = dq_smem_floats<D>();
-    grid = dim3((a.Sq + BQ - 1) / BQ, a.Hq, a.B);
+    floats = DqTile<D>::FLOATS;
+    grid = dim3(a.Hq * a.B, (a.Sq + BQ - 1) / BQ);
   } else {
+    constexpr int BK = DkvTile<D>::BK;
     kernel = flash_dkv_kernel<T, D>;
-    floats = dkv_smem_floats<D>();
-    grid = dim3((a.Sk + BK - 1) / BK, a.Hkv, a.B);
+    floats = DkvTile<D>::FLOATS;
+    grid = dim3(a.Hkv * a.B, (a.Sk + BK - 1) / BK);
   }
   const size_t bytes = (size_t)floats * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -14,15 +14,21 @@ log-sum-exp ``lse (B, Hq, Sq)``) and saves (q, k, v, o, lse), as the
 reference's ``_fa_fwd_res``; its backward computes ``delta = rowsum(do * o)``
 in float32 outside the kernels, as ``_flash_bwd``, then launches K10 (dq) and
 K11 (dk, dv, summed over each kv head's group of query heads inside the
-kernel). The kernels take float32 or bfloat16 (float32 arithmetic inside)
-and head_dim in ``HEAD_DIMS``; anything else raises. A CPU tensor takes the
+kernel). The kernels take float32 or bfloat16 and head_dim in
+``HEAD_DIMS``; anything else raises. K9 computes in float32 FFMA; K10 and
+K11 run their products on the TF32 tensor cores in split precision (each
+float32 operand as a TF32 hi and lo, three products summed in float32),
+which keeps float32's accuracy, and launch to launch they give the same
+bits (no atomics). A CPU tensor takes the
 plain version: the masked float32 scores materialised and a softmax (the
 reference's test oracle), differentiated by autograd. ``LAUNCHES`` counts
 the kernel launches.
 
 ``flash_dq_plain`` and ``flash_dkv_plain`` are K10's and K11's plain
 versions (the same formulas on materialised probabilities
-``p = exp(s - lse)``), against which the kernels are held on the card.
+``p = exp(s - lse)``), against which the kernels are held on the card;
+``backward_float64`` is the same backward in float64 over one group of
+query heads, the oracle of their float32 accuracy.
 
 Rows that see no key at all (a window with ``Sq > Sk + window - 1``) are
 refused on both routes: the reference's kernel gives them the mean of v in
@@ -136,6 +142,27 @@ def flash_dkv_plain(q, k, v, do, lse, delta, causal=True, window=None):
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
     return (dk.reshape(B, Sk, Hkv, G, d).sum(3).to(k.dtype),
             dv.reshape(B, Sk, Hkv, G, d).sum(3).to(v.dtype))
+
+
+def backward_float64(q, k, v, do, causal=True, window=None, b=0, hk=0):
+    """The backward of one (batch ``b``, kv head ``hk``) group in float64:
+    (lse, delta) of its G query heads (G, Sq), their dq (Sq, G, d), and dk,
+    dv (Sk, d) of kv head ``hk`` summed over the group. The float64 oracle
+    that K10 and K11 are held to on the card."""
+    G = q.shape[2] // k.shape[2]
+    hs = slice(hk * G, (hk + 1) * G)
+    scale = softmax_scale(q.shape[3])
+    q64, do64 = q[b, :, hs].double(), do[b, :, hs].double()
+    k64, v64 = k[b, :, hk].double(), v[b, :, hk].double()
+    vis = _visible(q.shape[1], k.shape[1], causal, window, q.device)
+    s = (torch.einsum("qgd,kd->gqk", q64, k64) * scale).masked_fill(~vis, float("-inf"))
+    lse = torch.logsumexp(s, -1)
+    p = torch.exp(s - lse[..., None])
+    del s
+    delta = (do64 * torch.einsum("gqk,kd->qgd", p, v64)).sum(-1).T
+    ds = p * (torch.einsum("qgd,kd->gqk", do64, v64) - delta[..., None]) * scale
+    return (lse, delta, torch.einsum("gqk,kd->qgd", ds, k64),
+            torch.einsum("gqk,qgd->kd", ds, q64), torch.einsum("gqk,qgd->kd", p, do64))
 
 
 def flash_delta(o, do):

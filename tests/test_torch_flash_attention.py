@@ -10,8 +10,9 @@ Tolerances are the reference test's: 2e-5 forward, 5e-4 grads, 3e-2 bf16.
 K10's and K11's plain versions (explicit formulas from lse and delta) are
 held to autograd of the plain forward at 1e-5 (float32, the same products
 in another order). The ``cuda``-marked cases hold the kernels K9-K11 to the
-plain versions on the card (1e-4 x max(1, |ref|) float32; 3e-2 bf16) and
-skip here.
+plain versions on the card (1e-4 x max(1, |ref|) float32; 3e-2 bf16), K10
+and K11 also to a float64 backward (1e-5 x max(1, |ref|)) and to their own
+bits on a second launch, and skip here.
 """
 import numpy as np
 import pytest
@@ -168,13 +169,17 @@ def test_bq_bk_do_not_change_the_result():
 # ---------------------------------------------------------------------------
 
 CUDA_CASES = [
-    # B, Sq, Sk, Hq, Hkv, d, causal, window, dtype
+    # B, Sq, Sk, Hq, Hkv, d, causal, window, dtype (float32: every head dim)
     (2, 100, 100, 4, 2, 64, True, None, torch.float32),
     (1, 80, 144, 4, 1, 128, True, None, torch.float32),
     (1, 144, 80, 8, 2, 32, False, None, torch.float32),
     (1, 130, 130, 4, 2, 16, True, 24, torch.float32),
     (1, 96, 96, 2, 2, 256, True, None, torch.float32),
+    (1, 150, 150, 6, 2, 64, True, 48, torch.float32),      # G = 3 (mixtral's), window
+    (2, 200, 136, 6, 2, 256, False, None, torch.float32),  # Sq != Sk, neither a tile multiple
+    (1, 170, 90, 4, 2, 128, True, None, torch.float32),
     (2, 64, 64, 4, 2, 128, True, None, torch.bfloat16),
+    (1, 100, 100, 6, 2, 128, True, 40, torch.bfloat16),
 ]
 
 
@@ -200,6 +205,45 @@ def test_cuda_kernels_match_plain(B, Sq, Sk, Hq, Hkv, d, causal, window, dtype):
     _close(fa.flash_dq_cuda(*args), fa.flash_dq_plain(*args), dtype)
     for got, want in zip(fa.flash_dkv_cuda(*args), fa.flash_dkv_plain(*args)):
         _close(got, want, dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_backward_keeps_float32_accuracy():
+    """K10 and K11 (split-precision TF32 on the tensor cores) against a
+    float64 backward within 1e-5 x max(1, |ref|), which single-pass TF32
+    (~2^-11 a product) misses. The kernels get lse and delta from the
+    float64 forward, rounded to float32."""
+    dev = require_cuda()
+    g = torch.Generator().manual_seed(3)
+    B, S, Hq, Hkv, d = 1, 1024, 4, 2, 128
+    q, k, v, do = (torch.randn(*s, generator=g).to(dev) for s in (
+        (B, S, Hq, d), (B, S, Hkv, d), (B, S, Hkv, d), (B, S, Hq, d)))
+    groups = [fa.backward_float64(q, k, v, do, True, None, 0, hk) for hk in range(Hkv)]
+    lse = torch.cat([grp[0] for grp in groups])[None].float().contiguous()
+    delta = torch.cat([grp[1] for grp in groups])[None].float().contiguous()
+    args = (q, k, v, do, lse, delta, True, None)
+    got = (fa.flash_dq_cuda(*args)[0], *(x[0] for x in fa.flash_dkv_cuda(*args)))
+    want = (torch.cat([grp[2] for grp in groups], 1), torch.stack([grp[3] for grp in groups], 1),
+            torch.stack([grp[4] for grp in groups], 1))
+    for x, w, name in zip(got, want, ("dq", "dk", "dv")):
+        scale = max(1.0, float(w.abs().max()))
+        err = float((x.double() - w).abs().max())
+        assert err <= 1e-5 * scale, f"{name}: {err:.3e} > 1e-5 x {scale:.3g}"
+
+
+@pytest.mark.cuda
+def test_cuda_backward_is_deterministic():
+    """Two launches of K10 and K11 give the same bits (no atomics)."""
+    dev = require_cuda()
+    g = torch.Generator().manual_seed(4)
+    q, k, v, do = (torch.randn(*s, generator=g).to(dev) for s in (
+        (1, 300, 6, 128), (1, 300, 2, 128), (1, 300, 2, 128), (1, 300, 6, 128)))
+    o, lse = fa.attention_plain(q, k, v, True, None)
+    args = (q, k, v, do, lse, fa.flash_delta(o, do), True, None)
+    first = (fa.flash_dq_cuda(*args), *fa.flash_dkv_cuda(*args))
+    second = (fa.flash_dq_cuda(*args), *fa.flash_dkv_cuda(*args))
+    for a, b, name in zip(first, second, ("dq", "dk", "dv")):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda
