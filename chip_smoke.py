@@ -14,9 +14,15 @@ plain PyTorch version at that path's full shapes, and times it:
     fused decoder scan (also in dense, FIXED, off, mixed and ragged modes on
     small inputs);
   * xlstm-1.3b (T=2048, B=2, 4 heads of dh=512, RH block 64, p=0.25, fresh
-    start): K6, the fused sLSTM scan (also in dense, FIXED, off, ragged and
-    mid-stream handoff modes on small inputs, 3 heads of 16, and with one
-    head of 2048, whose R and dR rows do not fit in shared memory);
+    start): K6, the fused sLSTM scan, whose backward computes dR after the
+    scan with its WG kernel (``slstm_wg``, also timed alone with
+    ``torch.bmm`` on masked operands as its yardstick); both directions are
+    also held to a float64 run of the plain versions within 10 x the float32
+    plain version's distance + 1e-6 x max(1, |ref|), and every K6 check
+    launches each direction twice for the same bits (also in dense, FIXED,
+    off, ragged and mid-stream handoff modes on small inputs, 3 heads of
+    16, and with one head of 2048, whose R columns do not fit in shared
+    memory);
   * qwen3-8b (B=1, S=4096, 32 query heads over 16 kv heads after
     kv_repeat, head_dim 128, causal): K9 flash forward, K10 dq, K11 dk/dv,
     with ``scaled_dot_product_attention`` timed beside them as the library
@@ -59,7 +65,7 @@ with the fused and the scheduled engine, and qwen3-8b cut to 4 layers
 ``"xla"``, and mixtral-8x22b cut to 1 of 56 layers (float32, batch 1 x
 4096, its own plan, flash attention) with ``moe_impl="pallas"`` and then
 ``"xla"`` — asserting that every kernel's launch counter grew in that
-path's run (and that K6 did not launch under the scheduled engine, nor
+path's run (and that K6, WG included, did not launch under the scheduled engine, nor
 K9-K11 under xla, nor K12 under the mixtral xla route).
 
 K1/K2 rows carry the kernel's and the library call's device time from
@@ -224,7 +230,7 @@ def keep_table(gen, rows, hidden, rate):
 def row_name(counter, arch):
     """JSON row name: the launch counter's name, tagged with the arch where
     a kernel of the zaremba path is timed at the luong-nmt shapes too."""
-    own = counter.startswith(("decoder_scan", "slstm_scan", "flash_",
+    own = counter.startswith(("decoder_scan", "slstm_", "flash_",
                               "grouped_matmul", "lstm_pointwise"))
     return counter if arch == LM or own else f"{counter}@{arch}"
 
@@ -567,7 +573,11 @@ def slstm_inputs(gen, T_, B_, NH_, dh_, rate, mode, bs, fixed, ragged, fresh,
 def check_slstm(gen, T_, B_, NH_, dh_, rate, mode, *, bs=1, fixed=False,
                 ragged=False, fresh=False, mask_heads=1, out=None, tag=""):
     """K6 forward (hs, gates, c, n, m) and backward (dxg, dR, dh0, dc0, dn0,
-    dm0) against the plain cell_scan with SLSTM_CELL on the same inputs."""
+    dm0; the scan, then dR from the WG kernel) against the plain cell_scan
+    with SLSTM_CELL on the same inputs, and a second launch of each for the
+    same bits. At the main path (``out``) also against a float64 run of the
+    plain versions, beside the float32 plain version's distance to it, and
+    the WG kernel alone against its plain version."""
     from repro_torch.kernels import cell_scan as cs_mod
     from repro_torch.kernels import slstm_scan as ss
     gx, R, h0, st0, ids, mask, lengths, scale, dy, dstT = slstm_inputs(
@@ -589,8 +599,35 @@ def check_slstm(gen, T_, B_, NH_, dh_, rate, mode, *, bs=1, fixed=False,
     dgx_p, dR_p, dh0_p, dst0_p = bwd_p()
     e_b = compare("  slstm_scan_bwd " + tag, [dgx, dR, dh0, *dst0],
                   [dgx_p, dR_p, dh0_p, *dst0_p], 1e-3)
+    same_bits("  slstm_scan_fwd/bwd second launch " + tag,
+              [hs, gates, *sts, dgx, dR, dh0, *dst0],
+              lambda: (*(lambda o: (o[0], o[1], *o[2]))(fwd_k()),
+                       *(lambda o: (o[0], o[1], o[2], *o[3]))(bwd_k())))
     if out is None:
         return
+    # float64 runs of the plain versions: the backward's on the float32
+    # forward's residuals, so that each measures its own rounding
+    d = lambda t: t.double()
+    ref_f = cs_mod.plain_fwd(ss.SLSTM_CELL, d(gx), d(R), d(h0), tuple(map(d, st0)), *rh)
+    ref_b = cs_mod.plain_bwd(ss.SLSTM_CELL, d(dy), tuple(map(d, dstT)), d(gates_p),
+                             tuple(map(d, sts_p)), tuple(map(d, st0)), d(hs_p), d(h0),
+                             d(R), *rh)
+    f64_gate("  slstm_scan_fwd " + tag, [hs, gates, *sts], [hs_p, gates_p, *sts_p],
+             [ref_f[0], ref_f[1], *ref_f[2]])
+    f64_gate("  slstm_scan_bwd " + tag, [dgx, dR, dh0, *dst0],
+             [dgx_p, dR_p, dh0_p, *dst0_p], [ref_b[0], ref_b[1], ref_b[2], *ref_b[3]])
+    del ref_f, ref_b
+    # WG alone on the plain scan's dgx, with the wrapper's own tables
+    tables = ss.wg_tables(ids, T_, dh_, gx.device)
+    wg_k = lambda: ss.slstm_wg(dgx_p, hs_p, h0, tables, mask, scale)
+    wg_p = lambda: ss.plain_wg(dgx_p, hs_p, h0, tables, mask, scale)
+    e_w = compare("  slstm_wg " + tag, wg_k(), wg_p(), 1e-3)
+    # the library yardstick: one torch.bmm over the heads on masked operands
+    hp = torch.cat([h0[None], hs_p[:-1]])
+    hp = hp * tables[2][:, None, None, :] if ids is not None else hp
+    hp_t = hp.permute(2, 3, 0, 1).reshape(NH_, dh_, T_ * B_).contiguous()
+    dg_t = dgx_p.permute(2, 0, 1, 3).reshape(NH_, T_ * B_, 4 * dh_).contiguous()
+    wg_lib = lambda: torch.bmm(hp_t, dg_t)
     # the work this call's data needs: k kept units a step, R rows kept at
     # some step
     k = ids.shape[1] if ids is not None else dh_
@@ -602,17 +639,48 @@ def check_slstm(gen, T_, B_, NH_, dh_, rate, mode, *, bs=1, fixed=False,
     b_bytes = 4 * (T_ * st + 3 * st + T_ * B_ * NH_ * G + 3 * T_ * st + 3 * st
                    + T_ * st + st + NH_ * uniq * G + idsz
                    + T_ * B_ * NH_ * G + NH_ * dh_ * G + 4 * st)
+    kept_steps = int(tables[1].sum()) * ss.WG_UNITS if ids is not None else T_ * dh_
+    w_bytes = 4 * (T_ * st + st + T_ * B_ * NH_ * G + NH_ * dh_ * G
+                   + tables[0].numel() + tables[1].numel()
+                   + (0 if tables[2] is None else tables[2].numel()))
     src = "src/repro_torch/csrc/slstm_scan.cu"
-    for name, fk, fp, err, nbytes, flops, rep in (
-            ("slstm_scan_fwd", fwd_k, fwd_p, e_f, f_bytes,
+    for name, fk, fp, fl, err, nbytes, flops, rep in (
+            ("slstm_scan_fwd", fwd_k, fwd_p, None, e_f, f_bytes,
              2 * T_ * B_ * NH_ * k * G, "src/repro/kernels/cell_scan.py:172"),
-            ("slstm_scan_bwd", bwd_k, bwd_p, e_b, b_bytes,
-             4 * T_ * B_ * NH_ * k * G, "src/repro/kernels/cell_scan.py:215")):
+            ("slstm_scan_bwd", bwd_k, bwd_p, None, e_b, b_bytes,
+             4 * T_ * B_ * NH_ * k * G, "src/repro/kernels/cell_scan.py:215"),
+            ("slstm_wg", wg_k, wg_p, wg_lib, e_w, w_bytes,
+             2 * B_ * NH_ * kept_steps * G, "src/repro/kernels/cell_scan.py:215")):
         # once per sLSTM block and step, after other work: cold L2
         ms = time_ms(fk, cold_l2=True)
         pms = time_ms(fp, reps=3, warmup=1, cold_l2=True)
-        add_row(out, name, XLSTM, src, rep, err, ms, pms, None, nbytes, flops,
+        lms = None if fl is None else time_ms(fl, cold_l2=True)
+        add_row(out, name, XLSTM, src, rep, err, ms, pms, lms, nbytes, flops,
                 "cold")
+
+
+def same_bits(name, first, again):
+    """Fail unless a second launch (``again()``) gives the same bits."""
+    ok = all(torch.equal(a, b) for a, b in zip(first, again()))
+    print(f"  {name}: {'same bits' if ok else 'FAIL: bits differ'}")
+    if not ok:
+        raise AssertionError(f"{name}: a second launch gave other bits")
+
+
+def f64_gate(name, got, plain, ref):
+    """Distances to a float64 run, max |err| / max(1, |ref|) over a group:
+    fail where the kernel's exceeds 10 x the float32 plain version's (the
+    rounding yardstick) + 1e-6."""
+    def dist(xs):
+        return max((x.double() - r).abs().max().item() / max(1.0, r.abs().max().item())
+                   for x, r in zip(xs, ref))
+    dk, dp = dist(got), dist(plain)
+    ok = dk <= 10 * dp + 1e-6
+    print(f"  {name} vs float64: kernel {dk:.3e}, float32 plain {dp:.3e} "
+          f"(gate 10 x plain + 1e-6)  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: float64 distance {dk:.3e} beyond its gate")
+    return dk
 
 
 def check_flash(gen, B_, Sq_, Sk_, Hq_, Hkv_, d_, *, causal=True, window=None,
@@ -987,9 +1055,10 @@ def drive_xlstm():
         c = read_counts()
         assert all(math.isfinite(x) for x in ls_), ls_
         assert all(torch.isfinite(p).all() for p in _leaves(params))
-        k6 = c["slstm_scan_fwd"] + c["slstm_scan_bwd"]
+        k6 = c["slstm_scan_fwd"] + c["slstm_scan_bwd"] + c["slstm_wg"]
         if engine == "fused":
             assert c["slstm_scan_fwd"] > 0 and c["slstm_scan_bwd"] > 0, c
+            assert c["slstm_wg"] > 0, c
         else:
             assert k6 == 0, f"K6 launched under the scheduled engine: {c}"
         peak[engine] = torch.cuda.max_memory_allocated()
@@ -1439,7 +1508,7 @@ def main() -> int:
                 print(f"  [{name}] {line.strip()}")
     print("kernels: K1 gather_matmul, K2 gather_matmul_stepped, "
           "K3 lstm_scan_fwd, K4 lstm_scan_bwd, K5 lstm_pointwise, "
-          "K6 slstm_scan_fwd/bwd, K7 decoder_scan_fwd, K8 decoder_scan_bwd, "
+          "K6 slstm_scan_fwd/bwd (+ slstm_wg), K7 decoder_scan_fwd, K8 decoder_scan_bwd, "
           "K9 flash_fwd, K10 flash_dq, K11 flash_dkv, K12 grouped_matmul")
 
     gen = torch.Generator().manual_seed(0)
@@ -1477,7 +1546,7 @@ def main() -> int:
                 tag="(dense ragged, two row chunks)")
     check_slstm(gen, 9, 4, 3, 16, 0.5, "structured", bs=1, tag="(handoff)")
     check_slstm(gen, 6, 2, 1, 2048, XP, "structured", bs=XBS, fresh=True,
-                tag="(one head of 2048: R and dR through L2)")
+                tag="(one head of 2048: R columns through L2)")
     # qwen3-8b: K9-K11 at the attention's shape, then every mode on small
     # inputs
     check_flash(gen, QB, QS, QS, QHQ, QHKV, QD, out=rows, tag="(main path)")

@@ -3,14 +3,17 @@
 // Replaces the Pallas TPU kernels of repro/kernels/cell_scan.py in their
 // sLSTM instance (repro/kernels/slstm_scan.py, SLSTM_CELL), K6:
 //   _fwd_kernel via _pallas_fwd  -> slstm_fwd_kernel
-//   _bwd_kernel via _pallas_bwd  -> slstm_bwd_kernel
+//   _bwd_kernel via _pallas_bwd  -> slstm_bwd_kernel (dgates, dh, dc/dn/dm)
+//                                   + slstm_wg_kernel (dR, after the scan)
 // Forward: gates_t = xg_t + drop(h_{t-1}) @ R per head (R block-diagonal,
 // (NH, dh, 4dh), gate order i, f, z, o), then the exponential-gating update
 // with the (c, n, m) cell / normalizer / stabilizer carries, for all T steps
 // in one launch, saving hs, gates and the c, n, m sequences.
-// Backward: reverse time; dgates into dgx, compact BP into dh_{t-1}, compact
-// WG into dR (f32, kept rows only), dh0/dc0/dn0/dm0; frozen (ragged) steps
-// give exactly zero dgates and pass their cotangents straight through.
+// Backward: reverse time; dgates into dgx, compact BP into dh_{t-1},
+// dh0/dc0/dn0/dm0; frozen (ragged) steps give exactly zero dgates and pass
+// their cotangents straight through. dR (the weight gradient, WG) does not
+// feed the recurrence: a second kernel computes it after the scan from hs
+// and dgx, over the kept (step, unit block) pairs only.
 // RH dropout over dh, shared across heads: 0 off, 1 structured (a (T|1, k)
 // table of kept unit ids; compact gathers, the paper's (1-p) FLOPs),
 // 2 dense ((T|1, B, 1|NH, dh) mask). A one-row table is FIXED.
@@ -20,38 +23,87 @@
 // is then about -1e30 and expf gives exactly 0. log-sigmoid is the stable
 // two-branch min(x, 0) - log1p(exp(-|x|)). The backward re-evaluates the
 // stabilizer's branch (lf + m_prev >= gi, ties to forget) from the gates and
-// m values that the forward stored.
+// m values that the forward stored. Every sum runs in a fixed order (no
+// atomics), so a second launch gives the same bits.
 //
 // What bounds it on the H100: the recurrence is serial in T, and one step's
 // product is tiny (xlstm-1.3b: B=2 rows x k=384 kept units x 2048 columns
-// per head, 4 heads, ~12.6 MFLOP), so latency per step (L2 round trips and
-// the grid-wide barrier), not FLOPs or HBM bytes, bounds it. R is 16.8 MB
-// at NH=4, dh=512, which fits no SM. Design, as K3/K4 (csrc/lstm_scan.cu)
-// with a head axis: one persistent cooperative launch in which each CTA
-// owns J units of ONE head and computes their four gate columns
-// {u, dh+u, 2dh+u, 3dh+u}; those columns of its head's R (dh x 4J, 128 KB
-// at J=16) stay in shared memory when they fit, else they are read through
-// L2. Each step stages only its own head's compact h_{t-1} (B x k), the
-// carries of the owned units never leave shared memory, and one grid.sync()
-// per step publishes h_t (heads are independent, so one barrier per head is
-// possible; not done here). The backward keeps the ownership: after one
-// grid.sync() per step each CTA streams its own head's dgates (B x 4dh)
-// through shared memory in column chunks (cp.async) beside the R rows of its
-// kept units (through L2: R rows and dR rows together would not fit), and
-// computes dh_{t-1} and dR only for its own kept rows, so dR needs no
-// atomics; its dR rows stay in shared memory when they fit.
-#include <cooperative_groups.h>
+// per head, 4 heads, ~12.6 MFLOP), so the latency of one step, not FLOPs or
+// HBM bytes, bounds it: the exchange of a step's values between SMs (one
+// L2 round trip, ~1 us a step on the H100 by launch/slstm_scan_bench.py's
+// probes) plus the serial work between two exchanges. R is 16.8 MB at
+// NH=4, dh=512, which fits no SM. Design: one persistent launch
+// (cooperative, for co-residency) in which each CTA owns J units of ONE
+// head and their four gate columns; those columns of its head's R (dh x 4J,
+// 128 KB at J=16) stay in shared memory for the whole scan, in both
+// directions, when they fit, else they are read through L2.
+// Heads are independent, so there is no grid-wide barrier: the barrier is
+// per head and merged with the data. Each step a CTA publishes its values
+// as 64-bit words that carry the value and the step (tag) together, into a
+// two-slot ring in global memory, and its readers poll the words they need
+// until the tags match: one L2 round trip for barrier and data. A CTA also
+// publishes a sentinel word a step once it has read the previous slot, and
+// a reader that would not otherwise read a word of every CTA of its head
+// polls their sentinels, so a slot is rewritten only after all its readers
+// are done with it (dropout lets a CTA skip the words of others). The next
+// step's ids row, xg columns and mask row (forward) or residuals
+// (backward) are prefetched with cp.async during the step before, so only
+// h_{t-1} (forward) or the dh partials (backward) are on the critical path.
+// Forward: every CTA polls its head's compact h_{t-1} (B x k words); its
+// 256 threads compute the (1-p) product as J unit quads (float4 reads of
+// the resident R columns: one unit's i, f, z, o) x a K-split of 16 over the
+// kept rows, then one warp sums the split and runs the pointwise update.
+// Backward: each CTA computes its own units' dgates, then the partial BP of
+// every kept unit of its head from its own 4J columns, one thread a kept
+// row (the dgates in registers, R rows at a padded stride so that 32 rows
+// read without bank conflicts), and publishes B x k partials; the owner of
+// each unit sums its head's CTAs' partials in a fixed order. So each step
+// moves B x k words out and B x J x CTAs-per-head words in per CTA, and R
+// never leaves shared memory. The loops of a step avoid integer division
+// (a multiply-high by reciprocals set once) and are not unrolled beyond
+// need: the step's code is fetched anew every step, and its size showed in
+// the step time.
+// WG: dR[hd, u, :] = sc * sum over (t, b) with u's block kept at t of
+// hp[t, b, hd, u] dgx[t, b, hd, :], hp = h_{t-1} (x keep or mask), tiles of
+// 64 units x 128 columns, the contraction over a per-block list of active
+// steps built by the wrapper: FFMA, register tiles 4 x 8, a chunk's step
+// ids read one chunk ahead of its data, each output summed by one thread
+// in step order.
 #include <cuda_runtime.h>
 
-namespace cg = cooperative_groups;
+#include <algorithm>
 
 namespace {
 
-constexpr int NT = 256;   // threads per CTA
-constexpr int RB = 8;     // batch rows per register chunk (forward)
-constexpr int LD = 16;    // global loads in flight per thread when staging
+typedef unsigned long long u64;
+
+constexpr int NT = 256;   // threads per CTA (scan kernels)
+constexpr int BT = 2;     // batch rows per register chunk
+constexpr int PW = 4;     // words a thread polls at once
+constexpr unsigned SPIN_MAX = 1u << 26;   // polls of one word before the launch fails
+constexpr int SMAX = 32;  // forward: K-split cap
+constexpr int QC = 16;    // backward product: dgates quads held in registers
+constexpr int NF = 9;     // backward residual fields a (row, unit)
+constexpr int WU = 64, WC = 128, WK = 32;  // WG tile: units, columns, (step, row) pairs
 constexpr size_t SMEM_MAX = 227 * 1024;
 constexpr float EPS = 1e-6f;   // normalizer floor
+
+// Built with -DSLSTM_PHASES (launch/slstm_scan_bench.py --phases), the scan
+// kernels add the SM cycles thread 0 of each CTA spends in each phase of a
+// step to g_phase[direction][CTA][phase]; otherwise the macros are empty.
+#ifdef SLSTM_PHASES
+__device__ unsigned long long g_phase[2][1024][8];
+#define PHASE_START() long long ph_t = clock64()
+#define PHASE(dir, i)                                                    \
+  if (threadIdx.x == 0) {                                                \
+    const long long ph_n = clock64();                                    \
+    g_phase[dir][blockIdx.x][i] += (unsigned long long)(ph_n - ph_t);    \
+    ph_t = ph_n;                                                         \
+  }
+#else
+#define PHASE_START()
+#define PHASE(dir, i)
+#endif
 
 struct ScanArgs {
   int T, B, NH, D;   // D = dh, units per head
@@ -64,7 +116,6 @@ struct ScanArgs {
   int J;             // units per CTA (all of one head)
   int cph;           // CTAs per head
   float scale;
-  int ch;            // dgates columns per backward chunk (multiple of 4)
 };
 
 __device__ __forceinline__ float sigm(float x) { return 1.f / (1.f + expf(-x)); }
@@ -73,53 +124,156 @@ __device__ __forceinline__ float log_sigm(float x) {
   return fminf(x, 0.f) - log1pf(expf(-fabsf(x)));
 }
 
-__host__ __device__ inline size_t al4(size_t n) { return (n + 3) & ~size_t(3); }
+__device__ __forceinline__ u64 pack(float v, unsigned tag) {
+  return ((u64)tag << 32) | __float_as_uint(v);
+}
 
-// 16-byte global -> shared copy through L2 only (.cg): the source may have
-// been written by another SM before the last grid barrier.
-__device__ __forceinline__ void cp_async16(float* smem_dst, const float* gmem_src) {
+// n / d by a multiply-high, exact for n d < 2^32; the reciprocal is set
+// once per kernel, so the per-step index splits cost no division.
+struct Div {
+  u64 m;
+  __device__ explicit Div(int d) : m(d > 0 ? ((1ull << 32) + d - 1) / d : 0) {}
+  __device__ __forceinline__ int q(int n) const { return (int)(((u64)(unsigned)n * m) >> 32); }
+};
+
+// Ring words go through L2 at GPU scope: a relaxed load never hits a stale
+// L1 line, and a 64-bit word is read whole, value and tag together.
+__device__ __forceinline__ void st_word(u64* p, u64 w) {
+  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;\n" ::"l"(p), "l"(w) : "memory");
+}
+
+__device__ __forceinline__ u64 ld_word(const u64* p) {
+  u64 w;
+  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];\n" : "=l"(w) : "l"(p) : "memory");
+  return w;
+}
+
+// 4-byte global -> shared copy (inputs only: never written by the kernel).
+__device__ __forceinline__ void cp_async4(void* smem_dst, const void* gmem_src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem_src));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem_src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 __device__ __forceinline__ size_t mask_at(const ScanArgs& p, int row, int b, int hd, int u) {
   return (((size_t)row * p.B + b) * p.mask_heads + (p.mask_heads == 1 ? 0 : hd)) * p.D + u;
 }
 
+// Polls words addr(0..n-1) until each carries tag `want`, then hands each
+// value to sink(e, v). PW loads in flight a thread; addr(e) == nullptr
+// skips e.
+template <class Addr, class Sink>
+__device__ __forceinline__ void poll(int n, unsigned want, Addr addr, Sink sink) {
+#pragma unroll 1
+  for (int e0 = threadIdx.x; e0 < n; e0 += PW * NT) {
+    const u64* a[PW];
+    u64 w[PW];
+#pragma unroll
+    for (int u = 0; u < PW; ++u) {
+      const int e = e0 + u * NT;
+      a[u] = e < n ? addr(e) : nullptr;
+      w[u] = a[u] ? ld_word(a[u]) : (u64)want << 32;
+    }
+#pragma unroll
+    for (int u = 0; u < PW; ++u)
+      for (unsigned spin = 0; (unsigned)(w[u] >> 32) != want; ++spin) {
+        if (spin == SPIN_MAX) __trap();   // a lost word: fail the launch, do not hang
+        w[u] = ld_word(a[u]);
+      }
+#pragma unroll
+    for (int u = 0; u < PW; ++u)
+      if (a[u]) sink(e0 + u * NT, __uint_as_float((unsigned)w[u]));
+  }
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// v[0] + v[stride] + ... + v[(n - 1) stride] as four interleaved chains,
+// summed in a fixed order.
+__device__ __forceinline__ float4 sum_split(const float4* v, size_t stride, int n) {
+  float4 c[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  int s = 0;
+  for (; s + 4 <= n; s += 4)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[i] = add4(c[i], v[(s + i) * stride]);
+  for (; s < n; ++s) c[0] = add4(c[0], v[s * stride]);
+  return add4(add4(c[0], c[1]), add4(c[2], c[3]));
+}
+
+__device__ __forceinline__ float sum_split(const float* v, size_t stride, int n) {
+  float c[4] = {0.f, 0.f, 0.f, 0.f};
+  int s = 0;
+  for (; s + 4 <= n; s += 4)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[i] += v[(s + i) * stride];
+  for (; s < n; ++s) c[0] += v[s * stride];
+  return (c[0] + c[1]) + (c[2] + c[3]);
+}
+
+// One unit's four gate columns (i, f, z, o) of row u of this head's R.
+__device__ __forceinline__ float4 r_quad(const float* Rh, int u, int D, int col, bool ok) {
+  if (!ok) return make_float4(0.f, 0.f, 0.f, 0.f);
+  const float* r = Rh + (size_t)u * 4 * D + col;
+  return make_float4(__ldg(r), __ldg(r + D), __ldg(r + 2 * D), __ldg(r + 3 * D));
+}
+
+// Rs[u * stride + q]: the quads of the own units q < J, rows u < D.
+__device__ __forceinline__ void fill_rs(float4* Rs, int stride, const float* Rh, int D, int J,
+                                        int j0, int Jc) {
+#pragma unroll 1
+  for (int e = threadIdx.x; e < D * J; e += NT) {
+    const int u = e / J, q = e % J;
+    Rs[(size_t)u * stride + q] = r_quad(Rh, u, D, j0 + q, q < Jc);
+  }
+}
+
 // RES: the CTA's R columns (D x 4J) stay resident in shared memory.
 template <bool RES>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 1)
 slstm_fwd_kernel(const float* __restrict__ gx, const float* __restrict__ R,
                  const float* __restrict__ h0, const float* __restrict__ c0,
                  const float* __restrict__ n0, const float* __restrict__ m0,
                  const int* __restrict__ ids, const float* __restrict__ mask,
                  const int* __restrict__ lens, float* hs, float* gates, float* cs,
-                 float* ns, float* ms, ScanArgs p) {
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ float smem[];
-  const int T = p.T, B = p.B, NH = p.NH, D = p.D, G = 4 * D, J = p.J;
-  const int hd = blockIdx.x / p.cph;
-  const int j0 = (blockIdx.x % p.cph) * J;
-  const int Jc = min(J, D - j0);
+                 float* ns, float* ms, u64* ring, ScanArgs p) {
+  extern __shared__ float4 smem4[];
+  const int T = p.T, B = p.B, NH = p.NH, D = p.D, G = 4 * D, J = p.J, cph = p.cph;
+  const int hd = blockIdx.x / cph, me = blockIdx.x % cph;
+  const int j0 = me * J, Jc = min(J, D - j0);
   const int KC = p.mode == 1 ? p.k : D;
-  const int C4 = 4 * J;
-  const int S = NT / C4;
+  const int S = min(NT / J, SMAX);
+  const int Bp = (B + BT - 1) / BT * BT;
+  const int BJ = B * J;
   const float* Rh = R + (size_t)hd * D * G;
-  float* Rs = smem;                                 // RES: D x C4 own columns of R
-  float* hsm = Rs + (RES ? (size_t)D * C4 : 0);     // B x KC compact h_{t-1}
-  float* part = hsm + (size_t)B * KC;               // S x RB x C4 partial sums
-  float* hc = part + (size_t)S * RB * C4;           // B x J carries: h, c, n, m
-  float* cc = hc + (size_t)B * J;
-  float* nc = cc + (size_t)B * J;
-  float* mc = nc + (size_t)B * J;
-  int* uid = reinterpret_cast<int*>(mc + (size_t)B * J);  // KC unit ids
+  const Div dJ(J), dJc(Jc), d4Jc(4 * Jc), dKC(KC), dD(D);
+  float4* Rs = smem4;                                  // RES: D x J unit quads
+  float4* part = Rs + (RES ? (size_t)D * J : 0);       // S x BT x J partial sums
+  float4* gxb = part + (size_t)S * BT * J;             // 2 x B x J: xg of a step
+  float* hsm = reinterpret_cast<float*>(gxb + 2 * (size_t)BJ);  // Bp x KC h_{t-1}
+  float* mkb = hsm + (size_t)Bp * KC;                  // mode 2: 2 x B x D mask rows
+  float* hc = mkb + (p.mode == 2 ? 2 * (size_t)B * D : 0);  // B x J carries
+  float* cc = hc + BJ;
+  float* nc = cc + BJ;
+  float* mc = nc + BJ;
+  int* uidb = reinterpret_cast<int*>(mc + BJ);         // mode 1: 2 x KC unit ids
+  int* lns = uidb + (p.mode == 1 ? 2 * KC : 0);        // ragged: B lengths
   const int tid = threadIdx.x;
+  const size_t slot_words = (size_t)B * NH * D;
+  u64* sent = ring + 2 * slot_words;                   // 2 x NH x cph sentinels
 
-  for (int e = tid; e < B * J; e += NT) {
+#pragma unroll 1
+  for (int e = tid; e < BJ; e += NT) {
     const int b = e / J, q = e % J;
     if (q >= Jc) continue;
     const size_t o = ((size_t)b * NH + hd) * D + j0 + q;
@@ -128,95 +282,121 @@ slstm_fwd_kernel(const float* __restrict__ gx, const float* __restrict__ R,
     nc[e] = n0[o];
     mc[e] = m0[o];
   }
-  if (RES) {
-    for (int e = tid; e < D * C4; e += NT) {
-      const int row = e / C4, col = e % C4, q = col % J;
-      Rs[e] = q < Jc ? Rh[(size_t)row * G + (col / J) * D + j0 + q] : 0.f;
+  if (RES) fill_rs(Rs, J, Rh, D, J, j0, Jc);
+#pragma unroll 1
+  for (int e = tid; e < (Bp - B) * KC; e += NT) hsm[(size_t)B * KC + e] = 0.f;
+  if (p.ragged)
+#pragma unroll 1
+    for (int b = tid; b < B; b += NT) lns[b] = lens[b];
+
+  // step t's ids row, xg columns of the own units and mask row, into buffer t & 1
+  auto prefetch = [&](int t) {
+    const int buf = t & 1;
+    if (p.mode == 1) {
+      const int* src = ids + (size_t)(p.ids_rows == 1 ? 0 : t) * p.k;
+#pragma unroll 1
+      for (int kk = tid; kk < KC; kk += NT) cp_async4(uidb + buf * KC + kk, src + kk);
     }
-  }
+    float* gdst = reinterpret_cast<float*>(gxb + (size_t)buf * BJ);
+#pragma unroll 1
+    for (int e = tid; e < B * 4 * Jc; e += NT) {
+      const int b = d4Jc.q(e), r = e - b * 4 * Jc, g = dJc.q(r), q = r - g * Jc;
+      cp_async4(gdst + ((size_t)b * J + q) * 4 + g,
+                gx + (((size_t)t * B + b) * NH + hd) * G + (size_t)g * D + j0 + q);
+    }
+    if (p.mode == 2) {
+      const int row = p.mask_rows == 1 ? 0 : t;
+      float* mdst = mkb + (size_t)buf * B * D;
+#pragma unroll 1
+      for (int e = tid; e < B * D; e += NT) {
+        const int b = dD.q(e);
+        cp_async4(mdst + e, mask + mask_at(p, row, b, hd, e - b * D));
+      }
+    }
+    cp_async_commit();
+  };
+  prefetch(0);
 
-  const int c = tid % C4, s = tid / C4;
-  const int g = c / J, jj = c % J;
-  const bool worker = s < S && jj < Jc;
-  const int rcol = g * D + j0 + jj;
-  const size_t step_h = (size_t)B * NH * D;
-
+  const int wq = tid % J, ws = tid / J;   // product: unit quad, K-slice
+  const float sc = p.mode == 1 ? p.scale : 1.f;
+  PHASE_START();
   for (int t = 0; t < T; ++t) {
-    const int row_i = p.ids_rows == 1 ? 0 : t;
-    const int row_m = p.mask_rows == 1 ? 0 : t;
-    const float* hprev = t == 0 ? h0 : hs + (size_t)(t - 1) * step_h;
-    if (p.mode == 1)
-      for (int kk = tid; kk < KC; kk += NT) uid[kk] = ids[(size_t)row_i * p.k + kk];
+    const int buf = t & 1;
+    cp_async_wait_all();
     __syncthreads();
-    // this head's compact h_{t-1}; LD loads in flight per thread, issued
-    // with no branch between them
-    for (int e0 = tid; e0 < B * KC; e0 += LD * NT) {
-      float v[LD];
-#pragma unroll
-      for (int u = 0; u < LD; ++u) {
-        const int e = min(e0 + u * NT, B * KC - 1);
-        const int b = e / KC, kk = e - b * KC;
-        v[u] = __ldcg(hprev + ((size_t)b * NH + hd) * D + (p.mode == 1 ? uid[kk] : kk));
-      }
+    PHASE(0, 0);
+    if (t + 1 < T) prefetch(t + 1);
+    const int* uid = uidb + buf * KC;
+    const float* mk = mkb + (size_t)buf * B * D;
+    auto stage = [&](int e, float v) {
       if (p.mode == 2) {
-        float m[LD];
-#pragma unroll
-        for (int u = 0; u < LD; ++u) {
-          const int e = min(e0 + u * NT, B * KC - 1);
-          const int b = e / KC, kk = e - b * KC;
-          m[u] = mask[mask_at(p, row_m, b, hd, kk)];
-        }
-#pragma unroll
-        for (int u = 0; u < LD; ++u) v[u] *= m[u] * p.scale;
+        const int b = dKC.q(e);
+        v *= mk[(size_t)b * D + e - b * KC] * p.scale;
       }
-#pragma unroll
-      for (int u = 0; u < LD; ++u)
-        if (e0 + u * NT < B * KC) hsm[e0 + u * NT] = v[u];
+      hsm[e] = v;
+    };
+    // this head's compact h_{t-1}
+    if (t == 0) {
+#pragma unroll 1
+      for (int e = tid; e < B * KC; e += NT) {
+        const int b = dKC.q(e), kk = e - b * KC;
+        stage(e, h0[((size_t)b * NH + hd) * D + (p.mode == 1 ? uid[kk] : kk)]);
+      }
+    } else {
+      const u64* slot = ring + (size_t)((t - 1) & 1) * slot_words;
+      const u64* snt = sent + ((size_t)((t - 1) & 1) * NH + hd) * cph;
+      poll(B * KC + cph, (unsigned)t,
+           [&](int e) -> const u64* {
+             if (e >= B * KC) return snt + (e - B * KC);
+             const int b = dKC.q(e), kk = e - b * KC;
+             return slot + ((size_t)b * NH + hd) * D + (p.mode == 1 ? uid[kk] : kk);
+           },
+           [&](int e, float v) {
+             if (e < B * KC) stage(e, v);
+           });
     }
     __syncthreads();
+    PHASE(0, 1);
+    // done with slot (t-1) & 1: it may be rewritten at step t + 1
+    if (tid == 0) st_word(sent + ((size_t)buf * NH + hd) * cph + me, pack(0.f, t + 1));
 
-    for (int b0 = 0; b0 < B; b0 += RB) {
-      float acc[RB];
+    for (int b0 = 0; b0 < B; b0 += BT) {
+      if (ws < S) {
+        float4 acc[BT];
 #pragma unroll
-      for (int bb = 0; bb < RB; ++bb) acc[bb] = 0.f;
-      if (worker) {
+        for (int bb = 0; bb < BT; ++bb) acc[bb] = make_float4(0.f, 0.f, 0.f, 0.f);
+        const float* h = hsm + (size_t)b0 * KC;
 #pragma unroll 4
-        for (int kk = s; kk < KC; kk += S) {
-          const int urow = p.mode == 1 ? uid[kk] : kk;
-          const float r = RES ? Rs[(size_t)urow * C4 + c] : __ldg(Rh + (size_t)urow * G + rcol);
-          const float* hcol = hsm + kk;
+        for (int kk = ws; kk < KC; kk += S) {
+          const int u = p.mode == 1 ? uid[kk] : kk;
+          const float4 r = RES ? Rs[(size_t)u * J + wq] : r_quad(Rh, u, D, j0 + wq, wq < Jc);
 #pragma unroll
-          for (int bb = 0; bb < RB; ++bb)
-            if (b0 + bb < B) acc[bb] = fmaf(hcol[(size_t)(b0 + bb) * KC], r, acc[bb]);
+          for (int bb = 0; bb < BT; ++bb) {
+            const float hv = h[(size_t)bb * KC + kk];
+            acc[bb].x = fmaf(hv, r.x, acc[bb].x);
+            acc[bb].y = fmaf(hv, r.y, acc[bb].y);
+            acc[bb].z = fmaf(hv, r.z, acc[bb].z);
+            acc[bb].w = fmaf(hv, r.w, acc[bb].w);
+          }
         }
-      }
-      if (s < S) {
 #pragma unroll
-        for (int bb = 0; bb < RB; ++bb) part[((size_t)s * RB + bb) * C4 + c] = acc[bb];
+        for (int bb = 0; bb < BT; ++bb) part[((size_t)ws * BT + bb) * J + wq] = acc[bb];
       }
       __syncthreads();
-      for (int e = tid; e < RB * J; e += NT) {
-        const int bb = e / J, q = e % J, b = b0 + bb;
+      PHASE(0, 2);
+#pragma unroll 1
+      for (int e = tid; e < BT * J; e += NT) {
+        const int bb = dJ.q(e), q = e - bb * J, b = b0 + bb;
         if (b >= B || q >= Jc) continue;
-        const size_t row = ((size_t)t * B + b) * NH + hd;
-        const size_t gofs = row * G + j0 + q;
-        const size_t hofs = row * D + j0 + q;
-        float sum[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int s2 = 0; s2 < S; ++s2) {
-          const float* pr = part + ((size_t)s2 * RB + bb) * C4 + q;
-#pragma unroll
-          for (int g2 = 0; g2 < 4; ++g2) sum[g2] += pr[g2 * J];
-        }
-        float gv[4];
-#pragma unroll
-        for (int g2 = 0; g2 < 4; ++g2) {
-          if (p.mode == 1) sum[g2] *= p.scale;
-          gv[g2] = gx[gofs + (size_t)g2 * D] + sum[g2];
-        }
+        const float4 sum = sum_split(part + (size_t)bb * J + q, (size_t)BT * J, S);
+        PHASE(0, 3);
+        const float4 xg = gxb[(size_t)buf * BJ + b * J + q];
+        const float gv[4] = {xg.x + sum.x * sc, xg.y + sum.y * sc, xg.z + sum.z * sc,
+                             xg.w + sum.w * sc};
         const int o = b * J + q;
         const float c_prev = cc[o], n_prev = nc[o], m_prev = mc[o];
         float h_new, c_new, n_new, m_new;
-        if (p.ragged && t >= lens[b]) {       // frozen row: carry t-1 through
+        if (p.ragged && t >= lns[b]) {        // frozen row: carry t-1 through
           h_new = hc[o];
           c_new = c_prev;
           n_new = n_prev;
@@ -232,281 +412,426 @@ slstm_fwd_kernel(const float* __restrict__ gx, const float* __restrict__ R,
           n_new = fg * n_prev + ig;
           h_new = og * (c_new / fmaxf(n_new, EPS));
         }
+        PHASE(0, 4);
         hc[o] = h_new;
         cc[o] = c_new;
         nc[o] = n_new;
         mc[o] = m_new;
+        const size_t row = ((size_t)t * B + b) * NH + hd;
+        st_word(ring + (size_t)buf * slot_words + ((size_t)b * NH + hd) * D + j0 + q,
+                pack(h_new, t + 1));
+        const size_t hofs = row * D + j0 + q, gofs = row * G + j0 + q;
         hs[hofs] = h_new;
         cs[hofs] = c_new;
         ns[hofs] = n_new;
         ms[hofs] = m_new;
 #pragma unroll
         for (int g2 = 0; g2 < 4; ++g2) gates[gofs + (size_t)g2 * D] = gv[g2];
+        PHASE(0, 5);
       }
-      __syncthreads();
+      if (b0 + BT < B) __syncthreads();
     }
-    __threadfence();
-    grid.sync();
+    PHASE(0, 6);
   }
 }
 
-// DRES: the CTA's rows of dR (J x 4dh) stay in shared memory; R rows are
-// always staged through L2 chunk by chunk.
-template <bool DRES>
-__global__ void __launch_bounds__(NT)
+// Backward.
+template <bool RES>
+__global__ void __launch_bounds__(NT, 1)
 slstm_bwd_kernel(const float* __restrict__ dy, const float* __restrict__ dcT,
                  const float* __restrict__ dnT, const float* __restrict__ dmT,
                  const float* __restrict__ gates, const float* __restrict__ cs,
                  const float* __restrict__ ns, const float* __restrict__ ms,
                  const float* __restrict__ c0, const float* __restrict__ n0,
-                 const float* __restrict__ m0, const float* __restrict__ hs,
-                 const float* __restrict__ h0, const float* __restrict__ R,
+                 const float* __restrict__ m0, const float* __restrict__ R,
                  const int* __restrict__ ids, const float* __restrict__ mask,
-                 const int* __restrict__ lens, float* dgx, float* dR, float* dh0,
-                 float* dc0, float* dn0, float* dm0, ScanArgs p) {
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ float smem[];
-  const int T = p.T, B = p.B, NH = p.NH, D = p.D, G = 4 * D, J = p.J;
-  const int hd = blockIdx.x / p.cph;
-  const int j0 = (blockIdx.x % p.cph) * J;
-  const int Jc = min(J, D - j0);
+                 const int* __restrict__ lens, float* dgx, float* dh0, float* dc0,
+                 float* dn0, float* dm0, u64* ring, ScanArgs p) {
+  extern __shared__ float4 smem4[];
+  const int T = p.T, B = p.B, NH = p.NH, D = p.D, G = 4 * D, J = p.J, cph = p.cph;
+  const int hd = blockIdx.x / cph, me = blockIdx.x % cph;
+  const int j0 = me * J, Jc = min(J, D - j0);
+  const int KC = p.mode == 1 ? p.k : D;
+  const int Bp = (B + BT - 1) / BT * BT;
   const int BJ = B * J;
-  const int CH = p.ch;
-  const int CHP = CH + 4;               // padded row stride: rows in other banks
-  const int JK = (J + 3) / 4 * 4;       // kept own units, padded to float4
   const float* Rh = R + (size_t)hd * D * G;
-  float* dRh = dR + (size_t)hd * D * G;
-  const size_t step_h = (size_t)B * NH * D;
-  // 16-byte aligned regions first (cp.async targets)
-  float* dgs = smem;                    // B x CHP dgates chunk
-  float* dRr = dgs + (size_t)B * CHP;   // DRES: J x G own rows of dR
-  float* us = dRr + (DRES ? (size_t)J * G : 0);  // JK x CH rows of R (kept)
-  float* dhc = us + (size_t)JK * CH;    // B x J carries: dL/dh, dc, dn, dm
+  const Div dJ(J), dJc(Jc), dBJc(B * Jc), dcph(cph);
+  const int JP = J + 1;   // row stride of Rs: 32 consecutive rows hit distinct banks
+  float4* Rs = smem4;                                  // RES: D x JP unit quads
+  float4* dgs = Rs + (RES ? (size_t)D * JP : 0);       // Bp x J: own dgates quads
+  float* resb = reinterpret_cast<float*>(dgs + (size_t)Bp * J);  // 2 x NF x B x J
+  float* psum = resb + 2 * NF * (size_t)BJ;            // B x cph x J polled partials
+  float* cn = psum + (size_t)B * cph * J;              // B x J: c, n, m at step r
+  float* nn = cn + BJ;
+  float* mn = nn + BJ;
+  float* dhc = mn + BJ;                                // B x J carries
   float* dcc = dhc + BJ;
   float* dnc = dcc + BJ;
   float* dmc = dnc + BJ;
-  float* hp = dmc + BJ;                 // B x J: h_{r-1} of own units (masked)
-  float* hpk = smem + al4(hp + BJ - smem);  // B x JK: hp of the kept own units
-  float* red = hpk + (size_t)B * JK;    // 4 NT partial dh sums
-  int* flag = reinterpret_cast<int*>(red + 4 * NT);  // J
-  int* kl = flag + J;                   // J: local ids of kept own units
-  int* nkl_s = kl + J;                  // 1
+  int* uidb = reinterpret_cast<int*>(dmc + BJ);        // mode 1: 2 x KC unit ids
+  int* flg = uidb + (p.mode == 1 ? 2 * KC : 0);        // mode 1: 2 x J: row an own unit was kept
+  int* lns = flg + (p.mode == 1 ? 2 * J : 0);          // ragged: B lengths
   const int tid = threadIdx.x;
+  const size_t step_h = (size_t)B * NH * D;
+  const size_t slot_words = (size_t)B * NH * cph * D;
+  u64* sent = ring + 2 * slot_words;                   // 2 x NH x cph sentinels
+  const float sc = p.mode == 1 ? p.scale : 1.f;
 
-  for (int e = tid; e < Jc * G; e += NT) {
-    if (DRES) dRr[e] = 0.f;
-    else dRh[(size_t)j0 * G + e] = 0.f;
-  }
+  if (RES) fill_rs(Rs, JP, Rh, D, J, j0, Jc);
+#pragma unroll 1
+  for (int e = tid; e < Bp * J; e += NT) dgs[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 1
   for (int e = tid; e < BJ; e += NT) {
     const int b = e / J, q = e % J;
     const size_t o = ((size_t)b * NH + hd) * D + j0 + q;
+    const size_t oT = (size_t)(T - 1) * step_h + o;
+    const bool ok = q < Jc;
     dhc[e] = 0.f;
-    dcc[e] = q < Jc ? dcT[o] : 0.f;
-    dnc[e] = q < Jc ? dnT[o] : 0.f;
-    dmc[e] = q < Jc ? dmT[o] : 0.f;
+    dcc[e] = ok ? dcT[o] : 0.f;
+    dnc[e] = ok ? dnT[o] : 0.f;
+    dmc[e] = ok ? dmT[o] : 0.f;
+    cn[e] = ok ? cs[oT] : 0.f;
+    nn[e] = ok ? ns[oT] : 0.f;
+    mn[e] = ok ? ms[oT] : 0.f;
   }
+  if (p.mode == 1)
+#pragma unroll 1
+    for (int e = tid; e < 2 * J; e += NT) flg[e] = -1;
+  if (p.ragged)
+#pragma unroll 1
+    for (int b = tid; b < B; b += NT) lns[b] = lens[b];
 
-  for (int r = T - 1; r >= 0; --r) {
-    const int row_i = p.ids_rows == 1 ? 0 : r;
-    const int row_m = p.mask_rows == 1 ? 0 : r;
-    // kept own units at this step
-    for (int q = tid; q < J; q += NT) flag[q] = p.mode == 1 ? 0 : (q < Jc);
-    __syncthreads();
+  // step r's ids row and residuals of the own units (gates, dy, the states
+  // of r - 1, the mask of row r + 1), into buffer r & 1
+  auto prefetch = [&](int r) {
+    const int buf = r & 1;
     if (p.mode == 1) {
-      for (int kk = tid; kk < p.k; kk += NT) {
-        const int u = ids[(size_t)row_i * p.k + kk];
-        if (u >= j0 && u < j0 + Jc) flag[u - j0] = 1;
-      }
+      const int* src = ids + (size_t)(p.ids_rows == 1 ? 0 : r) * p.k;
+#pragma unroll 1
+      for (int kk = tid; kk < KC; kk += NT) cp_async4(uidb + buf * KC + kk, src + kk);
     }
-    __syncthreads();
-    if (tid == 0) {
-      int n = 0;
-      for (int q = 0; q < Jc; ++q)
-        if (flag[q]) kl[n++] = q;
-      *nkl_s = n;
-    }
-    // phase 1: dgates of own units (pointwise reverse), written to dgx
-    for (int e = tid; e < BJ; e += NT) {
-      const int b = e / J, q = e % J;
-      if (q >= Jc) continue;
-      const int j = j0 + q;
+    float* dst = resb + (size_t)buf * NF * BJ;
+    const int nf = p.mode == 2 && r + 1 < T ? NF : NF - 1;
+#pragma unroll 1
+    for (int e = tid; e < nf * B * Jc; e += NT) {
+      const int f = dBJc.q(e), bq = e - f * B * Jc, b = dJc.q(bq), q = bq - b * Jc;
       const size_t row = ((size_t)r * B + b) * NH + hd;
-      const size_t hofs = row * D + j;
-      const size_t gofs = row * G + j;
-      const size_t o0 = ((size_t)b * NH + hd) * D + j;
-      const float dh = dy[hofs] + dhc[e];
-      if (!p.ragged || r < lens[b]) {
-        const float gi = gates[gofs], gf = gates[gofs + D];
-        const float gz = gates[gofs + 2 * (size_t)D], go = gates[gofs + 3 * (size_t)D];
-        const float cn = cs[hofs], nn = ns[hofs], mn = ms[hofs];
-        const float c_prev = r > 0 ? cs[hofs - step_h] : c0[o0];
-        const float n_prev = r > 0 ? ns[hofs - step_h] : n0[o0];
-        const float m_prev = r > 0 ? ms[hofs - step_h] : m0[o0];
+      const size_t h = row * D + j0 + q;
+      const size_t h0o = ((size_t)b * NH + hd) * D + j0 + q;
+      const float* src;
+      if (f < 4) src = gates + row * G + (size_t)f * D + j0 + q;
+      else if (f == 4) src = dy + h;
+      else if (f < 8) {
+        const float* seq = f == 5 ? cs : f == 6 ? ns : ms;
+        const float* s0 = f == 5 ? c0 : f == 6 ? n0 : m0;
+        src = r > 0 ? seq + h - step_h : s0 + h0o;
+      } else {
+        src = mask + mask_at(p, p.mask_rows == 1 ? 0 : r + 1, b, hd, j0 + q);
+      }
+      cp_async4(dst + (size_t)f * BJ + b * J + q, src);
+    }
+    cp_async_commit();
+  };
+  prefetch(T - 1);
+
+  // the partials of step r (dh_{r-1} of the own units) from every CTA of the
+  // head; the sentinels too when no own unit was kept at r (else the words
+  // of every CTA are read already)
+  auto poll_partials = [&](int r, bool kept) {
+    const int buf = r & 1;
+    const u64* slot = ring + (size_t)buf * slot_words;
+    const u64* snt = sent + ((size_t)buf * NH + hd) * cph;
+    const int n = B * cph * J;
+    poll(n + (kept ? 0 : cph), (unsigned)(r + 1),
+         [&](int e) -> const u64* {
+           if (e >= n) return snt + (e - n);
+           const int bx = dJ.q(e), q = e - bx * J, b = dcph.q(bx), x = bx - b * cph;
+           if (q >= Jc || (p.mode == 1 && flg[buf * J + q] != r)) return nullptr;
+           return slot + (((size_t)b * NH + hd) * cph + x) * D + j0 + q;
+         },
+         [&](int e, float v) {
+           if (e < n) psum[e] = v;
+         });
+  };
+  // their sum for own unit (b, q), scaled (mask row `mrow` value mv for mode 2)
+  auto incoming = [&](int r, int b, int q, float mv) {
+    if (p.mode == 1 && flg[(r & 1) * J + q] != r) return 0.f;
+    const float v = sum_split(psum + (size_t)b * cph * J + q, (size_t)J, cph);
+    return v * (p.mode == 2 ? mv * p.scale : sc);
+  };
+
+  PHASE_START();
+  // whether an own unit was kept at row r (its flags set at step r)
+  auto own_kept = [&](int r) {
+    return p.mode != 1 || (tid < Jc && flg[(r & 1) * J + tid] == r);
+  };
+  for (int r = T - 1; r >= 0; --r) {
+    const int buf = r & 1;
+    cp_async_wait_all();
+    const bool kept = __syncthreads_or(r + 1 < T && own_kept(r + 1));
+    PHASE(1, 0);
+    if (r > 0) prefetch(r - 1);
+    const int* uid = uidb + buf * KC;
+    if (p.mode == 1)
+#pragma unroll 1
+      for (int kk = tid; kk < KC; kk += NT) {
+        const int u = uid[kk];
+        if (u >= j0 && u < j0 + Jc) flg[buf * J + u - j0] = r;
+      }
+    if (r + 1 < T) poll_partials(r + 1, kept);
+    __syncthreads();
+    PHASE(1, 1);
+    // done with slot (r + 1) & 1: it may be rewritten at step r - 1
+    if (tid == 0) st_word(sent + ((size_t)buf * NH + hd) * cph + me, pack(0.f, r + 1));
+
+    // phase 1: dgates of the own units (pointwise reverse)
+    const float* rs = resb + (size_t)buf * NF * BJ;
+#pragma unroll 1
+    for (int e = tid; e < B * Jc; e += NT) {
+      const int b = dJc.q(e), q = e - b * Jc, o = b * J + q;
+      const float inc = r + 1 < T ? incoming(r + 1, b, q, rs[8 * BJ + o]) : 0.f;
+      const float dh = rs[4 * BJ + o] + dhc[o] + inc;
+      PHASE(1, 2);
+      const float c_prev = rs[5 * BJ + o], n_prev = rs[6 * BJ + o], m_prev = rs[7 * BJ + o];
+      float4 dg = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (!p.ragged || r < lns[b]) {
+        const float gi = rs[o], gf = rs[BJ + o], gz = rs[2 * BJ + o], go = rs[3 * BJ + o];
+        const float cnv = cn[o], nnv = nn[o], mnv = mn[o];
         const float lfm = log_sigm(gf) + m_prev;
-        const float ig = expf(gi - mn);
-        const float fg = expf(lfm - mn);
+        const float ig = expf(gi - mnv);
+        const float fg = expf(lfm - mnv);
         const float z = tanhf(gz);
         const float og = sigm(go);
-        const float inv = 1.f / fmaxf(nn, EPS);
-        const float do_ = dh * cn * inv;
-        const float dc_t = dcc[e] + dh * og * inv;
-        const float dn_t = dnc[e] - (nn > EPS ? dh * og * cn * inv * inv : 0.f);
+        const float inv = 1.f / fmaxf(nnv, EPS);
+        const float do_ = dh * cnv * inv;
+        const float dc_t = dcc[o] + dh * og * inv;
+        const float dn_t = dnc[o] - (nnv > EPS ? dh * og * cnv * inv * inv : 0.f);
         const float df = dc_t * c_prev + dn_t * n_prev;
         const float di = dc_t * z + dn_t;
         const float dz = dc_t * ig;
-        const float dm_t = dmc[e] - di * ig - df * fg;
+        const float dm_t = dmc[o] - di * ig - df * fg;
         const bool sel = lfm >= gi;           // ties to the forget branch
-        const float dgi = di * ig + (sel ? 0.f : dm_t);
         const float dlf = df * fg + (sel ? dm_t : 0.f);
-        dgx[gofs] = dgi;
-        dgx[gofs + D] = dlf * sigm(-gf);
-        dgx[gofs + 2 * (size_t)D] = dz * (1.f - z * z);
-        dgx[gofs + 3 * (size_t)D] = do_ * og * (1.f - og);
-        dcc[e] = dc_t * fg;
-        dnc[e] = dn_t * fg;
-        dmc[e] = dlf;
-        dhc[e] = 0.f;                   // BP is added below
-      } else {                          // frozen: zero dgates, pass through
-#pragma unroll
-        for (int g2 = 0; g2 < 4; ++g2) dgx[gofs + (size_t)g2 * D] = 0.f;
-        dhc[e] = dh;
+        dg = make_float4(di * ig + (sel ? 0.f : dm_t), dlf * sigm(-gf), dz * (1.f - z * z),
+                         do_ * og * (1.f - og));
+        dcc[o] = dc_t * fg;
+        dnc[o] = dn_t * fg;
+        dmc[o] = dlf;
+        dhc[o] = 0.f;
+      } else {                                // frozen: zero dgates, pass through
+        dhc[o] = dh;
       }
-      float h = r > 0 ? hs[hofs - step_h] : h0[o0];
-      if (p.mode == 2) h *= mask[mask_at(p, row_m, b, hd, j)] * p.scale;
-      hp[e] = h;
-    }
-    __threadfence();
-    grid.sync();
-
-    // phase 2: dh_{r-1} and dR for the kept own rows j, over chunks of this
-    // head's dgates. Kept rows go in groups of 4: WG keeps a group's 4 rows
-    // of a column in registers, BP computes a tile (row b, 4 kept units)
-    // over a K-split of the chunk with 16-byte loads.
-    const int nkl = *nkl_s;
-    const int ngr = (nkl + 3) / 4;
-    const int tiles = B * ngr;
-    const int KS = tiles == 0 ? 1 : NT / tiles;
-    const int tile = tiles == 0 ? 0 : tid % tiles, ks = tiles == 0 ? NT : tid / tiles;
-    const int tb = tiles == 0 ? 0 : tile / ngr, tgr = tiles == 0 ? 0 : tile % ngr;
-    const float sc = p.mode == 1 ? p.scale : 1.f;
-    for (int e = tid; e < B * JK; e += NT) {
-      const int b = e / JK, qi = e % JK;
-      hpk[e] = qi < nkl ? hp[b * J + kl[qi]] : 0.f;
-    }
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int ch0 = 0; ch0 < G; ch0 += CH) {
-      const int cw = min(CH, G - ch0);   // G and CH are multiples of 4
-      const int n4 = CH / 4;
-      for (int e = tid; e < B * n4; e += NT) {
-        const int b = e / n4, c4 = (e % n4) * 4;
-        float* dst = dgs + (size_t)b * CHP + c4;
-        if (c4 < cw) {
-          cp_async16(dst, dgx + (((size_t)r * B + b) * NH + hd) * G + ch0 + c4);
-        } else {
-          dst[0] = dst[1] = dst[2] = dst[3] = 0.f;
-        }
-      }
-      for (int e = tid; e < JK * n4; e += NT) {
-        const int q = e / n4, c4 = (e % n4) * 4;
-        float* dst = us + (size_t)q * CH + c4;
-        if (c4 < cw && q < nkl) {
-          cp_async16(dst, Rh + (size_t)(j0 + kl[q]) * G + ch0 + c4);
-        } else {
-          dst[0] = dst[1] = dst[2] = dst[3] = 0.f;
-        }
-      }
-      cp_async_wait_all();
-      __syncthreads();
-      // WG: (group, column) per thread, the group's 4 rows in registers
-      const float4* hp4 = reinterpret_cast<const float4*>(hpk);
-      for (int e = tid; e < ngr * cw; e += NT) {
-        const int gr = e / cw, col = e % cw;
-        float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-#pragma unroll 4
-        for (int b = 0; b < B; ++b) {
-          const float gv = dgs[b * CHP + col];
-          const float4 h = hp4[b * (JK / 4) + gr];
-          a0 = fmaf(h.x, gv, a0);
-          a1 = fmaf(h.y, gv, a1);
-          a2 = fmaf(h.z, gv, a2);
-          a3 = fmaf(h.w, gv, a3);
-        }
-        const float av[4] = {a0, a1, a2, a3};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int qi = gr * 4 + i;
-          if (qi < nkl) {
-            const int jl = kl[qi];
-            float* drow = DRES ? dRr + (size_t)jl * G : dRh + (size_t)(j0 + jl) * G;
-            drow[ch0 + col] += av[i] * sc;
-          }
-        }
-      }
-      // BP: tile (row tb, kept units 4 tgr .. 4 tgr + 3) over K-split ks
-      if (ks < KS) {
-        const float4* dg4 = reinterpret_cast<const float4*>(dgs + (size_t)tb * CHP);
-        const float4* u4[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int qi = min(tgr * 4 + i, nkl - 1);
-          u4[i] = reinterpret_cast<const float4*>(us + (size_t)qi * CH);
-        }
-        for (int c4 = ks; c4 < cw / 4; c4 += KS) {
-          const float4 gv = dg4[c4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float4 w = u4[i][c4];
-            acc[i] += gv.x * w.x + gv.y * w.y + gv.z * w.z + gv.w * w.w;
-          }
-        }
-      }
-      __syncthreads();
-    }
-    if (tiles > 0) {
-      if (ks < KS)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) red[((size_t)ks * tiles + tile) * 4 + i] = acc[i];
-      __syncthreads();
-      for (int o = tid; o < B * nkl; o += NT) {
-        const int b = o / nkl, qi = o % nkl, jl = kl[qi];
-        const int tl = b * ngr + qi / 4;
-        float v = 0.f;
-        for (int k2 = 0; k2 < KS; ++k2) v += red[((size_t)k2 * tiles + tl) * 4 + qi % 4];
-        if (p.mode == 2) v *= mask[mask_at(p, row_m, b, hd, j0 + jl)] * p.scale;
-        dhc[b * J + jl] += v * sc;
-      }
+      PHASE(1, 3);
+      const size_t gofs = (((size_t)r * B + b) * NH + hd) * G + j0 + q;
+      dgx[gofs] = dg.x;
+      dgx[gofs + D] = dg.y;
+      dgx[gofs + 2 * (size_t)D] = dg.z;
+      dgx[gofs + 3 * (size_t)D] = dg.w;
+      dgs[o] = dg;
+      cn[o] = c_prev;
+      nn[o] = n_prev;
+      mn[o] = m_prev;
     }
     __syncthreads();
+    PHASE(1, 4);
+
+    // phase 2: partial dh_{r-1}[b, u] = sum over the own 4J columns of
+    // dgates[b, c] R[u, c] for every kept u of the head: one thread a row,
+    // the dgates quads in registers QC at a time, four FMA chains a row
+    u64* out = ring + (size_t)buf * slot_words;
+    for (int b0 = 0; b0 < B; b0 += BT) {
+      float4 dr[QC][BT];
+      const bool one = J <= QC;            // all quads in registers, loaded once
+      for (int kk0 = 0; kk0 < KC; kk0 += NT) {
+        if (kk0 + (tid & ~31) >= KC) break;   // the warp's rows are all past KC
+        // no branch: a row past KC reads row KC - 1 and is not published,
+        // a quad past J reads quad J - 1 against a zero dgates quad
+        const int kk = min(kk0 + tid, KC - 1);
+        const int u = p.mode == 1 ? uid[kk] : kk;
+        float a[BT][4];
+#pragma unroll
+        for (int bb = 0; bb < BT; ++bb) a[bb][0] = a[bb][1] = a[bb][2] = a[bb][3] = 0.f;
+        for (int c0 = 0; c0 < J; c0 += QC) {
+          if (!one || kk0 == 0)
+#pragma unroll
+            for (int m = 0; m < QC; ++m)
+#pragma unroll
+              for (int bb = 0; bb < BT; ++bb)
+                dr[m][bb] = c0 + m < J ? dgs[(size_t)(b0 + bb) * J + c0 + m]
+                                       : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+          for (int m = 0; m < QC; ++m) {
+            const int qd = min(c0 + m, J - 1);
+            const float4 w = RES ? Rs[(size_t)u * JP + qd] : r_quad(Rh, u, D, j0 + qd, qd < Jc);
+#pragma unroll
+            for (int bb = 0; bb < BT; ++bb) {
+              const float4 d = dr[m][bb];
+              a[bb][m % 4] = fmaf(d.x, w.x, fmaf(d.y, w.y, fmaf(d.z, w.z, fmaf(d.w, w.w, a[bb][m % 4]))));
+            }
+          }
+        }
+        PHASE(1, 5);
+        if (kk0 + tid < KC)
+#pragma unroll
+          for (int bb = 0; bb < BT; ++bb)
+            if (b0 + bb < B)
+              st_word(out + (((size_t)(b0 + bb) * NH + hd) * cph + me) * D + u,
+                      pack((a[bb][0] + a[bb][1]) + (a[bb][2] + a[bb][3]), r + 1));
+        PHASE(1, 6);
+      }
+    }
+    PHASE(1, 7);
   }
 
-  for (int e = tid; e < BJ; e += NT) {
-    const int b = e / J, q = e % J;
-    if (q >= Jc) continue;
-    const size_t o = ((size_t)b * NH + hd) * D + j0 + q;
-    dh0[o] = dhc[e];
-    dc0[o] = dcc[e];
-    dn0[o] = dnc[e];
-    dm0[o] = dmc[e];
+  // dh0: the partials of step 0
+  poll_partials(0, __syncthreads_or(own_kept(0)));
+  __syncthreads();
+#pragma unroll 1
+  for (int e = tid; e < B * Jc; e += NT) {
+    const int b = e / Jc, q = e % Jc, o = b * J + q;
+    const size_t o0 = ((size_t)b * NH + hd) * D + j0 + q;
+    const float mv = p.mode == 2 ? mask[mask_at(p, 0, b, hd, j0 + q)] : 0.f;
+    dh0[o0] = dhc[o] + incoming(0, b, q, mv);
+    dc0[o0] = dcc[o];
+    dn0[o0] = dnc[o];
+    dm0[o0] = dmc[o];
   }
-  if (DRES)
-    for (int e = tid; e < Jc * G; e += NT) dRh[(size_t)j0 * G + e] = dRr[e];
+}
+
+// WG: dR[hd, u, c] for u in unit block blockIdx.y (WU rows), c in column tile
+// blockIdx.x (WC columns) of head blockIdx.z, over the block's active steps
+// steps[blk, :nsteps[blk]] x the B rows. keep (ids_rows, D): 1 for a kept
+// unit (mode 1); mask (mode 2) times scale; none (mode 0).
+__global__ void __launch_bounds__(NT)
+slstm_wg_kernel(const float* __restrict__ hs, const float* __restrict__ h0,
+                const float* __restrict__ dgx, const int* __restrict__ steps,
+                const int* __restrict__ nsteps, const float* __restrict__ keep,
+                const float* __restrict__ mask, float* dR, ScanArgs p) {
+  __shared__ __align__(16) float As[2][WK][WU];
+  __shared__ __align__(16) float Bs[2][WK][WC];
+  const int T = p.T, B = p.B, NH = p.NH, D = p.D, G = 4 * D;
+  const int c0 = blockIdx.x * WC, blk = blockIdx.y, u0 = blk * WU, hd = blockIdx.z;
+  const int n = nsteps[blk] * B;            // (step, row) pairs
+  const int* st = steps + (size_t)blk * T;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const Div dB(B);
+  constexpr int NA = WK * WU / NT, NB = WK * WC / 4 / NT;   // loads a thread a chunk
+  float ra[NA];
+  float4 rb[NB];
+  int ta[NA], tb[NB];   // the step of each of those loads, read one chunk ahead
+  auto steps_of = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      const int pr = k0 + (tid + NT * i) / WU;
+      ta[i] = pr < n ? st[dB.q(pr)] : 0;
+    }
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const int pr = k0 + (tid + NT * i) / (WC / 4);
+      tb[i] = pr < n ? st[dB.q(pr)] : 0;
+    }
+  };
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      const int e = tid + NT * i, u = u0 + e % WU, pr = k0 + e / WU;
+      float v = 0.f;
+      if (pr < n && u < D) {
+        const int t = ta[i], b = pr - dB.q(pr) * B;
+        v = t == 0 ? h0[((size_t)b * NH + hd) * D + u]
+                   : hs[(((size_t)(t - 1) * B + b) * NH + hd) * D + u];
+        if (p.mode == 1) v *= keep[(size_t)(p.ids_rows == 1 ? 0 : t) * D + u];
+        else if (p.mode == 2) v *= mask[mask_at(p, p.mask_rows == 1 ? 0 : t, b, hd, u)] * p.scale;
+      }
+      ra[i] = v;
+    }
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const int f = tid + NT * i, c = c0 + (f % (WC / 4)) * 4, pr = k0 + f / (WC / 4);
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (pr < n && c < G) {
+        const int t = tb[i], b = pr - dB.q(pr) * B;
+        v = *reinterpret_cast<const float4*>(dgx + (((size_t)t * B + b) * NH + hd) * G + c);
+      }
+      rb[i] = v;
+    }
+  };
+  auto store = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      const int e = tid + NT * i;
+      As[buf][e / WU][e % WU] = ra[i];
+    }
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const int f = tid + NT * i;
+      *reinterpret_cast<float4*>(&Bs[buf][f / (WC / 4)][(f % (WC / 4)) * 4]) = rb[i];
+    }
+  };
+  float acc[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  if (n > 0) {
+    steps_of(0);
+    load(0);
+    store(0);
+    steps_of(WK);
+  }
+  __syncthreads();
+  int buf = 0;
+  for (int k0 = 0; k0 < n; k0 += WK, buf ^= 1) {
+    const bool more = k0 + WK < n;
+    if (more) {
+      load(k0 + WK);
+      steps_of(k0 + 2 * WK);
+    }
+#pragma unroll
+    for (int kt = 0; kt < WK; ++kt) {
+      const float4 a = *reinterpret_cast<const float4*>(&As[buf][kt][ty * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[buf][kt][tx * 4]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[buf][kt][WC / 2 + tx * 4]);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    if (more) store(buf ^ 1);
+    __syncthreads();
+  }
+  const float sc = p.mode == 1 ? p.scale : 1.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int u = u0 + ty * 4 + i;
+    if (u >= D) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = c0 + h * (WC / 2) + tx * 4;
+      if (c < G)
+        *reinterpret_cast<float4*>(dR + ((size_t)hd * D + u) * G + c) =
+            make_float4(acc[i][4 * h] * sc, acc[i][4 * h + 1] * sc, acc[i][4 * h + 2] * sc,
+                        acc[i][4 * h + 3] * sc);
+    }
+  }
 }
 
 size_t fwd_smem(const ScanArgs& p, bool res) {
-  const int KC = p.mode == 1 ? p.k : p.D;
-  const int C4 = 4 * p.J;
-  const int S = NT / C4;
-  return sizeof(float) * ((res ? (size_t)p.D * C4 : 0) + (size_t)p.B * KC +
-                          (size_t)S * RB * C4 + 4 * (size_t)p.B * p.J) +
-         sizeof(int) * (size_t)KC;
+  const size_t KC = p.mode == 1 ? p.k : p.D, J = p.J, B = p.B;
+  const size_t S = std::min(NT / p.J, SMAX), Bp = (B + BT - 1) / BT * BT;
+  return 16 * ((res ? (size_t)p.D * J : 0) + S * BT * J + 2 * B * J) +
+         4 * (Bp * KC + (p.mode == 2 ? 2 * B * p.D : 0) + 4 * B * J) +
+         4 * ((p.mode == 1 ? 2 * KC : 0) + B);
 }
 
-size_t bwd_smem(const ScanArgs& p, bool dres) {
-  const size_t JK = ((size_t)p.J + 3) / 4 * 4;
-  return sizeof(float) * ((size_t)p.B * (p.ch + 4) + (dres ? (size_t)p.J * 4 * p.D : 0) +
-                          JK * p.ch + al4(5 * (size_t)p.B * p.J) + (size_t)p.B * JK +
-                          4 * NT) +
-         sizeof(int) * (2 * (size_t)p.J + 1);
+size_t bwd_smem(const ScanArgs& p, bool res) {
+  const size_t KC = p.mode == 1 ? p.k : p.D, J = p.J, B = p.B;
+  const size_t Bp = (B + BT - 1) / BT * BT;
+  return 16 * ((res ? (size_t)p.D * (J + 1) : 0) + Bp * J) +
+         4 * (2 * NF * B * J + B * p.cph * J + 7 * B * J) +
+         4 * ((p.mode == 1 ? 2 * KC + 2 * J : 0) + B);
 }
 
 int sm_count() {
@@ -546,79 +871,117 @@ void set_units(ScanArgs* p) {
   }
 }
 
+ScanArgs scan_args(int T, int B, int NH, int D, int mode, int k, int ids_rows, int mask_rows,
+                   int mask_heads, int ragged, float scale) {
+  ScanArgs p{T, B, NH, D, mode, k, ids_rows, mask_rows, mask_heads, ragged, 0, 0, scale};
+  set_units(&p);
+  return p;
+}
+
+int launch(const ScanArgs& p, const void* kernel, size_t smem, void** args, void* stream) {
+  int code = check_launch(p, kernel, smem);
+  if (code) return code;
+  cudaError_t err = cudaLaunchCooperativeKernel(kernel, dim3(p.NH * p.cph), dim3(NT), args,
+                                                smem, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// K6's grid for NH heads of D units: *J units a CTA, *cph CTAs a head.
+extern "C" void slstm_scan_units(int NH, int D, int* J, int* cph) {
+  const ScanArgs p = scan_args(1, 1, NH, D, 0, 0, 1, 1, 1, 0, 1.f);
+  *J = p.J;
+  *cph = p.cph;
+}
+
+// Words of the zeroed ring a scan launch needs: (direction 0 forward, 1
+// backward); the wrapper allocates them with torch.zeros.
+extern "C" long long slstm_scan_ring_words(int direction, int B, int NH, int D) {
+  const ScanArgs p = scan_args(1, B, NH, D, 0, 0, 1, 1, 1, 0, 1.f);
+  const long long per_slot = (long long)B * NH * D * (direction ? p.cph : 1);
+  return 2 * per_slot + 2LL * NH * p.cph;
+}
 
 // xg (T, B, NH, 4dh) with the bias folded in; R (NH, dh, 4dh); h0, c0, n0,
 // m0 (B, NH, dh); ids (ids_rows, k) int32 unit ids (mode 1); mask
-// (mask_rows, B, mask_heads, dh) (mode 2); lens (B,) int32 when ragged.
+// (mask_rows, B, mask_heads, dh) (mode 2); lens (B,) int32 when ragged;
+// ring: slstm_scan_ring_words(0, ...) zeroed words.
 // Outputs hs, cs, ns, ms (T, B, NH, dh) and gates (T, B, NH, 4dh).
 extern "C" int slstm_scan_fwd_f32(const float* gx, const float* R, const float* h0,
                                   const float* c0, const float* n0, const float* m0,
                                   const int* ids, const float* mask, const int* lens,
                                   float* hs, float* gates, float* cs, float* ns, float* ms,
-                                  int T, int B, int NH, int D, int mode, int k, int ids_rows,
-                                  int mask_rows, int mask_heads, int ragged, float scale,
-                                  void* stream) {
+                                  u64* ring, int T, int B, int NH, int D, int mode, int k,
+                                  int ids_rows, int mask_rows, int mask_heads, int ragged,
+                                  float scale, void* stream) {
   cudaGetLastError();
   if (T <= 0 || B <= 0) return 0;
-  ScanArgs p{T, B, NH, D, mode, k, ids_rows, mask_rows, mask_heads, ragged, 0, 0, scale, 0};
-  set_units(&p);
+  ScanArgs p = scan_args(T, B, NH, D, mode, k, ids_rows, mask_rows, mask_heads, ragged, scale);
   if (4 * p.J > NT) return (int)cudaErrorInvalidValue;
   // R columns resident in shared memory when they fit, else read through L2.
   const bool res = fwd_smem(p, true) <= SMEM_MAX;
   const void* kernel = res ? (const void*)slstm_fwd_kernel<true>
                            : (const void*)slstm_fwd_kernel<false>;
-  const size_t smem = fwd_smem(p, res);
-  int code = check_launch(p, kernel, smem);
-  if (code) return code;
   void* args[] = {&gx, &R, &h0, &c0, &n0, &m0, &ids, &mask, &lens,
-                  &hs, &gates, &cs, &ns, &ms, &p};
-  cudaError_t err = cudaLaunchCooperativeKernel(kernel, dim3(NH * p.cph), dim3(NT), args,
-                                                smem, (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+                  &hs, &gates, &cs, &ns, &ms, &ring, &p};
+  return launch(p, kernel, fwd_smem(p, res), args, stream);
 }
 
 // dy (T, B, NH, dh): dL/dhs with dL/dh_T already added at T-1; dcT, dnT, dmT
-// (B, NH, dh); gates, cs, ns, ms, hs from the forward. Outputs dgx
-// (T, B, NH, 4dh), dR (NH, dh, 4dh) (f32, zeroed by the kernel), dh0, dc0,
-// dn0, dm0 (B, NH, dh).
+// (B, NH, dh); gates, cs, ns, ms from the forward; ring:
+// slstm_scan_ring_words(1, ...) zeroed words. Outputs dgx (T, B, NH, 4dh),
+// dh0, dc0, dn0, dm0 (B, NH, dh). dR is slstm_wg_f32's.
 extern "C" int slstm_scan_bwd_f32(const float* dy, const float* dcT, const float* dnT,
                                   const float* dmT, const float* gates, const float* cs,
                                   const float* ns, const float* ms, const float* c0,
-                                  const float* n0, const float* m0, const float* hs,
-                                  const float* h0, const float* R, const int* ids,
-                                  const float* mask, const int* lens, float* dgx, float* dR,
-                                  float* dh0, float* dc0, float* dn0, float* dm0, int T,
-                                  int B, int NH, int D, int mode, int k, int ids_rows,
-                                  int mask_rows, int mask_heads, int ragged, float scale,
-                                  void* stream) {
+                                  const float* n0, const float* m0, const float* R,
+                                  const int* ids, const float* mask, const int* lens,
+                                  float* dgx, float* dh0, float* dc0, float* dn0, float* dm0,
+                                  u64* ring, int T, int B, int NH, int D, int mode, int k,
+                                  int ids_rows, int mask_rows, int mask_heads, int ragged,
+                                  float scale, void* stream) {
   cudaGetLastError();
   if (T <= 0 || B <= 0) return 0;
-  ScanArgs p{T, B, NH, D, mode, k, ids_rows, mask_rows, mask_heads, ragged, 0, 0, scale, 0};
-  set_units(&p);
-  if (B * ((p.J + 3) / 4) > NT) return (int)cudaErrorInvalidValue;
-  // Prefer dR rows resident in shared memory, then wide dgates chunks.
-  bool dres = false;
-  bool fits = false;
-  for (int pick = 0; pick < 6 && !fits; ++pick) {
-    dres = pick < 3;
-    p.ch = 1024 >> (pick % 3);
-    fits = bwd_smem(p, dres) <= SMEM_MAX;
-  }
-  if (!fits) return (int)cudaErrorInvalidValue;
-  const void* kernel = dres ? (const void*)slstm_bwd_kernel<true>
-                            : (const void*)slstm_bwd_kernel<false>;
-  const size_t smem = bwd_smem(p, dres);
-  int code = check_launch(p, kernel, smem);
-  if (code) return code;
-  void* args[] = {&dy, &dcT, &dnT, &dmT, &gates, &cs, &ns, &ms, &c0, &n0, &m0, &hs, &h0,
-                  &R, &ids, &mask, &lens, &dgx, &dR, &dh0, &dc0, &dn0, &dm0, &p};
-  cudaError_t err = cudaLaunchCooperativeKernel(kernel, dim3(NH * p.cph), dim3(NT), args,
-                                                smem, (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
+  ScanArgs p = scan_args(T, B, NH, D, mode, k, ids_rows, mask_rows, mask_heads, ragged, scale);
+  const bool res = bwd_smem(p, true) <= SMEM_MAX;
+  const void* kernel = res ? (const void*)slstm_bwd_kernel<true>
+                           : (const void*)slstm_bwd_kernel<false>;
+  void* args[] = {&dy, &dcT, &dnT, &dmT, &gates, &cs, &ns, &ms, &c0, &n0, &m0, &R,
+                  &ids, &mask, &lens, &dgx, &dh0, &dc0, &dn0, &dm0, &ring, &p};
+  return launch(p, kernel, bwd_smem(p, res), args, stream);
+}
+
+// hs (T, B, NH, dh), h0 (B, NH, dh), dgx (T, B, NH, 4dh); steps (ceil(dh /
+// 64), T) int32: each 64-unit block's active steps, ascending, nsteps of
+// them; keep (ids_rows, dh) 1/0 (mode 1); mask as the scan's (mode 2).
+// Output dR (NH, dh, 4dh), every element written.
+extern "C" int slstm_wg_f32(const float* hs, const float* h0, const float* dgx,
+                            const int* steps, const int* nsteps, const float* keep,
+                            const float* mask, float* dR, int T, int B, int NH, int D,
+                            int mode, int ids_rows, int mask_rows, int mask_heads,
+                            float scale, void* stream) {
+  cudaGetLastError();
+  if (D <= 0 || NH <= 0) return 0;
+  ScanArgs p{T, B, NH, D, mode, 0, ids_rows, mask_rows, mask_heads, 0, 0, 0, scale};
+  const dim3 grid((4 * D + WC - 1) / WC, (D + WU - 1) / WU, NH);
+  slstm_wg_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(hs, h0, dgx, steps, nsteps, keep,
+                                                         mask, dR, p);
   return (int)cudaGetLastError();
 }
+
+#ifdef SLSTM_PHASES
+// Copies g_phase (2 x 1024 x 8 cycle counts) to host memory `out` and zeroes it.
+extern "C" int slstm_scan_phases(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_phase, sizeof(g_phase));
+  if (err == cudaSuccess) {
+    static unsigned long long zero[2][1024][8];
+    err = cudaMemcpyToSymbol(g_phase, zero, sizeof(g_phase));
+  }
+  return (int)err;
+}
+#endif
 
 extern "C" const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

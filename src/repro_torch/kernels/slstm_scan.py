@@ -8,12 +8,14 @@ exponential input gating, a log-sigmoid forget gate, a running stabilizer
 (i, f, z, o) per head; xg ``(T, B, NH, 4dh)`` with the bias folded in.
 
 The whole T-step recurrence runs in one launch of a hand-written
-cooperative CUDA kernel (``csrc/slstm_scan.cu``: K6 forward and
-reverse-time backward) for CUDA tensors, and as cell_scan's plain forward /
-plain hand-written reverse with this cell's pointwise math for CPU tensors
-and for ``impl="xla"``. The kernels take float32 only; the wrappers raise
-on anything else, on tensors of mixed devices, and on a non-zero CUDA
-status after the launch. ``LAUNCHES`` counts the kernel launches.
+persistent CUDA kernel (``csrc/slstm_scan.cu``: K6 forward and
+reverse-time backward, whose weight gradient dR runs after the scan as a
+second kernel over the kept (step, unit block) pairs) for CUDA tensors,
+and as cell_scan's plain forward / plain hand-written reverse with this
+cell's pointwise math for CPU tensors and for ``impl="xla"``. The kernels
+take float32 only; the wrappers raise on anything else, on tensors of mixed
+devices, and on a non-zero CUDA status after the launch. ``LAUNCHES``
+counts the kernel launches.
 """
 from __future__ import annotations
 
@@ -27,7 +29,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.cell_scan import CellSpec, cell_scan
 from repro_torch.kernels.lstm_scan import _check, _ptr
 
-LAUNCHES = {"slstm_scan_fwd": 0, "slstm_scan_bwd": 0}
+LAUNCHES = {"slstm_scan_fwd": 0, "slstm_scan_bwd": 0, "slstm_wg": 0}
+
+WG_UNITS = 64   # units (rows of R) a WG tile covers: csrc/slstm_scan.cu WU
 
 _EPS = 1e-6      # normalizer floor, as models/xlstm.py slstm_step
 
@@ -91,10 +95,16 @@ def _lib():
     lib = _build.load("slstm_scan")
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.slstm_scan_fwd_f32.argtypes = [p] * 14 + [i] * 10 + [f, p]
+        lib.slstm_scan_fwd_f32.argtypes = [p] * 15 + [i] * 10 + [f, p]
         lib.slstm_scan_fwd_f32.restype = i
-        lib.slstm_scan_bwd_f32.argtypes = [p] * 23 + [i] * 10 + [f, p]
+        lib.slstm_scan_bwd_f32.argtypes = [p] * 21 + [i] * 10 + [f, p]
         lib.slstm_scan_bwd_f32.restype = i
+        lib.slstm_wg_f32.argtypes = [p] * 8 + [i] * 8 + [f, p]
+        lib.slstm_wg_f32.restype = i
+        lib.slstm_scan_ring_words.argtypes = [i] * 4
+        lib.slstm_scan_ring_words.restype = ctypes.c_longlong
+        lib.slstm_scan_units.argtypes = [i, i, p, p]
+        lib.slstm_scan_units.restype = None
         lib._typed = True
     return lib
 
@@ -123,8 +133,14 @@ def _mode_args(ids, mask, T, B, NH, dh):
     return 0, 0, 1, 1, 1
 
 
+def _ring(lib, direction, B, NH, dh, device):
+    """The zeroed exchange ring of one scan launch (64-bit tagged words)."""
+    n = lib.slstm_scan_ring_words(direction, B, NH, dh)
+    return torch.zeros(n, dtype=torch.int64, device=device)
+
+
 def slstm_scan_fwd_cuda(gx, u, h0, states0, ids, mask, lengths, scale):
-    """K6 forward: the whole recurrence in one cooperative launch."""
+    """K6 forward: the whole recurrence in one persistent launch."""
     c0, n0, m0 = states0
     T, B, NH, dh = _shapes(gx, u)
     f32, i32 = torch.float32, torch.int32
@@ -138,12 +154,13 @@ def slstm_scan_fwd_cuda(gx, u, h0, states0, ids, mask, lengths, scale):
     hs, cs, ns, ms = st(), st(), st(), st()
     gates = torch.empty((T, B, NH, 4 * dh), dtype=f32, device=gx.device)
     lib = _lib()
+    ring = _ring(lib, 0, B, NH, dh, gx.device)
     code = lib.slstm_scan_fwd_f32(
         gx.data_ptr(), u.data_ptr(), h0.data_ptr(), c0.data_ptr(),
         n0.data_ptr(), m0.data_ptr(), _ptr(ids), _ptr(mask), _ptr(lengths),
         hs.data_ptr(), gates.data_ptr(), cs.data_ptr(), ns.data_ptr(),
-        ms.data_ptr(), T, B, NH, dh, mode, k, ids_rows, mask_rows,
-        mask_heads, int(lengths is not None), float(scale),
+        ms.data_ptr(), ring.data_ptr(), T, B, NH, dh, mode, k, ids_rows,
+        mask_rows, mask_heads, int(lengths is not None), float(scale),
         torch.cuda.current_stream(gx.device).cuda_stream)
     _build.check(lib, code, "slstm_scan forward")
     LAUNCHES["slstm_scan_fwd"] += 1
@@ -152,8 +169,8 @@ def slstm_scan_fwd_cuda(gx, u, h0, states0, ids, mask, lengths, scale):
 
 def slstm_scan_bwd_cuda(dy, dstT, gates, st_seqs, states0, hs, h0, u, ids,
                         mask, lengths, scale):
-    """K6 backward: the whole reverse-time recurrence in one cooperative
-    launch; dR accumulates in float32 for the kept rows only."""
+    """K6 backward: the reverse-time recurrence in one persistent launch
+    (dgx, dh0, dc0, dn0, dm0), then dR from the WG kernel."""
     (dcT, dnT, dmT), (cs, ns, ms), (c0, n0, m0) = dstT, st_seqs, states0
     T, B, NH, dh = _shapes(gates, u)
     f32, i32 = torch.float32, torch.int32
@@ -166,22 +183,93 @@ def slstm_scan_bwd_cuda(dy, dstT, gates, st_seqs, states0, hs, h0, u, ids,
     mode, k, ids_rows, mask_rows, mask_heads = _mode_args(ids, mask, T, B,
                                                           NH, dh)
     dgx = torch.empty_like(gates)
-    du = torch.empty_like(u)
     st = lambda: torch.empty((B, NH, dh), dtype=f32, device=dy.device)
     dh0, dc0, dn0, dm0 = st(), st(), st(), st()
     lib = _lib()
+    ring = _ring(lib, 1, B, NH, dh, dy.device)
     code = lib.slstm_scan_bwd_f32(
         dy.data_ptr(), dcT.data_ptr(), dnT.data_ptr(), dmT.data_ptr(),
         gates.data_ptr(), cs.data_ptr(), ns.data_ptr(), ms.data_ptr(),
-        c0.data_ptr(), n0.data_ptr(), m0.data_ptr(), hs.data_ptr(),
-        h0.data_ptr(), u.data_ptr(), _ptr(ids), _ptr(mask), _ptr(lengths),
-        dgx.data_ptr(), du.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-        dn0.data_ptr(), dm0.data_ptr(), T, B, NH, dh, mode, k, ids_rows,
-        mask_rows, mask_heads, int(lengths is not None), float(scale),
+        c0.data_ptr(), n0.data_ptr(), m0.data_ptr(), u.data_ptr(), _ptr(ids),
+        _ptr(mask), _ptr(lengths), dgx.data_ptr(), dh0.data_ptr(),
+        dc0.data_ptr(), dn0.data_ptr(), dm0.data_ptr(), ring.data_ptr(), T,
+        B, NH, dh, mode, k, ids_rows, mask_rows, mask_heads,
+        int(lengths is not None), float(scale),
         torch.cuda.current_stream(dy.device).cuda_stream)
     _build.check(lib, code, "slstm_scan backward")
     LAUNCHES["slstm_scan_bwd"] += 1
+    du = slstm_wg(dgx, hs, h0, wg_tables(ids, T, dh, dy.device), mask,
+                  scale)
     return dgx, du, dh0, (dc0, dn0, dm0)
+
+
+def wg_tables(ids, T, dh, device):
+    """The WG kernel's index tables, built with tensor ops on ``device``: ``steps`` (nblk, T) int32, each block of WG_UNITS units' active
+    steps (a unit of the block kept there) ascending, padded with T;
+    ``counts`` (nblk,) int32; ``keep`` (rows, dh) float32, 1 for a kept
+    unit, or None without an ids table (dense, off: every step active)."""
+    nblk = -(-dh // WG_UNITS)
+    dev = device
+    t_idx = torch.arange(T, dtype=torch.int32, device=dev)
+    if ids is None:
+        return (t_idx.expand(nblk, T).contiguous(),
+                torch.full((nblk,), T, dtype=torch.int32, device=dev), None)
+    rows = ids.shape[0]
+    keep = torch.zeros((rows, dh), dtype=torch.float32, device=dev)
+    keep.scatter_(1, ids.long(), 1.0)
+    act = F.pad(keep, (0, nblk * WG_UNITS - dh)).view(rows, nblk, WG_UNITS)
+    act = (act.amax(-1) > 0).expand(T, nblk).t()          # (nblk, T)
+    steps = torch.where(act, t_idx, T).sort(dim=1).values
+    return (steps.to(torch.int32).contiguous(),
+            act.sum(1).to(torch.int32), keep)
+
+
+def plain_wg(dgx, hs, h0, tables, mask, scale):
+    """dR (NH, dh, 4dh) = sc * sum over each unit block's active steps t and
+    rows b of (h_{t-1} x keep or mask x scale)[t, b, hd, u] dgx[t, b, hd, :]
+    (sc = scale with a keep table, else 1): the WG kernel's plain version."""
+    steps, counts, keep = tables
+    T, B, NH, G = dgx.shape
+    dh = G // 4
+    hp = torch.cat([h0[None], hs[:-1]])                   # h_{t-1}
+    if keep is not None:
+        hp = hp * keep[:, None, None, :]
+    elif mask is not None:
+        hp = hp * (mask * scale)
+    du = dgx.new_zeros((NH, dh, G))
+    for blk in range(steps.shape[0]):
+        ts = steps[blk, :int(counts[blk])].long()
+        lo, hi = blk * WG_UNITS, min(dh, (blk + 1) * WG_UNITS)
+        du[:, lo:hi] = torch.einsum("tbhu,tbhc->huc", hp[ts, :, :, lo:hi],
+                                    dgx[ts])
+    return du * scale if keep is not None else du
+
+
+def slstm_wg(dgx, hs, h0, tables, mask, scale):
+    """dR from dgx and the forward's hs: the WG kernel for CUDA tensors, its
+    plain version (``plain_wg``) for CPU tensors."""
+    if not dgx.is_cuda:
+        return plain_wg(dgx, hs, h0, tables, mask, scale)
+    steps, counts, keep = tables
+    T, B, NH, G = dgx.shape
+    dh = G // 4
+    f32, i32 = torch.float32, torch.int32
+    _check(dgx, {"dgx": (dgx, f32), "hs": (hs, f32), "h0": (h0, f32),
+                 "steps": (steps, i32), "counts": (counts, i32),
+                 "keep": (keep, f32), "mask": (mask, f32)})
+    mode = 1 if keep is not None else 2 if mask is not None else 0
+    du = torch.empty((NH, dh, G), dtype=f32, device=dgx.device)
+    lib = _lib()
+    code = lib.slstm_wg_f32(
+        hs.data_ptr(), h0.data_ptr(), dgx.data_ptr(), steps.data_ptr(),
+        counts.data_ptr(), _ptr(keep), _ptr(mask), du.data_ptr(), T, B, NH,
+        dh, mode, 1 if keep is None else keep.shape[0],
+        1 if mask is None else mask.shape[0],
+        1 if mask is None else mask.shape[2], float(scale),
+        torch.cuda.current_stream(dgx.device).cuda_stream)
+    _build.check(lib, code, "slstm_scan WG")
+    LAUNCHES["slstm_wg"] += 1
+    return du
 
 
 SLSTM_CELL = CellSpec(name="slstm", num_states=3,

@@ -61,7 +61,8 @@ def kernel_group(name: str) -> str:
     """The port's kernels (each in the top-level anonymous namespace of its
     csrc/*.cu) by their function name; cuBLAS/CUTLASS products as "matrix
     products"; everything else (PyTorch's own kernels) as "other"."""
-    tag = "void (anonymous namespace)::"
+    tag = "(anonymous namespace)::"
+    name = name.removeprefix("void ")     # a template kernel's name has it
     if name.startswith(tag):
         return name[len(tag):].split("<", 1)[0].split("(", 1)[0]
     return "matrix products" if "gemm" in name.lower() else "other"

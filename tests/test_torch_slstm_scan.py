@@ -8,7 +8,9 @@ handoff: random h0, c0, m0 and n0 > 0), three heads: hs, the final
 (h, c, n, m) and the gradients of all six inputs for the reference tests'
 loss ``sum(hs^2) + sum(h_fin * c_fin) + 0.1 sum(n_fin) + 0.01 sum(m_fin)``.
 The port's reverse is also held to ``torch.autograd`` of its plain forward,
-and the headed cell_scan to one-head runs of each head. On the CPU the port
+and the headed cell_scan to one-head runs of each head. The split backward
+(the plain scan, then dR from the WG wrapper over the wrapper's own tables
+of kept (step, unit block) pairs) is held to plain_bwd and the reference. On the CPU the port
 runs the kernels' plain versions; the ``cuda``-marked tests (skipped
 without a GPU) hold the CUDA kernels to them.
 
@@ -206,6 +208,100 @@ def test_bad_shapes_raise():
         t_ss._shapes(args[0], args[1][:, :, :-4])
 
 
+def _unit_ids(kw):
+    if "keep_blocks" not in kw:
+        return None
+    from repro_torch.core.masks import keep_blocks_to_unit_ids
+    return keep_blocks_to_unit_ids(torch.from_numpy(kw["keep_blocks"]),
+                                   kw["block_size"]).to(torch.int32)
+
+
+def _split_backward(d, kw, device="cpu"):
+    """The plain scan forward and backward on the test loss, then dR again
+    from the WG wrapper (its plain version on the CPU) with the wrapper's own
+    index tables. Returns (dR from WG, plain_bwd's outputs)."""
+    x = {k: torch.from_numpy(v).to(device) for k, v in d.items()}
+    ids = _unit_ids(kw)
+    ids = None if ids is None else ids.to(device)
+    mask = torch.from_numpy(kw["dense_mask"]).to(device) if "dense_mask" in kw else None
+    lengths = (torch.from_numpy(kw["lengths"]).to(device)
+               if "lengths" in kw else None)
+    scale = kw.get("scale", 1.0)
+    st0 = (x["c0"], x["n0"], x["m0"])
+    rh = (ids, mask, lengths, scale)
+    hs, gates, sts = t_cs.plain_fwd(t_ss.SLSTM_CELL, x["xg"], x["R"], x["h0"], st0, *rh)
+    dy = 2 * hs
+    dy[-1] += sts[0][-1]
+    dstT = (hs[-1].clone(), torch.full_like(hs[-1], 0.1), torch.full_like(hs[-1], 0.01))
+    plain = t_cs.plain_bwd(t_ss.SLSTM_CELL, dy, dstT, gates, sts, st0, hs, x["h0"],
+                           x["R"], *rh)
+    T_ = hs.shape[0]
+    tables = t_ss.wg_tables(ids, T_, hs.shape[-1], device)
+    dR = t_ss.slstm_wg(plain[0], hs, x["h0"], tables, mask, scale)
+    return dR, plain
+
+
+# (mode, fixed, ragged, fresh, mask_heads)
+SPLIT_CASES = [("structured", False, False, True, 1), ("structured", True, False, False, 1),
+               ("dense", True, False, True, NH), ("dense", False, False, False, 1),
+               ("off", False, False, True, 1), ("structured", False, True, False, 1),
+               ("dense", False, True, False, 1)]
+
+
+@pytest.mark.parametrize("mode,fixed,ragged,fresh,mask_heads", SPLIT_CASES)
+def test_split_backward_matches_plain_and_reference(ref_ops, mode, fixed, ragged, fresh,
+                                                    mask_heads):
+    """dR computed after the scan by the WG wrapper over the kept (step,
+    unit block) pairs equals plain_bwd's in-loop dR and the reference's."""
+    jax, ops, _ = ref_ops
+    d, kw = _inputs(mode, fixed, ragged, fresh, seed=8, mask_heads=mask_heads)
+    dR, plain = _split_backward(d, kw)
+    np.testing.assert_allclose(dR.numpy(), plain[1].numpy(), **FWD)
+    want = _reference(jax, lambda *a, **k: ops.slstm_scan(*a, impl="pallas", **k), d, kw)
+    np.testing.assert_allclose(dR.numpy(), want[6], err_msg="dR", **GRAD)
+
+
+def test_split_backward_fresh_empty_row_gives_exact_zeros():
+    """The fresh empty row (length 0, m0 = -1e30): exact zero dgates, and dR
+    from the WG wrapper equals that of the batch without the row."""
+    d, kw = _inputs("structured", False, True, True, seed=3, lengths=[T, 0, 3])
+    dR, plain = _split_backward(d, kw)
+    assert torch.isfinite(dR).all()
+    np.testing.assert_array_equal(plain[0][:, 1].numpy(), 0.0)
+    np.testing.assert_allclose(dR.numpy(), plain[1].numpy(), **FWD)
+    keep = [0, 2]
+    d2 = {k: (v[:, keep] if k == "xg" else v[keep] if k != "R" else v)
+          for k, v in d.items()}
+    dR2, _ = _split_backward(d2, dict(kw, lengths=kw["lengths"][keep]))
+    np.testing.assert_allclose(dR.numpy(), dR2.numpy(), **GRAD)
+
+
+@pytest.mark.parametrize("rows", [T, 1])
+def test_wg_tables_list_the_kept_blocks(rows):
+    """With RH blocks of WG_UNITS units, a block's active steps are exactly
+    the rows that keep it: the WG contraction runs at (1-p) FLOPs."""
+    rng = np.random.default_rng(9)
+    dh, bs = 4 * t_ss.WG_UNITS, t_ss.WG_UNITS
+    kb = np.stack([np.sort(rng.permutation(4)[:3]) for _ in range(rows)]).astype(np.int32)
+    from repro_torch.core.masks import keep_blocks_to_unit_ids
+    ids = keep_blocks_to_unit_ids(torch.from_numpy(kb), bs).to(torch.int32)
+    steps, counts, keep = t_ss.wg_tables(ids, T, dh, "cpu")
+    for blk in range(4):
+        kept_rows = [t for t in range(T) if blk in kb[0 if rows == 1 else t]]
+        assert counts[blk] == len(kept_rows)
+        assert steps[blk, :len(kept_rows)].tolist() == kept_rows
+        assert (steps[blk, len(kept_rows):] == T).all()
+    assert int(counts.sum()) * bs == T * ids.shape[1]
+    np.testing.assert_array_equal(keep.sum(1).numpy(), ids.shape[1])
+
+
+def test_wg_tables_without_ids_list_every_step():
+    steps, counts, keep = t_ss.wg_tables(None, T, 80, "cpu")
+    assert keep is None and steps.shape == (2, T)
+    assert counts.tolist() == [T, T]
+    assert (steps == torch.arange(T, dtype=torch.int32)).all()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode,fixed,ragged,fresh", CASES)
 def test_cuda_kernels_match_plain(mode, fixed, ragged, fresh):
@@ -252,3 +348,59 @@ def test_cuda_kernel_rejects_other_dtypes():
     args[0] = args[0].double()
     with pytest.raises(TypeError):
         t_ss.slstm_scan(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,fixed,dh,bs", [("structured", False, 128, 64),
+                                              ("structured", True, 128, 4),
+                                              ("structured", False, 16, 1),
+                                              ("dense", False, 96, 1), ("off", False, 16, 1)])
+def test_cuda_wg_kernel_matches_plain(mode, fixed, dh, bs):
+    """The WG kernel alone against plain_wg on the same dgx, hs and tables."""
+    dev = require_cuda()
+    d, kw = _inputs(mode, fixed, False, False, seed=10, T=9, B=3, NH=2, dh=dh, bs=bs)
+    rng = np.random.default_rng(11)
+    x = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    dgx, hs, h0 = x(9, 3, 2, 4 * dh), x(9, 3, 2, dh), x(3, 2, dh)
+    ids = _unit_ids(kw)
+    mask = torch.from_numpy(kw["dense_mask"]) if "dense_mask" in kw else None
+    scale = kw.get("scale", 1.0)
+    want = t_ss.slstm_wg(dgx, hs, h0, t_ss.wg_tables(ids, 9, dh, "cpu"), mask, scale)
+    n0 = t_ss.LAUNCHES["slstm_wg"]
+    cuda = lambda a: None if a is None else a.to(dev)
+    got = t_ss.slstm_wg(dgx.to(dev), hs.to(dev), h0.to(dev),
+                        t_ss.wg_tables(cuda(ids), 9, dh, dev), cuda(mask), scale)
+    assert t_ss.LAUNCHES["slstm_wg"] == n0 + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T_,B_,NH_,dh,bs", [(24, 2, 4, 512, 64), (6, 9, 2, 16, 4),
+                                             (6, 2, 1, 2048, 64), (6, 3, 10, 256, 16)])
+def test_cuda_second_launch_gives_the_same_bits(T_, B_, NH_, dh, bs):
+    """Forward and backward (scan + WG) launched twice on the same inputs
+    give the same bits (fixed sum orders, no atomics): xlstm-1.3b's heads,
+    B = 9 (five row chunks), one head of 2048 units (R through L2) and 10
+    heads of 256 (20 units a CTA: the backward holds its dgates in
+    registers 16 unit quads at a time)."""
+    dev = require_cuda()
+    d, kw = _inputs("structured", False, True, False, seed=12, T=T_, B=B_, NH=NH_, dh=dh,
+                    bs=bs, lengths=[T_, 3] + [T_ - 1] * (B_ - 2))
+    d["R"] = d["R"] * (0.2 ** -1) * dh ** -0.5
+    x = {k: torch.from_numpy(v).to(dev) for k, v in d.items()}
+    rh = (_unit_ids(kw).to(dev), None, torch.from_numpy(kw["lengths"]).to(dev), kw["scale"])
+    st0 = (x["c0"], x["n0"], x["m0"])
+    runs = [t_ss.slstm_scan_fwd_cuda(x["xg"], x["R"], x["h0"], st0, *rh) for _ in range(2)]
+    hs, gates, sts = runs[0]
+    for a, b in zip((runs[0][0], runs[0][1], *runs[0][2]), (runs[1][0], runs[1][1], *runs[1][2])):
+        assert torch.equal(a, b)
+    dy = torch.randn(hs.shape, generator=torch.Generator().manual_seed(0)).to(dev)
+    dstT = tuple(torch.ones_like(x["h0"]) * v for v in (0.5, 0.1, 0.01))
+    outs = [t_ss.slstm_scan_bwd_cuda(dy, dstT, gates, sts, st0, hs, x["h0"], x["R"], *rh)
+            for _ in range(2)]
+    flat = [(o[0], o[1], o[2], *o[3]) for o in outs]
+    for a, b in zip(*flat):
+        assert torch.equal(a, b)
+    want = t_cs.plain_bwd(t_ss.SLSTM_CELL, dy, dstT, gates, sts, st0, hs, x["h0"], x["R"], *rh)
+    for g, w in zip(flat[0], (want[0], want[1], want[2], *want[3])):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=1e-4, atol=1e-4)
