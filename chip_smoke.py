@@ -15,8 +15,11 @@ plain PyTorch version at that path's full shapes, and times it:
     small inputs);
   * xlstm-1.3b (T=2048, B=2, 4 heads of dh=512, RH block 64, p=0.25, fresh
     start): K6, the fused sLSTM scan, whose backward computes dR after the
-    scan with its WG kernel (``slstm_wg``, also timed alone with
-    ``torch.bmm`` on masked operands as its yardstick); both directions are
+    scan with its WG kernel (``slstm_wg``, split-precision TF32 on the
+    tensor cores, also timed alone with ``torch.bmm`` on masked operands as
+    its yardstick, held to a float64 product over head 0 x 256 columns
+    within 1e-5 x max(1, |ref|) with ``torch.bmm``'s distance printed
+    beside it, and its SASS must hold TF32 HMMA); both directions are
     also held to a float64 run of the plain versions within 10 x the float32
     plain version's distance + 1e-6 x max(1, |ref|), and every K6 check
     launches each direction twice for the same bits (also in dense, FIXED,
@@ -26,11 +29,12 @@ plain PyTorch version at that path's full shapes, and times it:
   * qwen3-8b (B=1, S=4096, 32 query heads over 16 kv heads after
     kv_repeat, head_dim 128, causal): K9 flash forward, K10 dq, K11 dk/dv,
     with ``scaled_dot_product_attention`` timed beside them as the library
-    yardstick; K10 and K11 run on the TF32 tensor cores in split precision
-    (3xTF32), so they are also held to a float64 backward over one (batch,
-    kv head) group within 1e-5 x max(1, |ref|) (SDPA's distance printed
-    beside theirs), launched twice for the same bits, and the SASS of
-    every float32 instantiation must hold TF32 HMMA instructions (also
+    yardstick; all three run on the TF32 tensor cores in split precision
+    (3xTF32), so they are also held to a float64 forward (K9) and backward
+    (K10, K11) over one (batch, kv head) group within 1e-5 x max(1, |ref|)
+    (SDPA's distances printed beside theirs), launched twice for the same
+    bits, and the SASS of every float32 instantiation must hold TF32 HMMA
+    instructions (also
     non-causal, windowed, MQA, G=4, G=3 (mixtral's group),
     ragged, Sq != Sk, head_dim 16 / 64 / 256 and bfloat16 modes on small
     inputs);
@@ -621,13 +625,29 @@ def check_slstm(gen, T_, B_, NH_, dh_, rate, mode, *, bs=1, fixed=False,
     tables = ss.wg_tables(ids, T_, dh_, gx.device)
     wg_k = lambda: ss.slstm_wg(dgx_p, hs_p, h0, tables, mask, scale)
     wg_p = lambda: ss.plain_wg(dgx_p, hs_p, h0, tables, mask, scale)
-    e_w = compare("  slstm_wg " + tag, wg_k(), wg_p(), 1e-3)
+    dR_w = wg_k()
+    e_w = compare("  slstm_wg " + tag, dR_w, wg_p(), 1e-3)
     # the library yardstick: one torch.bmm over the heads on masked operands
     hp = torch.cat([h0[None], hs_p[:-1]])
     hp = hp * tables[2][:, None, None, :] if ids is not None else hp
     hp_t = hp.permute(2, 3, 0, 1).reshape(NH_, dh_, T_ * B_).contiguous()
     dg_t = dgx_p.permute(2, 0, 1, 3).reshape(NH_, T_ * B_, 4 * dh_).contiguous()
     wg_lib = lambda: torch.bmm(hp_t, dg_t)
+    # float32's accuracy (3xTF32): head 0 x 256 columns against a float64
+    # product of the same masked operands, torch.bmm's distance beside it
+    sc = scale if ids is not None else 1.0
+    ref = (hp_t[0].double() @ dg_t[0, :, :256].double()) * sc
+    w_f64 = compare("  slstm_wg " + tag + " vs float64, head 0 x 256", dR_w[0, :, :256],
+                    ref, 1e-5) / max(1.0, ref.abs().max().item())
+    w_lib_f64 = ((wg_lib()[0, :, :256].double() * sc - ref).abs().max().item()
+                 / max(1.0, ref.abs().max().item()))
+    print(f"  torch.bmm vs float64, head 0 x 256: max_rel_err {w_lib_f64:.3e} "
+          f"(the yardstick's own)")
+    del ref, dR_w
+    hmma = sass_hmma("slstm_scan")
+    wg_syms = [tf for sym, (tf, _) in hmma.items() if "slstm_wg_kernel" in sym]
+    if not wg_syms or not all(wg_syms):
+        raise AssertionError("slstm_wg_kernel: no TF32 HMMA in its SASS")
     # the work this call's data needs: k kept units a step, R rows kept at
     # some step
     k = ids.shape[1] if ids is not None else dh_
@@ -642,21 +662,25 @@ def check_slstm(gen, T_, B_, NH_, dh_, rate, mode, *, bs=1, fixed=False,
     kept_steps = int(tables[1].sum()) * ss.WG_UNITS if ids is not None else T_ * dh_
     w_bytes = 4 * (T_ * st + st + T_ * B_ * NH_ * G + NH_ * dh_ * G
                    + tables[0].numel() + tables[1].numel()
-                   + (0 if tables[2] is None else tables[2].numel()))
+                   + sum(0 if x is None else x.numel() for x in tables[2:]))
     src = "src/repro_torch/csrc/slstm_scan.cu"
-    for name, fk, fp, fl, err, nbytes, flops, rep in (
+    # the scans on FFMA; WG on the TF32 tensor cores, three TF32 products
+    # for each float32 product (3xTF32)
+    for name, fk, fp, fl, err, nbytes, flops, rate, extra, rep in (
             ("slstm_scan_fwd", fwd_k, fwd_p, None, e_f, f_bytes,
-             2 * T_ * B_ * NH_ * k * G, "src/repro/kernels/cell_scan.py:172"),
+             2 * T_ * B_ * NH_ * k * G, F32_FLOPS, {}, "src/repro/kernels/cell_scan.py:172"),
             ("slstm_scan_bwd", bwd_k, bwd_p, None, e_b, b_bytes,
-             4 * T_ * B_ * NH_ * k * G, "src/repro/kernels/cell_scan.py:215"),
+             4 * T_ * B_ * NH_ * k * G, F32_FLOPS, {}, "src/repro/kernels/cell_scan.py:215"),
             ("slstm_wg", wg_k, wg_p, wg_lib, e_w, w_bytes,
-             2 * B_ * NH_ * kept_steps * G, "src/repro/kernels/cell_scan.py:215")):
+             3 * 2 * B_ * NH_ * kept_steps * G, TF32_FLOPS,
+             dict(f64_rel_err=w_f64, library_f64_rel_err=w_lib_f64),
+             "src/repro/kernels/cell_scan.py:215")):
         # once per sLSTM block and step, after other work: cold L2
         ms = time_ms(fk, cold_l2=True)
         pms = time_ms(fp, reps=3, warmup=1, cold_l2=True)
         lms = None if fl is None else time_ms(fl, cold_l2=True)
         add_row(out, name, XLSTM, src, rep, err, ms, pms, lms, nbytes, flops,
-                "cold")
+                "cold", rate=rate, **extra)
 
 
 def same_bits(name, first, again):
@@ -689,10 +713,11 @@ def check_flash(gen, B_, Sq_, Sk_, Hq_, Hkv_, d_, *, causal=True, window=None,
     on the same inputs; both backward passes take the plain forward's lse
     and delta. float32 within 1e-3 x max(1, |ref|), bfloat16 within 3e-2
     (the reference's bf16 tolerance). With ``out`` (the main path's shape):
-    K10 and K11 also against a float64 backward over one (batch, kv head)
-    group within ``FLASH_F64_TOL`` (SDPA's distance printed beside it),
-    launched twice for the same bits, timed beside SDPA, and their SASS
-    must hold TF32 HMMA."""
+    K9 also against a float64 forward and K10 and K11 against a float64
+    backward over one (batch, kv head) group within ``FLASH_F64_TOL``
+    (SDPA's distances printed beside theirs), all three launched twice for
+    the same bits, timed beside SDPA, and their SASS must hold TF32 HMMA at
+    every head dim."""
     from repro_torch.kernels import flash_attention as fa
     r = lambda *shape: torch.randn(*shape, generator=gen).to("cuda", dtype)
     q, k, v, do = (r(B_, Sq_, Hq_, d_), r(B_, Sk_, Hkv_, d_),
@@ -717,13 +742,11 @@ def check_flash(gen, B_, Sq_, Sk_, Hq_, Hkv_, d_, *, causal=True, window=None,
         return
     del o_p
     f64 = flash_f64(fa, q, k, v, do, causal, window)
-    same = (torch.equal(dq_k(), dq_k())
-            and all(torch.equal(x, y) for x, y in zip(dkv_k(), dkv_k())))
-    print(f"  flash_dq, flash_dkv launched twice: {'the same bits' if same else 'DIFFER'}")
-    if not same:
-        raise AssertionError("flash backward: two launches gave different bits")
+    f64.update(flash_fwd_f64(fa, q, k, v, causal, window))
+    same_bits("flash_fwd, flash_dq, flash_dkv second launch", [*fwd_k(), dq_k(), *dkv_k()],
+              lambda: [*fwd_k(), dq_k(), *dkv_k()])
     hmma = sass_hmma("flash_attention")
-    for name in ("flash_dq_kernel", "flash_dkv_kernel"):
+    for name in ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"):
         for d in fa.HEAD_DIMS:
             f32 = [tf for sym, (tf, _) in hmma.items() if f"{name}IfLi{d}E" in sym]
             if not f32 or not all(f32):
@@ -738,30 +761,32 @@ def check_flash(gen, B_, Sq_, Sk_, Hq_, Hkv_, d_, *, causal=True, window=None,
     lib_f, lib_b = sdpa_yardstick(q, k, v, do, causal)
     src = "src/repro_torch/csrc/flash_attention.cu"
     rep = "src/repro/kernels/flash_attention.py:"
-    # K9 on float32 FFMA; K10 / K11 on the TF32 tensor cores, three TF32
-    # products for each float32 product (3xTF32)
-    for name, fk, fp, err, nbytes, flops, rate, lms, line in (
-            ("flash_fwd", fwd_k, fwd_p, e9, qb + 2 * kb + qb + rows, 2 * prod,
-             F32_FLOPS, lib_f, "45"),
+    # on the TF32 tensor cores, three TF32 products for each float32
+    # product (3xTF32)
+    for name, fk, fp, err, nbytes, flops, lms, line in (
+            ("flash_fwd", fwd_k, fwd_p, e9, qb + 2 * kb + qb + rows, 3 * 2 * prod,
+             lib_f, "45"),
             ("flash_dq", dq_k, dq_p, e10, 3 * qb + 2 * kb + 2 * rows, 3 * 3 * prod,
-             TF32_FLOPS, lib_b, "127"),
+             lib_b, "127"),
             ("flash_dkv", dkv_k, dkv_p, e11, 2 * qb + 4 * kb + 2 * rows,
-             3 * 4 * prod, TF32_FLOPS, lib_b, "158")):
+             3 * 4 * prod, lib_b, "158")):
         # once per layer and pass, after other work: cold L2
         ms = time_ms(fk, cold_l2=True)
         pms = time_ms(fp, cold_l2=True)
-        extra = {}
-        if name != "flash_fwd":
+        if name == "flash_fwd":
+            extra = dict(f64_rel_err=f64[name], library_f64_rel_err=f64["sdpa_fwd"])
+        else:
             extra = dict(f64_rel_err=f64[name], library_f64_rel_err=f64["sdpa"],
                          library_covers="flash_dq + flash_dkv (one backward)")
         add_row(out, name, QWEN, src, rep + line, err, ms, pms, lms, nbytes,
-                flops, "cold", rate=rate, **extra)
+                flops, "cold", rate=TF32_FLOPS, **extra)
 
 
-# K10 / K11 against a float64 backward (float32's accuracy, which
-# single-pass TF32 misses). The FFMA kernels they replaced read dq 3.3e-7,
-# dk 3.7e-6, dv 5.2e-6 there (launch/flash_bwd.py, H100 80GB HBM3 at 700 W),
-# inside this gate, so the gate is not loosened to them.
+# K9 against a float64 forward, K10 / K11 against a float64 backward
+# (float32's accuracy, which single-pass TF32 misses). The FFMA kernels K10
+# / K11 replaced read dq 3.3e-7, dk 3.7e-6, dv 5.2e-6 there
+# (launch/flash_bench.py, H100 80GB HBM3 at 700 W), inside this gate, so
+# the gate is not loosened to them.
 FLASH_F64_TOL = 1e-5
 
 
@@ -804,6 +829,33 @@ def flash_f64(fa, q, k, v, do, causal, window, b=0, hk=0):
           f"tol {FLASH_F64_TOL:g} x max(1, |ref|)")
     if max(res["flash_dq"], res["flash_dkv"]) > FLASH_F64_TOL:
         raise AssertionError("flash backward: beyond the float64 gate")
+    return res
+
+
+def flash_fwd_f64(fa, q, k, v, causal, window, b=0, hk=0):
+    """o and lse of the group's G query heads (batch ``b``, kv head ``hk``)
+    from K9 and from SDPA's forward, against the same forward in float64 on
+    the card. Fails K9 beyond ``FLASH_F64_TOL`` x max(1, |ref|) (float32's
+    accuracy, which single-pass TF32 misses); returns {"flash_fwd",
+    "sdpa_fwd": max relative error}."""
+    import torch.nn.functional as F
+    G = q.shape[2] // k.shape[2]
+    hs = slice(hk * G, (hk + 1) * G)
+    o64, lse64 = fa.forward_float64(q, k, v, causal, window, b, hk)
+    o, lse = fa.flash_fwd_cuda(q, k, v, causal, window)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    so = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                        scale=fa.softmax_scale(q.shape[3]), enable_gqa=True)
+    rel = lambda got, w: ((got.double() - w).abs().max().item()
+                          / max(1.0, w.abs().max().item()))
+    res = {"flash_fwd": max(rel(o[b, :, hs], o64), rel(lse[b, hs], lse64)),
+           "sdpa_fwd": rel(so.transpose(1, 2)[b, :, hs], o64)}
+    print(f"  vs float64 over (batch {b}, kv head {hk}), {G} query heads: flash_fwd "
+          f"{res['flash_fwd']:.3e} (o {rel(o[b, :, hs], o64):.3e}, lse "
+          f"{rel(lse[b, hs], lse64):.3e}); SDPA's forward {res['sdpa_fwd']:.3e} (the "
+          f"yardstick's own); tol {FLASH_F64_TOL:g} x max(1, |ref|)")
+    if res["flash_fwd"] > FLASH_F64_TOL:
+        raise AssertionError("flash forward: beyond the float64 gate")
     return res
 
 

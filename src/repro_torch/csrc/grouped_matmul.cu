@@ -24,7 +24,7 @@
 //
 // Design:
 //   * Split precision ("3xTF32"). Each float32 operand of an mma fragment is
-//     split into hi + lo (split(): an AND and an FADD), and each fragment
+//     split into hi + lo (split() of tf32x3.cuh: an AND and an FADD), and each fragment
 //     pair issues lo*hi, hi*lo, hi*hi (small terms first, each pass over
 //     all 16 tiles of the warp before the next) with
 //     mma.sync.m16n8k8.tf32 into float32 sums: the dropped lo*lo term and
@@ -75,6 +75,8 @@
 
 #include <type_traits>
 
+#include "tf32x3.cuh"
+
 namespace {
 
 constexpr int BM = 128;     // output rows per CTA
@@ -95,54 +97,9 @@ struct Tile {
   static constexpr int SMEM_BYTES = NS * STAGE_ELEMS * (int)sizeof(T);
 };
 
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool full) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(src), "r"(full ? 16 : 0));
-}
-__device__ __forceinline__ void cp4(void* dst, const void* src, bool full) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(s), "l"(src), "r"(full ? 4 : 0));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// a = hi + lo as mma.sync TF32 operands. The tensor cores read a TF32
-// operand's top 19 bits and drop the low 13. hi is a with those bits
-// cleared (one AND), lo = a - hi is exact in float32 (one FADD) and goes in
-// as it is: the core truncates it, an error of at most 2^-10 |lo| <=
-// 2^-20 |a|. (cvt.rna.tf32.f32, which rounds, is ~4 instructions on sm_90,
-// and two a value made the split outweigh the mma.sync.)
-__device__ __forceinline__ void split(float a, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(a);
-  lo = __float_as_uint(a - __uint_as_float(hi & 0xffffe000u));
-}
-
-// d += a (16 x 8, row) * b (8 x 8, col), TF32 in, float32 sums.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 

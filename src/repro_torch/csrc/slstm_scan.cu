@@ -64,14 +64,41 @@
 // need: the step's code is fetched anew every step, and its size showed in
 // the step time.
 // WG: dR[hd, u, :] = sc * sum over (t, b) with u's block kept at t of
-// hp[t, b, hd, u] dgx[t, b, hd, :], hp = h_{t-1} (x keep or mask), tiles of
-// 64 units x 128 columns, the contraction over a per-block list of active
-// steps built by the wrapper: FFMA, register tiles 4 x 8, a chunk's step
-// ids read one chunk ahead of its data, each output summed by one thread
-// in step order.
+// hp[t, b, hd, u] dgx[t, b, hd, :], hp = h_{t-1} (x keep or mask), the
+// contraction over a per-block list of active steps built by the wrapper.
+// At xlstm-1.3b it is 25.8 GFLOP a call over ~0.2 GB, so operations bound
+// it. It runs on the TF32 tensor cores in split precision ("3xTF32",
+// csrc/tf32x3.cuh, as K12): three mma.sync.m16n8k8 a product, each chunk of
+// 32 pairs summed on the cores from zero and added to the float32 sums by
+// an FADD (the contraction is ~3072 pairs long, and the cores truncate as
+// they add). Both operands are split with hi rounded to the nearest TF32
+// value (split_rn), not truncated as K12 does: the contraction may be as
+// short as a few pairs, and each output is held elementwise to float32
+// sums (truncating, the kernel sat 3-5x the plain float32 version's
+// distance to float64 on small inputs; rounding halves that for 6% of its
+// time, and rounding lo as well gained nothing more).
+// A CTA of 8 warps owns 64 units x 256 columns (a warp 64 x 32; 64 x 128
+// on 4 warps ran 20% slower: it re-read hp twice as often and spent more
+// of each thread on copies); hp rows (64 units of a pair), the factor's
+// rows and dgx rows (256 columns of a pair) arrive k-outer by 16-byte
+// cp.async (4-byte where dh % 4 != 0) in a 3-deep ring, rows padded by 8
+// floats so the fragment loads hit 32 banks; a chunk's step ids are read
+// while the chunk before it is issued. The keep / mask factor multiplies
+// each hp value where its fragment is split, and is staged only where it
+// is not 1 everywhere: mode 2, and the unit blocks of mode 1 where an
+// active step keeps part of the block (none at xlstm-1.3b, whose RH block
+// is the tile's 64 units). (Splitting each staged hp value once into hi
+// and lo planes, with a barrier, ran 3% slower than the 8 warps splitting
+// it as they read it, and 6% slower pipelined a chunk ahead.) The grid
+// walks the unit blocks fastest, so CTAs resident together share their
+// dgx columns in L2. Each output is summed by one thread in chunk order:
+// no atomics.
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <type_traits>
+
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -84,7 +111,17 @@ constexpr unsigned SPIN_MAX = 1u << 26;   // polls of one word before the launch
 constexpr int SMAX = 32;  // forward: K-split cap
 constexpr int QC = 16;    // backward product: dgates quads held in registers
 constexpr int NF = 9;     // backward residual fields a (row, unit)
-constexpr int WU = 64, WC = 128, WK = 32;  // WG tile: units, columns, (step, row) pairs
+// WG: a CTA of WT threads owns WU units x WC columns, a warp all WU units
+// x WN columns (WMI x WNI m16n8 tiles), and walks chunks of WK (step, row)
+// pairs through a WS-deep cp.async ring of hp, factor and dgx rows.
+constexpr int WU = 64, WC = 256, WK = 32, WT = 256, WS = 3, WN = 32;
+static_assert(WT / 32 * WN == WC && WU == 64, "WG: one warp a column slice; 16 lanes a hp row");
+constexpr int WMI = WU / 16, WNI = WN / 8;
+constexpr int WRP = WT / 32, WNP = WK / WRP;       // rows a copy pass, passes a chunk
+constexpr int WBC = WC / 128;                      // 16-byte dgx copies a lane a row
+constexpr int WLA = WU + 8, WLB = WC + 8;          // staged row strides, floats
+constexpr int W_STAGE = WK * (2 * WLA + WLB);     // floats: hp, factor, dgx rows
+constexpr int W_SMEM = WS * W_STAGE * 4;          // bytes
 constexpr size_t SMEM_MAX = 227 * 1024;
 constexpr float EPS = 1e-6f;   // normalizer floor
 
@@ -146,20 +183,6 @@ __device__ __forceinline__ u64 ld_word(const u64* p) {
   u64 w;
   asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];\n" : "=l"(w) : "l"(p) : "memory");
   return w;
-}
-
-// 4-byte global -> shared copy (inputs only: never written by the kernel).
-__device__ __forceinline__ void cp_async4(void* smem_dst, const void* gmem_src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem_src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 __device__ __forceinline__ size_t mask_at(const ScanArgs& p, int row, int b, int hd, int u) {
@@ -295,14 +318,14 @@ slstm_fwd_kernel(const float* __restrict__ gx, const float* __restrict__ R,
     if (p.mode == 1) {
       const int* src = ids + (size_t)(p.ids_rows == 1 ? 0 : t) * p.k;
 #pragma unroll 1
-      for (int kk = tid; kk < KC; kk += NT) cp_async4(uidb + buf * KC + kk, src + kk);
+      for (int kk = tid; kk < KC; kk += NT) cp4(uidb + buf * KC + kk, src + kk, true);
     }
     float* gdst = reinterpret_cast<float*>(gxb + (size_t)buf * BJ);
 #pragma unroll 1
     for (int e = tid; e < B * 4 * Jc; e += NT) {
       const int b = d4Jc.q(e), r = e - b * 4 * Jc, g = dJc.q(r), q = r - g * Jc;
-      cp_async4(gdst + ((size_t)b * J + q) * 4 + g,
-                gx + (((size_t)t * B + b) * NH + hd) * G + (size_t)g * D + j0 + q);
+      cp4(gdst + ((size_t)b * J + q) * 4 + g,
+          gx + (((size_t)t * B + b) * NH + hd) * G + (size_t)g * D + j0 + q, true);
     }
     if (p.mode == 2) {
       const int row = p.mask_rows == 1 ? 0 : t;
@@ -310,10 +333,10 @@ slstm_fwd_kernel(const float* __restrict__ gx, const float* __restrict__ R,
 #pragma unroll 1
       for (int e = tid; e < B * D; e += NT) {
         const int b = dD.q(e);
-        cp_async4(mdst + e, mask + mask_at(p, row, b, hd, e - b * D));
+        cp4(mdst + e, mask + mask_at(p, row, b, hd, e - b * D), true);
       }
     }
-    cp_async_commit();
+    cp_commit();
   };
   prefetch(0);
 
@@ -322,7 +345,7 @@ slstm_fwd_kernel(const float* __restrict__ gx, const float* __restrict__ R,
   PHASE_START();
   for (int t = 0; t < T; ++t) {
     const int buf = t & 1;
-    cp_async_wait_all();
+    cp_wait<0>();
     __syncthreads();
     PHASE(0, 0);
     if (t + 1 < T) prefetch(t + 1);
@@ -508,7 +531,7 @@ slstm_bwd_kernel(const float* __restrict__ dy, const float* __restrict__ dcT,
     if (p.mode == 1) {
       const int* src = ids + (size_t)(p.ids_rows == 1 ? 0 : r) * p.k;
 #pragma unroll 1
-      for (int kk = tid; kk < KC; kk += NT) cp_async4(uidb + buf * KC + kk, src + kk);
+      for (int kk = tid; kk < KC; kk += NT) cp4(uidb + buf * KC + kk, src + kk, true);
     }
     float* dst = resb + (size_t)buf * NF * BJ;
     const int nf = p.mode == 2 && r + 1 < T ? NF : NF - 1;
@@ -528,9 +551,9 @@ slstm_bwd_kernel(const float* __restrict__ dy, const float* __restrict__ dcT,
       } else {
         src = mask + mask_at(p, p.mask_rows == 1 ? 0 : r + 1, b, hd, j0 + q);
       }
-      cp_async4(dst + (size_t)f * BJ + b * J + q, src);
+      cp4(dst + (size_t)f * BJ + b * J + q, src, true);
     }
-    cp_async_commit();
+    cp_commit();
   };
   prefetch(T - 1);
 
@@ -567,7 +590,7 @@ slstm_bwd_kernel(const float* __restrict__ dy, const float* __restrict__ dcT,
   };
   for (int r = T - 1; r >= 0; --r) {
     const int buf = r & 1;
-    cp_async_wait_all();
+    cp_wait<0>();
     const bool kept = __syncthreads_or(r + 1 < T && own_kept(r + 1));
     PHASE(1, 0);
     if (r > 0) prefetch(r - 1);
@@ -698,124 +721,189 @@ slstm_bwd_kernel(const float* __restrict__ dy, const float* __restrict__ dcT,
   }
 }
 
-// WG: dR[hd, u, c] for u in unit block blockIdx.y (WU rows), c in column tile
-// blockIdx.x (WC columns) of head blockIdx.z, over the block's active steps
-// steps[blk, :nsteps[blk]] x the B rows. keep (ids_rows, D): 1 for a kept
-// unit (mode 1); mask (mode 2) times scale; none (mode 0).
-__global__ void __launch_bounds__(NT)
+// WG: dR[hd, u, c] for u in unit block `blk` (WU rows), c in column tile
+// `ct` (WC columns) of head `hd`, over the block's active steps
+// steps[blk, :nsteps[blk]] x the B rows: a GEMM whose A[k][u] is hp of pair
+// k and B[k][c] dgx of pair k, both staged k-outer (a pair's row of WU
+// units, a pair's row of WC columns). The factor (the keep table in mode 1
+// where partial[blk] says an active step keeps part of the block, the mask
+// in mode 2) is staged beside hp and applied to each A value where it is
+// split; the scale multiplies the sums at the end.
+template <bool VEC>
+__global__ void __launch_bounds__(WT, 1)
 slstm_wg_kernel(const float* __restrict__ hs, const float* __restrict__ h0,
                 const float* __restrict__ dgx, const int* __restrict__ steps,
-                const int* __restrict__ nsteps, const float* __restrict__ keep,
-                const float* __restrict__ mask, float* dR, ScanArgs p) {
-  __shared__ __align__(16) float As[2][WK][WU];
-  __shared__ __align__(16) float Bs[2][WK][WC];
+                const int* __restrict__ nsteps, const int* __restrict__ partial,
+                const float* __restrict__ keep, const float* __restrict__ mask,
+                float* __restrict__ dR, ScanArgs p, int nblk, int ncol) {
+  extern __shared__ __align__(16) float wsm[];
   const int T = p.T, B = p.B, NH = p.NH, D = p.D, G = 4 * D;
-  const int c0 = blockIdx.x * WC, blk = blockIdx.y, u0 = blk * WU, hd = blockIdx.z;
+  // the unit block fastest, then the column tile, then the head: the CTAs
+  // resident together read the same dgx columns
+  const int blk = blockIdx.x % nblk, ct = blockIdx.x / nblk % ncol;
+  const int hd = blockIdx.x / (nblk * ncol);
+  const int u0 = blk * WU, c0 = ct * WC;
   const int n = nsteps[blk] * B;            // (step, row) pairs
+  const int nk = (n + WK - 1) / WK;         // chunks
   const int* st = steps + (size_t)blk * T;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const bool fac = p.mode == 2 || (p.mode == 1 && partial[blk]);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;    // mma fragment coordinates
+  const int wn = warp * WN;
   const Div dB(B);
-  constexpr int NA = WK * WU / NT, NB = WK * WC / 4 / NT;   // loads a thread a chunk
-  float ra[NA];
-  float4 rb[NB];
-  int ta[NA], tb[NB];   // the step of each of those loads, read one chunk ahead
-  auto steps_of = [&](int k0) {
+
+  // Copy slots: rows tid / 32 + WRP i (i < WNP) of a chunk; lane l copies
+  // dgx columns 4 l + 128 x .. (x < WBC) and, l < 16, hp units 4 l .., else
+  // the factor's units 4 (l - 16) ... The step ids of a chunk are read
+  // while the chunk before it is issued.
+  int sid[WNP];
+  auto ids_of = [&](int c) {
 #pragma unroll
-    for (int i = 0; i < NA; ++i) {
-      const int pr = k0 + (tid + NT * i) / WU;
-      ta[i] = pr < n ? st[dB.q(pr)] : 0;
-    }
-#pragma unroll
-    for (int i = 0; i < NB; ++i) {
-      const int pr = k0 + (tid + NT * i) / (WC / 4);
-      tb[i] = pr < n ? st[dB.q(pr)] : 0;
+    for (int i = 0; i < WNP; ++i) {
+      const int pr = c * WK + (tid >> 5) + WRP * i;
+      sid[i] = pr < n ? st[dB.q(pr)] : -1;
     }
   };
-  auto load = [&](int k0) {
+  auto issue = [&](int c) {
+    float* As = wsm + (c % WS) * W_STAGE;
+    float* Fs = As + WK * WLA;
+    float* Bs = Fs + WK * WLA;
+    const bool is_f = lane >= 16;
+    const int uq = u0 + 4 * (lane & 15);
 #pragma unroll
-    for (int i = 0; i < NA; ++i) {
-      const int e = tid + NT * i, u = u0 + e % WU, pr = k0 + e / WU;
-      float v = 0.f;
-      if (pr < n && u < D) {
-        const int t = ta[i], b = pr - dB.q(pr) * B;
-        v = t == 0 ? h0[((size_t)b * NH + hd) * D + u]
-                   : hs[(((size_t)(t - 1) * B + b) * NH + hd) * D + u];
-        if (p.mode == 1) v *= keep[(size_t)(p.ids_rows == 1 ? 0 : t) * D + u];
-        else if (p.mode == 2) v *= mask[mask_at(p, p.mask_rows == 1 ? 0 : t, b, hd, u)] * p.scale;
+    for (int i = 0; i < WNP; ++i) {
+      const int r = (tid >> 5) + WRP * i, pr = c * WK + r, ts = sid[i];
+      const bool live = ts >= 0;
+      const int b = live ? pr - dB.q(pr) * B : 0;
+      const float* brow = live ? dgx + (((size_t)ts * B + b) * NH + hd) * G : dgx;
+      const float* row = hs;
+      if (live) {
+        if (!is_f)
+          row = ts == 0 ? h0 + ((size_t)b * NH + hd) * D
+                        : hs + (((size_t)(ts - 1) * B + b) * NH + hd) * D;
+        else if (p.mode == 1)
+          row = keep + (size_t)(p.ids_rows == 1 ? 0 : ts) * D;
+        else if (p.mode == 2)
+          row = mask + mask_at(p, p.mask_rows == 1 ? 0 : ts, b, hd, 0);
       }
-      ra[i] = v;
-    }
+      float* adst = (is_f ? Fs : As) + r * WLA + 4 * (lane & 15);
+      const bool want = !is_f || fac;
 #pragma unroll
-    for (int i = 0; i < NB; ++i) {
-      const int f = tid + NT * i, c = c0 + (f % (WC / 4)) * 4, pr = k0 + f / (WC / 4);
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (pr < n && c < G) {
-        const int t = tb[i], b = pr - dB.q(pr) * B;
-        v = *reinterpret_cast<const float4*>(dgx + (((size_t)t * B + b) * NH + hd) * G + c);
+      for (int x = 0; x < WBC; ++x) {
+        const int col = 4 * lane + 128 * x;
+        const bool bok = live && c0 + col < G;
+        if constexpr (VEC) {
+          cp16(Bs + r * WLB + col, bok ? brow + c0 + col : dgx, bok);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            cp4(Bs + r * WLB + col + e, bok ? brow + c0 + col + e : dgx, bok);
+        }
       }
-      rb[i] = v;
+      if (want) {
+        if constexpr (VEC) {
+          const bool ok = live && uq < D;
+          cp16(adst, ok ? row + uq : hs, ok);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool ok = live && uq + e < D;
+            cp4(adst + e, ok ? row + uq + e : hs, ok);
+          }
+        }
+      }
     }
+    ids_of(c + 1);
   };
-  auto store = [&](int buf) {
+
+  // acc: the float32 sums; part: one chunk's products, summed on the tensor
+  // cores from zero, then added to acc by a round-to-nearest FADD
+  float acc[WMI][WNI][4], part[WMI][WNI][4];
 #pragma unroll
-    for (int i = 0; i < NA; ++i) {
-      const int e = tid + NT * i;
-      As[buf][e / WU][e % WU] = ra[i];
+  for (int i = 0; i < WMI; ++i)
+#pragma unroll
+    for (int j = 0; j < WNI; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = part[i][j][q] = 0.f;
+
+  // one chunk's products: A element (k, u) of m-tile i at As[k][16 i + u],
+  // x the factor Fs[k][...] when FAC, rows of WLA = WU + 8 floats (bank 8 t
+  // + g: conflict-free); B at Bs[k][wn + 8 j + c], rows of WLB = WC + 8;
+  // both split (split_rn) as they are read
+  auto chunk = [&](const float* As, auto fac_c) {
+    constexpr bool FAC = decltype(fac_c)::value;
+    const float* Fs = As + WK * WLA;
+    const float* Bs = Fs + WK * WLA;
+#pragma unroll
+    for (int kk = 0; kk < WK; kk += 8) {
+      uint32_t ah[WMI][4], al[WMI][4], bh[WNI][2], bl[WNI][2];
+#pragma unroll
+      for (int i = 0; i < WMI; ++i) {
+        const int off = (kk + t) * WLA + 16 * i + g;
+        const int o[4] = {off, off + 8, off + 4 * WLA, off + 4 * WLA + 8};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          float v = As[o[q]];
+          if constexpr (FAC) v *= Fs[o[q]];
+          split_rn(v, ah[i][q], al[i][q]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < WNI; ++j) {
+        const float* bp = Bs + (kk + t) * WLB + wn + 8 * j + g;
+        split_rn(bp[0], bh[j][0], bl[j][0]);
+        split_rn(bp[4 * WLB], bh[j][1], bl[j][1]);
+      }
+#pragma unroll
+      for (int e = 0; e < 3 * WMI * WNI; ++e) {
+        const int q = e / (WMI * WNI), i = e % (WMI * WNI) / WNI, j = e % WNI;
+        mma(part[i][j], q == 0 ? al[i] : ah[i], q == 1 ? bl[j] : bh[j]);
+      }
     }
 #pragma unroll
-    for (int i = 0; i < NB; ++i) {
-      const int f = tid + NT * i;
-      *reinterpret_cast<float4*>(&Bs[buf][f / (WC / 4)][(f % (WC / 4)) * 4]) = rb[i];
-    }
+    for (int i = 0; i < WMI; ++i)
+#pragma unroll
+      for (int j = 0; j < WNI; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          acc[i][j][q] += part[i][j][q];
+          part[i][j][q] = 0.f;
+        }
   };
-  float acc[4][8];
+
+  ids_of(0);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  if (n > 0) {
-    steps_of(0);
-    load(0);
-    store(0);
-    steps_of(WK);
+  for (int s = 0; s < WS - 1; ++s) {
+    if (s < nk) issue(s);
+    cp_commit();
   }
-  __syncthreads();
-  int buf = 0;
-  for (int k0 = 0; k0 < n; k0 += WK, buf ^= 1) {
-    const bool more = k0 + WK < n;
-    if (more) {
-      load(k0 + WK);
-      steps_of(k0 + 2 * WK);
-    }
-#pragma unroll
-    for (int kt = 0; kt < WK; ++kt) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[buf][kt][ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[buf][kt][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[buf][kt][WC / 2 + tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    if (more) store(buf ^ 1);
-    __syncthreads();
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_wait<WS - 2>();
+    __syncthreads();               // chunk kt landed; chunk kt - 1's stage is free
+    if (kt + WS - 1 < nk) issue(kt + WS - 1);
+    cp_commit();
+    const float* As = wsm + (kt % WS) * W_STAGE;
+    if (fac) chunk(As, std::true_type());
+    else chunk(As, std::false_type());
   }
-  const float sc = p.mode == 1 ? p.scale : 1.f;
+  cp_wait<0>();
+
+  // accumulator q of tile (i, j): unit u0 + 16 i + g + 8 (q / 2), column
+  // c0 + wn + 8 j + 2 t + q % 2
+  const float sc = p.mode == 0 ? 1.f : p.scale;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int u = u0 + ty * 4 + i;
-    if (u >= D) continue;
+  for (int i = 0; i < WMI; ++i)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int c = c0 + h * (WC / 2) + tx * 4;
-      if (c < G)
-        *reinterpret_cast<float4*>(dR + ((size_t)hd * D + u) * G + c) =
-            make_float4(acc[i][4 * h] * sc, acc[i][4 * h + 1] * sc, acc[i][4 * h + 2] * sc,
-                        acc[i][4 * h + 3] * sc);
+      const int u = u0 + 16 * i + g + 8 * h;
+      if (u >= D) continue;
+      float* out = dR + ((size_t)hd * D + u) * G;
+#pragma unroll
+      for (int j = 0; j < WNI; ++j) {
+        const int c = c0 + wn + 8 * j + 2 * t;
+        if (c < G) store2(out + c, acc[i][j][2 * h] * sc, acc[i][j][2 * h + 1] * sc);
+      }
     }
-  }
 }
 
 size_t fwd_smem(const ScanArgs& p, bool res) {
@@ -955,19 +1043,31 @@ extern "C" int slstm_scan_bwd_f32(const float* dy, const float* dcT, const float
 
 // hs (T, B, NH, dh), h0 (B, NH, dh), dgx (T, B, NH, 4dh); steps (ceil(dh /
 // 64), T) int32: each 64-unit block's active steps, ascending, nsteps of
-// them; keep (ids_rows, dh) 1/0 (mode 1); mask as the scan's (mode 2).
-// Output dR (NH, dh, 4dh), every element written.
+// them; mode 1: partial (ceil(dh / 64),) int32, 1 where an active step keeps
+// only part of the block, and keep (ids_rows, dh) 1/0; mode 2: mask as the
+// scan's. Output dR (NH, dh, 4dh), every element written. Returns the error
+// of cudaFuncSetAttribute or of the launch.
 extern "C" int slstm_wg_f32(const float* hs, const float* h0, const float* dgx,
-                            const int* steps, const int* nsteps, const float* keep,
-                            const float* mask, float* dR, int T, int B, int NH, int D,
-                            int mode, int ids_rows, int mask_rows, int mask_heads,
-                            float scale, void* stream) {
+                            const int* steps, const int* nsteps, const int* partial,
+                            const float* keep, const float* mask, float* dR, int T, int B,
+                            int NH, int D, int mode, int ids_rows, int mask_rows,
+                            int mask_heads, float scale, void* stream) {
   cudaGetLastError();
   if (D <= 0 || NH <= 0) return 0;
   ScanArgs p{T, B, NH, D, mode, 0, ids_rows, mask_rows, mask_heads, 0, 0, 0, scale};
-  const dim3 grid((4 * D + WC - 1) / WC, (D + WU - 1) / WU, NH);
-  slstm_wg_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(hs, h0, dgx, steps, nsteps, keep,
-                                                         mask, dR, p);
+  const int nblk = (D + WU - 1) / WU, ncol = (4 * D + WC - 1) / WC;
+  const long long ctas = (long long)nblk * ncol * NH;
+  if (ctas > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  // 16-byte copies where every row starts on 16 bytes
+  const uintptr_t bases = (uintptr_t)hs | (uintptr_t)h0 | (uintptr_t)dgx |
+                          (uintptr_t)keep | (uintptr_t)mask;
+  const bool vec = D % 4 == 0 && bases % 16 == 0;
+  auto kern = vec ? slstm_wg_kernel<true> : slstm_wg_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         W_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<(unsigned)ctas, WT, W_SMEM, (cudaStream_t)stream>>>(
+      hs, h0, dgx, steps, nsteps, partial, keep, mask, dR, p, nblk, ncol);
   return (int)cudaGetLastError();
 }
 

@@ -9,9 +9,10 @@ C interface and loaded with ``ctypes``:
 All missing libraries are built together, one ``nvcc`` process per source
 started at once. Outputs land in ``src/repro_torch/_build/`` (listed in
 ``.gitignore``; ``REPRO_TORCH_BUILD_DIR`` overrides it), named by a hash of
-the source and flags, so an edited source is rebuilt and an unchanged one
-is reused. ptxas's register and spill report of the last build is kept in
-``BUILD_LOG``. Nothing is built when a module is imported.
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header is rebuilt and an unchanged one is reused. ptxas's
+register and spill report of the last build is kept in ``BUILD_LOG``.
+Nothing is built when a module is imported.
 """
 from __future__ import annotations
 
@@ -54,10 +55,18 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def source_hash(src: Path, flags) -> str:
+    """A hash of ``src``, of every ``*.cuh`` header beside it and of
+    ``flags``: the name of its library."""
+    h = hashlib.sha256(src.read_bytes())
+    for hdr in sorted(src.parent.glob("*.cuh")):
+        h.update(hdr.name.encode() + hdr.read_bytes())
+    h.update(" ".join(flags).encode())
+    return h.hexdigest()[:16]
+
+
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
-    return build_dir() / f"lib{name}_{h}.so"
+    return build_dir() / f"lib{name}_{source_hash(CSRC / f'{name}.cu', FLAGS)}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:

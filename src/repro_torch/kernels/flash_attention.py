@@ -15,11 +15,11 @@ reference's ``_fa_fwd_res``; its backward computes ``delta = rowsum(do * o)``
 in float32 outside the kernels, as ``_flash_bwd``, then launches K10 (dq) and
 K11 (dk, dv, summed over each kv head's group of query heads inside the
 kernel). The kernels take float32 or bfloat16 and head_dim in
-``HEAD_DIMS``; anything else raises. K9 computes in float32 FFMA; K10 and
-K11 run their products on the TF32 tensor cores in split precision (each
-float32 operand as a TF32 hi and lo, three products summed in float32),
-which keeps float32's accuracy, and launch to launch they give the same
-bits (no atomics). A CPU tensor takes the
+``HEAD_DIMS``; anything else raises. K9, K10 and K11 run their products
+on the TF32 tensor cores in split precision (each float32 operand as a
+TF32 hi and lo, three products summed in float32), which keeps float32's
+accuracy, and launch to launch they give the same bits (no atomics). A CPU
+tensor takes the
 plain version: the masked float32 scores materialised and a softmax (the
 reference's test oracle), differentiated by autograd. ``LAUNCHES`` counts
 the kernel launches.
@@ -27,8 +27,9 @@ the kernel launches.
 ``flash_dq_plain`` and ``flash_dkv_plain`` are K10's and K11's plain
 versions (the same formulas on materialised probabilities
 ``p = exp(s - lse)``), against which the kernels are held on the card;
-``backward_float64`` is the same backward in float64 over one group of
-query heads, the oracle of their float32 accuracy.
+``forward_float64`` and ``backward_float64`` are the forward and the
+backward in float64 over one group of query heads, the oracles of the
+kernels' float32 accuracy.
 
 Rows that see no key at all (a window with ``Sq > Sk + window - 1``) are
 refused on both routes: the reference's kernel gives them the mean of v in
@@ -144,6 +145,26 @@ def flash_dkv_plain(q, k, v, do, lse, delta, causal=True, window=None):
             dv.reshape(B, Sk, Hkv, G, d).sum(3).to(v.dtype))
 
 
+def _scores_float64(q, k, causal, window, b, hk):
+    """Masked float64 scores (G, Sq, Sk) of the G query heads that read kv
+    head ``hk`` of batch ``b`` (-inf where masked)."""
+    G = q.shape[2] // k.shape[2]
+    q64, k64 = q[b, :, hk * G:(hk + 1) * G].double(), k[b, :, hk].double()
+    vis = _visible(q.shape[1], k.shape[1], causal, window, q.device)
+    s = torch.einsum("qgd,kd->gqk", q64, k64) * softmax_scale(q.shape[3])
+    return s.masked_fill(~vis, float("-inf"))
+
+
+def forward_float64(q, k, v, causal=True, window=None, b=0, hk=0):
+    """The forward of one (batch ``b``, kv head ``hk``) group in float64: o
+    (Sq, G, d) and lse (G, Sq) of its G query heads. The float64 oracle that
+    K9 is held to on the card."""
+    s = _scores_float64(q, k, causal, window, b, hk)
+    lse = torch.logsumexp(s, -1)
+    o = torch.einsum("gqk,kd->qgd", torch.exp(s - lse[..., None]), v[b, :, hk].double())
+    return o, lse
+
+
 def backward_float64(q, k, v, do, causal=True, window=None, b=0, hk=0):
     """The backward of one (batch ``b``, kv head ``hk``) group in float64:
     (lse, delta) of its G query heads (G, Sq), their dq (Sq, G, d), and dk,
@@ -154,8 +175,7 @@ def backward_float64(q, k, v, do, causal=True, window=None, b=0, hk=0):
     scale = softmax_scale(q.shape[3])
     q64, do64 = q[b, :, hs].double(), do[b, :, hs].double()
     k64, v64 = k[b, :, hk].double(), v[b, :, hk].double()
-    vis = _visible(q.shape[1], k.shape[1], causal, window, q.device)
-    s = (torch.einsum("qgd,kd->gqk", q64, k64) * scale).masked_fill(~vis, float("-inf"))
+    s = _scores_float64(q, k, causal, window, b, hk)
     lse = torch.logsumexp(s, -1)
     p = torch.exp(s - lse[..., None])
     del s

@@ -99,7 +99,7 @@ def _lib():
         lib.slstm_scan_fwd_f32.restype = i
         lib.slstm_scan_bwd_f32.argtypes = [p] * 21 + [i] * 10 + [f, p]
         lib.slstm_scan_bwd_f32.restype = i
-        lib.slstm_wg_f32.argtypes = [p] * 8 + [i] * 8 + [f, p]
+        lib.slstm_wg_f32.argtypes = [p] * 9 + [i] * 8 + [f, p]
         lib.slstm_wg_f32.restype = i
         lib.slstm_scan_ring_words.argtypes = [i] * 4
         lib.slstm_scan_ring_words.restype = ctypes.c_longlong
@@ -204,31 +204,38 @@ def slstm_scan_bwd_cuda(dy, dstT, gates, st_seqs, states0, hs, h0, u, ids,
 
 
 def wg_tables(ids, T, dh, device):
-    """The WG kernel's index tables, built with tensor ops on ``device``: ``steps`` (nblk, T) int32, each block of WG_UNITS units' active
-    steps (a unit of the block kept there) ascending, padded with T;
-    ``counts`` (nblk,) int32; ``keep`` (rows, dh) float32, 1 for a kept
-    unit, or None without an ids table (dense, off: every step active)."""
+    """The WG kernel's index tables, built with tensor ops on ``device``:
+    ``steps`` (nblk, T) int32, each block of WG_UNITS units' active steps (a
+    unit of the block kept there) ascending, padded with T; ``counts``
+    (nblk,) int32; ``keep`` (rows, dh) float32, 1 for a kept unit; and
+    ``partial`` (nblk,) int32, 1 where an active step keeps only part of the
+    block (the kernel applies ``keep`` there alone). ``keep`` and
+    ``partial`` are None without an ids table (dense, off: every step
+    active)."""
     nblk = -(-dh // WG_UNITS)
     dev = device
     t_idx = torch.arange(T, dtype=torch.int32, device=dev)
     if ids is None:
         return (t_idx.expand(nblk, T).contiguous(),
-                torch.full((nblk,), T, dtype=torch.int32, device=dev), None)
+                torch.full((nblk,), T, dtype=torch.int32, device=dev), None, None)
     rows = ids.shape[0]
     keep = torch.zeros((rows, dh), dtype=torch.float32, device=dev)
     keep.scatter_(1, ids.long(), 1.0)
-    act = F.pad(keep, (0, nblk * WG_UNITS - dh)).view(rows, nblk, WG_UNITS)
-    act = (act.amax(-1) > 0).expand(T, nblk).t()          # (nblk, T)
+    pad = nblk * WG_UNITS - dh
+    act = F.pad(keep, (0, pad)).view(rows, nblk, WG_UNITS).amax(-1) > 0
+    some_dropped = F.pad(keep, (0, pad), value=1.0).view(rows, nblk, WG_UNITS).amin(-1) == 0
+    partial = (act & some_dropped).any(0).to(torch.int32)
+    act = act.expand(T, nblk).t()                          # (nblk, T)
     steps = torch.where(act, t_idx, T).sort(dim=1).values
     return (steps.to(torch.int32).contiguous(),
-            act.sum(1).to(torch.int32), keep)
+            act.sum(1).to(torch.int32), keep, partial)
 
 
 def plain_wg(dgx, hs, h0, tables, mask, scale):
     """dR (NH, dh, 4dh) = sc * sum over each unit block's active steps t and
     rows b of (h_{t-1} x keep or mask x scale)[t, b, hd, u] dgx[t, b, hd, :]
     (sc = scale with a keep table, else 1): the WG kernel's plain version."""
-    steps, counts, keep = tables
+    steps, counts, keep, _ = tables
     T, B, NH, G = dgx.shape
     dh = G // 4
     hp = torch.cat([h0[None], hs[:-1]])                   # h_{t-1}
@@ -250,19 +257,21 @@ def slstm_wg(dgx, hs, h0, tables, mask, scale):
     plain version (``plain_wg``) for CPU tensors."""
     if not dgx.is_cuda:
         return plain_wg(dgx, hs, h0, tables, mask, scale)
-    steps, counts, keep = tables
+    steps, counts, keep, partial = tables
     T, B, NH, G = dgx.shape
     dh = G // 4
     f32, i32 = torch.float32, torch.int32
     _check(dgx, {"dgx": (dgx, f32), "hs": (hs, f32), "h0": (h0, f32),
                  "steps": (steps, i32), "counts": (counts, i32),
-                 "keep": (keep, f32), "mask": (mask, f32)})
+                 "partial": (partial, i32), "keep": (keep, f32),
+                 "mask": (mask, f32)})
     mode = 1 if keep is not None else 2 if mask is not None else 0
     du = torch.empty((NH, dh, G), dtype=f32, device=dgx.device)
     lib = _lib()
     code = lib.slstm_wg_f32(
         hs.data_ptr(), h0.data_ptr(), dgx.data_ptr(), steps.data_ptr(),
-        counts.data_ptr(), _ptr(keep), _ptr(mask), du.data_ptr(), T, B, NH,
+        counts.data_ptr(), _ptr(partial), _ptr(keep), _ptr(mask),
+        du.data_ptr(), T, B, NH,
         dh, mode, 1 if keep is None else keep.shape[0],
         1 if mask is None else mask.shape[0],
         1 if mask is None else mask.shape[2], float(scale),

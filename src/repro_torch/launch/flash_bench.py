@@ -1,28 +1,28 @@
-"""K10 and K11, the flash backward, at qwen3-8b's attention shape on the card.
+"""K9, K10 and K11, the flash forward and backward, at qwen3-8b's attention
+shape on the card.
 
-    PYTHONPATH=src python -m repro_torch.launch.flash_bwd [--src NAME=FILE.cu ...]
+    PYTHONPATH=src python -m repro_torch.launch.flash_bench [--src NAME=FILE.cu ...]
 
 At B=1, S=4096, 32 query over 16 kv heads, d=128, causal, float32: each
-build's float64 distance over one (batch, kv head) group
-(``chip_smoke.flash_f64``, which fails beyond its gate) and its K10 and
-K11 times (CUDA events, cold L2, median of 20), the builds taken in turns
-(a, b, ..., b, a) twice. The builds are ``csrc/flash_attention.cu``
-("repo") and each ``--src``, e.g. another commit's copy of that file,
-compiled with the same nvcc flags, so that two versions are compared
-inside one call. Beside them
-``scaled_dot_product_attention``'s backward, timed and held to the same
-float64 result: with ``enable_gqa`` (the yardstick of ``chip_smoke.py``;
-PyTorch serves float32 GQA with its math backend) and, for reference, the
-memory-efficient backend on kv heads repeated to 32 (not one call on the
-same inputs). Run from the repo root (it imports ``chip_smoke``). Prints
-one JSON line last. CUDA only.
+build's float64 distances over one (batch, kv head) group (forward:
+``chip_smoke.flash_fwd_f64``, backward: ``chip_smoke.flash_f64``, each of
+which fails beyond its gate) and its K9, K10 and K11 times (CUDA events,
+cold L2, median of 20), the builds taken in turns (a, b, ..., b, a) twice.
+The builds are ``csrc/flash_attention.cu`` ("repo") and each ``--src``,
+e.g. another commit's copy of that file, compiled with the same nvcc
+flags, so that two versions are compared inside one call. Beside them
+``scaled_dot_product_attention``'s forward and backward, timed and held to
+the same float64 results: with ``enable_gqa`` (the yardstick of
+``chip_smoke.py``; PyTorch serves float32 GQA with its math backend) and,
+for reference, the memory-efficient backward on kv heads repeated to 32
+(not one call on the same inputs). Run from the repo root (it imports
+``chip_smoke``). Prints one JSON line last. CUDA only.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import ctypes
-import hashlib
 import json
 import subprocess
 from pathlib import Path
@@ -38,8 +38,7 @@ B, S, HQ, HKV, D = 1, 4096, 32, 16, 128
 
 def build_lib(src: Path) -> ctypes.CDLL:
     """``src`` compiled as ``_build`` compiles ``csrc/flash_attention.cu``."""
-    h = hashlib.sha256(src.read_bytes() + " ".join(_build.FLAGS).encode()).hexdigest()[:16]
-    out = _build.build_dir() / f"libflash_variant_{h}.so"
+    out = _build.build_dir() / f"libflash_variant_{_build.source_hash(src, _build.FLAGS)}.so"
     if not out.exists():
         out.parent.mkdir(parents=True, exist_ok=True)
         subprocess.run([_build.nvcc(), *_build.FLAGS, "-o", str(out), str(src)],
@@ -71,7 +70,7 @@ def main(argv=None):
     ap.add_argument("--src", action="append", default=[], metavar="NAME=FILE.cu")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
-        raise SystemExit("flash_bwd: no CUDA device")
+        raise SystemExit("flash_bench: no CUDA device")
     from repro_torch.device import set_full_fp32
     set_full_fp32()
     libs = {"repo": fa._lib()}
@@ -84,10 +83,11 @@ def main(argv=None):
     r = lambda *s: torch.randn(*s, generator=gen).to("cuda")
     q, k, v, do = r(B, S, HQ, D), r(B, S, HKV, D), r(B, S, HKV, D), r(B, S, HQ, D)
     out = {"card": cs.smi_line(), "f64_rel_err": {},
-           "ms": {n: {"flash_dq": [], "flash_dkv": []} for n in libs}}
+           "ms": {n: {"flash_fwd": [], "flash_dq": [], "flash_dkv": []} for n in libs}}
     for name, lib in libs.items():
-        with using(lib):       # also SDPA's (enable_gqa) distance, as "sdpa"
+        with using(lib):       # also SDPA's (enable_gqa) distances, as "sdpa", "sdpa_fwd"
             out["f64_rel_err"][name] = cs.flash_f64(fa, q, k, v, do, True, None)
+            out["f64_rel_err"][name].update(cs.flash_fwd_f64(fa, q, k, v, True, None))
     o, lse = fa.attention_plain(q, k, v, True, None)
     bargs = (q, k, v, do, lse, fa.flash_delta(o, do), True, None)
     del o
@@ -95,6 +95,8 @@ def main(argv=None):
     for _ in range(2):
         for name in turns:
             with using(libs[name]):
+                out["ms"][name]["flash_fwd"].append(
+                    cs.time_ms(lambda: fa.flash_fwd_cuda(q, k, v, True, None), cold_l2=True))
                 for which, fn in (("flash_dq", fa.flash_dq_cuda), ("flash_dkv", fa.flash_dkv_cuda)):
                     out["ms"][name][which].append(cs.time_ms(lambda: fn(*bargs), cold_l2=True))
 
@@ -115,14 +117,19 @@ def main(argv=None):
         return cs.time_ms(bwd, cold_l2=True), max(rel(x, w) for x, w in zip(got, want))
 
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    qt = q.transpose(1, 2)
+    out["sdpa_gqa_fwd_ms"] = cs.time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True), cold_l2=True)
     out["sdpa_gqa_ms"], _ = sdpa_bwd(kt, vt, enable_gqa=True)
     from torch.nn.attention import SDPBackend, sdpa_kernel
     with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
         out["sdpa_efficient_repeated_kv_ms"], out["f64_rel_err"]["sdpa_efficient"] = sdpa_bwd(
             kt.repeat_interleave(G, 1), vt.repeat_interleave(G, 1))
     for name, t in out["ms"].items():
-        print(f"{name}: K10 {min(t['flash_dq']):.4f} ms, K11 {min(t['flash_dkv']):.4f} ms "
-              f"(best of {len(t['flash_dq'])}); float64 {out['f64_rel_err'][name]}")
+        print(f"{name}: K9 {min(t['flash_fwd']):.4f} ms, K10 {min(t['flash_dq']):.4f} ms, "
+              f"K11 {min(t['flash_dkv']):.4f} ms (best of {len(t['flash_dq'])}); float64 "
+              f"{out['f64_rel_err'][name]}")
+    print(f"SDPA forward: enable_gqa {out['sdpa_gqa_fwd_ms']:.4f} ms")
     print(f"SDPA backward: enable_gqa {out['sdpa_gqa_ms']:.4f} ms, efficient on repeated kv "
           f"{out['sdpa_efficient_repeated_kv_ms']:.4f} ms (float64 "
           f"{out['f64_rel_err']['sdpa_efficient']:.3e})")

@@ -19,9 +19,12 @@ fresh start (``chip_smoke.slstm_inputs``):
 * each build's K6 forward and backward (for a build with the separate WG
   kernel, the scan and WG together, as the wrapper calls them; also WG
   alone), CUDA events, cold L2, median of 20, the builds taken in turns
-  (a, b, ..., b, a) twice; the builds are ``csrc/slstm_scan.cu`` ("repo")
-  and each ``--src``, e.g. another commit's copy of that file, compiled
-  with the same nvcc flags;
+  (a, b, ..., b, a) twice, and ``torch.bmm`` on the masked operands (WG's
+  library yardstick) after each round; the builds are
+  ``csrc/slstm_scan.cu`` ("repo") and each ``--src``, e.g. another
+  commit's copy of that file (one whose WG entry point takes no
+  ``partial`` table is driven through that interface), compiled with the
+  same nvcc flags;
 * with ``--phases``, the repo build's step split into its phases (the
   source built with ``-DSLSTM_PHASES``: thread 0 of each CTA counts the
   cycles between the step's barriers), as shares of the step;
@@ -38,7 +41,6 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
-import hashlib
 import json
 import subprocess
 from pathlib import Path
@@ -144,8 +146,7 @@ def compile_lib(src: Path, stem: str, extra=()) -> ctypes.CDLL:
     """``src`` compiled as ``_build`` compiles ``csrc/slstm_scan.cu`` (plus
     ``extra`` flags)."""
     flags = [*_build.FLAGS, *extra]
-    h = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
-    out = _build.build_dir() / f"lib{stem}_{h}.so"
+    out = _build.build_dir() / f"lib{stem}_{_build.source_hash(src, flags)}.so"
     if not out.exists():
         out.parent.mkdir(parents=True, exist_ok=True)
         res = subprocess.run([_build.nvcc(), *flags, "-o", str(out), str(src)],
@@ -200,15 +201,41 @@ def old_interface(lib):
     return lib
 
 
+def wg_without_partial(lib):
+    """``slstm_wg`` for a build whose WG entry point takes no ``partial``
+    table (the first WG kernel's C interface)."""
+    def wg(dgx, hs, h0, tables, mask, scale):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.slstm_wg_f32.argtypes = [p] * 8 + [i] * 8 + [f, p]
+        lib.slstm_wg_f32.restype = i
+        steps, counts, keep, _ = tables
+        T_, B_, NH_, G = dgx.shape
+        du = torch.empty((NH_, G // 4, G), dtype=torch.float32, device=dgx.device)
+        ptr = lambda t: None if t is None else t.data_ptr()
+        mode = 1 if keep is not None else 2 if mask is not None else 0
+        code = lib.slstm_wg_f32(
+            hs.data_ptr(), h0.data_ptr(), dgx.data_ptr(), steps.data_ptr(), counts.data_ptr(),
+            ptr(keep), ptr(mask), du.data_ptr(), T_, B_, NH_, G // 4, mode,
+            1 if keep is None else keep.shape[0], 1 if mask is None else mask.shape[0],
+            1 if mask is None else mask.shape[2], float(scale),
+            torch.cuda.current_stream().cuda_stream)
+        assert code == 0, code
+        return du
+    return wg
+
+
 @contextlib.contextmanager
 def using(lib):
     """The K6 wrappers launch ``lib``'s kernels inside the block."""
-    saved = _build._LIBS.get("slstm_scan")
+    saved, saved_wg = _build._LIBS.get("slstm_scan"), ss.slstm_wg
     _build._LIBS["slstm_scan"] = lib
+    if getattr(lib, "_wg", None) is not None:
+        ss.slstm_wg = lib._wg
     try:
         yield
     finally:
         _build._LIBS["slstm_scan"] = saved
+        ss.slstm_wg = saved_wg
 
 
 def calls(lib, x):
@@ -326,6 +353,8 @@ def main(argv=None):
     for spec in args.src:
         name, path = spec.split("=", 1)
         libs[name] = compile_lib(Path(path), f"slstm_variant_{name}")
+        if "const int* partial" not in Path(path).read_text():
+            libs[name]._wg = wg_without_partial(libs[name])
     out = {"card": cs.smi_line(), "shape": dict(T=T, B=B, NH=NH, dh=DH, bs=BS, p=P)}
     out["floor_us_per_step"] = floor_probes(cs)
     best = min(v for k, v in out["floor_us_per_step"].items() if k.startswith(("a_", "b_", "c_")))
@@ -352,6 +381,13 @@ def main(argv=None):
     for name, (fwd, bwd, wg) in fns.items():
         out["f64_dist"][name] = {"fwd": f64_dist(fwd(), ref_f), "bwd": f64_dist(bwd(), ref_b)}
     out["ms"] = {n: {"fwd": [], "bwd": [], "wg": []} for n in libs}
+    # WG's library yardstick, as chip_smoke.py's: one torch.bmm over the
+    # heads on the masked operands
+    keep = ss.wg_tables(ids, T, DH, gx.device)[2]
+    hp = torch.cat([h0[None], hs[:-1]]) * keep[:, None, None, :]
+    hp_t = hp.permute(2, 3, 0, 1).reshape(NH, DH, T * B).contiguous()
+    dg_t = plain_b[0].permute(2, 0, 1, 3).reshape(NH, T * B, 4 * DH).contiguous()
+    out["bmm_ms"] = []
     turns = list(libs) + list(reversed(libs))
     for _ in range(2):
         for name in turns:
@@ -361,6 +397,7 @@ def main(argv=None):
             t["bwd"].append(cs.time_ms(bwd, cold_l2=True))
             if wg is not None:
                 t["wg"].append(cs.time_ms(wg, cold_l2=True))
+        out["bmm_ms"].append(cs.time_ms(lambda: torch.bmm(hp_t, dg_t), cold_l2=True))
     if args.phases:
         scan_ms = {"fwd": min(out["ms"]["repo"]["fwd"]),
                    "bwd": min(out["ms"]["repo"]["bwd"]) - min(out["ms"]["repo"]["wg"])}
@@ -376,6 +413,8 @@ def main(argv=None):
         wg = f", WG {min(t['wg']):.4f} ms" if t["wg"] else ""
         print(f"{name}: fwd {min(t['fwd']):.4f} ms, bwd {min(t['bwd']):.4f} ms{wg} "
               f"(best of {len(t['fwd'])}); float64 {out['f64_dist'][name]}")
+    print(f"torch.bmm on the masked operands (WG's yardstick): {min(out['bmm_ms']):.4f} ms "
+          f"(best of {len(out['bmm_ms'])})")
     print(f"plain float32 to float64: {out['f64_dist']['plain_f32']}")
     print(f"card: {out['card']}")
     print(json.dumps(out))

@@ -10,9 +10,9 @@ Tolerances are the reference test's: 2e-5 forward, 5e-4 grads, 3e-2 bf16.
 K10's and K11's plain versions (explicit formulas from lse and delta) are
 held to autograd of the plain forward at 1e-5 (float32, the same products
 in another order). The ``cuda``-marked cases hold the kernels K9-K11 to the
-plain versions on the card (1e-4 x max(1, |ref|) float32; 3e-2 bf16), K10
-and K11 also to a float64 backward (1e-5 x max(1, |ref|)) and to their own
-bits on a second launch, and skip here.
+plain versions on the card (1e-4 x max(1, |ref|) float32; 3e-2 bf16), K9
+to a float64 forward and K10 and K11 to a float64 backward (1e-5 x max(1,
+|ref|)), each to its own bits on a second launch, and skip here.
 """
 import numpy as np
 import pytest
@@ -229,6 +229,43 @@ def test_cuda_backward_keeps_float32_accuracy():
         scale = max(1.0, float(w.abs().max()))
         err = float((x.double() - w).abs().max())
         assert err <= 1e-5 * scale, f"{name}: {err:.3e} > 1e-5 x {scale:.3g}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None), (True, 200)])
+def test_cuda_forward_keeps_float32_accuracy(causal, window):
+    """K9 (split-precision TF32 on the tensor cores) within 1e-5 x max(1,
+    |ref|) of a float64 forward, o and lse, for every (batch, kv head)
+    group: float32's accuracy, which single-pass TF32 (~2^-11 a product)
+    misses."""
+    dev = require_cuda()
+    g = torch.Generator().manual_seed(5)
+    B, S, Hq, Hkv, d = 1, 1024, 4, 2, 128
+    q, k, v = (torch.randn(*s, generator=g).to(dev) for s in (
+        (B, S, Hq, d), (B, S, Hkv, d), (B, S, Hkv, d)))
+    o, lse = fa.flash_fwd_cuda(q, k, v, causal, window)
+    G = Hq // Hkv
+    for hk in range(Hkv):
+        o64, lse64 = fa.forward_float64(q, k, v, causal, window, 0, hk)
+        for x, w, name in ((o[0, :, hk * G:(hk + 1) * G], o64, "o"),
+                           (lse[0, hk * G:(hk + 1) * G], lse64, "lse")):
+            scale = max(1.0, float(w.abs().max()))
+            err = float((x.double() - w).abs().max())
+            assert err <= 1e-5 * scale, f"{name}, kv head {hk}: {err:.3e} > 1e-5 x {scale:.3g}"
+
+
+@pytest.mark.cuda
+def test_cuda_forward_is_deterministic():
+    """Two launches of K9 give the same bits (no atomics), float32 and
+    bfloat16."""
+    dev = require_cuda()
+    g = torch.Generator().manual_seed(6)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(*s, generator=g).to(dev, dtype) for s in (
+            (1, 300, 6, 128), (1, 300, 2, 128), (1, 300, 2, 128)))
+        first, second = fa.flash_fwd_cuda(q, k, v), fa.flash_fwd_cuda(q, k, v)
+        for a, b, name in zip(first, second, ("o", "lse")):
+            assert torch.equal(a, b), f"{name} {dtype}"
 
 
 @pytest.mark.cuda

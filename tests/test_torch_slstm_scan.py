@@ -285,7 +285,7 @@ def test_wg_tables_list_the_kept_blocks(rows):
     kb = np.stack([np.sort(rng.permutation(4)[:3]) for _ in range(rows)]).astype(np.int32)
     from repro_torch.core.masks import keep_blocks_to_unit_ids
     ids = keep_blocks_to_unit_ids(torch.from_numpy(kb), bs).to(torch.int32)
-    steps, counts, keep = t_ss.wg_tables(ids, T, dh, "cpu")
+    steps, counts, keep, partial = t_ss.wg_tables(ids, T, dh, "cpu")
     for blk in range(4):
         kept_rows = [t for t in range(T) if blk in kb[0 if rows == 1 else t]]
         assert counts[blk] == len(kept_rows)
@@ -293,11 +293,33 @@ def test_wg_tables_list_the_kept_blocks(rows):
         assert (steps[blk, len(kept_rows):] == T).all()
     assert int(counts.sum()) * bs == T * ids.shape[1]
     np.testing.assert_array_equal(keep.sum(1).numpy(), ids.shape[1])
+    # a block is kept whole wherever it is active: the kernel needs no keep factor
+    assert partial.dtype == torch.int32 and partial.tolist() == [0] * 4
+
+
+@pytest.mark.parametrize("dh,bs", [(2 * 64, 16), (100, 4), (96, 32)])
+def test_wg_tables_flag_the_blocks_kept_in_part(dh, bs):
+    """``partial`` is 1 exactly for the blocks of WG_UNITS units that some
+    active step keeps only in part (RH blocks narrower than the tile, and a
+    last block cut short by dh, whose missing units do not count)."""
+    rng = np.random.default_rng(13)
+    nb = dh // bs
+    kb = np.stack([np.sort(rng.permutation(nb)[:nb // 2]) for _ in range(T)]).astype(np.int32)
+    from repro_torch.core.masks import keep_blocks_to_unit_ids
+    ids = keep_blocks_to_unit_ids(torch.from_numpy(kb), bs).to(torch.int32)
+    steps, counts, keep, partial = t_ss.wg_tables(ids, T, dh, "cpu")
+    W = t_ss.WG_UNITS
+    for blk in range(-(-dh // W)):
+        k = keep[:, blk * W:(blk + 1) * W]
+        live = k.amax(1) > 0
+        want = bool((live & (k.amin(1) == 0)).any())
+        assert partial[blk] == int(want), blk
+        assert counts[blk] == int(live.sum())
 
 
 def test_wg_tables_without_ids_list_every_step():
-    steps, counts, keep = t_ss.wg_tables(None, T, 80, "cpu")
-    assert keep is None and steps.shape == (2, T)
+    steps, counts, keep, partial = t_ss.wg_tables(None, T, 80, "cpu")
+    assert keep is None and partial is None and steps.shape == (2, T)
     assert counts.tolist() == [T, T]
     assert (steps == torch.arange(T, dtype=torch.int32)).all()
 
@@ -354,9 +376,11 @@ def test_cuda_kernel_rejects_other_dtypes():
 @pytest.mark.parametrize("mode,fixed,dh,bs", [("structured", False, 128, 64),
                                               ("structured", True, 128, 4),
                                               ("structured", False, 16, 1),
-                                              ("dense", False, 96, 1), ("off", False, 16, 1)])
+                                              ("dense", False, 96, 1), ("off", False, 16, 1),
+                                              ("dense", False, 30, 1)])
 def test_cuda_wg_kernel_matches_plain(mode, fixed, dh, bs):
-    """The WG kernel alone against plain_wg on the same dgx, hs and tables."""
+    """The WG kernel alone against plain_wg on the same dgx, hs and tables
+    (dh = 30: rows not on 16 bytes, the kernel's 4-byte copies)."""
     dev = require_cuda()
     d, kw = _inputs(mode, fixed, False, False, seed=10, T=9, B=3, NH=2, dh=dh, bs=bs)
     rng = np.random.default_rng(11)
@@ -372,6 +396,33 @@ def test_cuda_wg_kernel_matches_plain(mode, fixed, dh, bs):
                         t_ss.wg_tables(cuda(ids), 9, dh, dev), cuda(mask), scale)
     assert t_ss.LAUNCHES["slstm_wg"] == n0 + 1
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,bs", [("structured", 64), ("structured", 8), ("dense", 1)])
+def test_cuda_wg_kernel_keeps_float32_accuracy(mode, bs):
+    """The WG kernel (split-precision TF32 on the tensor cores) within 1e-5
+    x max(1, |ref|) of a float64 product of the same masked operands over a
+    contraction of ~1000 (step, row) pairs: float32's accuracy, which
+    single-pass TF32 (~2^-11 a product) misses. Blocks kept whole (bs 64),
+    kept in part (bs 8) and a dense mask."""
+    dev = require_cuda()
+    T_, B_, NH_, dh = 256, 4, 2, 256
+    d, kw = _inputs(mode, False, False, False, seed=14, T=T_, B=B_, NH=NH_, dh=dh, bs=bs)
+    rng = np.random.default_rng(15)
+    x = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    dgx, hs, h0 = x(T_, B_, NH_, 4 * dh), x(T_, B_, NH_, dh), x(B_, NH_, dh)
+    ids = _unit_ids(kw)
+    ids = None if ids is None else ids.to(dev)
+    mask = torch.from_numpy(kw["dense_mask"]).to(dev) if "dense_mask" in kw else None
+    scale = kw.get("scale", 1.0)
+    tables = t_ss.wg_tables(ids, T_, dh, dev)
+    got = t_ss.slstm_wg(dgx, hs, h0, tables, mask, scale)
+    hp = torch.cat([h0[None], hs[:-1]]).double()
+    hp = hp * (tables[2][:, None, None, :] * scale if ids is not None else mask * scale)
+    want = torch.einsum("tbhu,tbhc->huc", hp, dgx.double())
+    err = float((got.double() - want).abs().max())
+    assert err <= 1e-5 * max(1.0, float(want.abs().max())), f"{err:.3e}"
 
 
 @pytest.mark.cuda
