@@ -12,7 +12,12 @@ plain PyTorch version at that path's full shapes, and times it:
   * luong-nmt (T=S=50, B=64, H=E=512, 2 layers, block size 1, p=0.3):
     K1/K2 and K3/K4 at the encoder's and decoder's shapes, and K7/K8, the
     fused decoder scan (also in dense, FIXED, off, mixed and ragged modes on
-    small inputs);
+    small inputs); at the main-path shapes K4 and K8 are also launched a
+    second time for the same bits and held to a float64 run of their plain
+    reverse within 10 x the float32 plain version's distance + 1e-6 x
+    max(1, |ref|), and their rows carry a latency floor (T x the cheapest
+    per-step exchange on the kernel's grid, ``launch/scan_bench.py``'s
+    probes);
   * xlstm-1.3b (T=2048, B=2, 4 heads of dh=512, RH block 64, p=0.25, fresh
     start): K6, the fused sLSTM scan, whose backward computes dR after the
     scan with its WG kernel (``slstm_wg``, split-precision TF32 on the
@@ -416,25 +421,49 @@ def check_scan(gen, T_, B_, H_, rate, mode, *, fixed=False, ragged=False,
                   [dgx_p, dU_p, dh0_p, dc0_p], 1e-3)
     if out is None:
         return
+    # the main path: a second launch for the same bits, and a float64 run of
+    # the plain reverse on the same float32 residuals
+    flat = lambda o: (o[0], o[1], o[2], o[3][0])
+    same_bits("  lstm_scan_bwd second launch " + tag, [dgx, dU, dh0, dc0],
+              lambda: flat(bwd_k()))
+    d = lambda t: t.double()
+    ref = flat(cs_mod.plain_bwd(cell, d(dy), (d(dcT),), d(gates_p), (d(cs_p),), (d(c0),),
+                                d(hs_p), d(h0), d(U), *rh))
+    b_f64 = f64_gate("  lstm_scan_bwd " + tag, [dgx, dU, dh0, dc0],
+                     [dgx_p, dU_p, dh0_p, dc0_p], ref)
+    del ref
     k = ids.shape[1] if ids is not None else H_
     uniq = int(torch.unique(ids).numel()) if ids is not None else H_
     G = 4 * H_
+    # K4's latency floor: T x the cheapest per-step exchange on its grid
+    floor = scan_floor(T_, B_, H_, k)
     src = "src/repro_torch/csrc/lstm_scan.cu"
-    for name, fk, fp, err, nbytes, flops, rep in (
+    for name, fk, fp, err, nbytes, flops, rep, extra in (
             ("lstm_scan_fwd", fwd_k, fwd_p, e_f,
              4 * (T_ * B_ * G + uniq * G + 2 * B_ * H_ + T_ * k
                   + 2 * T_ * B_ * H_ + T_ * B_ * G),
-             2 * T_ * B_ * k * G, "src/repro/kernels/cell_scan.py:172"),
+             2 * T_ * B_ * k * G, "src/repro/kernels/cell_scan.py:172", {}),
             ("lstm_scan_bwd", bwd_k, bwd_p, e_b,
              4 * (T_ * B_ * H_ + B_ * H_ + T_ * B_ * G + 2 * T_ * B_ * H_
                   + 2 * B_ * H_ + uniq * G + T_ * k
                   + T_ * B_ * G + H_ * G + 2 * B_ * H_),
-             4 * T_ * B_ * k * G, "src/repro/kernels/cell_scan.py:215")):
+             4 * T_ * B_ * k * G, "src/repro/kernels/cell_scan.py:215",
+             dict(floor_ms=floor, f64_rel_err=b_f64))):
         # once per layer and step, after other work: timed with a cold L2
         ms = time_ms(fk, cold_l2=True)
         pms = time_ms(fp, reps=5, warmup=1, cold_l2=True)
         add_row(out, name, arch, src, rep, err, ms, pms, None, nbytes, flops,
-                "cold")
+                "cold", **extra)
+
+
+def scan_floor(T_, B_, H_, k):
+    """K4's / K8's latency floor at a shape: T x the cheapest per-step
+    exchange on the kernel's grid (``launch/scan_bench.py``'s probes)."""
+    from repro_torch.launch import scan_bench
+    fl = scan_bench.floor_probes(sys.modules[__name__], T_, B_, H_, k)
+    print("  latency floor probes (us a step): " + ", ".join(
+        f"{n} {v:.3f}" for n, v in fl["us_per_step"].items()))
+    return scan_bench.floor_ms(fl["us_per_step"], T_)
 
 
 def decoder_inputs(gen, T_, B_, S_, H_, kind, rate, bs, ragged):
@@ -501,9 +530,19 @@ def check_decoder(gen, T_, B_, S_, H_, kind, *, rate=0.5, bs=4, ragged=False,
     flat = lambda g: [x for v in g for x in (v if isinstance(v, list) else [v])]
     bwd_k = lambda: ds.kernel_bwd(*bargs)
     bwd_p = lambda: ds.plain_bwd(*bargs)
-    e_b = compare("  decoder_scan_bwd " + tag, flat(bwd_k()), flat(bwd_p()), 1e-3)
+    got_b, plain_b = flat(bwd_k()), flat(bwd_p())
+    e_b = compare("  decoder_scan_bwd " + tag, got_b, plain_b, 1e-3)
     if out is None:
         return
+    # the main path: a second launch for the same bits, and a float64 run of
+    # the plain reverse on the same float32 residuals
+    same_bits("  decoder_scan_bwd second launch " + tag, got_b, lambda: flat(bwd_k()))
+    d = lambda v: [x.double() for x in v] if isinstance(v, (list, tuple)) else v.double()
+    ref = flat(ds.plain_bwd(descs, tables, tuple(d(res)), tuple(d(dout)), d(o["us"]),
+                            d(o["ws"]), d(o["w_feed"]), d(o["w_comb"]), d(o["enc_proj"]),
+                            d(o["enc_out"]), d(o["h0"]), d(o["c0"]), d(o["feed0"]), lengths))
+    b_f64 = f64_gate("  decoder_scan_bwd " + tag, got_b, plain_b, ref)
+    del ref, got_b, plain_b
     # the work this call's data needs: kept rows per site, kept units per step
     nl, G, H2 = 2, 4 * H_, 2 * H_
     kept = [H_ if t_ is None or d.mode == "dense" else t_.shape[1]
@@ -525,17 +564,20 @@ def check_decoder(gen, T_, B_, S_, H_, kind, *, rate=0.5, bs=4, ragged=False,
                    + (2 * nl + 1) * B_ * H_ + wbytes + 2 * B_ * S_ * H_ + ids
                    + T_ * B_ * G + 2 * nl * H_ * G + (nl - 1) * G + H2 * H_
                    + 2 * B_ * S_ * H_ + (2 * nl + 1) * B_ * H_)
+    # K8's latency floor: T x the cheapest per-step exchange on its grid
+    floor = scan_floor(T_, B_, H_, kept[1])
     src = "src/repro_torch/csrc/decoder_scan.cu"
-    for name, fk, fp, err, nbytes, flops, rep in (
+    for name, fk, fp, err, nbytes, flops, rep, extra in (
             ("decoder_scan_fwd", fwd_k, fwd_p, e_f, f_bytes, f_flops,
-             "src/repro/kernels/decoder_scan.py:413"),
+             "src/repro/kernels/decoder_scan.py:413", {}),
             ("decoder_scan_bwd", bwd_k, bwd_p, e_b, b_bytes, b_flops,
-             "src/repro/kernels/decoder_scan.py:598")):
+             "src/repro/kernels/decoder_scan.py:598",
+             dict(floor_ms=floor, f64_rel_err=b_f64))):
         # once per training step, after other work: timed with a cold L2
         ms = time_ms(fk, cold_l2=True)
         pms = time_ms(fp, reps=3, warmup=1, cold_l2=True)
         add_row(out, name, NMT, src, rep, err, ms, pms, None, nbytes, flops,
-                "cold")
+                "cold", **extra)
 
 
 def slstm_inputs(gen, T_, B_, NH_, dh_, rate, mode, bs, fixed, ragged, fresh,

@@ -29,25 +29,28 @@
 // its lanes along the compact units). Attention is owned by
 // batch rows (encoder memory read through L2). The readout is owned by
 // units again (columns of w_comb). Barriers per step: nl + 2.
-// Backward (reverse time, nl + 3 barriers per step): the readout backward is
-// owned by units (dctx/dcur columns, dW_comb rows), the attention backward
-// by rows (d enc_proj[b], d enc_out[b] accumulated in global memory by their
-// only writer), then per layer the pointwise backward by units, and after a
-// barrier that makes every dgates column visible, each CTA computes BP and
-// WG for its own rows only (as K4), so dU, dW and dW_feed need no atomics;
-// dgates and the own weight rows are streamed through shared memory in
-// column chunks with cp.async, WG keeps all 2 x J own rows of a column in
-// registers and BP register-tiles (2 rows x J units) with 16-byte loads.
-// A dropped unit's row gets x = 0 in WG and a factor 0 on its BP output,
-// which keeps both branch-free; its CTA's rows of the four weight
-// gradients accumulate in shared memory. The backward takes J <= 4 units
-// per CTA (H <= 528 on 132 SMs), B <= 256 and H % 4 == 0, and both entry
-// points refuse a shape whose shared-memory plan does not fit (the wrapper
-// raises). Data written by other
+// Backward (reverse time; K8, dec_bwd_kernel below): the grid of K4's
+// backward (csrc/scan_exchange.cuh: P clusters of Q CTAs, J units a CTA).
+// The readout backward is owned by units (their rows of w_comb resident,
+// dpre staged), the attention backward by batch rows, then per layer the
+// pointwise backward by units and BP through the cluster exchange of K4
+// (tagged partial sums, no grid-wide barrier), three barriers of all CTAs
+// on an L2 counter a step. The weight gradients (dW_feed, dU, dW, dW_comb)
+// and d enc_proj / d enc_out, which do not feed the recurrence, are
+// products over the T x B pairs after the scan, each output summed by one
+// thread in a fixed order: no atomics, a second launch gives the same bits.
+// A dropped unit gets x = 0 in WG and no BP partial. The backward takes
+// B <= 256, H % 4 == 0 and at most 8 units a CTA (H <= 960 on 120 CTAs);
+// both entry points refuse a shape whose shared-memory plan does not fit
+// (the wrapper raises). Data written by other
 // CTAs in the same launch is read through L2 only (__ldcg, cp.async.cg).
 // No fast-math: score_bias is -1e30 and the softmax subtracts its max.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <algorithm>
+
+#include "scan_exchange.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -80,7 +83,11 @@ struct BwdArgs {
   const int* lens;
   SiteArg sites[2 * NL];
   float *dgx0, *dus, *dws, *dbs, *dwf, *dwc, *dep, *deo, *dh0, *dc0, *df0;
-  float *dgs, *dpre, *dctx, *dcur;   // scratch
+  // scratch: layer 1's dgates (T, B, 4H); dpre, dctx (T, B, H); dcur (B, H);
+  // ds (T, B, S); ctx (T, B, H) = alpha_t enc_out, recomputed in B
+  float *dgs, *dpre, *dctx, *dcur, *dss, *ctxs;
+  unsigned long long* ring;   // the zeroed exchange (kernels/decoder_scan.py)
+  int Q, J;                   // clusters of Q CTAs, J units a CTA
 };
 
 namespace {
@@ -88,11 +95,29 @@ namespace {
 constexpr int NT = 256;          // threads per CTA
 constexpr int RB = 32;           // forward rows per staged chunk
 constexpr int RBP = RB + 4;      // padded row stride of a staged chunk
-constexpr int RBA = 16;          // backward (readout) rows per staged chunk
-constexpr int RBAP = RBA + 4;
-constexpr int JP = 4;            // most hidden units a CTA owns (backward tiles)
-constexpr int HPT = 4;           // most hidden units per thread (backward, H <= 4 NT)
+constexpr int RA = 32;           // backward: dpre rows per staged chunk (readout)
+constexpr int KSA = NT / RA;     // backward: K-split of the readout
+constexpr int JMAX = 8;          // backward: most hidden units a CTA owns
+constexpr int BC = 64;           // backward: dgates rows per cluster gather
+constexpr int NFD = 12;          // backward: residual fields a (row, unit), both layers
 constexpr size_t SMEM_MAX = 227 * 1024;
+
+// Built with -DDEC_PHASES (launch/scan_bench.py --phases), the backward adds
+// the SM cycles thread 0 of each CTA spends in each phase of a step to
+// g_phase[CTA][phase]; otherwise the macros are empty.
+#ifdef DEC_PHASES
+__device__ unsigned long long g_phase[1024][16];
+#define PHASE_START() long long ph_t = clock64()
+#define PHASE(i)                                                         \
+  if (threadIdx.x == 0) {                                                \
+    const long long ph_n = clock64();                                    \
+    g_phase[blockIdx.x][i] += (unsigned long long)(ph_n - ph_t);         \
+    ph_t = ph_n;                                                         \
+  }
+#else
+#define PHASE_START()
+#define PHASE(i)
+#endif
 
 __host__ __device__ inline size_t al4(size_t n) { return (n + 3) & ~size_t(3); }
 
@@ -108,21 +133,6 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-__device__ __forceinline__ void cp_async16(float* smem_dst, const float* gmem_src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem_src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N committed groups of this thread are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Site i's weight: 0 -> W_feed, 1+l -> U_l, nl+l -> W_l (l >= 1).
@@ -426,476 +436,544 @@ __global__ void __launch_bounds__(NT) dec_fwd_kernel(FwdArgs a, int J) {
 // K8: backward
 // ---------------------------------------------------------------------------
 
-__host__ __device__ size_t bwd_region(const BwdArgs& a, int ch) {
-  size_t n = 2 * (size_t)a.B * (ch + 4);     // two dgates chunk buffers
-  const size_t cand[4] = {(size_t)a.H * RBAP, (size_t)NT * RBA, 2 * (size_t)a.H + 2 * a.S,
-                          (size_t)NT * 2 * JP};
-  for (size_t c : cand) n = c > n ? c : n;
-  return al4(n);
+// The backward's union region (floats): a chunk of dpre rows (readout);
+// phase B's vectors; a chunk of the cluster's dgates rows and, from
+// bwd_wofs on, the staged weight blocks of a layer's two sites (BP).
+// phase B's vectors (dctx, h, alpha, ds rows), then its partial sums (8
+// warps x 128 float4 contexts, or NT float4 of dcur)
+__host__ __device__ inline size_t bwd_bvec(int H, int S) { return al4(2 * (size_t)H + 2 * S); }
+__host__ __device__ inline size_t bwd_wofs(int B, int H, int S, int Q, int J) {
+  const size_t b = (size_t)(((B < BC ? B : BC) + 15) & ~15) * (clu_cols8(Q, J) + 4);
+  const size_t c = bwd_bvec(H, S) + 16 * (size_t)NT;   // B's partial sums
+  return al4(b > c ? b : c);
+}
+__host__ __device__ inline size_t bwd_xregion(int B, int H, int S, int Q, int J) {
+  const int P = ((H + J - 1) / J + Q - 1) / Q;
+  const size_t a = (size_t)(B < RA ? B : RA) * (H + 4);
+  const size_t w = bwd_wofs(B, H, S, Q, J) + 2 * (size_t)P * J * (clu_cols8(Q, J) + 4);
+  return al4(a > w ? a : w);
 }
 
-size_t bwd_smem(const BwdArgs& a, int J, int ch) {
-  const size_t BJ = (size_t)a.B * J, G = 4 * (size_t)a.H;
-  size_t n = 2 * (size_t)NL * J * G;
-  n += bwd_region(a, ch) + 4 * JP * (size_t)(ch + 4) + 2 * JP * (size_t)a.B;
-  n += al4(3 * NL * BJ + 2 * BJ + 4 * BJ + 4 * (size_t)(NL - 1) * J + 2 * BJ);
-  return sizeof(float) * n + sizeof(int) * 2 * (size_t)J;
+// Bytes of shared memory; `pre`: with the residual prefetch buffers.
+size_t bwd_smem(const BwdArgs& a, int Q, int J, bool pre) {
+  const size_t P = ((a.H + J - 1) / J + Q - 1) / Q, BJ = (size_t)a.B * J;
+  const size_t f = 2 * (size_t)J * (a.H + 4) + bwd_xregion(a.B, a.H, a.S, Q, J) +
+                   (size_t)KSA * RA * 2 * J + 8 * J * ((a.B + 3) & ~size_t(3)) +
+                   (pre ? 2 * NFD * BJ : 0) + 8 * BJ +
+                   36 * (size_t)J;
+  const size_t ints = 8 * P * J + 4 + 8 * (size_t)J + a.B + 128;
+  return std::max(4 * f + 4 * ints, WG_SMEM);
 }
 
-// The CTA's rows of the 2nl weight gradients accumulate in shared memory
-// (rows are owned, so no atomics) and are written out once at the end.
-__global__ void __launch_bounds__(NT) dec_bwd_kernel(BwdArgs a, int J, int ch) {
-  cg::grid_group grid = cg::this_grid();
+// Grid: P clusters of Q CTAs, CTA i owning the J units [i J, i J + J)
+// (csrc/scan_exchange.cuh). Per step r, in reverse time:
+//   A  readout backward: dctx, dcur = dpre_r @ w_comb^T at the own units
+//      (their 2J rows of w_comb in shared memory, dpre_r staged in chunks
+//      of 32 rows), then a barrier of all CTAs;
+//   B  attention backward, one batch row a CTA: ds_r (saved for d enc_proj)
+//      and the context ctx_r (for dW_comb) on the same loads of enc_out, and
+//      dcur += ds @ enc_proj, then a barrier;
+//   C  per layer, top down: the pointwise backward of the own units (dh
+//      with the BP partials of U_l from step r + 1, polled at its end, and,
+//      at layer 0, of W_1 from this step), a cluster.sync() and a gather of
+//      the cluster's dgates, then the BP partials of the layer's two sites
+//      (U_l, and W_1 or W_feed; their weight blocks staged in shared memory
+//      while the layer's pointwise runs), published as tagged words on four
+//      channels (U_0, U_1, W_1, W_feed; two slots each);
+//   end: dfeed of the own units (W_feed's partials) and this step's U_l
+//      partials, their loads in flight together; dpre_{r-1}; a barrier.
+// The barriers of every step keep the two-slot channels safe. After the
+// scan the weight gradients run as products over the T x B pairs
+// (csrc/scan_exchange.cuh wg_pass): dW_feed, dU_0, dU_1, dW_1, dW_comb's
+// rows ([ctx ; h], the context recomputed in B on enc_out's loads: the
+// forward does not store it), d enc_out[b] = sum_t alpha_t[b]^T dctx_t[b]
+// and d enc_proj[b] = sum_t ds_t[b]^T h_t[b].
+__global__ void __launch_bounds__(NT, 1) dec_bwd_kernel(BwdArgs a, int pre) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int T = a.T, B = a.B, H = a.H, S = a.S, G = 4 * H;
+  const int T = a.T, B = a.B, H = a.H, S = a.S, G = 4 * H, J = a.J, Q = a.Q;
+  const int P = ((H + J - 1) / J + Q - 1) / Q;
   constexpr int nl = NL;
   const size_t HG = (size_t)H * G;
-  const int j0 = blockIdx.x * J;
-  const int Jc = min(J, H - j0);
-  const int BJ = B * J;
-  const int chp = ch + 4;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  float* dWr = smem;                                              // 2nl x J x G
-  float* R = dWr + 2 * (size_t)nl * J * G;                        // shared region
-  float* wr = R + bwd_region(a, ch);                              // 2 x 2 x JP x chp
-  float* xw = wr + 4 * JP * (size_t)chp;                          // 2 x B x JP
-  float* dhc = xw + 2 * JP * (size_t)B;                           // nl x B x J
-  float* dhin = dhc + nl * BJ;                                    // nl x B x J
-  float* dcc = dhin + nl * BJ;                                    // nl x B x J
-  float* dfo = dcc + nl * BJ;                                     // B x J
-  float* pf = dfo + BJ;                                           // B x J
-  float* dgo = pf + BJ;                                           // B x 4J
-  float* dbo = dgo + 4 * BJ;                                      // (nl-1) x 4J
-  float* catv = dbo + 4 * (nl - 1) * J;                           // B x 2J
-  int* flag = reinterpret_cast<int*>(catv + 2 * BJ);             // 2 x J
-  const SiteArg off{0, 0, 1, 1.f, nullptr, nullptr};
+  const Clu L(Q, J, P, H);
+  const int j0 = L.j0, Jc = L.Jc, BJ = B * J, PJ = P * J, Bp = (B + 3) & ~3;
+  const int ldh = H + 4, ldc = clu_cols8(Q, J) + 4, H4 = H / 4;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  float* wcs = smem;                                         // 2J x ldh rows of w_comb
+  float* X = wcs + 2 * (size_t)J * ldh;                      // union region
+  float* wst = X + bwd_wofs(B, H, S, Q, J);                  // 2 x PJ x ldc staged weights
+  float* redA = X + bwd_xregion(B, H, S, Q, J);              // KSA x RA x 2J
+  float* dgo = redA + (size_t)KSA * RA * 2 * J;              // 2 x 4J x Bp own dgates
+  float* resb = dgo + 8 * (size_t)J * Bp;                    // pre: 2 x NFD x B x J
+  float* dhc = resb + (pre ? 2 * NFD * (size_t)BJ : 0);      // nl x B x J
+  float* dcc = dhc + 2 * BJ;                                 // nl x B x J
+  float* dfo = dcc + 2 * BJ;                                 // B x J
+  float* pf = dfo + BJ;                                      // B x J
+  float* dbo = pf + BJ;                                      // 4J
+  float* dbp = dbo + 4 * J;                                  // 8 x 4J
+  float* uin = dbp + 32 * J;                                 // nl x B x J
+  int* kl = reinterpret_cast<int*>(uin + 2 * BJ);            // 4 sites x PJ (indices)
+  int* ku = kl + 4 * PJ;                                     // 4 sites x PJ (unit ids)
+  int* nkl = ku + 4 * PJ;                                    // 4
+  int* flg = nkl + 4;                                        // 4 sites x 2 x J
+  int* lns = flg + 8 * J;                                    // B
+  int* wsum = lns + B;                                       // 4 x 32: warps' kept counts
+  const size_t chw = 2 * (size_t)P * B * H;                  // words of a channel
+  u64* ring = a.ring;
+  unsigned* bar = reinterpret_cast<unsigned*>(ring + 4 * chw + 2 * (size_t)P * Q);
+  float* keep = reinterpret_cast<float*>(ring + 4 * chw + 2 * (size_t)P * Q + 2);  // 4 x T x H
+  unsigned nbar = 0;
+  enum { CH_U0 = 0, CH_U1 = 1, CH_W1 = 2, CH_F = 3 };
+  // channel ch's slot of step r (cluster c's block of it: + c B H)
+  auto chan = [&](int ch, int r) { return ring + ch * chw + (size_t)(r & 1) * P * B * H; };
+  const float* hs1 = a.hs + (size_t)(nl - 1) * T * B * H;    // the top layer's h
 
-  auto drow = [&](int i, int q) -> float* { return dWr + ((size_t)i * J + q) * G; };
-  auto act_of = [&](int r, int b) { return !a.ragged || r < a.lens[b]; };
+  // site i kept own unit q at row-step t (flags set at step t)
+  auto kept = [&](int i, int t, int q) {
+    return q < Jc && (a.sites[i].mode != 1 || flg[(i * 2 + (t & 1)) * J + q] == t);
+  };
+  // BP factor of site i at step t for (b, j)
+  auto fct = [&](int i, int t, int b, int j) {
+    const SiteArg& st = a.sites[i];
+    if (st.mode == 0) return 1.f;
+    if (st.mode == 1) return st.scale;
+    return st.mask[((size_t)(st.rows == 1 ? 0 : t) * B + b) * H + j] * st.scale;
+  };
 
-  // ---- init: carries from the final cotangents, zeroed accumulators ----
+  // ---- init ----
+#pragma unroll 1
+  for (int e = tid; e < 2 * J * H; e += NT) {
+    const int o = e / H, h = e - o * H, q = o % J;
+    wcs[(size_t)o * ldh + h] = q < Jc ? a.wc[(size_t)((o < J ? 0 : H) + j0 + q) * H + h] : 0.f;
+  }
+#pragma unroll 1
+  for (int e = tid; e < 8 * J * Bp; e += NT) dgo[e] = 0.f;
+#pragma unroll 1
+  for (int b = tid; b < B; b += NT) lns[b] = a.ragged ? a.lens[b] : T;
+#pragma unroll 1
+  for (int e = tid; e < 8 * J; e += NT) flg[e] = -1;
+#pragma unroll 1
+  for (int e = tid; e < 4 * J; e += NT) dbo[e] = 0.f;
+#pragma unroll 1
+  for (int e = tid; e < 2 * BJ; e += NT) uin[e] = 0.f;
+  int nk_all = 0;   // S_q's units in H: an ascending prefix of the indices
+  while (nk_all < PJ && L.unit(nk_all) < H) ++nk_all;
+#pragma unroll 1
+  for (int i = 0; i < 4; ++i)
+    if (a.sites[i].mode != 1)
+      for (int s = tid; s < nk_all; s += NT) {
+        kl[i * PJ + s] = s;
+        ku[i * PJ + s] = L.unit(s);
+      }
+  const Div dB(B), dJc(Jc), dBJc(B * Jc), dH4(H4), d2J(2 * J), d4J(4 * J);
+  if (tid < 4) nkl[tid] = a.sites[tid].mode != 1 ? nk_all : 0;
+  __syncthreads();
+#pragma unroll 1
   for (int e = tid; e < BJ; e += NT) {
-    const int b = e / J, q = e % J;
+    const int b = e / J, q = e % J, j = j0 + q;
     const bool ok = q < Jc;
-    const int j = j0 + q;
     for (int l = 0; l < nl; ++l) {
       dhc[l * BJ + e] = ok ? a.dhT[((size_t)l * B + b) * H + j] : 0.f;
       dcc[l * BJ + e] = ok ? a.dcT[((size_t)l * B + b) * H + j] : 0.f;
-      dhin[l * BJ + e] = 0.f;
     }
     dfo[e] = ok ? a.dfT[(size_t)b * H + j] : 0.f;
+    pf[e] = 0.f;
     if (ok) {
       const size_t o = ((size_t)(T - 1) * B + b) * H + j;
       const float ht = a.htil[o];
-      a.dpre[(size_t)b * H + j] = act_of(T - 1, b) ? (a.dy[o] + dfo[e]) * (1.f - ht * ht) : 0.f;
+      a.dpre[o] = T - 1 < lns[b] ? (a.dy[o] + dfo[e]) * (1.f - ht * ht) : 0.f;
     }
   }
-  for (int e = tid; e < 4 * JP * chp; e += NT) wr[e] = 0.f;
-  for (int e = tid; e < 2 * JP * B; e += NT) xw[e] = 0.f;
-  for (int i = 0; i < 2 * nl; ++i)
-    for (int e = tid; e < Jc * G; e += NT) drow(i, e / G)[e % G] = 0.f;
-  for (int e = tid; e < 4 * (nl - 1) * J; e += NT) dbo[e] = 0.f;
-  for (int e = tid; e < 2 * Jc * H; e += NT) {
-    const int i = e / H, h = e % H, q = i % Jc;
-    a.dwc[(size_t)((i < Jc ? 0 : H) + j0 + q) * H + h] = 0.f;
-  }
-  for (int b = blockIdx.x; b < B; b += gridDim.x)
-    for (int e = tid; e < S * H; e += NT) {
-      a.dep[(size_t)b * S * H + e] = 0.f;
-      a.deo[(size_t)b * S * H + e] = 0.f;
+
+  // step r's residuals of the own units, both layers (gates, c_r, c_{r-1}),
+  // into buffer r & 1
+  auto prefetch = [&](int r) {
+    if (!pre) {
+      cp_commit();   // one group a call, empty or not
+      return;
     }
-  __threadfence();
-  grid.sync();
+    float* dst = resb + (size_t)(r & 1) * NFD * BJ;
+#pragma unroll 1
+    for (int e = tid; e < NFD * B * Jc; e += NT) {
+      const int f = dBJc.q(e), bq = e - f * B * Jc, b = dJc.q(bq), q = bq - b * Jc;
+      const int l = f / 6, g = f - l * 6, j = j0 + q;
+      const size_t row = ((size_t)l * T + r) * B + b;
+      const float* src = g < 4 ? a.gates + row * G + (size_t)g * H + j
+                       : g == 4 ? a.cs + row * H + j
+                       : r > 0 ? a.cs + (row - B) * H + j
+                               : a.c0 + ((size_t)l * B + b) * H + j;
+      cp4(dst + (size_t)f * BJ + b * J + q, src, true);
+    }
+    cp_commit();
+  };
+  // residual g (gates 0-3, c_r 4, c_{r-1} 5) of layer l for own (b, q)
+  auto resid = [&](int r, int l, int g, int b, int q) {
+    if (pre) return resb[((size_t)(r & 1) * NFD + 6 * l + g) * BJ + b * J + q];
+    const int j = j0 + q;
+    const size_t row = ((size_t)l * T + r) * B + b;
+    if (g < 4) return a.gates[row * G + (size_t)g * H + j];
+    if (g == 4) return a.cs[row * H + j];
+    return r > 0 ? a.cs[(row - B) * H + j] : a.c0[((size_t)l * B + b) * H + j];
+  };
+  prefetch(T - 1);
+  grid_barrier(bar, ++nbar);
 
-  const int NC = 2 * J, SA = NT / NC;
-  const int ca = tid % NC, sa_ = tid / NC, qa = ca % J;
-  const bool wa = sa_ < SA && qa < Jc;
-  const size_t rowa = (ca < J ? 0 : H) + j0 + (qa < Jc ? qa : 0);
-  // BP tiles of C.2: (site p, rows bp and bp + nbp) x all JP own units
-  const int nbp = (B + 1) / 2, tiles = 2 * nbp, KS = NT / tiles;
-  const int tile = tid % tiles, ks = tid / tiles;
-  const bool bp_ok = ks < KS;
-  const int tp = tile / nbp, tb0 = tile % nbp, tb1 = tb0 + nbp;
-
+  PHASE_START();
   for (int r = T - 1; r >= 0; --r) {
-    // ---- phase A: readout backward, owned by units (dctx, dcur cols; dW_comb rows) ----
-    // [ctx ; h_top] at the own units: ctx[b, j] = sum_s alpha[b, s] eo[b, s, j]
-    // recomputed with (row, source slice) per thread, then summed over slices
-    {
-      const int SC = NT / B, b = tid % B, sc = tid / B;
-      float part[JP] = {0.f, 0.f, 0.f, 0.f};
-      if (sc < SC) {
-        const float* al = a.alpha + ((size_t)r * B + b) * S;
-        const float* eo = a.eo + (size_t)b * S * H + j0;
-        int qo[JP];                  // in-range column offsets, no branches
-#pragma unroll
-        for (int q = 0; q < JP; ++q) qo[q] = min(q, Jc - 1);
-#pragma unroll 4
-        for (int s = sc; s < S; s += SC) {
-          const float w = __ldg(al + s);
-#pragma unroll
-          for (int q = 0; q < JP; ++q)
-            part[q] = fmaf(w, __ldg(eo + (size_t)s * H + qo[q]), part[q]);
-        }
-#pragma unroll
-        for (int q = 0; q < JP; ++q) R[((size_t)sc * B + b) * JP + q] = part[q];
+    cp_wait<0>();
+    __syncthreads();
+    // dpre_r's rows b0 .. b0 + RA for A, one copy group
+    auto stage_dpre = [&](int b0) {
+      const int nb = min(RA, B - b0);
+#pragma unroll 1
+      for (int e = tid; e < nb * H4; e += NT) {
+        const int bb = dH4.q(e), m = e - bb * H4;
+        cp16(X + (size_t)bb * ldh + 4 * m, a.dpre + ((size_t)r * B + b0 + bb) * H + 4 * m, true);
+      }
+      cp_commit();
+    };
+    stage_dpre(0);   // before the residuals of step r - 1, which A does not wait for
+    if (r > 0) prefetch(r - 1);
+    else cp_commit();
+    // kept units of S_q of each structured site at row r, in ids order; own
+    // ones flagged
+    int kmax = 0;
+    for (int i = 0; i < 4; ++i)
+      if (a.sites[i].mode == 1) kmax = max(kmax, a.sites[i].k);
+    if (kmax > 0)
+      kept_lists<4>(
+          kmax,
+          [&](int i, int kk) {
+            const SiteArg& st = a.sites[i];
+            return st.mode == 1 && kk < st.k
+                       ? __ldg(st.ids + (size_t)(st.rows == 1 ? 0 : r) * st.k + kk) : -1;
+          },
+          [&](int i, int u) {
+            flg[(i * 2 + (r & 1)) * J + u - j0] = r;
+            keep[((size_t)i * T + (a.sites[i].rows == 1 ? 0 : r)) * H + u] = 1.f;
+          },
+          [&](int i) { return a.sites[i].mode == 1; }, L, kl, ku, PJ, nkl, wsum);
+    // ---- A: dctx, dcur = dpre_r @ w_comb^T at the own units ----
+#pragma unroll 1
+    for (int b0 = 0; b0 < B; b0 += RA) {
+      const int nb = min(RA, B - b0);
+      if (b0 == 0) {
+        cp_wait<1>();
+      } else {
+        stage_dpre(b0);
+        cp_wait<0>();
       }
       __syncthreads();
-      for (int e = tid; e < B * NC; e += NT) {
-        const int bb = e / NC, c = e % NC, q = c % J;
-        float v = 0.f;
-        if (q < Jc) {
-          if (c < J) {
-            for (int s2 = 0; s2 < SC; ++s2) v += R[((size_t)s2 * B + bb) * JP + q];
-          } else {
-            v = a.hs[(((size_t)(nl - 1) * T + r) * B + bb) * H + j0 + q];
+      const int bb = tid % RA, ks = tid / RA;
+      float acc[2 * JMAX];
+#pragma unroll
+      for (int o = 0; o < 2 * JMAX; ++o) acc[o] = 0.f;
+      if (bb < nb) {
+        const float4* xr = reinterpret_cast<const float4*>(X + (size_t)bb * ldh);
+#pragma unroll 2
+        for (int m = ks; m < H4; m += KSA) {
+          const float4 x = xr[m];
+#pragma unroll
+          for (int o = 0; o < 2 * JMAX; ++o) {
+            if (o < 2 * J) {
+              const float4 w = reinterpret_cast<const float4*>(wcs + (size_t)o * ldh)[m];
+              acc[o] = fmaf(x.x, w.x, fmaf(x.y, w.y, fmaf(x.z, w.z, fmaf(x.w, w.w, acc[o]))));
+            }
           }
         }
-        catv[e] = v;
       }
+#pragma unroll
+      for (int o = 0; o < 2 * JMAX; ++o)
+        if (o < 2 * J) redA[((size_t)ks * RA + bb) * 2 * J + o] = acc[o];
       __syncthreads();
-    }
-    // dW_comb[own rows i, h] accumulates in registers over the row chunks:
-    // h = tid + k*NT (k < HPT), i < 2J
-    float dwa[HPT][2 * JP];
-#pragma unroll
-    for (int k = 0; k < HPT; ++k)
-#pragma unroll
-      for (int i = 0; i < 2 * JP; ++i) dwa[k][i] = 0.f;
-    for (int b0 = 0; b0 < B; b0 += RBA) {
-      float acc[RBA];
-#pragma unroll
-      for (int bb = 0; bb < RBA; ++bb) acc[bb] = 0.f;
-      stage_rows<RBA, RBAP>(R, flag, a.dpre, off, r, B, H, b0);
-      if (wa) accum<RBA, RBAP>(acc, R, H, nullptr, false, a.wc, 1, rowa * H, sa_, SA);
-      const int nb = min(RBA, B - b0);
-#pragma unroll
-      for (int k = 0; k < HPT; ++k) {
-        const int h = tid + k * NT;
-        if (h >= H) continue;
-        for (int bb = 0; bb < nb; ++bb) {
-          const float d = R[(size_t)h * RBAP + bb];
-          const float* cv = catv + (b0 + bb) * NC;
-#pragma unroll
-          for (int i = 0; i < 2 * JP; ++i)
-            if (i < NC) dwa[k][i] = fmaf(cv[i], d, dwa[k][i]);
-        }
-      }
-      __syncthreads();
-      if (sa_ < SA) {
-#pragma unroll
-        for (int bb = 0; bb < RBA; ++bb) R[((size_t)sa_ * RBA + bb) * NC + ca] = acc[bb];
-      }
-      __syncthreads();
-      for (int e = tid; e < RBA * NC; e += NT) {
-        const int bb = e / NC, c = e % NC, q = c % J, b = b0 + bb;
-        if (b >= B || q >= Jc) continue;
+#pragma unroll 1
+      for (int e = tid; e < nb * 2 * J; e += NT) {
+        const int eb = d2J.q(e), o = e - eb * 2 * J, q = o < J ? o : o - J, b = b0 + eb;
+        if (q >= Jc) continue;
         float v = 0.f;
-        for (int s2 = 0; s2 < SA; ++s2) v += R[((size_t)s2 * RBA + bb) * NC + c];
-        (c < J ? a.dctx : a.dcur)[(size_t)b * H + j0 + q] = v;
+        for (int k2 = 0; k2 < KSA; ++k2) v += redA[((size_t)k2 * RA + eb) * 2 * J + o];
+        if (o < J) a.dctx[((size_t)r * B + b) * H + j0 + q] = v;
+        else a.dcur[(size_t)b * H + j0 + q] = v;
       }
       __syncthreads();
     }
-#pragma unroll
-    for (int k = 0; k < HPT; ++k) {
-      const int h = tid + k * NT;
-      if (h >= H) continue;
-#pragma unroll
-      for (int i = 0; i < 2 * JP; ++i) {
-        const int qi = i % J;
-        if (i < NC && qi < Jc) a.dwc[(size_t)((i < J ? 0 : H) + j0 + qi) * H + h] += dwa[k][i];
-      }
-    }
-    __threadfence();
-    grid.sync();
+    PHASE(0);
+    grid_barrier(bar, ++nbar);
+    PHASE(1);
+    // the top layer's weight blocks arrive while B runs
+    stage_block(wst, ldc, site_w(a.wf, a.us, a.ws, nl, nl, HG), L);
+    stage_block(wst + (size_t)PJ * ldc, ldc, site_w(a.wf, a.us, a.ws, nl, 2 * nl - 1, HG), L);
+    cp_commit();
 
-    // ---- phase B: attention backward, one batch row per CTA ----
+    // ---- B: attention backward, one batch row a CTA ----
+#pragma unroll 1
     for (int b = blockIdx.x; b < B; b += gridDim.x) {
-      float* dct = R;
-      float* cur = R + H;
-      float* al = R + 2 * H;
+      float* dct = X;
+      float* cur = X + H;
+      float* al = X + 2 * H;
       float* ds = al + S;
       for (int h = tid; h < H; h += NT) {
-        dct[h] = __ldcg(a.dctx + (size_t)b * H + h);
-        cur[h] = a.hs[(((size_t)(nl - 1) * T + r) * B + b) * H + h];
+        dct[h] = __ldcg(a.dctx + ((size_t)r * B + b) * H + h);
+        cur[h] = hs1[((size_t)r * B + b) * H + h];
       }
       for (int s = tid; s < S; s += NT) al[s] = a.alpha[((size_t)r * B + b) * S + s];
       __syncthreads();
-      for (int s = warp; s < S; s += NT / 32) {
-        const float* e = a.eo + ((size_t)b * S + s) * H;
-        float d0 = 0.f, d1 = 0.f;
-        int h = lane;
-        for (; h + 32 < H; h += 64) {
-          d0 = fmaf(dct[h], __ldg(e + h), d0);
-          d1 = fmaf(dct[h + 32], __ldg(e + h + 32), d1);
+      // dalpha[s] = dctx . enc_out[b, s] and, on the same loads, this step's
+      // context ctx = alpha enc_out[b] (for dW_comb after the scan): a warp
+      // 4 positions at once, its lanes along the quads of h (at most 4 a
+      // lane, H <= 512; else a second pass), every load of a round issued
+      // first; the warps' context sums added in warp order
+      const float4* dct4 = reinterpret_cast<const float4*>(dct);
+      const float4* eo4 = reinterpret_cast<const float4*>(a.eo) + (size_t)b * S * H4;
+      float4* cxp = reinterpret_cast<float4*>(X + bwd_bvec(H, S));   // 8 x H4 partial contexts
+#pragma unroll 1
+      for (int mb = 0; mb < H4; mb += 128) {
+        float4 cx[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) cx[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 1
+        for (int s0 = warp; s0 < S; s0 += 4 * (NT / 32)) {
+          float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int m = mb + lane + 32 * i;
+            if (m >= H4) break;
+            float4 ev[4];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              const int s = s0 + k * (NT / 32);
+              ev[k] = s < S ? __ldg(eo4 + (size_t)s * H4 + m) : make_float4(0.f, 0.f, 0.f, 0.f);
+            }
+            const float4 dv = dct4[m];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              const int s = s0 + k * (NT / 32);
+              const float w = s < S ? al[s] : 0.f;
+              d[k] = fmaf(dv.x, ev[k].x, fmaf(dv.y, ev[k].y, fmaf(dv.z, ev[k].z, fmaf(dv.w, ev[k].w, d[k]))));
+              cx[i] = make_float4(fmaf(w, ev[k].x, cx[i].x), fmaf(w, ev[k].y, cx[i].y),
+                                  fmaf(w, ev[k].z, cx[i].z), fmaf(w, ev[k].w, cx[i].w));
+            }
+          }
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float v = warp_sum(d[k]);
+            const int s = s0 + k * (NT / 32);
+            if (lane == 0 && s < S) ds[s] = mb == 0 ? v : ds[s] + v;
+          }
         }
-        if (h < H) d0 = fmaf(dct[h], __ldg(e + h), d0);
-        const float d = warp_sum(d0 + d1);
-        if (lane == 0) ds[s] = d;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int m = mb + lane + 32 * i;
+          if (m < H4) cxp[warp * 128 + m - mb] = cx[i];
+        }
+        __syncthreads();
+        for (int m = tid; m < H4 - mb && m < 128; m += NT) {
+          float4 v = cxp[m];
+          for (int w2 = 1; w2 < NT / 32; ++w2) {
+            const float4 x = cxp[w2 * 128 + m];
+            v = make_float4(v.x + x.x, v.y + x.y, v.z + x.z, v.w + x.w);
+          }
+          reinterpret_cast<float4*>(a.ctxs + ((size_t)r * B + b) * H)[mb + m] = v;
+        }
+        __syncthreads();
       }
-      __syncthreads();
       if (warp == 0) {
         float z = 0.f;
         for (int s = lane; s < S; s += 32) z += al[s] * ds[s];
         z = warp_sum(z);
         __syncwarp();
-        for (int s = lane; s < S; s += 32) ds[s] = al[s] * (ds[s] - z);
+        for (int s = lane; s < S; s += 32) {
+          const float v = al[s] * (ds[s] - z);
+          ds[s] = v;
+          a.dss[((size_t)r * B + b) * S + s] = v;
+        }
       }
       __syncthreads();
-      for (int h = tid; h < H; h += NT) {
-        float v = __ldcg(a.dcur + (size_t)b * H + h);
-        const float* ep = a.ep + (size_t)b * S * H + h;
-#pragma unroll 10
-        for (int s = 0; s < S; ++s) v = fmaf(ds[s], __ldg(ep + (size_t)s * H), v);
-        a.dcur[(size_t)b * H + h] = v;
-      }
-      // d enc_out[b] += alpha (x) dctx, d enc_proj[b] += dscores (x) h (H % 4 == 0)
-      float4* deo4 = reinterpret_cast<float4*>(a.deo + (size_t)b * S * H);
-      float4* dep4 = reinterpret_cast<float4*>(a.dep + (size_t)b * S * H);
-      const int H4 = H / 4;
-#pragma unroll 4
-      for (int e = tid; e < S * H4; e += NT) {
-        const int s = e / H4, h = (e % H4) * 4;
-        float4 o = __ldcg(deo4 + e), pp = __ldcg(dep4 + e);
-        const float as = al[s], dss = ds[s];
-        o.x = fmaf(as, dct[h], o.x);
-        o.y = fmaf(as, dct[h + 1], o.y);
-        o.z = fmaf(as, dct[h + 2], o.z);
-        o.w = fmaf(as, dct[h + 3], o.w);
-        pp.x = fmaf(dss, cur[h], pp.x);
-        pp.y = fmaf(dss, cur[h + 1], pp.y);
-        pp.z = fmaf(dss, cur[h + 2], pp.z);
-        pp.w = fmaf(dss, cur[h + 3], pp.w);
-        deo4[e] = o;
-        dep4[e] = pp;
-      }
-      __syncthreads();
-    }
-    __threadfence();
-    grid.sync();
-
-    // ---- per layer, top down ----
-    for (int l = nl - 1; l >= 0; --l) {
-      const int sA = 1 + l, sB = l > 0 ? nl + l : 0;
-      const SiteArg& stA = a.sites[sA];
-      const SiteArg& stB = a.sites[sB];
-      const int rowA = stA.rows == 1 ? 0 : r, rowB = stB.rows == 1 ? 0 : r;
-      // C.1: pointwise backward of the own units, all rows
-      for (int q = tid; q < 2 * J; q += NT) {
-        const SiteArg& st = q < J ? stA : stB;
-        flag[q] = st.mode == 1 ? 0 : (q % J < Jc);
-      }
-      __syncthreads();
-      for (int p = 0; p < 2; ++p) {
-        const SiteArg& st = p == 0 ? stA : stB;
-        const int row = p == 0 ? rowA : rowB;
-        if (st.mode == 1)
-          for (int kk = tid; kk < st.k; kk += NT) {
-            const int u = st.ids[(size_t)row * st.k + kk];
-            if (u >= j0 && u < j0 + Jc) flag[p * J + u - j0] = 1;
-          }
-      }
-      __syncthreads();
-      float* dgdst = l == 0 ? a.dgx0 + (size_t)r * B * G : a.dgs + (size_t)(l - 1) * B * G;
-      for (int e = tid; e < BJ; e += NT) {
-        const int b = e / J, q = e % J;
-        if (q >= Jc) {
-          for (int g2 = 0; g2 < 4; ++g2) dgo[b * 4 * J + g2 * J + q] = 0.f;
-          continue;
-        }
-        const int j = j0 + q;
-        const bool act = act_of(r, b);
-        const float dh = dhc[l * BJ + e] +
-                         (l == nl - 1 ? __ldcg(a.dcur + (size_t)b * H + j) : dhin[l * BJ + e]);
-        const float dc_in = dcc[l * BJ + e];
-        const float dh_c = act ? dh : 0.f, dc_c = act ? dc_in : 0.f;
-        const size_t gofs = (((size_t)l * T + r) * B + b) * G + j;
-        const size_t hofs = (((size_t)l * T + r) * B + b) * H + j;
-        const float ig = sigm(a.gates[gofs]), fg = sigm(a.gates[gofs + H]);
-        const float gt = tanhf(a.gates[gofs + 2 * (size_t)H]), og = sigm(a.gates[gofs + 3 * (size_t)H]);
-        const float cc = a.cs[hofs];
-        const float c_prev = r > 0 ? a.cs[hofs - (size_t)B * H] : a.c0[((size_t)l * B + b) * H + j];
-        const float tc = tanhf(cc);
-        const float dc = dc_c + dh_c * og * (1.f - tc * tc);
-        float dg[4];
-        dg[0] = dc * gt * ig * (1.f - ig);
-        dg[1] = dc * c_prev * fg * (1.f - fg);
-        dg[2] = dc * ig * (1.f - gt * gt);
-        dg[3] = dh_c * tc * og * (1.f - og);
-        float* dd = dgdst + (size_t)b * G + j;
+      // dcur[b] += ds @ enc_proj[b]: thread (quad m, part) over the
+      // positions part, part + np_, ...; the parts summed in order
+      {
+        const int np_ = NT / H4, m = tid % H4, part = tid / H4;
+        float4* pb = reinterpret_cast<float4*>(X + bwd_bvec(H, S));
+        if (part < np_) {
+          const float4* ep4 = reinterpret_cast<const float4*>(a.ep) + (size_t)b * S * H4 + m;
+          float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 1
+          for (int s0 = part; s0 < S; s0 += 13 * np_) {   // 13 loads in flight
+            float4 e[13];
 #pragma unroll
-        for (int g2 = 0; g2 < 4; ++g2) {
-          dd[(size_t)g2 * H] = dg[g2];
-          dgo[b * 4 * J + g2 * J + q] = dg[g2];
-        }
-        dcc[l * BJ + e] = dc * fg + (act ? 0.f : dc_in);
-        dhc[l * BJ + e] = act ? 0.f : dh;      // pass-through; BP is added in C.2
-        // WG inputs of the two sites, dropout folded in: structured x*scale
-        // on kept units and 0 elsewhere, dense x*mask*scale, off x
-        float xa = r > 0 ? a.hs[hofs - (size_t)B * H] : a.h0[((size_t)l * B + b) * H + j];
-        float xb;
-        if (l > 0) xb = a.hs[(((size_t)(l - 1) * T + r) * B + b) * H + j];
-        else xb = r > 0 ? a.htil[((size_t)(r - 1) * B + b) * H + j] : a.f0[(size_t)b * H + j];
-        xa *= stA.mode == 1 ? (flag[q] ? stA.scale : 0.f)
-            : stA.mode == 2 ? stA.mask[((size_t)rowA * B + b) * H + j] * stA.scale : 1.f;
-        xb *= stB.mode == 1 ? (flag[J + q] ? stB.scale : 0.f)
-            : stB.mode == 2 ? stB.mask[((size_t)rowB * B + b) * H + j] * stB.scale : 1.f;
-        xw[(size_t)b * JP + q] = xa;
-        xw[((size_t)B + b) * JP + q] = xb;
-        if (l == 0) pf[e] = act ? 0.f : a.dy[((size_t)r * B + b) * H + j] + dfo[e];
-      }
-      __syncthreads();
-      if (l > 0)
-        for (int e = tid; e < 4 * J; e += NT) {
-          float v = 0.f;
-          for (int b = 0; b < B; ++b) v += dgo[b * 4 * J + e];
-          dbo[(l - 1) * 4 * J + e] += v;
-        }
-      __threadfence();
-      grid.sync();
-
-      // C.2: BP into, and WG of, the own rows of both sites' weights over all
-      // dgates columns (unkept rows: x = 0 in WG, factor 0 on BP)
-      float bacc[2][JP];
+            for (int k = 0; k < 13; ++k) {
+              const int s = s0 + k * np_;
+              e[k] = s < S ? __ldg(ep4 + (size_t)s * H4) : make_float4(0.f, 0.f, 0.f, 0.f);
+            }
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int q = 0; q < JP; ++q) bacc[i][q] = 0.f;
-      const float* wpa = site_w(a.wf, a.us, a.ws, nl, sA, HG);
-      const float* wpb = site_w(a.wf, a.us, a.ws, nl, sB, HG);
-      // dgates and the own weight rows in column chunks, double-buffered:
-      // chunk i+1's copies are in flight while chunk i is computed
-      const int n4 = ch / 4, nch = (G + ch - 1) / ch;
-      auto issue = [&](int i) {
-        const int ch0 = i * ch, cw = min(ch, G - ch0);
-        float* Rb = R + (size_t)(i & 1) * B * chp;
-        float* wb = wr + (size_t)(i & 1) * 2 * JP * chp;
-        for (int e = tid; e < B * n4; e += NT) {
-          const int b = e / n4, c4 = (e % n4) * 4;
-          float* dst = Rb + (size_t)b * chp + c4;
-          if (c4 < cw) cp_async16(dst, dgdst + (size_t)b * G + ch0 + c4);
-          else dst[0] = dst[1] = dst[2] = dst[3] = 0.f;
-        }
-        for (int e = tid; e < 2 * Jc * n4; e += NT) {
-          const int p = e / (Jc * n4), q = (e / n4) % Jc, c4 = (e % n4) * 4;
-          float* dst = wb + ((size_t)p * JP + q) * chp + c4;
-          if (c4 < cw) cp_async16(dst, (p ? wpb : wpa) + (size_t)(j0 + q) * G + ch0 + c4);
-          else dst[0] = dst[1] = dst[2] = dst[3] = 0.f;
-        }
-        cp_async_commit();
-      };
-      issue(0);
-      for (int i = 0; i < nch; ++i) {
-        if (i + 1 < nch) {
-          issue(i + 1);
-          cp_async_wait<1>();
-        } else {
-          cp_async_wait<0>();
-        }
-        __syncthreads();
-        const int ch0 = i * ch, cw = min(ch, G - ch0);
-        const float* Rb = R + (size_t)(i & 1) * B * chp;
-        const float* wb = wr + (size_t)(i & 1) * 2 * JP * chp;
-        // WG: dW[j, c] += sum_b xw[b, j] * dg[b, c]; a thread takes one
-        // (site, column) and all JP own rows of it
-        const float4* xw4 = reinterpret_cast<const float4*>(xw);
-        for (int e = tid; e < 2 * cw; e += NT) {
-          const int p = e / cw, c = e % cw;
-          float w0 = 0.f, w1 = 0.f, w2 = 0.f, w3 = 0.f;
-#pragma unroll 4
-          for (int b = 0; b < B; ++b) {
-            const float g = Rb[(size_t)b * chp + c];
-            const float4 xv = xw4[p * B + b];
-            w0 = fmaf(xv.x, g, w0);
-            w1 = fmaf(xv.y, g, w1);
-            w2 = fmaf(xv.z, g, w2);
-            w3 = fmaf(xv.w, g, w3);
-          }
-          const int site = p ? sB : sA;
-          const float wq[JP] = {w0, w1, w2, w3};
-#pragma unroll
-          for (int q = 0; q < JP; ++q)
-            if (q < Jc) drow(site, q)[ch0 + c] += wq[q];
-        }
-        // BP: this thread's tile (site tp, rows tb0 and tb1) over its
-        // K-split of the chunk, 16-byte loads
-        if (bp_ok) {
-          const float4* g0 = reinterpret_cast<const float4*>(Rb + (size_t)tb0 * chp);
-          const float4* g1 = reinterpret_cast<const float4*>(Rb + (size_t)min(tb1, B - 1) * chp);
-          const float4* w4 = reinterpret_cast<const float4*>(wb + (size_t)tp * JP * chp);
-          const int chp4 = chp / 4;
-          for (int c4 = ks; c4 < cw / 4; c4 += KS) {
-            const float4 x0 = g0[c4], x1 = g1[c4];
-#pragma unroll
-            for (int q = 0; q < JP; ++q) {
-              const float4 w = w4[q * chp4 + c4];
-              bacc[0][q] += x0.x * w.x + x0.y * w.y + x0.z * w.z + x0.w * w.w;
-              bacc[1][q] += x1.x * w.x + x1.y * w.y + x1.z * w.z + x1.w * w.w;
+            for (int k = 0; k < 13; ++k) {
+              const int s = s0 + k * np_;
+              const float w = s < S ? ds[s] : 0.f;
+              v = make_float4(fmaf(w, e[k].x, v.x), fmaf(w, e[k].y, v.y), fmaf(w, e[k].z, v.z),
+                              fmaf(w, e[k].w, v.w));
             }
           }
+          pb[part * H4 + m] = v;
         }
         __syncthreads();
-      }
-      // reduce the BP K-splits; dropout factor; into the carries
-      if (bp_ok)
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int q = 0; q < JP; ++q) R[((size_t)ks * tiles + tile) * 2 * JP + i * JP + q] = bacc[i][q];
-      __syncthreads();
-      for (int e = tid; e < 2 * BJ; e += NT) {
-        const int p = e / BJ, b = (e % BJ) / J, q = e % J;
-        if (q >= Jc) continue;
-        const int tl = p * nbp + (b < nbp ? b : b - nbp), i = b < nbp ? 0 : 1;
-        float v = 0.f;
-        for (int k2 = 0; k2 < KS; ++k2) v += R[((size_t)k2 * tiles + tl) * 2 * JP + i * JP + q];
-        const SiteArg& st = p == 0 ? stA : stB;
-        v *= st.mode == 1 ? (flag[p * J + q] ? st.scale : 0.f)
-           : st.mode == 2 ? st.mask[((size_t)(p == 0 ? rowA : rowB) * B + b) * H + j0 + q] * st.scale
-                          : 1.f;
-        if (p == 0) dhc[l * BJ + b * J + q] += v;
-        else if (l > 0) dhin[(l - 1) * BJ + b * J + q] = v;
-        else dfo[b * J + q] = v;
+        if (tid < H4) {
+          float4 v = __ldcg(reinterpret_cast<const float4*>(a.dcur + (size_t)b * H) + tid);
+          for (int k2 = 0; k2 < np_; ++k2) {
+            const float4 x = pb[k2 * H4 + tid];
+            v = make_float4(v.x + x.x, v.y + x.y, v.z + x.z, v.w + x.w);
+          }
+          reinterpret_cast<float4*>(a.dcur + (size_t)b * H)[tid] = v;
+        }
       }
       __syncthreads();
     }
-    // dfeed carry (own units) and the next step's dpre
-    for (int e = tid; e < BJ; e += NT) {
-      const int b = e / J, q = e % J;
-      if (q >= Jc) continue;
-      const int j = j0 + q;
-      dfo[e] += pf[e];
+    PHASE(2);
+    grid_barrier(bar, ++nbar);
+    PHASE(3);
+
+    // ---- C: per layer, top down ----
+#pragma unroll 1
+    for (int l = nl - 1; l >= 0; --l) {
+      const int sA = 1 + l, sB = l > 0 ? nl + l : 0;
+      float* own = dgo + (size_t)(l & 1) * 4 * J * Bp;   // the layers alternate buffers
+      const u64* inW = chan(CH_W1, r);
+#pragma unroll 1
+      for (int e = tid; e < B * Jc; e += NT) {
+        const int q = dB.q(e), b = e - q * B, o = b * J + q, j = j0 + q;   // b fastest
+        const bool act = r < lns[b];
+        float dh = dhc[l * BJ + o];
+        if (l == nl - 1) dh += __ldcg(a.dcur + (size_t)b * H + j);
+        dh += uin[l * BJ + o];
+        if (l == 0 && kept(nl + 1, r, q))
+          dh += poll_sum(P, r + 1, [&](int c) { return inW + ((size_t)c * H + j) * B + b; }) *
+                fct(nl + 1, r, b, j);
+        const float dc_in = dcc[l * BJ + o];
+        const float dh_c = act ? dh : 0.f, dc_c = act ? dc_in : 0.f;
+        const float ig = sigm(resid(r, l, 0, b, q)), fg = sigm(resid(r, l, 1, b, q));
+        const float gt = tanhf(resid(r, l, 2, b, q)), og = sigm(resid(r, l, 3, b, q));
+        const float tc = tanhf(resid(r, l, 4, b, q)), c_prev = resid(r, l, 5, b, q);
+        const float dc = dc_c + dh_c * og * (1.f - tc * tc);
+        const float dg[4] = {dc * gt * ig * (1.f - ig), dc * c_prev * fg * (1.f - fg),
+                             dc * ig * (1.f - gt * gt), dh_c * tc * og * (1.f - og)};
+        float* dd = (l == 0 ? a.dgx0 : a.dgs) + ((size_t)r * B + b) * G + j;
+#pragma unroll
+        for (int g2 = 0; g2 < 4; ++g2) {
+          __stcs(dd + (size_t)g2 * H, dg[g2]);   // read again only after the scan
+          own[(size_t)(g2 * J + q) * Bp + b] = dg[g2];
+        }
+        dcc[l * BJ + o] = dc * fg + (act ? 0.f : dc_in);
+        dhc[l * BJ + o] = act ? 0.f : dh;      // pass-through; BP arrives next step
+        if (l == 0) pf[o] = act ? 0.f : a.dy[((size_t)r * B + b) * H + j] + dfo[o];
+      }
+      PHASE(4);
+      // own dgates visible to the cluster, the layer's weight blocks staged
+      cp_wait<0>();
+      cg::this_cluster().sync();
+      if (l > 0) {   // the upper layer's bias: 8 strided row sums, then their sum
+#pragma unroll 1
+        for (int e = tid; e < 32 * J; e += NT) {
+          const int part = d4J.q(e), c = e - part * 4 * J;
+          float v = 0.f;
+          for (int b = part; b < B; b += 8) v += own[(size_t)c * Bp + b];
+          dbp[e] = v;
+        }
+        __syncthreads();
+#pragma unroll 1
+        for (int e = tid; e < 4 * J; e += NT) {
+          float v = 0.f;
+          for (int k2 = 0; k2 < 8; ++k2) v += dbp[k2 * 4 * J + e];
+          dbo[e] += v;
+        }
+      }
+      PHASE(5);
+      const float* wA = site_w(a.wf, a.us, a.ws, nl, sA, HG);
+      const float* wB = site_w(a.wf, a.us, a.ws, nl, sB, HG);
+      u64* outA = chan(l ? CH_U1 : CH_U0, r) + (size_t)L.c * B * H;
+      u64* outB = chan(l ? CH_W1 : CH_F, r) + (size_t)L.c * B * H;
+#pragma unroll 1
+      for (int b0 = 0; b0 < B; b0 += BC) {
+        const int nb = min(BC, B - b0);
+        gather_cluster(X, ldc, own, Bp, L, b0, nb);
+        __syncthreads();
+        bp_partials<true>(X, ldc, wst, ldc, wA, kl + sA * PJ, ku + sA * PJ, nkl[sA], nb, L,
+                          outA, B, b0, r + 1);
+        bp_partials<true>(X, ldc, wst + (size_t)PJ * ldc, ldc, wB, kl + sB * PJ, ku + sB * PJ,
+                          nkl[sB], nb, L, outB, B, b0, r + 1);
+        __syncthreads();
+      }
+      if (l > 0) {   // layer 0's weight blocks arrive while its pointwise polls
+        stage_block(wst, ldc, site_w(a.wf, a.us, a.ws, nl, 1, HG), L);
+        stage_block(wst + (size_t)PJ * ldc, ldc, a.wf, L);
+        cp_commit();
+      }
+      PHASE(6);
+    }
+
+    // ---- end of step: dfeed of the own units, dpre_{r-1}, and this step's
+    // U_l partials (published before W_feed's) for step r - 1 and dh0 ----
+#pragma unroll 1
+    for (int e = tid; e < B * Jc; e += NT) {
+      const int q = dB.q(e), b = e - q * B, o = b * J + q, j = j0 + q;
+      const unsigned want[3] = {(unsigned)(r + 1), (unsigned)(r + 1), (unsigned)(r + 1)};
+      const bool on[3] = {kept(0, r, q), kept(1, r, q), kept(2, r, q)};
+      const u64* in[3] = {chan(CH_F, r), chan(CH_U0, r), chan(CH_U1, r)};
+      float v[3];
+      poll_sums<3>(P, want, on,
+                   [&](int c, int x) { return in[c] + ((size_t)x * H + j) * B + b; }, v);
+      dfo[o] = (on[0] ? v[0] * fct(0, r, b, j) : 0.f) + pf[o];
       if (r > 0) {
-        const size_t o = ((size_t)(r - 1) * B + b) * H + j;
-        const float ht = a.htil[o];
-        a.dpre[(size_t)b * H + j] = act_of(r - 1, b) ? (a.dy[o] + dfo[e]) * (1.f - ht * ht) : 0.f;
+        const size_t x = ((size_t)(r - 1) * B + b) * H + j;
+        const float ht = a.htil[x];
+        a.dpre[x] = r - 1 < lns[b] ? (a.dy[x] + dfo[o]) * (1.f - ht * ht) : 0.f;
       }
+      for (int l = 0; l < nl; ++l) uin[l * BJ + o] = on[1 + l] ? v[1 + l] * fct(1 + l, r, b, j) : 0.f;
     }
-    __syncthreads();
-    __threadfence();
-    grid.sync();
+    grid_barrier(bar, ++nbar);
+    PHASE(7);
   }
 
-  for (int e = tid; e < BJ; e += NT) {
-    const int b = e / J, q = e % J;
-    if (q >= Jc) continue;
-    const int j = j0 + q;
+  // dh0 with step 0's partials of U_l, dc0, df0, db
+#pragma unroll 1
+  for (int e = tid; e < B * Jc; e += NT) {
+    const int q = e / B, b = e - q * B, o = b * J + q, j = j0 + q;
     for (int l = 0; l < nl; ++l) {
-      a.dh0[((size_t)l * B + b) * H + j] = dhc[l * BJ + e];
-      a.dc0[((size_t)l * B + b) * H + j] = dcc[l * BJ + e];
+      a.dh0[((size_t)l * B + b) * H + j] = dhc[l * BJ + o] + uin[l * BJ + o];
+      a.dc0[((size_t)l * B + b) * H + j] = dcc[l * BJ + o];
     }
-    a.df0[(size_t)b * H + j] = dfo[e];
+    a.df0[(size_t)b * H + j] = dfo[o];
   }
-  for (int i = 0; i < 2 * nl; ++i) {
-    float* dw = i == 0 ? a.dwf : (i <= nl ? a.dus + (size_t)(i - 1) * HG : a.dws + (size_t)(i - nl - 1) * HG);
-    for (int e = tid; e < Jc * G; e += NT) dw[(size_t)(j0 + e / G) * G + e % G] = drow(i, e / G)[e % G];
+#pragma unroll 1
+  for (int e = tid; e < 4 * J; e += NT) {
+    const int g2 = e / J, q = e % J;
+    if (q < Jc) a.dbs[(size_t)g2 * H + j0 + q] = dbo[e];
   }
-  for (int e = tid; e < 4 * (nl - 1) * J; e += NT) {
-    const int l1 = e / (4 * J), g2 = (e / J) % 4, q = e % J;
-    if (q < Jc) a.dbs[(size_t)l1 * G + (size_t)g2 * H + j0 + q] = dbo[e];
-  }
+  grid_barrier(bar, ++nbar);
+  PHASE(8);
+
+  // ---- the weight gradients, after the scan ----
+  auto site_job = [&](int i, const float* x, const float* x0, int lag, const float* dg,
+                      float* out) {
+    const SiteArg& st = a.sites[i];
+    const float* fac = st.mode == 1 ? keep + (size_t)i * T * H : st.mode == 2 ? st.mask : nullptr;
+    return wg_job(x, x0, lag, dg, fac, st.mode, st.rows, st.mode == 0 ? 1.f : st.scale, out, T,
+                  B, H, G);
+  };
+  const WgJob jobs[8] = {
+      site_job(0, a.htil, a.f0, 1, a.dgx0, a.dwf),
+      site_job(1, a.hs, a.h0, 1, a.dgx0, a.dus),
+      site_job(2, hs1, a.h0 + (size_t)B * H, 1, a.dgs, a.dus + HG),
+      site_job(nl + 1, a.hs, nullptr, 0, a.dgs, a.dws),
+      // dW_comb = [ctx ; h]^T dpre over the pairs
+      wg_job(a.ctxs, nullptr, 0, a.dpre, nullptr, 0, 1, 1.f, a.dwc, T, B, H, H),
+      wg_job(hs1, nullptr, 0, a.dpre, nullptr, 0, 1, 1.f, a.dwc + (size_t)H * H, T, B, H, H),
+      // d enc_out[b] = sum_t alpha_t[b]^T dctx_t[b]; d enc_proj[b] = sum_t
+      // ds_t[b]^T h_t[b]
+      WgJob{a.alpha, nullptr, a.dctx, nullptr, a.deo, 0, 0, 1, 1.f, S, H, T, 1,
+            (long long)B * S, (long long)B * H, B, S, H, (long long)S * H},
+      WgJob{a.dss, nullptr, hs1, nullptr, a.dep, 0, 0, 1, 1.f, S, H, T, 1,
+            (long long)B * S, (long long)B * H, B, S, H, (long long)S * H}};
+  wg_pass(smem, jobs, 8);
+  PHASE(9);
 }
 
 // Grid size and shared-memory opt-in; a CUDA error code (0 = launchable).
@@ -950,33 +1028,70 @@ extern "C" int decoder_scan_fwd_f32(const FwdArgs* in, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// K8's plan for clusters of Q CTAs of J units: into *max_clu the clusters
+// that can be resident at once (0 when no shared-memory plan fits), *smem
+// its bytes, *pre whether it prefetches the residuals.
+extern "C" int decoder_scan_bwd_clusters(int B, int H, int S, int Q, int J, int* max_clu,
+                                         int* smem, int* pre) {
+  cudaGetLastError();
+  BwdArgs a = {};
+  a.B = B;
+  a.H = H;
+  a.S = S;
+  *pre = bwd_smem(a, Q, J, true) <= SMEM_MAX;
+  const size_t bytes = bwd_smem(a, Q, J, *pre);
+  *smem = (int)bytes;
+  *max_clu = 0;
+  if (bytes > SMEM_MAX || J > JMAX) return 0;
+  return max_clusters((const void*)dec_bwd_kernel, Q, NT, bytes, max_clu);
+}
+
 // dy (T, B, H) = dL/dhtil; dhT, dcT (nl, B, H), dfT (B, H): the finals'
 // cotangents; gates/hs/cs/htil/alpha from the forward. Outputs (written in
 // full by the kernel): dgx0 (T, B, 4H), dus (nl, H, 4H), dws (nl-1, H, 4H),
 // dbs (nl-1, 4H), dwf (H, 4H), dwc (2H, H), dep, deo (B, S, H), dh0, dc0
-// (nl, B, H), df0 (B, H). dgs (max(nl-1,1), B, 4H), dpre, dctx, dcur (B, H)
-// are scratch.
+// (nl, B, H), df0 (B, H). Scratch as BwdArgs says; ring: the zeroed words of
+// kernels/decoder_scan.py's plan of P clusters of Q CTAs of J units
+// (decoder_scan_bwd_clusters).
 extern "C" int decoder_scan_bwd_f32(const BwdArgs* in, void* stream) {
   cudaGetLastError();
   BwdArgs a = *in;
   if (a.T <= 0 || a.B <= 0) return 0;
   if (a.nl != NL || a.H <= 0 || a.S <= 0) return (int)cudaErrorInvalidValue;
-  int J = units_per_cta(a.H);
-  if (J > JP || a.B > NT || a.H % 4 || a.H > HPT * NT) return (int)cudaErrorInvalidValue;
-  // dgates chunks of 256 columns where the plan fits, else 128 (plan_launch
-  // refuses a plan past SMEM_MAX)
-  int ch = bwd_smem(a, J, 256) <= SMEM_MAX ? 256 : 128;
-  const size_t smem = bwd_smem(a, J, ch);
-  const void* kernel = (const void*)dec_bwd_kernel;
-  int grid = 0;
-  int code = plan_launch(kernel, smem, a.H, J, &grid);
+  if (a.B > NT || a.H % 4 || a.Q < 1 || a.Q > 8 || a.J < 1 || a.J > JMAX)
+    return (int)cudaErrorInvalidValue;
+  int pre = bwd_smem(a, a.Q, a.J, true) <= SMEM_MAX;
+  const size_t smem = bwd_smem(a, a.Q, a.J, pre);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const int P = ((a.H + a.J - 1) / a.J + a.Q - 1) / a.Q;
+  int maxc = 0;
+  int code = max_clusters((const void*)dec_bwd_kernel, a.Q, NT, smem, &maxc);
   if (code) return code;
-  void* args[] = {&a, &J, &ch};
-  cudaError_t err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(NT), args, smem,
-                                                (cudaStream_t)stream);
+  if (maxc < P) return (int)cudaErrorCooperativeLaunchTooLarge;
+  void* args[] = {&a, &pre};
+  cudaError_t err = launch_clusters((const void*)dec_bwd_kernel, P, a.Q, NT, smem, args, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
+
+#ifdef DEC_PHASES
+// Copies g_phase (1024 x 16 cycle counts) to host memory `out` and zeroes it.
+extern "C" int decoder_scan_phases(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_phase, sizeof(g_phase));
+  if (err == cudaSuccess) {
+    static unsigned long long zero[1024][16];
+    err = cudaMemcpyToSymbol(g_phase, zero, sizeof(g_phase));
+  }
+  return (int)err;
+}
+
+extern "C" const char* decoder_scan_phase_names() {
+  return "A readout bwd,barrier after A,B attention bwd,barrier after B,"
+         "C.1 polls + pointwise (per layer),cluster.sync + bias,gather + BP partials (per layer),"
+         "dfeed + U partials + dpre + barrier (end of step),dh0 + barrier after the scan,"
+         "WG after the scan";
+}
+#endif
 
 extern "C" const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

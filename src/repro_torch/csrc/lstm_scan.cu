@@ -7,8 +7,8 @@
 // Forward: gates_t = gx_t + drop(h_{t-1}) @ U, then the pointwise update,
 // for all T steps in one launch, saving hs, gates and the c sequence.
 // Backward: reverse time; dgates into dgx, compact BP into dh_{t-1},
-// compact WG into dU (f32), dh0/dc0; frozen (ragged) steps pass their
-// cotangents straight through with zero dgates.
+// dh0/dc0, and WG into dU (f32) over the kept (step, unit) pairs; frozen
+// (ragged) steps pass their cotangents straight through with zero dgates.
 // RH dropout modes: 0 off, 1 structured (a (T|1, k) table of kept unit
 // ids; compact gathers, the paper's (1-p) FLOPs), 2 dense ((T|1, B, H)
 // mask). A one-row table is the FIXED time pattern.
@@ -26,19 +26,30 @@
 // 52 KB), else they are read through the 50 MB L2; the compact h_{t-1} is
 // staged in shared memory with many loads in flight; the cell state of the
 // owned units never leaves shared memory; one grid.sync() per step
-// publishes h_t. The backward keeps the same ownership: after one
-// grid.sync() per step all dgates are visible, each CTA streams them
-// through shared memory in column chunks (cp.async, rows padded off the
-// same bank) and computes dh_{t-1} and dU only for its own kept rows j, so
-// dU needs no atomics; its rows of U and dU stay in shared memory when
-// they fit. Kept rows go in groups of four: WG holds a group's four rows of
-// a column in registers, BP a (row, four units) tile, both with 16-byte
-// shared loads. Cross-CTA data is read through L2 only (__ldcg,
-// cp.async.cg); the forward issues each batch of staging loads with no
-// branch between them, so they are in flight together. With one CTA of 8
-// warps per SM there is little else to hide latency behind.
+// publishes h_t. Cross-CTA data is read through L2 only (__ldcg); the
+// forward issues each batch of staging loads with no branch between them,
+// so they are in flight together.
+// The backward (csrc/scan_exchange.cuh) keeps the ownership of dgates: a
+// grid of P clusters of Q CTAs (8 where they fit), CTA i owning J units.
+// Per step, a CTA polls the BP partials of its kept units (tagged words,
+// one from each cluster), runs the pointwise reverse on residuals that
+// were prefetched during the step before, and after a cluster.sync()
+// gathers its cluster's B x 4QJ dgates from the cluster's shared memory
+// and publishes the partial BP of the kept units of its column S_q over
+// those columns; U's block for that product (the rows of S_q x the
+// cluster's columns) stays in shared memory when it fits (H=650: 64 KB),
+// else it is read through L2 (zaremba-large, H=1500). The first design read
+// all B x 4H dgates through L2 into every CTA behind a grid.sync(), a
+// chain of dependent chunks that took 64-87% of its step (PERF.md). dU,
+// which does not feed the recurrence, is one product over the T x B pairs
+// after the scan, every output summed by one thread in pair order, so a
+// second launch gives the same bits.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <algorithm>
+
+#include "scan_exchange.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -47,7 +58,25 @@ namespace {
 constexpr int NT = 256;   // threads per CTA
 constexpr int RB = 32;    // batch rows per register chunk (forward)
 constexpr int LD = 16;    // global loads in flight per thread when staging
+constexpr int NF = 8;     // backward residual fields a (row, unit)
 constexpr size_t SMEM_MAX = 227 * 1024;
+
+// Built with -DLSTM_PHASES (launch/scan_bench.py --phases), the backward
+// adds the SM cycles thread 0 of each CTA spends in each phase of a step to
+// g_phase[CTA][phase]; otherwise the macros are empty.
+#ifdef LSTM_PHASES
+__device__ unsigned long long g_phase[1024][16];
+#define PHASE_START() long long ph_t = clock64()
+#define PHASE(i)                                                         \
+  if (threadIdx.x == 0) {                                                \
+    const long long ph_n = clock64();                                    \
+    g_phase[blockIdx.x][i] += (unsigned long long)(ph_n - ph_t);         \
+    ph_t = ph_n;                                                         \
+  }
+#else
+#define PHASE_START()
+#define PHASE(i)
+#endif
 
 struct ScanArgs {
   int T, B, H;
@@ -59,23 +88,10 @@ struct ScanArgs {
   int J;           // hidden units per CTA
   float scale;
   float forget_bias;
-  int ch;          // dgates columns per backward chunk (multiple of 4)
+  int Q, P;        // backward: clusters of Q CTAs, P clusters
 };
 
 __device__ __forceinline__ float sigm(float x) { return 1.f / (1.f + expf(-x)); }
-
-__host__ __device__ inline size_t al4(size_t n) { return (n + 3) & ~size_t(3); }
-
-// 16-byte global -> shared copy through L2 only (.cg): the source may have
-// been written by another SM before the last grid barrier.
-__device__ __forceinline__ void cp_async16(float* smem_dst, const float* gmem_src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem_src));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
 
 // RES: the CTA's U columns (H x 4J) stay resident in shared memory.
 template <bool RES>
@@ -212,220 +228,199 @@ lstm_fwd_kernel(const float* __restrict__ gx, const float* __restrict__ U,
   }
 }
 
-// RES: the CTA's rows of U and of dU (J x 4H each) stay in shared memory.
+// RES: the CTA's block of U (the rows of S_q x the cluster's columns) stays
+// in shared memory; else BP reads U through L2.
 template <bool RES>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 1)
 lstm_bwd_kernel(const float* __restrict__ dy, const float* __restrict__ dcT,
                 const float* __restrict__ gates, const float* __restrict__ cs,
                 const float* __restrict__ c0, const float* __restrict__ hs,
                 const float* __restrict__ h0, const float* __restrict__ U,
                 const int* __restrict__ ids, const float* __restrict__ mask,
                 const int* __restrict__ lens, float* dgx, float* dU,
-                float* dh0, float* dc0, ScanArgs p) {
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ float smem[];
-  const int T = p.T, B = p.B, H = p.H, G = 4 * H, J = p.J;
-  const int j0 = blockIdx.x * J;
-  const int Jc = min(J, H - j0);
-  const int BJ = B * J;
-  const int CH = p.ch;
-  const int CHP = CH + 4;               // padded row stride: rows in other banks
-  const int JK = (J + 3) / 4 * 4;       // kept own units, padded to float4
-  // 16-byte aligned regions first (cp.async targets)
-  float* dgs = smem;                    // B x CHP dgates chunk
-  float* Ur = dgs + (size_t)B * CHP;    // RES: J x G own rows of U
-  float* dUr = Ur + (RES ? (size_t)J * G : 0);  // RES: J x G own rows of dU
-  float* us = dUr + (RES ? (size_t)J * G : 0);  // !RES: JK x CH rows of U (kept)
-  float* dhc = us + (RES ? 0 : (size_t)JK * CH);  // B x J: dL/dh carry of own units
-  float* dcc = dhc + BJ;                // B x J: dL/dc carry
-  float* hp = dcc + BJ;                 // B x J: h_{r-1} of own units (masked)
-  float* hpk = smem + al4(hp + BJ - smem);  // B x JK: hp of the kept own units, compact
-  float* red = hpk + (size_t)B * JK;    // 4 NT partial dh sums
-  int* flag = reinterpret_cast<int*>(red + 4 * NT);  // J
-  int* kl = flag + J;                   // J: local ids of kept own units
-  int* nkl_s = kl + J;                  // 1
+                float* dh0, float* dc0, u64* ring, ScanArgs p) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int T = p.T, B = p.B, H = p.H, G = 4 * H, J = p.J, Q = p.Q, P = p.P;
+  const Clu L(Q, J, P, H);
+  const int j0 = L.j0, Jc = L.Jc, BJ = B * J, Bp = (B + 3) & ~3;
+  const int ldc = clu_cols8(Q, J) + 4, PJ = P * J;
+  const int KC = p.mode == 1 ? p.k : 0;
+  float* Ws = smem;                                   // RES: PJ x ldc block of U
+  float* dgc = Ws + (RES ? (size_t)PJ * ldc : 0);     // B16 x ldc: the cluster's dgates
+  float* dgo = dgc + (size_t)((B + 15) & ~15) * ldc;  // 2 x 4J x Bp: own dgates
+  float* resb = dgo + 8 * (size_t)J * Bp;             // 2 x NF x B x J residuals
+  float* dhc = resb + 2 * NF * (size_t)BJ;            // B x J carries
+  float* dcc = dhc + BJ;
+  int* uidb = reinterpret_cast<int*>(dcc + BJ);       // mode 1: 2 x KC unit ids
+  int* kl = uidb + 2 * KC;                            // PJ: kept units of S_q (indices)
+  int* ku = kl + PJ;                                  // PJ: their unit ids
+  int* nkl = ku + PJ;                                 // 1
+  int* flg = nkl + 1;                                 // 2 x J: row an own unit was kept
+  int* lns = flg + 2 * J;                             // B lengths
+  int* wsum = lns + B;                                // 32: a warp's count of kept units
   const int tid = threadIdx.x;
+  const size_t slot = (size_t)P * B * H;
+  u64* sent = ring + 2 * slot;                        // 2 x PQ sentinels
+  unsigned* bar = reinterpret_cast<unsigned*>(sent + 2 * (size_t)P * Q);
+  float* keep = reinterpret_cast<float*>(sent + 2 * (size_t)P * Q + 2);  // ids_rows x H
 
-  for (int e = tid; e < Jc * G; e += NT) {
-    if (RES) {
-      Ur[e] = U[(size_t)j0 * G + e];
-      dUr[e] = 0.f;
-    } else {
-      dU[(size_t)j0 * G + e] = 0.f;
-    }
+  if (RES) {
+    stage_block(Ws, ldc, U, L);
+    cp_commit();
   }
+#pragma unroll 1
+  for (int e = tid; e < 8 * J * Bp; e += NT) dgo[e] = 0.f;
+#pragma unroll 1
   for (int e = tid; e < BJ; e += NT) {
     const int b = e / J, q = e % J;
     dhc[e] = 0.f;
     dcc[e] = q < Jc ? dcT[(size_t)b * H + j0 + q] : 0.f;
   }
+#pragma unroll 1
+  for (int e = tid; e < 2 * J; e += NT) flg[e] = -1;
+#pragma unroll 1
+  for (int b = tid; b < B; b += NT) lns[b] = p.ragged ? lens[b] : T;
+  // the units of S_q, all kept when there is no ids table (an ascending
+  // prefix of the indices)
+  int nk_all = 0;
+  while (nk_all < PJ && L.unit(nk_all) < H) ++nk_all;
+  if (p.mode != 1)
+#pragma unroll 1
+    for (int s = tid; s < nk_all; s += NT) {
+      kl[s] = s;
+      ku[s] = L.unit(s);
+    }
+  const Div dB(B), dJc(Jc), dBJc(B * Jc);
 
-  for (int r = T - 1; r >= 0; --r) {
-    const int row_i = p.ids_rows == 1 ? 0 : r;
-    const int row_m = p.mask_rows == 1 ? 0 : r;
-    // kept own units at this step
-    for (int q = tid; q < J; q += NT) flag[q] = p.mode == 1 ? 0 : (q < Jc);
-    __syncthreads();
+  // step r's ids row and residuals of the own units (gates, dy, c_r,
+  // c_{r-1}, the mask of row r + 1), into buffer r & 1
+  auto prefetch = [&](int r) {
+    const int buf = r & 1;
     if (p.mode == 1) {
-      for (int kk = tid; kk < p.k; kk += NT) {
-        const int u = ids[(size_t)row_i * p.k + kk];
-        if (u >= j0 && u < j0 + Jc) flag[u - j0] = 1;
-      }
+      const int* src = ids + (size_t)(p.ids_rows == 1 ? 0 : r) * p.k;
+#pragma unroll 1
+      for (int kk = tid; kk < KC; kk += NT) cp4(uidb + buf * KC + kk, src + kk, true);
     }
-    __syncthreads();
-    if (tid == 0) {
-      int n = 0;
-      for (int q = 0; q < Jc; ++q)
-        if (flag[q]) kl[n++] = q;
-      *nkl_s = n;
-    }
-    // phase 1: dgates of own units (pointwise reverse), written to dgx
-    for (int e = tid; e < BJ; e += NT) {
-      const int b = e / J, q = e % J;
-      if (q >= Jc) continue;
+    float* dst = resb + (size_t)buf * NF * BJ;
+    const int nf = p.mode == 2 && r + 1 < T ? NF : NF - 1;
+    const int mrow = p.mask_rows == 1 ? 0 : r + 1;
+#pragma unroll 1
+    for (int e = tid; e < nf * B * Jc; e += NT) {
+      const int f = dBJc.q(e), bq = e - f * B * Jc, b = dJc.q(bq), q = bq - b * Jc;
       const int j = j0 + q;
-      const size_t hofs = ((size_t)r * B + b) * H + j;
-      const size_t gofs = ((size_t)r * B + b) * G + j;
-      const float dh = dy[hofs] + dhc[e];
-      const float dc_in = dcc[e];
-      const bool act = !p.ragged || r < lens[b];
+      const size_t h = ((size_t)r * B + b) * H + j;
+      const float* src;
+      if (f < 4) src = gates + ((size_t)r * B + b) * G + (size_t)f * H + j;
+      else if (f == 4) src = dy + h;
+      else if (f == 5) src = cs + h;
+      else if (f == 6) src = r > 0 ? cs + h - (size_t)B * H : c0 + (size_t)b * H + j;
+      else src = mask + ((size_t)mrow * B + b) * H + j;
+      cp4(dst + (size_t)f * BJ + b * J + q, src, true);
+    }
+    cp_commit();
+  };
+  prefetch(T - 1);
+
+  const float sc = p.mode == 1 ? p.scale : 1.f;
+  auto kept_own = [&](int r, int q) {
+    return q < Jc && (p.mode != 1 || flg[(r & 1) * J + q] == r);
+  };
+  PHASE_START();
+  for (int r = T - 1; r >= 0; --r) {
+    const int buf = r & 1;
+    cp_wait<0>();
+    __syncthreads();
+    PHASE(0);
+    if (r > 0) prefetch(r - 1);
+    if (p.mode == 1) {   // kept units of S_q at row r, in ids order; own ones flagged
+      const int* uid = uidb + buf * KC;
+      const int row = p.ids_rows == 1 ? 0 : r;
+      kept_lists<1>(
+          KC, [&](int, int kk) { return uid[kk]; },
+          [&](int, int u) {
+            flg[buf * J + u - j0] = r;
+            keep[(size_t)row * H + u] = 1.f;
+          },
+          [&](int) { return true; }, L, kl, ku, PJ, nkl, wsum);
+    }
+    // whether this CTA reads a partial of step r + 1 from every CTA of its
+    // column; if not, it polls their sentinels
+    const bool any = __syncthreads_or(r + 1 < T && tid < J && kept_own(r + 1, tid));
+    const int nk = p.mode == 1 ? *nkl : nk_all;
+    if (r + 1 < T && !any)
+      poll_all(P, r + 2, [&](int e) -> const u64* {
+        return sent + (size_t)((r + 1) & 1) * P * Q + (size_t)e * Q + L.q;
+      });
+    PHASE(1);
+    // pointwise reverse of the own units, dh with the incoming partials
+    const float* rs = resb + (size_t)buf * NF * BJ;
+    const u64* in_slot = ring + (size_t)((r + 1) & 1) * slot;
+    float* own = dgo + (size_t)buf * 4 * J * Bp;
+#pragma unroll 1
+    for (int e = tid; e < B * Jc; e += NT) {   // b fastest: neighbouring words polled
+      const int q = dB.q(e), b = e - q * B, o = b * J + q, j = j0 + q;
+      float in = 0.f;
+      if (r + 1 < T && kept_own(r + 1, q)) {
+        in = poll_sum(P, r + 2, [&](int c) { return in_slot + ((size_t)c * H + j) * B + b; });
+        in *= p.mode == 2 ? rs[7 * BJ + o] * p.scale : sc;
+      }
+      const float dh = rs[4 * BJ + o] + dhc[o] + in;
+      const float dc_in = dcc[o];
+      const bool act = r < lns[b];
       const float dh_c = act ? dh : 0.f;
       const float dc_c = act ? dc_in : 0.f;
-      const float ig = sigm(gates[gofs]);
-      const float fg = sigm(gates[gofs + H] + p.forget_bias);
-      const float gg = tanhf(gates[gofs + 2 * (size_t)H]);
-      const float og = sigm(gates[gofs + 3 * (size_t)H]);
-      const float cc = cs[hofs];
-      const float c_prev = r > 0 ? cs[hofs - (size_t)B * H] : c0[(size_t)b * H + j];
-      const float tc = tanhf(cc);
-      const float do_ = dh_c * tc;
+      const float ig = sigm(rs[o]);
+      const float fg = sigm(rs[BJ + o] + p.forget_bias);
+      const float gg = tanhf(rs[2 * BJ + o]);
+      const float og = sigm(rs[3 * BJ + o]);
+      const float tc = tanhf(rs[5 * BJ + o]);
+      const float c_prev = rs[6 * BJ + o];
       const float dc = dc_c + dh_c * og * (1.f - tc * tc);
-      dgx[gofs] = dc * gg * ig * (1.f - ig);
-      dgx[gofs + H] = dc * c_prev * fg * (1.f - fg);
-      dgx[gofs + 2 * (size_t)H] = dc * ig * (1.f - gg * gg);
-      dgx[gofs + 3 * (size_t)H] = do_ * og * (1.f - og);
-      dcc[e] = dc * fg + (act ? 0.f : dc_in);
-      dhc[e] = act ? 0.f : dh;         // pass-through; BP is added below
-      float h = r > 0 ? hs[hofs - (size_t)B * H] : h0[(size_t)b * H + j];
-      if (p.mode == 2) h *= mask[((size_t)row_m * B + b) * H + j] * p.scale;
-      hp[e] = h;
-    }
-    __threadfence();
-    grid.sync();
-
-    // phase 2: dh_{r-1} and dU for the kept own rows j, over dgates chunks.
-    // Kept rows go in groups of 4: WG keeps a group's 4 rows of a column in
-    // registers (hp of the group as one 16-byte load), BP computes a tile
-    // (row b, 4 kept units) over a K-split of the chunk with 16-byte loads.
-    const int nkl = *nkl_s;
-    const int ngr = (nkl + 3) / 4;                 // groups of kept units
-    const int tiles = B * ngr;
-    const int KS = tiles == 0 ? 1 : NT / tiles;
-    const int tile = tiles == 0 ? 0 : tid % tiles, ks = tiles == 0 ? NT : tid / tiles;
-    const int tb = tiles == 0 ? 0 : tile / ngr, tgr = tiles == 0 ? 0 : tile % ngr;
-    const float sc = p.mode == 1 ? p.scale : 1.f;
-    for (int e = tid; e < B * JK; e += NT) {
-      const int b = e / JK, qi = e % JK;
-      hpk[e] = qi < nkl ? hp[b * J + kl[qi]] : 0.f;
-    }
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int ch0 = 0; ch0 < G; ch0 += CH) {
-      const int cw = min(CH, G - ch0);   // G and CH are multiples of 4
-      const int n4 = CH / 4;
-      // stage the chunk with asynchronous 16-byte copies, all in flight
-      for (int e = tid; e < B * n4; e += NT) {
-        const int b = e / n4, c4 = (e % n4) * 4;
-        float* dst = dgs + (size_t)b * CHP + c4;
-        if (c4 < cw) {
-          cp_async16(dst, dgx + ((size_t)r * B + b) * G + ch0 + c4);
-        } else {
-          dst[0] = dst[1] = dst[2] = dst[3] = 0.f;
-        }
-      }
-      if (!RES) {
-        for (int e = tid; e < JK * n4; e += NT) {
-          const int q = e / n4, c4 = (e % n4) * 4;
-          float* dst = us + (size_t)q * CH + c4;
-          if (c4 < cw && q < nkl) {
-            cp_async16(dst, U + (size_t)(j0 + kl[q]) * G + ch0 + c4);
-          } else {
-            dst[0] = dst[1] = dst[2] = dst[3] = 0.f;
-          }
-        }
-      }
-      cp_async_wait_all();
-      __syncthreads();
-      // WG: (group, column) per thread, the group's 4 rows in registers
-      const float4* hp4 = reinterpret_cast<const float4*>(hpk);
-      for (int e = tid; e < ngr * cw; e += NT) {
-        const int gr = e / cw, c = e % cw;
-        float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-#pragma unroll 4
-        for (int b = 0; b < B; ++b) {
-          const float g = dgs[b * CHP + c];
-          const float4 h = hp4[b * (JK / 4) + gr];
-          a0 = fmaf(h.x, g, a0);
-          a1 = fmaf(h.y, g, a1);
-          a2 = fmaf(h.z, g, a2);
-          a3 = fmaf(h.w, g, a3);
-        }
-        const float av[4] = {a0, a1, a2, a3};
+      const float dg[4] = {dc * gg * ig * (1.f - ig), dc * c_prev * fg * (1.f - fg),
+                           dc * ig * (1.f - gg * gg), dh_c * tc * og * (1.f - og)};
+      const size_t gofs = ((size_t)r * B + b) * G + j;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int qi = gr * 4 + i;
-          if (qi < nkl) {
-            const int jl = kl[qi];
-            float* drow = RES ? dUr + (size_t)jl * G : dU + (size_t)(j0 + jl) * G;
-            drow[ch0 + c] += av[i] * sc;
-          }
-        }
+      for (int g2 = 0; g2 < 4; ++g2) {
+        __stcs(dgx + gofs + (size_t)g2 * H, dg[g2]);   // read again only after the scan
+        own[(size_t)(g2 * J + q) * Bp + b] = dg[g2];
       }
-      // BP: tile (row tb, kept units 4 tgr .. 4 tgr + 3) over K-split ks
-      if (ks < KS) {
-        const float4* dg4 = reinterpret_cast<const float4*>(dgs + (size_t)tb * CHP);
-        const float4* u4[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int qi = min(tgr * 4 + i, nkl - 1);
-          u4[i] = reinterpret_cast<const float4*>(
-              RES ? Ur + (size_t)kl[qi] * G + ch0 : us + (size_t)qi * CH);
-        }
-        for (int c4 = ks; c4 < cw / 4; c4 += KS) {
-          const float4 g = dg4[c4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float4 w = u4[i][c4];
-            acc[i] += g.x * w.x + g.y * w.y + g.z * w.z + g.w * w.w;
-          }
-        }
-      }
-      __syncthreads();
+      dcc[o] = dc * fg + (act ? 0.f : dc_in);
+      dhc[o] = act ? 0.f : dh;         // pass-through; BP arrives next step
     }
-    if (tiles > 0) {
-      if (ks < KS)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) red[((size_t)ks * tiles + tile) * 4 + i] = acc[i];
-      __syncthreads();
-      for (int o = tid; o < B * nkl; o += NT) {
-        const int b = o / nkl, qi = o % nkl, jl = kl[qi];
-        const int tl = b * ngr + qi / 4;
-        float v = 0.f;
-        for (int k2 = 0; k2 < KS; ++k2) v += red[((size_t)k2 * tiles + tl) * 4 + qi % 4];
-        if (p.mode == 2) v *= mask[((size_t)row_m * B + b) * H + j0 + jl] * p.scale;
-        dhc[b * J + jl] += v * sc;
-      }
-    }
+    PHASE(2);
+    // own dgates visible to the cluster; slot (r + 1) & 1 read by all threads
+    cg::this_cluster().sync();
+    if (tid == 0) st_word(sent + (size_t)buf * P * Q + L.i, pack(0.f, r + 1));
+    PHASE(3);
+    gather_cluster(dgc, ldc, own, Bp, L, 0, B);
     __syncthreads();
+    PHASE(4);
+    bp_partials<RES>(dgc, ldc, Ws, ldc, U, kl, ku, nk, B, L,
+                     ring + (size_t)buf * slot + (size_t)L.c * B * H, B, 0, r + 1);
+    PHASE(5);
   }
 
-  for (int e = tid; e < BJ; e += NT) {
-    const int b = e / J, q = e % J;
-    if (q >= Jc) continue;
-    dh0[(size_t)b * H + j0 + q] = dhc[e];
-    dc0[(size_t)b * H + j0 + q] = dcc[e];
+  // dh0 with step 0's partials, dc0
+#pragma unroll 1
+  for (int e = tid; e < B * Jc; e += NT) {
+    const int b = e / Jc, q = e - b * Jc, o = b * J + q, j = j0 + q;
+    float in = 0.f;
+    if (kept_own(0, q)) {
+      in = poll_sum(P, 1, [&](int c) { return ring + ((size_t)c * H + j) * B + b; });
+      in *= p.mode == 2 ? mask[(size_t)b * H + j] * p.scale : sc;
+    }
+    dh0[(size_t)b * H + j] = dhc[o] + in;
+    dc0[(size_t)b * H + j] = dcc[o];
   }
-  if (RES)
-    for (int e = tid; e < Jc * G; e += NT) dU[(size_t)j0 * G + e] = dUr[e];
+  // WG after every CTA's dgates (and keep table) are out
+  grid_barrier(bar, 1);
+  PHASE(6);
+  const float* fac = p.mode == 1 ? keep : p.mode == 2 ? mask : nullptr;
+  const WgJob jb = wg_job(hs, h0, 1, dgx, fac, p.mode, p.mode == 1 ? p.ids_rows : p.mask_rows,
+                          p.mode == 0 ? 1.f : p.scale, dU, T, B, H, G);
+  wg_pass(smem, &jb, 1);
+  PHASE(7);
 }
 
 size_t fwd_smem(const ScanArgs& p, bool res) {
@@ -438,11 +433,11 @@ size_t fwd_smem(const ScanArgs& p, bool res) {
 }
 
 size_t bwd_smem(const ScanArgs& p, bool res) {
-  const size_t JK = ((size_t)p.J + 3) / 4 * 4;
-  return sizeof(float) * ((size_t)p.B * (p.ch + 4) + (res ? 2 * (size_t)p.J * 4 * p.H
-                                                    : JK * p.ch) +
-                          al4(3 * (size_t)p.B * p.J) + (size_t)p.B * JK + 4 * NT) +
-         sizeof(int) * (2 * (size_t)p.J + 1);
+  const size_t J = p.J, B = p.B, PJ = (size_t)p.P * J, ldc = clu_cols8(p.Q, p.J) + 4;
+  const size_t f = (res ? PJ * ldc : 0) + ((B + 15) & ~size_t(15)) * ldc +
+                   8 * J * ((B + 3) & ~size_t(3)) + 2 * NF * B * J + 2 * B * J;
+  const size_t ints = (p.mode == 1 ? 2 * (size_t)p.k : 0) + 2 * PJ + 1 + 2 * J + B + 32;
+  return std::max(4 * f + 4 * ints, WG_SMEM);
 }
 
 // Fills p.J and the grid size; returns a CUDA error code (0 = launchable).
@@ -502,41 +497,74 @@ extern "C" int lstm_scan_fwd_f32(const float* gx, const float* U, const float* h
   return (int)cudaGetLastError();
 }
 
+// K4's plan for clusters of Q CTAs of J units: into *max_clu the clusters
+// that can be resident at once (0 when the shared-memory plan does not
+// fit), *res whether U's block stays in shared memory, *smem its bytes.
+extern "C" int lstm_scan_bwd_clusters(int B, int H, int mode, int k, int Q, int J,
+                                      int* max_clu, int* res, int* smem) {
+  cudaGetLastError();
+  ScanArgs p{1, B, H, mode, k, 1, 1, 0, J, 1.f, 0.f, Q, ((H + J - 1) / J + Q - 1) / Q};
+  *res = bwd_smem(p, true) <= SMEM_MAX;
+  const size_t bytes = bwd_smem(p, *res);
+  *smem = (int)bytes;
+  *max_clu = 0;
+  if (bytes > SMEM_MAX || J > NT) return 0;
+  const void* kernel = *res ? (const void*)lstm_bwd_kernel<true>
+                            : (const void*)lstm_bwd_kernel<false>;
+  return max_clusters(kernel, Q, NT, bytes, max_clu);
+}
+
 // dy (T, B, H): dL/dhs with dL/dh_T already added at T-1; dcT (B, H);
-// gates/cs/hs from the forward; outputs dgx (T, B, 4H), dU (H, 4H) (f32,
-// zeroed by the kernel), dh0, dc0 (B, H).
+// gates/cs/hs from the forward; ring: the zeroed words of the exchange
+// (kernels/lstm_scan.py ring_words); a plan of P clusters of Q CTAs of J
+// units (lstm_scan_bwd_clusters). Outputs dgx (T, B, 4H), dU (H, 4H), dh0,
+// dc0 (B, H), every element written.
 extern "C" int lstm_scan_bwd_f32(const float* dy, const float* dcT, const float* gates,
                                  const float* cs, const float* c0, const float* hs,
                                  const float* h0, const float* U, const int* ids,
                                  const float* mask, const int* lens, float* dgx,
-                                 float* dU, float* dh0, float* dc0, int T, int B, int H,
-                                 int mode, int k, int ids_rows, int mask_rows, int ragged,
-                                 float scale, float forget_bias, void* stream) {
+                                 float* dU, float* dh0, float* dc0, u64* ring, int T, int B,
+                                 int H, int mode, int k, int ids_rows, int mask_rows,
+                                 int ragged, int Q, int J, float scale, float forget_bias,
+                                 void* stream) {
   cudaGetLastError();
   if (T <= 0 || B <= 0) return 0;
-  ScanArgs p{T, B, H, mode, k, ids_rows, mask_rows, ragged, units_per_cta(H), scale,
-             forget_bias, 0};
-  if (4 * p.J > NT || B * ((p.J + 3) / 4) > NT) return (int)cudaErrorInvalidValue;
-  // Prefer U and dU rows resident in shared memory, then wide dgates chunks.
-  bool res = false;
-  for (int pick = 0; pick < 4; ++pick) {
-    res = pick < 2;
-    p.ch = pick % 2 == 0 ? 1024 : 256;
-    if (bwd_smem(p, res) <= SMEM_MAX) break;
-  }
+  if (Q < 1 || Q > 8 || J < 1 || J > NT) return (int)cudaErrorInvalidValue;
+  ScanArgs p{T, B, H, mode, k, ids_rows, mask_rows, ragged, J, scale, forget_bias, Q,
+             ((H + J - 1) / J + Q - 1) / Q};
+  const bool res = bwd_smem(p, true) <= SMEM_MAX;
+  const size_t smem = bwd_smem(p, res);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   const void* kernel = res ? (const void*)lstm_bwd_kernel<true>
                            : (const void*)lstm_bwd_kernel<false>;
-  const size_t smem = bwd_smem(p, res);
-  int grid = 0;
-  int code = plan_launch(&p, kernel, smem, &grid);
+  int maxc = 0;
+  int code = max_clusters(kernel, Q, NT, smem, &maxc);
   if (code) return code;
+  if (maxc < p.P) return (int)cudaErrorCooperativeLaunchTooLarge;
   void* args[] = {&dy, &dcT, &gates, &cs, &c0, &hs, &h0, &U, &ids, &mask, &lens,
-                  &dgx, &dU, &dh0, &dc0, &p};
-  cudaError_t err = cudaLaunchCooperativeKernel(kernel, dim3(grid),
-                                                dim3(NT), args, smem, (cudaStream_t)stream);
+                  &dgx, &dU, &dh0, &dc0, &ring, &p};
+  cudaError_t err = launch_clusters(kernel, p.P, Q, NT, smem, args, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
+
+#ifdef LSTM_PHASES
+// Copies g_phase (1024 x 16 cycle counts) to host memory `out` and zeroes it.
+extern "C" int lstm_scan_phases(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_phase, sizeof(g_phase));
+  if (err == cudaSuccess) {
+    static unsigned long long zero[1024][16];
+    err = cudaMemcpyToSymbol(g_phase, zero, sizeof(g_phase));
+  }
+  return (int)err;
+}
+
+extern "C" const char* lstm_scan_phase_names() {
+  return "wait + barrier,kept list + sentinels,poll partials + pointwise,cluster.sync,"
+         "gather cluster dgates,BP partials + publish,dh0 + barrier after the scan,"
+         "WG after the scan";
+}
+#endif
 
 extern "C" const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -35,20 +35,24 @@ runs the plain version (``plain_fwd``/``plain_bwd``, the reference's
 plain version. The kernels take float32 and nl = 2 layers only; the
 wrappers raise on other dtypes and depths, on mixed devices, on shapes
 whose shared-memory plan does not fit, and on a non-zero CUDA status after
-a launch.
+a launch. K8 runs on K4's grid of thread-block clusters
+(``lstm_scan.cluster_plan``) with a zeroed exchange ring and scratch that
+the wrapper allocates (``bwd_ring_words``).
 ``LAUNCHES`` counts the kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import List, Optional, Sequence
 
 import torch
 
 from repro_torch.core.masks import keep_blocks_to_unit_ids
 from repro_torch.kernels import _build
-from repro_torch.kernels.lstm_scan import _pointwise_bwd, _pointwise_fwd
+from repro_torch.kernels.lstm_scan import (_pointwise_bwd, _pointwise_fwd,
+                                           cluster_plan, ring_words)
 
 LAUNCHES = {"decoder_scan_fwd": 0, "decoder_scan_bwd": 0}
 
@@ -303,7 +307,9 @@ class _BwdArgs(ctypes.Structure):
                 + [("sites", _SiteArg * (2 * KERNEL_LAYERS))]
                 + [(n, _P) for n in ("dgx0", "dus", "dws", "dbs", "dwf", "dwc",
                                      "dep", "deo", "dh0", "dc0", "df0", "dgs",
-                                     "dpre", "dctx", "dcur")])
+                                     "dpre", "dctx", "dcur", "dss", "ctxs",
+                                     "ring")]
+                + [("Q", _I), ("J", _I)])
 
 
 def _lib():
@@ -313,6 +319,9 @@ def _lib():
         lib.decoder_scan_fwd_f32.restype = _I
         lib.decoder_scan_bwd_f32.argtypes = [ctypes.POINTER(_BwdArgs), _P]
         lib.decoder_scan_bwd_f32.restype = _I
+        ip = ctypes.POINTER(_I)
+        lib.decoder_scan_bwd_clusters.argtypes = [_I] * 5 + [ip] * 3
+        lib.decoder_scan_bwd_clusters.restype = _I
         lib._typed = True
     return lib
 
@@ -405,6 +414,30 @@ def kernel_fwd(descs, tables, gx0, us, ws, bs, w_feed, w_comb, enc_proj,
     return htil, gates, hs, cs, alpha
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_plan(device_index: int, B: int, H: int, S: int):
+    """K8's grid (Q, J, P) on this device (``lstm_scan.cluster_plan``)."""
+    lib = _lib()
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+
+    def fits(q, j):
+        mc, smem, pre = _I(), _I(), _I()
+        with torch.cuda.device(device_index):
+            code = lib.decoder_scan_bwd_clusters(B, H, S, q, j, ctypes.byref(mc),
+                                                 ctypes.byref(smem), ctypes.byref(pre))
+        _build.check(lib, code, "decoder_scan backward plan")
+        return mc.value >= -(-(-(-H // j)) // q)
+    return cluster_plan(H, sms, fits)
+
+
+def bwd_ring_words(Q: int, J: int, P: int, B: int, H: int, T: int) -> int:
+    """64-bit words of K8's zeroed exchange: four channels (U_0, U_1, W_1,
+    W_feed partials) of two slots of B x H words from each of P clusters,
+    then ``lstm_scan.ring_words``'s sentinels and barrier counter, and a
+    (4 sites x T, H) float keep table."""
+    return 3 * 2 * P * B * H + ring_words(Q, J, P, B, H, 4 * T)
+
+
 def kernel_bwd(descs, tables, res, dout, us, ws, w_feed, w_comb, enc_proj,
                enc_out, h0, c0, feed0, lengths):
     """K8: the whole reverse-time backward in one cooperative launch; same
@@ -439,10 +472,16 @@ def kernel_bwd(descs, tables, res, dout, us, ws, w_feed, w_comb, enc_proj,
     dh0 = torch.empty((nl, B, H), **f32)
     dc0 = torch.empty((nl, B, H), **f32)
     df0 = torch.empty((B, H), **f32)
-    dgs = torch.empty((max(nl - 1, 1), B, G), **f32)   # scratch: upper dgates
-    dpre = torch.empty((B, H), **f32)                  # scratch per step
-    dctx = torch.empty((B, H), **f32)
+    dgs = torch.empty((T, B, G), **f32)     # scratch: layer 1's dgates
+    dpre = torch.empty((T, B, H), **f32)    # scratch: the readout's cotangent
+    dctx = torch.empty((T, B, H), **f32)
     dcur = torch.empty((B, H), **f32)
+    dss = torch.empty((T, B, S), **f32)     # scratch: the scores' cotangent
+    ctxs = torch.empty((T, B, H), **f32)    # scratch: the contexts, recomputed
+    lib = _lib()
+    q, j, p = _bwd_plan(d_htil.device.index or 0, B, H, S)
+    ring = torch.zeros(bwd_ring_words(q, j, p, B, H, T), dtype=torch.int64,
+                       device=d_htil.device)
     a = _BwdArgs(T, B, H, S, nl, int(lengths is not None),
                  *(_ptr(x) for x in (d_htil, d_hfin, d_cfin, d_ffin, gates, hs,
                                      cs, htil, alpha, h0, c0, feed0, u_st,
@@ -450,8 +489,8 @@ def kernel_bwd(descs, tables, res, dout, us, ws, w_feed, w_comb, enc_proj,
                                      lengths)),
                  _site_args(descs, tables, T, B, H, d_htil),
                  *(_ptr(x) for x in (dgx0, dus, dws, dbs, dwf, dwc, dep, deo,
-                                     dh0, dc0, df0, dgs, dpre, dctx, dcur)))
-    lib = _lib()
+                                     dh0, dc0, df0, dgs, dpre, dctx, dcur, dss,
+                                     ctxs, ring)), q, j)
     code = lib.decoder_scan_bwd_f32(ctypes.byref(a),
                                     torch.cuda.current_stream(d_htil.device).cuda_stream)
     _build.check(lib, code, "decoder_scan backward")

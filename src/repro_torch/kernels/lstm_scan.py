@@ -11,13 +11,17 @@ run through the headed cell_scan as its one-head case.
 
 The kernels take float32 only; the wrappers raise on anything else, on
 tensors of mixed devices, and on a non-zero CUDA status after the launch.
-``LAUNCHES`` counts the kernel launches.
+K4 runs on a grid of thread-block clusters (``cluster_plan``,
+csrc/scan_exchange.cuh) and exchanges its BP partial sums through a zeroed
+ring of tagged words that the wrapper allocates (``ring_words``); a shape
+whose plan does not fit the card raises. ``LAUNCHES`` counts the kernel
+launches.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -70,10 +74,54 @@ def _lib():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.lstm_scan_fwd_f32.argtypes = [p] * 10 + [i] * 8 + [f, f, p]
         lib.lstm_scan_fwd_f32.restype = i
-        lib.lstm_scan_bwd_f32.argtypes = [p] * 15 + [i] * 8 + [f, f, p]
+        lib.lstm_scan_bwd_f32.argtypes = [p] * 16 + [i] * 10 + [f, f, p]
         lib.lstm_scan_bwd_f32.restype = i
+        ip = ctypes.POINTER(i)
+        lib.lstm_scan_bwd_clusters.argtypes = [i] * 6 + [ip] * 3
+        lib.lstm_scan_bwd_clusters.restype = i
         lib._typed = True
     return lib
+
+
+CLUSTER_SIZES = (8, 4, 2, 1)
+
+
+def cluster_plan(H: int, sms: int, fits) -> Tuple[int, int, int]:
+    """(Q, J, P) of K4's / K8's backward grid: P clusters of Q CTAs, J
+    hidden units a CTA (csrc/scan_exchange.cuh). The largest cluster size
+    of ``CLUSTER_SIZES``, then the fewest units a CTA, J from ceil(H / SMs)
+    up to twice that, for which ``fits(Q, J)`` (all P = ceil(ceil(H / J) /
+    Q) clusters resident at once, the shared-memory plan within the card's)
+    holds."""
+    j0 = -(-H // sms)
+    for q in CLUSTER_SIZES:
+        for j in range(j0, 2 * j0 + 1):
+            if fits(q, j):
+                return q, j, -(-(-(-H // j)) // q)
+    raise ValueError(f"no cluster plan fits H={H} on {sms} SMs")
+
+
+def ring_words(Q: int, J: int, P: int, B: int, H: int, keep_rows: int = 0) -> int:
+    """64-bit words of the zeroed exchange a backward launch needs: two
+    slots of B x H partials from each of the P clusters, two sentinels for
+    each of the P x Q CTAs, the barrier counter (two words, so what follows
+    stays 16-byte aligned), and a (keep_rows, H) float keep table."""
+    return 2 * P * B * H + 2 * P * Q + 2 + -(-keep_rows * H // 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_plan(device_index: int, B: int, H: int, mode: int, k: int):
+    lib = _lib()
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+
+    def fits(q, j):
+        mc, res, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        with torch.cuda.device(device_index):
+            code = lib.lstm_scan_bwd_clusters(B, H, mode, k, q, j, ctypes.byref(mc),
+                                              ctypes.byref(res), ctypes.byref(smem))
+        _build.check(lib, code, "lstm_scan backward plan")
+        return mc.value >= -(-(-(-H // j)) // q)
+    return cluster_plan(H, sms, fits)
 
 
 def _ptr(x: Optional[torch.Tensor]):
@@ -150,13 +198,16 @@ def lstm_scan_bwd_cuda(dy, dstT, gates, st_seqs, states0, hs, h0, u, ids,
     dh0 = torch.empty((B, H), dtype=f32, device=dy.device)
     dc0 = torch.empty((B, H), dtype=f32, device=dy.device)
     lib = _lib()
+    q, j, p = _bwd_plan(dy.device.index or 0, B, H, mode, k)
+    ring = torch.zeros(ring_words(q, j, p, B, H, ids_rows if mode == 1 else 0),
+                       dtype=torch.int64, device=dy.device)
     code = lib.lstm_scan_bwd_f32(
         dy.data_ptr(), dcT.data_ptr(), gates.data_ptr(), cs.data_ptr(),
         c0.data_ptr(), hs.data_ptr(), h0.data_ptr(), u.data_ptr(), _ptr(ids),
         _ptr(mask), _ptr(lengths), dgx.data_ptr(), du.data_ptr(),
-        dh0.data_ptr(), dc0.data_ptr(), T, B, H, mode, k, ids_rows,
-        mask_rows, int(lengths is not None), float(scale), float(forget_bias),
-        torch.cuda.current_stream(dy.device).cuda_stream)
+        dh0.data_ptr(), dc0.data_ptr(), ring.data_ptr(), T, B, H, mode, k,
+        ids_rows, mask_rows, int(lengths is not None), q, j, float(scale),
+        float(forget_bias), torch.cuda.current_stream(dy.device).cuda_stream)
     _build.check(lib, code, "lstm_scan backward")
     LAUNCHES["lstm_scan_bwd"] += 1
     return dgx, du, dh0, (dc0,)

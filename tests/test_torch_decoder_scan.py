@@ -281,3 +281,104 @@ def test_cuda_kernels_small_ragged():
 def test_cuda_kernels_at_luong_nmt_width():
     """T=S=50, B=64, H=512, nl=2, structured per-step at p=0.3, bs=1."""
     _kernel_vs_plain("sp", 50, 64, 50, 512, bs=1, rate=0.3)
+
+
+# ---------------------------------------------------------------------------
+# K8's exchange: the host-side sizes; bits, float64 and the cluster layout's
+# edge cases on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("Q,J,P,B_,H_,T_", [(8, 5, 13, 64, 512, 50), (8, 1, 5, 5, 40, 7),
+                                            (4, 2, 9, 6, 68, 1)])
+def test_bwd_ring_words_hold_four_channels_and_four_keep_tables(Q, J, P, B_, H_, T_):
+    from repro_torch.kernels import lstm_scan as t_ls
+    words = t_ds.bwd_ring_words(Q, J, P, B_, H_, T_)
+    channels = 4 * 2 * P * B_ * H_
+    assert words == channels + 2 * P * Q + 2 + 2 * T_ * H_
+    assert words == 3 * 2 * P * B_ * H_ + t_ls.ring_words(Q, J, P, B_, H_, 4 * T_)
+
+
+def _k8_case(dev, kind, T_, B_, S_, H_, lengths=None, bs=1, rate=0.3, drop_low_at=None,
+             seed=21):
+    """K8's operands on the card (the plain forward's residuals): sites of
+    ``kind`` at ``rate`` (structured ones keep an exact count a row; row
+    ``drop_low_at`` keeps none of the units below H/2), callables for the
+    kernel and the plain reverse in float32 and float64 (flat outputs)."""
+    args = _inputs(T_, B_, S_, H_, seed=seed, w_std=0.05)
+    rng = np.random.default_rng(seed + 1)
+    sites = []
+    for k in _sites(kind, T_, B_, H_, bs=bs, seed=seed + 2):
+        if k[0] is not None:
+            nb = H_ // bs
+            kept = nb - int(np.ceil(rate * nb))
+            kb = np.stack([np.sort(rng.permutation(nb)[:kept]) for _ in range(k[0].shape[0])])
+            if drop_low_at is not None and kept <= nb // 2:
+                kb[min(drop_low_at, len(kb) - 1)] = np.arange(nb - kept, nb)
+            k = (kb.astype(np.int32), None, bs, nb / kept)
+        sites.append(k)
+    tt = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    o = {k: [tt(x) for x in v] if isinstance(v, list) else tt(v) for k, v in args.items()}
+    pairs = [t_ds._mk_site(None if kb is None else tt(kb), None if dm is None else tt(dm), b, sc)
+             for kb, dm, b, sc in sites]
+    descs = tuple(p[0] for p in pairs)
+    tables = tuple(None if p[1] is None else p[1].contiguous() for p in pairs)
+    lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device=dev)
+    res = t_ds.plain_fwd(descs, tables, o["gx0"], o["us"], o["ws"], o["bs"], o["w_feed"],
+                         o["w_comb"], o["enc_proj"], o["enc_out"], o["score_bias"], o["h0"],
+                         o["c0"], o["feed0"], lens)
+    c = _cotangents(T_, B_, H_, seed=seed + 3)
+    dout = tuple(tt(c[k]) for k in ("wy", "wh", "wc", "wf"))
+    rest = (o["us"], o["ws"], o["w_feed"], o["w_comb"], o["enc_proj"], o["enc_out"], o["h0"],
+            o["c0"], o["feed0"], lens)
+    flat = lambda g: [x for v in g for x in (v if isinstance(v, list) else [v])]
+    d = lambda v: [x.double() for x in v] if isinstance(v, (list, tuple)) else v.double()
+    rest64 = tuple(d(x) if torch.is_tensor(x) or isinstance(x, list) else x
+                   for x in rest[:-1]) + (lens,)
+    return dict(kernel=lambda: flat(t_ds.kernel_bwd(descs, tables, res, dout, *rest)),
+                plain=lambda: flat(t_ds.plain_bwd(descs, tables, res, dout, *rest)),
+                f64=lambda: flat(t_ds.plain_bwd(descs, tables, tuple(d(res)), tuple(d(dout)),
+                                                *rest64)))
+
+
+def _assert_k8_matches_plain(case):
+    for g, w, n in zip(case["kernel"](), case["plain"](), [f"d{n}" for n in _names()]):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=1e-4, err_msg=n,
+                                   atol=1e-5 * max(1.0, w.abs().max().item()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,T_,B_,S_,H_", [("mixed", 7, 5, 6, 40), ("sp", 50, 64, 50, 512)])
+def test_cuda_second_launch_gives_the_same_bits(kind, T_, B_, S_, H_):
+    case = _k8_case(require_cuda(), kind, T_, B_, S_, H_)
+    first, again = case["kernel"](), case["kernel"]()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,T_,B_,S_,H_", [("mixed", 7, 5, 6, 40), ("dp", 7, 5, 6, 40),
+                                              ("sp", 50, 64, 50, 512)])
+def test_cuda_kernel_within_ten_times_plain_float32_of_float64(kind, T_, B_, S_, H_):
+    """K6's gate: K8's distance to a float64 run of the plain reverse (on
+    the same float32 residuals), max |err| / max(1, |ref|) over every
+    output, within 10 x the float32 plain version's + 1e-6."""
+    case = _k8_case(require_cuda(), kind, T_, B_, S_, H_)
+    ref = case["f64"]()
+    dist = lambda xs: max((x.double() - r).abs().max().item() / max(1.0, r.abs().max().item())
+                          for x, r in zip(xs, ref))
+    dk, dp = dist(case["kernel"]()), dist(case["plain"]())
+    assert dk <= 10 * dp + 1e-6, (dk, dp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(kind="mixed", T_=5, B_=6, S_=4, H_=48, lengths=[0, 5, 2, 5, 0, 1]),
+    dict(kind="sp", T_=6, B_=4, S_=5, H_=516, drop_low_at=2, rate=0.5, lengths=[6, 0, 3, 6]),
+    dict(kind="sf", T_=5, B_=3, S_=4, H_=516, drop_low_at=0, rate=0.5),
+    dict(kind="dp", T_=5, B_=3, S_=4, H_=44, lengths=[5, 1, 0]),
+])
+def test_cuda_kernel_edge_cases_match_plain(kw):
+    """Ragged rows of length 0 and T, a step that keeps no unit of half the
+    CTAs, H not a multiple of the units a CTA (516 = 5 x 103 + 1)."""
+    _assert_k8_matches_plain(_k8_case(require_cuda(), **kw))

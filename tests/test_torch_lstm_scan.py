@@ -150,3 +150,131 @@ def test_cuda_kernels_at_zaremba_medium_width():
                     u_std=0.05)
     for g, w in zip(_port(d, kw, device=dev), _port(d, kw)):
         np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# K4's cluster layout (csrc/scan_exchange.cuh): the host-side plan
+# ---------------------------------------------------------------------------
+
+# one-CTA-an-SM clusters resident at once on a 132-SM H100 (15 of 8 read by
+# launch/scan_bench.py's probe)
+_RESIDENT = {8: 15, 4: 33, 2: 66, 1: 132}
+
+
+def _fits(H_, resident=_RESIDENT):
+    return lambda q, j: -(-(-(-H_ // j)) // q) <= resident[q]
+
+
+@pytest.mark.parametrize("H_,want", [(650, (8, 6, 14)), (512, (8, 5, 13)),
+                                     (1500, (8, 13, 15)), (40, (8, 1, 5))])
+def test_cluster_plan_takes_clusters_of_eight_and_the_fewest_units(H_, want):
+    assert t_ls.cluster_plan(H_, 132, _fits(H_)) == want
+
+
+def test_cluster_plan_falls_back_to_smaller_clusters():
+    no8 = lambda q, j: q != 8 and _fits(512)(q, j)
+    assert t_ls.cluster_plan(512, 132, no8) == (4, 4, 32)
+    assert t_ls.cluster_plan(512, 132, lambda q, j: q == 1 and j == 7) == (1, 7, 74)
+    with pytest.raises(ValueError, match="no cluster plan"):
+        t_ls.cluster_plan(512, 132, lambda q, j: False)
+
+
+@pytest.mark.parametrize("Q,J,P,B_,H_,rows", [(8, 6, 14, 20, 650, 0), (8, 6, 14, 20, 650, 35),
+                                              (8, 5, 13, 64, 512, 1), (1, 1, 40, 3, 41, 7)])
+def test_ring_words_hold_two_slots_sentinels_barrier_and_keep_table(Q, J, P, B_, H_, rows):
+    words = t_ls.ring_words(Q, J, P, B_, H_, rows)
+    head = 2 * P * B_ * H_ + 2 * P * Q + 2
+    assert words == head + -(-rows * H_ // 2)
+    assert head % 2 == 0          # the keep table starts on 16 bytes
+    assert 2 * (words - head) >= rows * H_
+
+
+# ---------------------------------------------------------------------------
+# K4 on the card: bits, float64 and the cluster layout's edge cases
+# ---------------------------------------------------------------------------
+
+
+def _k4_case(dev, T_=7, B_=5, H_=40, mode="structured", fixed=False, lengths=None, seed=6,
+             drop_low_at=None):
+    """K4's operands on the card (the plain forward's residuals), ids of
+    k = H/2 unit ids a row (row ``drop_low_at`` keeps none of the units
+    below H/2), and callables for the kernel and the plain reverse in
+    float32 and float64 (each returns (dgx, dU, dh0, dc0))."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s, std: torch.from_numpy(
+        (rng.standard_normal(s) * std).astype(np.float32)).to(dev)
+    gx, u, h0, c0 = f(T_, B_, 4 * H_, std=0.5), f(H_, 4 * H_, std=0.05), \
+        f(B_, H_, std=0.5), f(B_, H_, std=0.5)
+    ids = mask = None
+    scale = 1.0
+    rows = 1 if fixed else T_
+    if mode == "structured":
+        k = H_ // 2
+        tab = np.stack([np.sort(rng.permutation(H_)[:k]) for _ in range(rows)])
+        if drop_low_at is not None:
+            tab[drop_low_at] = np.arange(H_ - k, H_)
+        ids = torch.from_numpy(tab.astype(np.int32)).to(dev)
+        scale = H_ / k
+    elif mode == "dense":
+        mask = torch.from_numpy((rng.random((rows, B_, H_)) > 0.5).astype(np.float32)).to(dev)
+        scale = 2.0
+    lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device=dev)
+    rh = (ids, mask, lens, scale)
+    cell = t_ls.lstm_cell_spec(0.0)
+    hs, gates, (cs,) = t_cs.plain_fwd(cell, gx, u, h0, (c0,), *rh)
+    dy, dcT = f(T_, B_, H_, std=1.0), f(B_, H_, std=1.0)
+    saved = (gates, (cs,), (c0,), hs, h0, u)
+    flat = lambda o: (o[0], o[1], o[2], o[3][0])
+    d = lambda t: t.double()
+    return dict(
+        kernel=lambda: flat(t_ls.lstm_scan_bwd_cuda(dy, (dcT,), *saved, *rh, forget_bias=0.0)),
+        plain=lambda: flat(t_cs.plain_bwd(cell, dy, (dcT,), *saved, *rh)),
+        f64=lambda: flat(t_cs.plain_bwd(cell, d(dy), (d(dcT),), d(gates), (d(cs),), (d(c0),),
+                                        d(hs), d(h0), d(u), *rh)))
+
+
+def _assert_k4_matches_plain(case):
+    for g, w, n in zip(case["kernel"](), case["plain"](), ("dgx", "dU", "dh0", "dc0")):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=1e-4, err_msg=n,
+                                   atol=1e-5 * max(1.0, w.abs().max().item()))
+
+
+def _f64_dist(xs, ref):
+    return max((x.double() - r).abs().max().item() / max(1.0, r.abs().max().item())
+               for x, r in zip(xs, ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T_,B_,H_", [(7, 5, 40), (35, 20, 650), (50, 64, 512)])
+def test_cuda_second_launch_gives_the_same_bits(T_, B_, H_):
+    case = _k4_case(require_cuda(), T_, B_, H_, lengths=None)
+    first, again = case["kernel"](), case["kernel"]()
+    for a, b, n in zip(first, again, ("dgx", "dU", "dh0", "dc0")):
+        assert torch.equal(a, b), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T_,B_,H_,mode", [(7, 5, 40, "structured"), (7, 5, 40, "dense"),
+                                           (35, 20, 650, "structured"),
+                                           (50, 64, 512, "structured")])
+def test_cuda_kernel_within_ten_times_plain_float32_of_float64(T_, B_, H_, mode):
+    """K6's gate: the kernel's distance to a float64 run of the plain
+    reverse, max |err| / max(1, |ref|), within 10 x the float32 plain
+    version's + 1e-6."""
+    case = _k4_case(require_cuda(), T_, B_, H_, mode=mode)
+    ref = case["f64"]()
+    dk, dp = _f64_dist(case["kernel"](), ref), _f64_dist(case["plain"](), ref)
+    assert dk <= 10 * dp + 1e-6, (dk, dp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(T_=6, B_=6, H_=48, lengths=[0, 6, 3, 6, 0, 1]),           # ragged rows of length 0 and T
+    dict(T_=6, B_=4, H_=650, drop_low_at=3),                       # a step that keeps no unit of
+    dict(T_=6, B_=4, H_=650, mode="dense", lengths=[6, 0, 2, 6]),  # half the CTAs; H % J != 0
+    dict(T_=5, B_=4, H_=1500),                                     # U's block through L2
+    dict(T_=5, B_=4, H_=1500, fixed=True, drop_low_at=0),
+    dict(T_=6, B_=3, H_=41, mode="off", lengths=[6, 2, 0]),
+])
+def test_cuda_kernel_edge_cases_match_plain(kw):
+    _assert_k4_matches_plain(_k4_case(require_cuda(), **kw))
