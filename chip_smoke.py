@@ -204,8 +204,12 @@ def device_ms(fn, reps: int = 20, warmup: int = 3, cold_l2: bool = False) -> flo
     raise RuntimeError("the profiler lost kernel records in 3 runs")
 
 
-def bound_ms(nbytes: float, flops: float, rate: float = F32_FLOPS):
-    tb, tf = nbytes / HBM_BYTES * 1e3, flops / rate * 1e3
+def bound_ms(nbytes: float, flops, rate: float = F32_FLOPS):
+    """The larger of the bytes' time and the operations' time: ``flops`` at
+    ``rate``, or (flops, rate) pairs, one for each kind of unit the work
+    runs on, their times added."""
+    pairs = [(flops, rate)] if isinstance(flops, (int, float)) else flops
+    tb, tf = nbytes / HBM_BYTES * 1e3, sum(f / r for f, r in pairs) * 1e3
     return (tf, "operations") if tf >= tb else (tb, "bytes")
 
 
@@ -447,13 +451,21 @@ def check_scan(gen, T_, B_, H_, rate, mode, *, fixed=False, ragged=False,
              4 * (T_ * B_ * H_ + B_ * H_ + T_ * B_ * G + 2 * T_ * B_ * H_
                   + 2 * B_ * H_ + uniq * G + T_ * k
                   + T_ * B_ * G + H_ * G + 2 * B_ * H_),
-             4 * T_ * B_ * k * G, "src/repro/kernels/cell_scan.py:215",
+             k4_ops(T_, B_, H_, k), "src/repro/kernels/cell_scan.py:215",
              dict(floor_ms=floor, f64_rel_err=b_f64))):
         # once per layer and step, after other work: timed with a cold L2
         ms = time_ms(fk, cold_l2=True)
         pms = time_ms(fp, reps=5, warmup=1, cold_l2=True)
         add_row(out, name, arch, src, rep, err, ms, pms, None, nbytes, flops,
                 "cold", **extra)
+
+
+def k4_ops(T_, B_, H_, k):
+    """K4's operations as (FLOPs, rate) pairs: BP and WG on the TF32
+    tensor cores (3xTF32)."""
+    from repro_torch.launch import scan_bench
+    ops = scan_bench.k4_bwd_ops(T_, B_, H_, k)
+    return [(ops["tf32"], TF32_FLOPS), (ops["f32"], F32_FLOPS)]
 
 
 def scan_floor(T_, B_, H_, k):
@@ -552,8 +564,11 @@ def check_decoder(gen, T_, B_, S_, H_, kind, *, rate=0.5, bs=4, ragged=False,
     ids = sum(0 if t_ is None else t_.numel() for t_ in tables)
     att = 2 * B_ * S_ * H_
     f_flops = T_ * (sum(2 * B_ * k * G for k in kept) + 2 * att + 2 * B_ * H2 * H_)
-    b_flops = T_ * (sum(4 * B_ * k * G for k in kept) + 5 * att
-                    + 2 * (2 * B_ * H2 * H_))
+    # the backward's products on the TF32 tensor cores (3xTF32), the rest
+    # of the readout and the attention on FFMA
+    from repro_torch.launch import scan_bench
+    b_ops = scan_bench.k8_bwd_ops(T_, B_, S_, H_, kept)
+    b_flops = [(b_ops["tf32"], TF32_FLOPS), (b_ops["f32"], F32_FLOPS)]
     wbytes = sum(u * G for u in uniq) + H2 * H_ + (nl - 1) * G
     f_bytes = 4 * (T_ * B_ * G + wbytes + 2 * B_ * S_ * H_ + B_ * S_
                    + (2 * nl + 1) * B_ * H_ + ids

@@ -39,7 +39,9 @@
 // and d enc_proj / d enc_out, which do not feed the recurrence, are
 // products over the T x B pairs after the scan, each output summed by one
 // thread in a fixed order: no atomics, a second launch gives the same bits.
-// A dropped unit gets x = 0 in WG and no BP partial. The backward takes
+// A dropped unit gets x = 0 in WG and no BP partial: BP runs over the kept
+// units only, WG over all H units, the dropped ones times zero (1 / (1 - p)
+// times the kept units' FLOPs, csrc/scan_exchange.cuh). The backward takes
 // B <= 256, H % 4 == 0 and at most 8 units a CTA (H <= 960 on 120 CTAs);
 // both entry points refuse a shape whose shared-memory plan does not fit
 // (the wrapper raises). Data written by other
@@ -895,10 +897,10 @@ __global__ void __launch_bounds__(NT, 1) dec_bwd_kernel(BwdArgs a, int pre) {
         const int nb = min(BC, B - b0);
         gather_cluster(X, ldc, own, Bp, L, b0, nb);
         __syncthreads();
-        bp_partials<true>(X, ldc, wst, ldc, wA, kl + sA * PJ, ku + sA * PJ, nkl[sA], nb, L,
-                          outA, B, b0, r + 1);
-        bp_partials<true>(X, ldc, wst + (size_t)PJ * ldc, ldc, wB, kl + sB * PJ, ku + sB * PJ,
-                          nkl[sB], nb, L, outB, B, b0, r + 1);
+        bp_partials<true>(X, ldc, wst, ldc, wA, kl + sA * PJ, nkl[sA], nb, L,
+                          Publish{outA, ku + sA * PJ, B, b0, (unsigned)(r + 1)});
+        bp_partials<true>(X, ldc, wst + (size_t)PJ * ldc, ldc, wB, kl + sB * PJ, nkl[sB], nb, L,
+                          Publish{outB, ku + sB * PJ, B, b0, (unsigned)(r + 1)});
         __syncthreads();
       }
       if (l > 0) {   // layer 0's weight blocks arrive while its pointwise polls
@@ -1051,8 +1053,9 @@ extern "C" int decoder_scan_bwd_clusters(int B, int H, int S, int Q, int J, int*
 // full by the kernel): dgx0 (T, B, 4H), dus (nl, H, 4H), dws (nl-1, H, 4H),
 // dbs (nl-1, 4H), dwf (H, 4H), dwc (2H, H), dep, deo (B, S, H), dh0, dc0
 // (nl, B, H), df0 (B, H). Scratch as BwdArgs says; ring: the zeroed words of
-// kernels/decoder_scan.py's plan of P clusters of Q CTAs of J units
-// (decoder_scan_bwd_clusters).
+// kernels/decoder_scan.py's plan of P clusters of Q CTAs of J units, which
+// decoder_scan_bwd_clusters found resident (the wrapper's cached plan: the
+// launch checks only its sizes).
 extern "C" int decoder_scan_bwd_f32(const BwdArgs* in, void* stream) {
   cudaGetLastError();
   BwdArgs a = *in;
@@ -1064,10 +1067,6 @@ extern "C" int decoder_scan_bwd_f32(const BwdArgs* in, void* stream) {
   const size_t smem = bwd_smem(a, a.Q, a.J, pre);
   if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   const int P = ((a.H + a.J - 1) / a.J + a.Q - 1) / a.Q;
-  int maxc = 0;
-  int code = max_clusters((const void*)dec_bwd_kernel, a.Q, NT, smem, &maxc);
-  if (code) return code;
-  if (maxc < P) return (int)cudaErrorCooperativeLaunchTooLarge;
   void* args[] = {&a, &pre};
   cudaError_t err = launch_clusters((const void*)dec_bwd_kernel, P, a.Q, NT, smem, args, stream);
   if (err != cudaSuccess) return (int)err;

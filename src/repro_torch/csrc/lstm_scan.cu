@@ -7,11 +7,12 @@
 // Forward: gates_t = gx_t + drop(h_{t-1}) @ U, then the pointwise update,
 // for all T steps in one launch, saving hs, gates and the c sequence.
 // Backward: reverse time; dgates into dgx, compact BP into dh_{t-1},
-// dh0/dc0, and WG into dU (f32) over the kept (step, unit) pairs; frozen
-// (ragged) steps pass their cotangents straight through with zero dgates.
-// RH dropout modes: 0 off, 1 structured (a (T|1, k) table of kept unit
-// ids; compact gathers, the paper's (1-p) FLOPs), 2 dense ((T|1, B, H)
-// mask). A one-row table is the FIXED time pattern.
+// dh0/dc0, and WG into dU (f32), zero at the dropped (step, unit) pairs;
+// frozen (ragged) steps pass their cotangents straight through with zero
+// dgates. RH dropout modes: 0 off, 1 structured (a (T|1, k) table of kept
+// unit ids; compact gathers, the paper's (1-p) FLOPs in the forward and in
+// BP; WG stays dense over the units, csrc/scan_exchange.cuh), 2 dense
+// ((T|1, B, H) mask). A one-row table is the FIXED time pattern.
 //
 // What bounds it on the H100: the recurrence is serial in T, and one
 // step's product is tiny (B=20 rows x k=325 x 2600 columns, ~34 MFLOP),
@@ -43,7 +44,8 @@
 // chain of dependent chunks that took 64-87% of its step (PERF.md). dU,
 // which does not feed the recurrence, is one product over the T x B pairs
 // after the scan, every output summed by one thread in pair order, so a
-// second launch gives the same bits.
+// second launch gives the same bits; it runs over all H units, the dropped
+// ones times zero (1 / (1 - p) times the kept units' FLOPs).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -396,8 +398,9 @@ lstm_bwd_kernel(const float* __restrict__ dy, const float* __restrict__ dcT,
     gather_cluster(dgc, ldc, own, Bp, L, 0, B);
     __syncthreads();
     PHASE(4);
-    bp_partials<RES>(dgc, ldc, Ws, ldc, U, kl, ku, nk, B, L,
-                     ring + (size_t)buf * slot + (size_t)L.c * B * H, B, 0, r + 1);
+    bp_partials<RES>(dgc, ldc, Ws, ldc, U, kl, nk, B, L,
+                     Publish{ring + (size_t)buf * slot + (size_t)L.c * B * H, ku, B, 0,
+                             (unsigned)(r + 1)});
     PHASE(5);
   }
 
@@ -517,8 +520,9 @@ extern "C" int lstm_scan_bwd_clusters(int B, int H, int mode, int k, int Q, int 
 // dy (T, B, H): dL/dhs with dL/dh_T already added at T-1; dcT (B, H);
 // gates/cs/hs from the forward; ring: the zeroed words of the exchange
 // (kernels/lstm_scan.py ring_words); a plan of P clusters of Q CTAs of J
-// units (lstm_scan_bwd_clusters). Outputs dgx (T, B, 4H), dU (H, 4H), dh0,
-// dc0 (B, H), every element written.
+// units that lstm_scan_bwd_clusters found resident (the wrapper's cached
+// plan: the launch checks only its sizes). Outputs dgx (T, B, 4H), dU
+// (H, 4H), dh0, dc0 (B, H), every element written.
 extern "C" int lstm_scan_bwd_f32(const float* dy, const float* dcT, const float* gates,
                                  const float* cs, const float* c0, const float* hs,
                                  const float* h0, const float* U, const int* ids,
@@ -537,10 +541,6 @@ extern "C" int lstm_scan_bwd_f32(const float* dy, const float* dcT, const float*
   if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   const void* kernel = res ? (const void*)lstm_bwd_kernel<true>
                            : (const void*)lstm_bwd_kernel<false>;
-  int maxc = 0;
-  int code = max_clusters(kernel, Q, NT, smem, &maxc);
-  if (code) return code;
-  if (maxc < p.P) return (int)cudaErrorCooperativeLaunchTooLarge;
   void* args[] = {&dy, &dcT, &gates, &cs, &c0, &hs, &h0, &U, &ids, &mask, &lens,
                   &dgx, &dU, &dh0, &dc0, &ring, &p};
   cudaError_t err = launch_clusters(kernel, p.P, Q, NT, smem, args, stream);

@@ -33,7 +33,15 @@
 // T x B pairs on the TF32 tensor cores in split precision, in 64-unit x
 // 128-column tiles that the grid strides over. Each output is summed in
 // one fixed order, so a second launch gives the same bits; a unit dropped
-// at a step has f = 0 there, so a unit never kept gets exact zeros.
+// at a step has f = 0 there, so a unit never kept gets exact zeros. WG is
+// dense over the units: it multiplies dropped units by f = 0 instead of
+// skipping them, so under a structured rate p it does 1 / (1 - p) times
+// the kept units' FLOPs (2x at zaremba-medium's p = 0.5). Skipping needs
+// all units of a tile to be dropped at a step together, which unit-level
+// masks (block size 1, the LSTM models' plans) almost never give (a
+// 64-unit tile is dropped whole at a step with probability p^64); a
+// compact product over the kept units alone would run on FFMA, whose rate
+// is below the dense product's on the tensor cores (PERF.md, section 6).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -326,25 +334,21 @@ __device__ __forceinline__ void stage_block(float* dst, int ldw, const float* __
   }
 }
 
-// Partial BP of a step over the cluster's columns, published: for each
-// kept unit s = kl[n] (n < nk) of S_q, unit ku[n] = unit(s), and row b < nb,
-// the word ring_c[ku[n] * B + b0 + b] = pack(sum over lc of dgc[b * ldg +
-// lc] w(s, lc), tag) (a cluster's block of a slot is unit-major, so the
-// rows a warp publishes and an owner polls are neighbouring words), on the
-// TF32 tensor cores in split precision (3xTF32, csrc/tf32x3.cuh, hi
+// Partial BP of a step over the cluster's columns: for each kept unit s =
+// kl[n] (n < nk) of S_q and row b < nb, sink(n, b, sum over lc of dgc[b *
+// ldg + lc] w(s, lc)) (the callers publish it as a tagged word of the ring),
+// on the TF32 tensor cores in split precision (3xTF32, csrc/tf32x3.cuh, hi
 // rounded to the nearest: a contraction here can be a few kept columns
 // long). A warp takes 16 rows x 3 groups of 8 kept units at a time (one A
 // fragment feeds them all) over the k-steps of 8 columns; the products of 4
 // k-steps are summed on the cores from zero and added to the float32 sums
 // by an FADD. dgc holds rows up to the next multiple of 16 (their sums are
-// not published) and zeroes in the pad columns. RES: w(s, lc) = Ws[s * ldw
+// not handed out) and zeroes in the pad columns. RES: w(s, lc) = Ws[s * ldw
 // + lc] in shared memory; else W[unit(s) * 4H + col(lc)] through L2.
-template <bool RES>
+template <bool RES, class Sink>
 __device__ __forceinline__ void bp_partials(const float* dgc, int ldg, const float* Ws, int ldw,
-                                            const float* __restrict__ Wg, const int* kl,
-                                            const int* ku, int nk, int nb, const Clu& L,
-                                            u64* ring_c, int B, int b0, unsigned tag,
-                                            bool publish = true) {
+                                            const float* __restrict__ Wg, const int* kl, int nk,
+                                            int nb, const Clu& L, Sink sink) {
   constexpr int NG = 3, KG = 4;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -407,13 +411,24 @@ __device__ __forceinline__ void bp_partials(const float* dgc, int ldg, const flo
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int b = m0 + g + 8 * (q >> 1), n = n0 + 8 * j + 2 * t + (q & 1);
-        if (b < nb && n < nk) {
-          if (publish) st_word(ring_c + (size_t)ku[n] * B + b0 + b, pack(acc[j][q], tag));
-          else if (acc[j][q] == 12345.f) ring_c[0] = 0;   // (launch/scan_bench.py's probe)
-        }
+        if (b < nb && n < nk) sink(n, b, acc[j][q]);
       }
   }
 }
+
+// bp_partials' sink on the exchange: the partial of kept unit ku[n] at row
+// b0 + b goes out as the tagged word ring_c[ku[n] * B + b0 + b] (a
+// cluster's block of a slot is unit-major, so the rows a warp publishes and
+// an owner polls are neighbouring words).
+struct Publish {
+  u64* ring_c;
+  const int* ku;
+  int B, b0;
+  unsigned tag;
+  __device__ __forceinline__ void operator()(int n, int b, float v) const {
+    st_word(ring_c + (size_t)ku[n] * B + b0 + b, pack(v, tag));
+  }
+};
 
 // ---------------------------------------------------------------------------
 // WG after the scan
@@ -619,9 +634,38 @@ __device__ void wg_pass(float* sm, const WgJob* jobs, int njobs) {
 // Host: cluster launches
 // ---------------------------------------------------------------------------
 
-// A cooperative launch (every CTA co-resident) of P clusters of Q CTAs.
+// Lets `kernel` take as much dynamic shared memory as a CTA of the device
+// can, set once a kernel and device: one fixed value, so that the plan of
+// one shape never lowers what a launch of another needs, and a launch makes
+// no CUDA call for it after the first.
+inline cudaError_t opt_in_smem(const void* kernel) {
+  constexpr int ND = 16, NK = 4;
+  static const void* done[ND][NK] = {};
+  int dev = 0, most = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < ND)
+    for (int i = 0; i < NK; ++i)
+      if (done[dev][i] == kernel) return cudaSuccess;
+  err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+  if (err == cudaSuccess && dev < ND)
+    for (int i = 0; i < NK; ++i)
+      if (!done[dev][i]) {
+        done[dev][i] = kernel;
+        break;
+      }
+  return err;
+}
+
+// A cooperative launch (every CTA co-resident) of P clusters of Q CTAs, a
+// plan that max_clusters has found resident (a launch past that fails as
+// too large; it is not queried again here).
 inline cudaError_t launch_clusters(const void* kernel, int P, int Q, int threads, size_t smem,
                                    void** args, void* stream) {
+  cudaError_t err = opt_in_smem(kernel);
+  if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(P * Q);
   cfg.blockDim = dim3(threads);
@@ -640,11 +684,11 @@ inline cudaError_t launch_clusters(const void* kernel, int P, int Q, int threads
 }
 
 // Clusters of Q CTAs of `kernel` (with `smem` bytes each) that can be
-// resident at once, into *out; a CUDA error code.
+// resident at once, into *out; a CUDA error code. The plan's query: the
+// launch (launch_clusters) trusts the plan it is given.
 inline int max_clusters(const void* kernel, int Q, int threads, size_t smem, int* out) {
   *out = 0;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+  cudaError_t err = opt_in_smem(kernel);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(Q);

@@ -3,7 +3,7 @@ card: their latency floors, their phases and their times against other
 builds of their sources.
 
     PYTHONPATH=src python -m repro_torch.launch.scan_bench [--phases] [--phase-probes]
-        [--no-probes] [--src NAME=DIR ...]
+        [--no-probes] [--wg-rate P ...] [--src NAME=DIR ...]
 
 Shapes (inputs from ``chip_smoke.scan_inputs`` / ``chip_smoke.decoder_inputs``):
 K4 at zaremba-medium (T=35, B=20, H=650, structured p=0.5) and at the
@@ -42,7 +42,10 @@ S=50, H=512, nl=2, structured per-step sites at p=0.3).
   the scan, as us a step over T);
 * with ``--phase-probes``, pieces of the redesigned step alone at K4's two
   shapes on their grid (``PHASE_PROBE_SRC``): a site's BP partials with and
-  without their stores, the cluster gather, a ``cluster.sync()``.
+  without their stores, the cluster gather, a ``cluster.sync()``;
+* with ``--wg-rate P`` (repeatable), K4 also at zaremba-medium's shape with
+  RH rate P, timed and split like the others: BP shrinks with the kept
+  units, WG (dense over the units) does not.
 
 Run from the repo root (it imports ``chip_smoke``). Prints one JSON line
 last. CUDA only.
@@ -259,6 +262,15 @@ extern "C" int probe_launch(int which, int T, int N, int gmod, int pub, int rd, 
 PHASE_PROBE_SRC = r"""
 #include "scan_exchange.cuh"
 
+// bp_partials' sink that stores nothing: a store no value takes, so that
+// the compiler keeps the sums.
+struct NoStore {
+  unsigned long long* sink;
+  __device__ __forceinline__ void operator()(int, int, float v) const {
+    if (v == 12345.f) sink[0] = 0;
+  }
+};
+
 // T calls of one phase of K4 / K8's step on CTA-resident synthetic data, in
 // clusters of Q (cooperative): 0 bp_partials (RES, publishing), 1 the same
 // without its stores, 2 gather_cluster, 3 cluster.sync alone.
@@ -282,9 +294,12 @@ __global__ void probe_phase(int which, int T, int B, int H, int Q, int J, int P,
   }
   cg::this_cluster().sync();
   for (int t = 0; t < T; ++t) {
-    if (which <= 1)
-      bp_partials<true>(dgc, ldc, Ws, ldc, nullptr, kl, ku, nk, B, L,
-                        ring + ((size_t)(t & 1) * P + L.c) * B * H, B, 0, t + 1, which == 0);
+    if (which == 0)
+      bp_partials<true>(dgc, ldc, Ws, ldc, nullptr, kl, nk, B, L,
+                        Publish{ring + ((size_t)(t & 1) * P + L.c) * B * H, ku, B, 0,
+                                (unsigned)(t + 1)});
+    else if (which == 1)
+      bp_partials<true>(dgc, ldc, Ws, ldc, nullptr, kl, nk, B, L, NoStore{ring});
     else if (which == 2)
       gather_cluster(dgc, ldc, own, Bp, L, 0, B);
     __syncthreads();
@@ -298,11 +313,8 @@ extern "C" int probe_phase_launch(int which, int T, int B, int H, int Q, int J, 
   const int PJ = P * J, ldc = clu_cols8(Q, J) + 4;
   const size_t smem = 4 * ((size_t)PJ * ldc + (size_t)((B + 15) & ~15) * ldc +
                            4 * (size_t)J * ((B + 3) & ~3) + 2 * (size_t)PJ);
-  cudaError_t err = cudaFuncSetAttribute((const void*)probe_phase,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
   void* args[] = {&which, &T, &B, &H, &Q, &J, &P, &nk, &ring};
-  err = launch_clusters((const void*)probe_phase, P, Q, 256, smem, args, stream);
+  cudaError_t err = launch_clusters((const void*)probe_phase, P, Q, 256, smem, args, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -369,6 +381,25 @@ def probe_cases(B: int, H: int, k: int, sms: int, max_clusters: int, Q: int = CL
         "c_tagged_column_owned": (2, N, 1, B * k, B * J, 0),
         "d_cluster_dsmem": (3, P * Q, Q, -(-B * k // Q), B * Jc, B * 4 * Jc),
     }
+
+
+def k4_bwd_ops(T: int, B: int, H: int, k: int) -> dict:
+    """K4's FLOPs by the units that run them, at what the data needs (k
+    kept units a step): BP and WG on the TF32 tensor cores, three products
+    for each float32 one (3xTF32), and nothing of note on FFMA (the
+    pointwise reverse is not counted)."""
+    return {"tf32": 3 * 2 * (2 * T * B * k * 4 * H), "f32": 0}
+
+
+def k8_bwd_ops(T: int, B: int, S: int, H: int, kept) -> dict:
+    """K8's FLOPs by the units that run them, ``kept`` the kept units a
+    step of each of the four sites: on the TF32 tensor cores (3xTF32) each
+    site's BP and WG, dW_comb, d enc_out and d enc_proj; on FFMA the
+    readout's dpre @ w_comb^T and the attention's dalpha, context and
+    ds @ enc_proj."""
+    G, att, ro = 4 * H, 2 * B * S * H, 2 * B * 2 * H * H
+    return {"tf32": 3 * T * (sum(4 * B * k * G for k in kept) + 2 * att + ro),
+            "f32": T * (3 * att + ro)}
 
 
 def floor_ms(per_step_us: dict, T: int, exchanges: int = 1) -> float:
@@ -611,6 +642,9 @@ def main(argv=None):
     ap.add_argument("--no-probes", action="store_true", help="skip the floor probes")
     ap.add_argument("--phase-probes", action="store_true",
                     help="also time pieces of the redesigned step alone")
+    ap.add_argument("--wg-rate", type=float, action="append", default=[], metavar="P",
+                    help="also K4 at zaremba-medium's shape with RH rate P (WG runs dense "
+                         "over the units, BP over the kept ones)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("scan_bench: no CUDA device")
@@ -623,10 +657,12 @@ def main(argv=None):
         name, path = spec.split("=", 1)
         libs[name] = tuple(compile_lib(Path(path) / f"{n}.cu", f"{n}_variant_{name}")
                            for n in ("lstm_scan", "decoder_scan"))
-    out = {"card": cs.smi_line(), "k4_shapes": K4_SHAPES, "k8_shape": K8_SHAPE}
+    T, B, H, _ = K4_SHAPES["zaremba"]
+    k4_shapes = dict(K4_SHAPES, **{f"zaremba_p{p:g}": (T, B, H, p) for p in args.wg_rate})
+    out = {"card": cs.smi_line(), "k4_shapes": k4_shapes, "k8_shape": K8_SHAPE}
     gen = torch.Generator().manual_seed(0)
     rows = {}
-    for tag, (T, B, H, p) in K4_SHAPES.items():
+    for tag, (T, B, H, p) in k4_shapes.items():
         x, plain, ref = k4_inputs(cs, gen, T, B, H, p)
         rows[f"k4_{tag}"] = dict(T=T, kind="k4", plain=plain, ref=ref, B=B, H=H,
                                  k=x["rh"][0].shape[1], run_of=lambda lib, x=x: k4_call(lib, x))

@@ -20,6 +20,8 @@ It was set from the card's readings at luong-nmt width: largest error
 K7 1.19e-6. So a dropped contribution of more than ~1e-5 of a tensor's
 scale fails.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -382,3 +384,31 @@ def test_cuda_kernel_edge_cases_match_plain(kw):
     """Ragged rows of length 0 and T, a step that keeps no unit of half the
     CTAs, H not a multiple of the units a CTA (516 = 5 x 103 + 1)."""
     _assert_k8_matches_plain(_k8_case(require_cuda(), **kw))
+
+
+def _k8_plan(dev, B_, H_, S_):
+    """K8's launch plan: (Q, J, P) and whether it prefetches the residuals."""
+    q, j, p = t_ds._bwd_plan(dev.index or 0, B_, H_, S_)
+    mc, smem, pre = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    assert t_ds._lib().decoder_scan_bwd_clusters(B_, H_, S_, q, j, ctypes.byref(mc),
+                                                 ctypes.byref(smem), ctypes.byref(pre)) == 0
+    return (q, j, p), bool(pre.value)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B_,want", [
+    (192, lambda plan, pre: plan[0] == 8 and not pre),   # residuals read from global memory
+    (256, lambda plan, pre: plan[0] < 8 and not pre),    # and smaller clusters
+], ids=["q8_no_prefetch", "smaller_clusters_no_prefetch"])
+def test_cuda_kernel_at_large_batch_plans(B_, want):
+    """At H=512 a large batch leaves no room for the residual prefetch
+    buffers (and at B=256 for clusters of 8): the kernel still matches the
+    plain reverse and gives the same bits again."""
+    dev = require_cuda()
+    plan, pre = _k8_plan(dev, B_, 512, 8)
+    assert want(plan, pre), (plan, pre)
+    case = _k8_case(dev, "sp", 5, B_, 8, 512)
+    _assert_k8_matches_plain(case)
+    first, again = case["kernel"](), case["kernel"]()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)

@@ -11,6 +11,8 @@ tests (skipped without a GPU) hold the CUDA kernels to them.
 Tolerances: float32, different summation order: forward rtol/atol 1e-5,
 gradients rtol/atol 1e-4 (they sum over all T steps).
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -278,3 +280,31 @@ def test_cuda_kernel_within_ten_times_plain_float32_of_float64(T_, B_, H_, mode)
 ])
 def test_cuda_kernel_edge_cases_match_plain(kw):
     _assert_k4_matches_plain(_k4_case(require_cuda(), **kw))
+
+
+def _k4_plan(dev, B_, H_, k):
+    """K4's launch plan for a structured shape: (Q, J, P) and whether U's
+    block stays in shared memory."""
+    q, j, p = t_ls._bwd_plan(dev.index or 0, B_, H_, 1, k)
+    mc, res, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    assert t_ls._lib().lstm_scan_bwd_clusters(B_, H_, 1, k, q, j, ctypes.byref(mc),
+                                              ctypes.byref(res), ctypes.byref(smem)) == 0
+    return (q, j, p), bool(res.value)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B_,want", [
+    (192, lambda plan, res: plan[0] == 8 and not res),   # clusters of 8, U's block through L2
+    (256, lambda plan, res: plan[0] < 8),                # the plan falls back to smaller clusters
+], ids=["q8_U_through_L2", "smaller_clusters"])
+def test_cuda_kernel_at_large_batch_plans(B_, want):
+    """At H=512 a large batch takes the plans the main paths do not: the
+    kernel still matches the plain reverse and gives the same bits again."""
+    dev = require_cuda()
+    plan, res = _k4_plan(dev, B_, 512, 256)
+    assert want(plan, res), (plan, res)
+    case = _k4_case(dev, T_=6, B_=B_, H_=512)
+    _assert_k4_matches_plain(case)
+    first, again = case["kernel"](), case["kernel"]()
+    for a, b, n in zip(first, again, ("dgx", "dU", "dh0", "dc0")):
+        assert torch.equal(a, b), n

@@ -34,3 +34,25 @@ def test_probe_cases_move_the_kernels_words(B, H, k):
     Jc = dsm // (4 * B)
     assert n * Jc >= H > (n - 8) * Jc and rd == B * Jc and pub == -(-B * k // 8)
     assert {c[0] for c in cases.values()} == {0, 1, 2, 3}
+
+
+def test_k4_ops_are_bp_and_wg_on_the_tensor_cores():
+    """BP and WG, 2 B k 4H FLOPs a step each at the kept units, three TF32
+    products each (3xTF32); nothing counted on FFMA."""
+    T, B, H, k = 35, 20, 650, 325
+    assert sb.k4_bwd_ops(T, B, H, k) == {"tf32": 3 * T * 2 * (2 * B * k * 4 * H), "f32": 0}
+
+
+@pytest.mark.parametrize("kept", [[358] * 4, [512, 358, 100, 0]])
+def test_k8_ops_split_the_tensor_core_products_from_the_ffma_rest(kept):
+    """The split keeps the whole count (4 B k 4H a site, five attention
+    products of 2 B S H and two readout products of 2 B 2H H a step): the
+    readout's dpre @ w_comb^T and three attention products on FFMA, the
+    rest three times over on the TF32 tensor cores."""
+    T, B, S, H = 50, 64, 50, 512
+    ops = sb.k8_bwd_ops(T, B, S, H, kept)
+    att, ro = 2 * B * S * H, 2 * B * 2 * H * H
+    assert ops["f32"] == T * (3 * att + ro)
+    assert ops["tf32"] % 3 == 0
+    assert ops["tf32"] // 3 + ops["f32"] == T * (sum(4 * B * k * 4 * H for k in kept)
+                                                 + 5 * att + 2 * ro)
