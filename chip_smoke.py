@@ -12,12 +12,13 @@ plain PyTorch version at that path's full shapes, and times it:
   * luong-nmt (T=S=50, B=64, H=E=512, 2 layers, block size 1, p=0.3):
     K1/K2 and K3/K4 at the encoder's and decoder's shapes, and K7/K8, the
     fused decoder scan (also in dense, FIXED, off, mixed and ragged modes on
-    small inputs); at the main-path shapes K4 and K8 are also launched a
-    second time for the same bits and held to a float64 run of their plain
-    reverse within 10 x the float32 plain version's distance + 1e-6 x
+    small inputs); at the main-path shapes K3, K4, K7 and K8 are also
+    launched a second time for the same bits and held to a float64 run of
+    their plain versions within 10 x the float32 plain version's distance + 1e-6 x
     max(1, |ref|), and their rows carry a latency floor (T x the cheapest
     per-step exchange on the kernel's grid, ``launch/scan_bench.py``'s
-    probes);
+    probes); K3 and K7 alike, against a float64 run of their plain
+    forward, their floors from the forward probes (K7: T x four exchanges);
   * xlstm-1.3b (T=2048, B=2, 4 heads of dh=512, RH block 64, p=0.25, fresh
     start): K6, the fused sLSTM scan, whose backward computes dR after the
     scan with its WG kernel (``slstm_wg``, split-precision TF32 on the
@@ -425,12 +426,17 @@ def check_scan(gen, T_, B_, H_, rate, mode, *, fixed=False, ragged=False,
                   [dgx_p, dU_p, dh0_p, dc0_p], 1e-3)
     if out is None:
         return
-    # the main path: a second launch for the same bits, and a float64 run of
-    # the plain reverse on the same float32 residuals
+    # the main path: second launches for the same bits, and float64 runs of
+    # the plain versions (the reverse on the same float32 residuals)
+    same_bits("  lstm_scan_fwd second launch " + tag, [hs, gates, cs],
+              lambda: (lambda o: (o[0], o[1], o[2][0]))(fwd_k()))
+    d = lambda t: None if t is None else t.double()
+    ref = cs_mod.plain_fwd(cell, d(gx), d(U), d(h0), (d(c0),), ids, d(mask), lengths, scale)
+    f_f64 = f64_gate("  lstm_scan_fwd " + tag, [hs, gates, cs], [hs_p, gates_p, cs_p],
+                     [ref[0], ref[1], ref[2][0]])
     flat = lambda o: (o[0], o[1], o[2], o[3][0])
     same_bits("  lstm_scan_bwd second launch " + tag, [dgx, dU, dh0, dc0],
               lambda: flat(bwd_k()))
-    d = lambda t: t.double()
     ref = flat(cs_mod.plain_bwd(cell, d(dy), (d(dcT),), d(gates_p), (d(cs_p),), (d(c0),),
                                 d(hs_p), d(h0), d(U), *rh))
     b_f64 = f64_gate("  lstm_scan_bwd " + tag, [dgx, dU, dh0, dc0],
@@ -439,14 +445,17 @@ def check_scan(gen, T_, B_, H_, rate, mode, *, fixed=False, ragged=False,
     k = ids.shape[1] if ids is not None else H_
     uniq = int(torch.unique(ids).numel()) if ids is not None else H_
     G = 4 * H_
-    # K4's latency floor: T x the cheapest per-step exchange on its grid
+    # K3's and K4's latency floors: T x the cheapest per-step exchange on
+    # their grids
+    f_floor = scan_floor(T_, B_, H_, k, forward=True)
     floor = scan_floor(T_, B_, H_, k)
     src = "src/repro_torch/csrc/lstm_scan.cu"
     for name, fk, fp, err, nbytes, flops, rep, extra in (
             ("lstm_scan_fwd", fwd_k, fwd_p, e_f,
              4 * (T_ * B_ * G + uniq * G + 2 * B_ * H_ + T_ * k
                   + 2 * T_ * B_ * H_ + T_ * B_ * G),
-             2 * T_ * B_ * k * G, "src/repro/kernels/cell_scan.py:172", {}),
+             k3_ops(T_, B_, H_, k), "src/repro/kernels/cell_scan.py:172",
+             dict(floor_ms=f_floor, f64_rel_err=f_f64)),
             ("lstm_scan_bwd", bwd_k, bwd_p, e_b,
              4 * (T_ * B_ * H_ + B_ * H_ + T_ * B_ * G + 2 * T_ * B_ * H_
                   + 2 * B_ * H_ + uniq * G + T_ * k
@@ -460,6 +469,13 @@ def check_scan(gen, T_, B_, H_, rate, mode, *, fixed=False, ragged=False,
                 "cold", **extra)
 
 
+def k3_ops(T_, B_, H_, k):
+    """K3's operations as (FLOPs, rate) pairs: its product on FFMA."""
+    from repro_torch.launch import scan_bench
+    ops = scan_bench.k3_fwd_ops(T_, B_, H_, k)
+    return [(ops["tf32"], TF32_FLOPS), (ops["f32"], F32_FLOPS)]
+
+
 def k4_ops(T_, B_, H_, k):
     """K4's operations as (FLOPs, rate) pairs: BP and WG on the TF32
     tensor cores (3xTF32)."""
@@ -468,14 +484,16 @@ def k4_ops(T_, B_, H_, k):
     return [(ops["tf32"], TF32_FLOPS), (ops["f32"], F32_FLOPS)]
 
 
-def scan_floor(T_, B_, H_, k):
-    """K4's / K8's latency floor at a shape: T x the cheapest per-step
-    exchange on the kernel's grid (``launch/scan_bench.py``'s probes)."""
+def scan_floor(T_, B_, H_, k, forward=False, exchanges=1):
+    """K3's, K4's, K7's or K8's latency floor at a shape: T x ``exchanges``
+    x the cheapest per-step exchange on the kernel's grid
+    (``launch/scan_bench.py``'s probes; ``forward``: the forwards'
+    probes, k the inputs an exchange moves)."""
     from repro_torch.launch import scan_bench
-    fl = scan_bench.floor_probes(sys.modules[__name__], T_, B_, H_, k)
-    print("  latency floor probes (us a step): " + ", ".join(
-        f"{n} {v:.3f}" for n, v in fl["us_per_step"].items()))
-    return scan_bench.floor_ms(fl["us_per_step"], T_)
+    fl = scan_bench.floor_probes(sys.modules[__name__], T_, B_, H_, k, forward=forward)
+    print(f"  {'forward' if forward else 'backward'} latency floor probes (us a step): "
+          + ", ".join(f"{n} {v:.3f}" for n, v in fl["us_per_step"].items()))
+    return scan_bench.floor_ms(fl["us_per_step"], T_, exchanges)
 
 
 def decoder_inputs(gen, T_, B_, S_, H_, kind, rate, bs, ragged):
@@ -536,7 +554,8 @@ def check_decoder(gen, T_, B_, S_, H_, kind, *, rate=0.5, bs=4, ragged=False,
     print(f"decoder_scan T={T_} B={B_} S={S_} H={H_} nl=2 {kind}"
           f"{' ragged' if ragged else ''}")
     res = fwd_p()
-    e_f = compare("  decoder_scan_fwd " + tag, fwd_k(), res, 1e-3)
+    got_f = fwd_k()
+    e_f = compare("  decoder_scan_fwd " + tag, got_f, res, 1e-3)
     bargs = (descs, tables, res, dout, o["us"], o["ws"], o["w_feed"], o["w_comb"],
              o["enc_proj"], o["enc_out"], o["h0"], o["c0"], o["feed0"], lengths)
     flat = lambda g: [x for v in g for x in (v if isinstance(v, list) else [v])]
@@ -546,10 +565,16 @@ def check_decoder(gen, T_, B_, S_, H_, kind, *, rate=0.5, bs=4, ragged=False,
     e_b = compare("  decoder_scan_bwd " + tag, got_b, plain_b, 1e-3)
     if out is None:
         return
-    # the main path: a second launch for the same bits, and a float64 run of
-    # the plain reverse on the same float32 residuals
-    same_bits("  decoder_scan_bwd second launch " + tag, got_b, lambda: flat(bwd_k()))
+    # the main path: second launches for the same bits, and float64 runs of
+    # the plain versions (the reverse on the same float32 residuals)
+    same_bits("  decoder_scan_fwd second launch " + tag, got_f, fwd_k)
     d = lambda v: [x.double() for x in v] if isinstance(v, (list, tuple)) else v.double()
+    keys = ("gx0", "us", "ws", "bs", "w_feed", "w_comb", "enc_proj", "enc_out", "score_bias",
+            "h0", "c0", "feed0")
+    ref = ds.plain_fwd(descs, tables, *(d(o[k_]) for k_ in keys), lengths)
+    f_f64 = f64_gate("  decoder_scan_fwd " + tag, got_f, res, ref)
+    del got_f, ref
+    same_bits("  decoder_scan_bwd second launch " + tag, got_b, lambda: flat(bwd_k()))
     ref = flat(ds.plain_bwd(descs, tables, tuple(d(res)), tuple(d(dout)), d(o["us"]),
                             d(o["ws"]), d(o["w_feed"]), d(o["w_comb"]), d(o["enc_proj"]),
                             d(o["enc_out"]), d(o["h0"]), d(o["c0"]), d(o["feed0"]), lengths))
@@ -562,11 +587,11 @@ def check_decoder(gen, T_, B_, S_, H_, kind, *, rate=0.5, bs=4, ragged=False,
     uniq = [H_ if t_ is None or d.mode == "dense" else int(torch.unique(t_).numel())
             for d, t_ in zip(descs, tables)]
     ids = sum(0 if t_ is None else t_.numel() for t_ in tables)
-    att = 2 * B_ * S_ * H_
-    f_flops = T_ * (sum(2 * B_ * k * G for k in kept) + 2 * att + 2 * B_ * H2 * H_)
-    # the backward's products on the TF32 tensor cores (3xTF32), the rest
-    # of the readout and the attention on FFMA
+    # the forward's products on FFMA; the backward's on the TF32 tensor
+    # cores (3xTF32), the rest of the readout and the attention on FFMA
     from repro_torch.launch import scan_bench
+    f_ops = scan_bench.k7_fwd_ops(T_, B_, S_, H_, kept)
+    f_flops = [(f_ops["tf32"], TF32_FLOPS), (f_ops["f32"], F32_FLOPS)]
     b_ops = scan_bench.k8_bwd_ops(T_, B_, S_, H_, kept)
     b_flops = [(b_ops["tf32"], TF32_FLOPS), (b_ops["f32"], F32_FLOPS)]
     wbytes = sum(u * G for u in uniq) + H2 * H_ + (nl - 1) * G
@@ -579,12 +604,14 @@ def check_decoder(gen, T_, B_, S_, H_, kind, *, rate=0.5, bs=4, ragged=False,
                    + (2 * nl + 1) * B_ * H_ + wbytes + 2 * B_ * S_ * H_ + ids
                    + T_ * B_ * G + 2 * nl * H_ * G + (nl - 1) * G + H2 * H_
                    + 2 * B_ * S_ * H_ + (2 * nl + 1) * B_ * H_)
-    # K8's latency floor: T x the cheapest per-step exchange on its grid
+    # K7's latency floor: T x four dependent exchanges a step (a layer's
+    # two sites' inputs each), K8's: T x the cheapest per-step exchange
+    f_floor = scan_floor(T_, B_, H_, kept[0] + kept[1], forward=True, exchanges=4)
     floor = scan_floor(T_, B_, H_, kept[1])
     src = "src/repro_torch/csrc/decoder_scan.cu"
     for name, fk, fp, err, nbytes, flops, rep, extra in (
             ("decoder_scan_fwd", fwd_k, fwd_p, e_f, f_bytes, f_flops,
-             "src/repro/kernels/decoder_scan.py:413", {}),
+             "src/repro/kernels/decoder_scan.py:413", dict(floor_ms=f_floor, f64_rel_err=f_f64)),
             ("decoder_scan_bwd", bwd_k, bwd_p, e_b, b_bytes, b_flops,
              "src/repro/kernels/decoder_scan.py:598",
              dict(floor_ms=floor, f64_rel_err=b_f64))):

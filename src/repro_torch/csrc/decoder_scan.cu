@@ -104,7 +104,7 @@ constexpr int BC = 64;           // backward: dgates rows per cluster gather
 constexpr int NFD = 12;          // backward: residual fields a (row, unit), both layers
 constexpr size_t SMEM_MAX = 227 * 1024;
 
-// Built with -DDEC_PHASES (launch/scan_bench.py --phases), the backward adds
+// Built with -DDEC_PHASES (launch/scan_bench.py --phases), each kernel adds
 // the SM cycles thread 0 of each CTA spends in each phase of a step to
 // g_phase[CTA][phase]; otherwise the macros are empty.
 #ifdef DEC_PHASES
@@ -119,6 +119,27 @@ __device__ unsigned long long g_phase[1024][16];
 #else
 #define PHASE_START()
 #define PHASE(i)
+#endif
+// The forward's phases add to registers (thread 0), written out once at the
+// end (FPHASE_END), so that the counting puts no L2 round trip on a step.
+#ifdef DEC_PHASES
+#define FPHASE_START()                    \
+  long long ph_t = clock64();             \
+  unsigned long long ph_a[16];            \
+  for (int i = 0; i < 16; ++i) ph_a[i] = 0
+#define FPHASE(i)                                   \
+  if (threadIdx.x == 0) {                           \
+    const long long ph_n = clock64();               \
+    ph_a[i] += (unsigned long long)(ph_n - ph_t);   \
+    ph_t = ph_n;                                    \
+  }
+#define FPHASE_END()                                                   \
+  if (threadIdx.x == 0)                                                \
+    for (int i = 0; i < 16; ++i) g_phase[blockIdx.x][i] += ph_a[i]
+#else
+#define FPHASE_START()
+#define FPHASE(i)
+#define FPHASE_END()
 #endif
 
 __host__ __device__ inline size_t al4(size_t n) { return (n + 3) & ~size_t(3); }
@@ -294,6 +315,7 @@ __global__ void __launch_bounds__(NT) dec_fwd_kernel(FwdArgs a, int J) {
   const SiteArg off{0, 0, 1, 1.f, nullptr, nullptr};
   const int warp = tid >> 5, lane = tid & 31;
 
+  FPHASE_START();
   for (int t = 0; t < T; ++t) {
     const float* feed_prev = t == 0 ? a.f0 : a.htil + (size_t)(t - 1) * B * H;
     // ---- LSTM layers ----
@@ -310,10 +332,12 @@ __global__ void __launch_bounds__(NT) dec_fwd_kernel(FwdArgs a, int J) {
           const int site = p == 0 ? siteA : siteB;
           const SiteArg& st = a.sites[site];
           const int KC = stage_rows<RB, RBP>(xs, uid, p == 0 ? xA : hprev, st, t, B, H, b0);
+          FPHASE(4 * l);
           if (wg)
             accum<RB, RBP>(acc, xs, KC, uid, st.mode == 1, Wsm + (size_t)site * H * C4, C4,
                            cg_, sg, SG);
           __syncthreads();
+          FPHASE(4 * l + 1);
         }
         if (sg < SG) {
 #pragma unroll
@@ -356,9 +380,11 @@ __global__ void __launch_bounds__(NT) dec_fwd_kernel(FwdArgs a, int J) {
           a.cs[hofs] = c_new;
         }
         __syncthreads();
+        FPHASE(4 * l + 2);
       }
       __threadfence();
       grid.sync();
+      FPHASE(4 * l + 3);
     }
     // ---- attention: one batch row per CTA ----
     for (int b = blockIdx.x; b < B; b += gridDim.x) {
@@ -374,6 +400,7 @@ __global__ void __launch_bounds__(NT) dec_fwd_kernel(FwdArgs a, int J) {
         if (lane == 0) sc[s] = d + __ldg(a.sb + (size_t)b * S + s);
       }
       __syncthreads();
+      FPHASE(8);
       if (warp == 0) {
         float m = __int_as_float(0xff800000);   // -inf
         for (int s = lane; s < S; s += 32) m = fmaxf(m, sc[s]);
@@ -392,15 +419,18 @@ __global__ void __launch_bounds__(NT) dec_fwd_kernel(FwdArgs a, int J) {
         }
       }
       __syncthreads();
+      FPHASE(9);
       for (int h = tid; h < H; h += NT) {
         float v = 0.f;
         for (int s = 0; s < S; ++s) v = fmaf(sc[s], __ldg(a.eo + ((size_t)b * S + s) * H + h), v);
         a.ctx[(size_t)b * H + h] = v;
       }
       __syncthreads();
+      FPHASE(10);
     }
     __threadfence();
     grid.sync();
+    FPHASE(11);
     // ---- readout h~ = tanh([ctx ; h_top] @ w_comb), owned by columns ----
     for (int b0 = 0; b0 < B; b0 += RB) {
       float acc[RB];
@@ -409,8 +439,10 @@ __global__ void __launch_bounds__(NT) dec_fwd_kernel(FwdArgs a, int J) {
       for (int p = 0; p < 2; ++p) {
         const float* x = p == 0 ? a.ctx : a.hcur + (size_t)(nl - 1) * B * H;
         const int KC = stage_rows<RB, RBP>(xs, uid, x, off, t, B, H, b0);
+        FPHASE(12);
         if (wr) accum<RB, RBP>(acc, xs, KC, uid, false, Wcs + (size_t)p * H * J, J, cr, sr, SR);
         __syncthreads();
+        FPHASE(13);
       }
       if (sr < SR) {
 #pragma unroll
@@ -428,10 +460,13 @@ __global__ void __launch_bounds__(NT) dec_fwd_kernel(FwdArgs a, int J) {
         a.htil[((size_t)t * B + b) * H + j] = v;
       }
       __syncthreads();
+      FPHASE(13);
     }
     __threadfence();
     grid.sync();
+    FPHASE(14);
   }
+  FPHASE_END();
 }
 
 // ---------------------------------------------------------------------------
@@ -1082,6 +1117,12 @@ extern "C" int decoder_scan_phases(unsigned long long* out) {
     err = cudaMemcpyToSymbol(g_phase, zero, sizeof(g_phase));
   }
   return (int)err;
+}
+
+extern "C" const char* decoder_scan_fwd_phase_names() {
+  return "L0 stage,L0 product,L0 pointwise,L0 grid.sync,L1 stage,L1 product,L1 pointwise,"
+         "L1 grid.sync,attention scores,softmax,ctx,attention grid.sync,readout stage,"
+         "readout product + tanh,readout grid.sync";
 }
 
 extern "C" const char* decoder_scan_phase_names() {

@@ -20,16 +20,18 @@
 // U resident on its one core and the carry in scratch; on Hopper U
 // (6.8 MB at H=650) does not fit one SM's 227 KB, so latency per step
 // (memory round trips and the grid-wide barrier), not FLOPs or HBM bytes,
-// bounds it. Design: one persistent cooperative launch (grid <= one CTA
-// per SM, all co-resident) in which each CTA owns a slice of J hidden units
-// j and computes their four gate columns {j, H+j, 2H+j, 3H+j} for all B
-// rows. Those columns of U stay in shared memory when they fit (H=650:
-// 52 KB), else they are read through the 50 MB L2; the compact h_{t-1} is
-// staged in shared memory with many loads in flight; the cell state of the
-// owned units never leaves shared memory; one grid.sync() per step
-// publishes h_t. Cross-CTA data is read through L2 only (__ldcg); the
-// forward issues each batch of staging loads with no branch between them,
-// so they are in flight together.
+// bounds it. Both directions run on one grid of P clusters of Q CTAs (8
+// where they fit; kernels/lstm_scan.py cluster_plan), CTA i owning J units,
+// and pass their state between SMs as tagged words with no grid-wide
+// barrier. The forward (csrc/scan_exchange.cuh, "The forward exchange")
+// splits a step's product by column: CTA (c, q) polls the h_{t-1} words of
+// the kept units of its column S_q (B x k / Q words), sums their part of the
+// gates for its cluster's 4QJ columns (U's block, the rows of S_q x the
+// cluster's columns, resident in shared memory when it fits: H=650, 66 KB),
+// and pushes each CTA's columns into that CTA's shared memory; after a
+// cluster barrier the owners add the Q partials in rank order, update c
+// and h, and publish h_t. The first design had every CTA read all B x k
+// inputs through L2 behind a grid.sync() a step (PERF.md, section 6).
 // The backward (csrc/scan_exchange.cuh) keeps the ownership of dgates: a
 // grid of P clusters of Q CTAs (8 where they fit), CTA i owning J units.
 // Per step, a CTA polls the BP partials of its kept units (tagged words,
@@ -58,12 +60,10 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int NT = 256;   // threads per CTA
-constexpr int RB = 32;    // batch rows per register chunk (forward)
-constexpr int LD = 16;    // global loads in flight per thread when staging
 constexpr int NF = 8;     // backward residual fields a (row, unit)
 constexpr size_t SMEM_MAX = 227 * 1024;
 
-// Built with -DLSTM_PHASES (launch/scan_bench.py --phases), the backward
+// Built with -DLSTM_PHASES (launch/scan_bench.py --phases), each kernel
 // adds the SM cycles thread 0 of each CTA spends in each phase of a step to
 // g_phase[CTA][phase]; otherwise the macros are empty.
 #ifdef LSTM_PHASES
@@ -79,6 +79,29 @@ __device__ unsigned long long g_phase[1024][16];
 #define PHASE_START()
 #define PHASE(i)
 #endif
+// The forwards' phases add to registers (thread 0), written out once at the
+// end (FPHASE_END), so that the counting puts no L2 round trip on a step.
+#ifdef LSTM_PHASES
+#define FPHASE_START()                    \
+  long long ph_t = clock64();             \
+  unsigned long long ph_a[16];            \
+  for (int i = 0; i < 16; ++i) ph_a[i] = 0
+#define FPHASE(i)                                   \
+  if (threadIdx.x == 0) {                           \
+    const long long ph_n = clock64();               \
+    ph_a[i] += (unsigned long long)(ph_n - ph_t);   \
+    ph_t = ph_n;                                    \
+  }
+#define FPHASE_RESET() ph_t = clock64()
+#define FPHASE_END()                                                   \
+  if (threadIdx.x == 0)                                                \
+    for (int i = 0; i < 16; ++i) g_phase[blockIdx.x][i] += ph_a[i]
+#else
+#define FPHASE_START()
+#define FPHASE(i)
+#define FPHASE_RESET()
+#define FPHASE_END()
+#endif
 
 struct ScanArgs {
   int T, B, H;
@@ -90,144 +113,182 @@ struct ScanArgs {
   int J;           // hidden units per CTA
   float scale;
   float forget_bias;
-  int Q, P;        // backward: clusters of Q CTAs, P clusters
+  int Q, P;        // clusters of Q CTAs, P clusters
+  int RC;          // forward: batch rows a chunk
 };
+
+// Floats of the forward's input buffer (PJ x RC), which also holds the
+// k-group sums of push_tiles for an RC x C block.
+__host__ __device__ inline size_t fwd_xs(int PJ, int RC, int C) {
+  const size_t x = (size_t)PJ * RC, r = red_floats(RC, C, NT);
+  return x > r ? x : r;
+}
 
 __device__ __forceinline__ float sigm(float x) { return 1.f / (1.f + expf(-x)); }
 
-// RES: the CTA's U columns (H x 4J) stay resident in shared memory.
+// Forward (csrc/scan_exchange.cuh, "The forward exchange"): P clusters of Q
+// CTAs, CTA i owning the J units [i J, i J + J). Per step t and chunk of RC
+// rows: a poll of the h_{t-1} words of the kept units of S_q at row t (h0
+// at t = 0), the partial gates over them for the cluster's 4QJ columns
+// (FFMA, 4 x 4 tiles a thread), a push of each CTA's columns into its
+// shared memory and a cluster barrier, then the owner's sums in rank order
+// + gx_t (prefetched), the pointwise update, and h_t out as tagged words
+// (slot t & 1, tag t + 1); h and c of the own units stay in shared memory,
+// frozen rows carrying t - 1. Between the barrier's arrive and its wait the
+// CTA lists the kept units of row t + 1 (their ids prefetched a step ahead,
+// two list buffers). No grid-wide barrier.
+// RES: U's block (the rows of S_q x the cluster's columns) stays in shared
+// memory; else the product reads U through L2 (zaremba-large, H = 1500).
 template <bool RES>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 1)
 lstm_fwd_kernel(const float* __restrict__ gx, const float* __restrict__ U,
                 const float* __restrict__ h0, const float* __restrict__ c0,
                 const int* __restrict__ ids, const float* __restrict__ mask,
-                const int* __restrict__ lens, float* hs, float* gates,
-                float* cs, ScanArgs p) {
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ float smem[];
-  const int T = p.T, B = p.B, H = p.H, G = 4 * H, J = p.J;
-  const int j0 = blockIdx.x * J;
-  const int Jc = min(J, H - j0);
-  const int KC = p.mode == 1 ? p.k : H;
-  const int C4 = 4 * J;
-  const int S = NT / C4;
-  float* Us = smem;                       // RES: H x C4 own columns of U
-  float* hsm = Us + (RES ? (size_t)H * C4 : 0);  // B x KC compact h_{t-1}
-  float* part = hsm + (size_t)B * KC;     // S x RB x C4 partial sums
-  float* cst = part + (size_t)S * RB * C4;  // B x J cell-state carry
-  int* uid = reinterpret_cast<int*>(cst + (size_t)B * J);  // KC unit ids
+                const int* __restrict__ lens, float* hs, float* gates, float* cs, u64* ring,
+                ScanArgs p) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int T = p.T, B = p.B, H = p.H, G = 4 * H, J = p.J, Q = p.Q, P = p.P, RC = p.RC;
+  const Clu L(Q, J, P, H);
+  const int j0 = L.j0, Jc = L.Jc, PJ = P * J, C = clu_cols8(Q, J), N = P * Q, W = 4 * J;
+  const int KI = p.mode == 1 ? p.k : 0;
+  float* Ws = smem;                                         // RES: PJ x C block of U
+  float* xs = Ws + (RES ? (size_t)PJ * C : 0);              // PJ x RC inputs; k-group sums
+  const int BR = RC + 4;                                    // buf's row stride (banks)
+  float* buf = xs + fwd_xs(PJ, RC, C);                      // Q x 4J x BR pushed partials
+  float* gxs = buf + (size_t)Q * BR * W;                    // B x 4J: gx_t of the own units
+  float* cst = gxs + (size_t)B * W;                         // B x J carries
+  float* hcar = cst + (size_t)B * J;
+  int* kl = reinterpret_cast<int*>(hcar + (size_t)B * J);   // 2 x PJ: kept units of S_q
+  int* mk = kl + 2 * PJ;                                    // PJ stamps
+  int* idsb = mk + PJ;                                      // mode 1: an ids row
+  int* wsum = idsb + KI;                                    // 32
+  int* lns = wsum + 32;                                     // B lengths
   const int tid = threadIdx.x;
+  const size_t slot = (size_t)B * H;
+  u64* sent = ring + 2 * slot;                              // N sentinels
+  const bool per_step = KI && p.ids_rows > 1;
+  // ids row r into idsb
+  auto fetch_ids = [&](int r) {
+#pragma unroll 1
+    for (int kk = tid; kk < KI; kk += NT) cp4(idsb + kk, ids + (size_t)r * KI + kk, true);
+  };
 
+  if (RES) stage_block(Ws, C, U, L);
+  fetch_ids(0);
+  cp_commit();
+#pragma unroll 1
   for (int e = tid; e < B * J; e += NT) {
-    const int b = e / J, jj = e % J;
-    if (jj < Jc) cst[e] = c0[(size_t)b * H + j0 + jj];
+    const int b = e / J, q = e - b * J;
+    cst[e] = q < Jc ? c0[(size_t)b * H + j0 + q] : 0.f;
+    hcar[e] = q < Jc ? h0[(size_t)b * H + j0 + q] : 0.f;
   }
-  if (RES) {
-    for (int e = tid; e < H * C4; e += NT) {
-      const int row = e / C4, cc = e % C4, q = cc % J;
-      Us[e] = q < Jc ? U[(size_t)row * G + (cc / J) * H + j0 + q] : 0.f;
-    }
-  }
-
-  const int c = tid % C4, s = tid / C4;
-  const int g = c / J, jj = c % J;
-  const bool worker = s < S && jj < Jc;
-  const int ucol = g * H + j0 + jj;
-
+#pragma unroll 1
+  for (int s = tid; s < PJ; s += NT) mk[s] = -1;
+#pragma unroll 1
+  for (int b = tid; b < B; b += NT) lns[b] = p.ragged ? lens[b] : T;
+  cp_wait<0>();
+  __syncthreads();
+  // row 0's list (every unit of S_q in modes 0 and 2), row 1's ids
+  int nk = kept_of_column(KI ? idsb : nullptr, KI, 0, L, mk, kl, wsum);
+  if (per_step && T > 1) fetch_ids(1);
+  cp_commit();
+  const Div dJc(Jc > 0 ? Jc : 1);
+  const Tiles tt(RC, C);
+  const float sc = p.mode == 0 ? 1.f : p.scale;
+  cl_arrive();   // the first push waits for it
+  FPHASE_START();
+#pragma unroll 1
   for (int t = 0; t < T; ++t) {
-    const int row_i = p.ids_rows == 1 ? 0 : t;
-    const int row_m = p.mask_rows == 1 ? 0 : t;
-    const float* hprev = t == 0 ? h0 : hs + (size_t)(t - 1) * B * H;
-    if (p.mode == 1)
-      for (int kk = tid; kk < KC; kk += NT) uid[kk] = ids[(size_t)row_i * p.k + kk];
-    __syncthreads();
-    // LD loads in flight per thread (the loads are L2 round trips): all of a
-    // batch are issued unconditionally, with no branch between them
-    for (int e0 = tid; e0 < B * KC; e0 += LD * NT) {
-      float v[LD];
-#pragma unroll
-      for (int u = 0; u < LD; ++u) {
-        const int e = min(e0 + u * NT, B * KC - 1);
-        const int b = e / KC, kk = e - b * KC;
-        v[u] = __ldcg(hprev + (size_t)b * H + (p.mode == 1 ? uid[kk] : kk));
-      }
-      if (p.mode == 2) {
-        float m[LD];
-#pragma unroll
-        for (int u = 0; u < LD; ++u) {
-          const int e = min(e0 + u * NT, B * KC - 1);
-          const int b = e / KC, kk = e - b * KC;
-          m[u] = mask[((size_t)row_m * B + b) * H + kk];
-        }
-#pragma unroll
-        for (int u = 0; u < LD; ++u) v[u] *= m[u] * p.scale;
-      }
-#pragma unroll
-      for (int u = 0; u < LD; ++u)
-        if (e0 + u * NT < B * KC) hsm[e0 + u * NT] = v[u];
+    const int* klt = kl + (per_step ? (t & 1) * PJ : 0);
+    __syncthreads();   // the last step's pointwise is done with gxs
+    // gx_t of the own units, read at the pointwise
+#pragma unroll 1
+    for (int e = tid; e < B * 4 * Jc; e += NT) {
+      const int b = e / (4 * Jc), r = e - b * 4 * Jc, g = dJc.q(r), q = r - g * Jc;
+      cp4(gxs + (size_t)b * W + g * J + q, gx + ((size_t)t * B + b) * G + (size_t)g * H + j0 + q,
+          true);
     }
-    __syncthreads();
-
-    for (int b0 = 0; b0 < B; b0 += RB) {
-      float acc[RB];
-#pragma unroll
-      for (int bb = 0; bb < RB; ++bb) acc[bb] = 0.f;
-      if (worker) {
-#pragma unroll 4
-        for (int kk = s; kk < KC; kk += S) {
-          const int urow = p.mode == 1 ? uid[kk] : kk;
-          const float u = RES ? Us[(size_t)urow * C4 + c] : __ldg(U + (size_t)urow * G + ucol);
-          const float* hcol = hsm + kk;
-#pragma unroll
-          for (int bb = 0; bb < RB; ++bb)
-            if (b0 + bb < B) acc[bb] = fmaf(hcol[(size_t)(b0 + bb) * KC], u, acc[bb]);
-        }
-      }
-      if (s < S) {
-#pragma unroll
-        for (int bb = 0; bb < RB; ++bb) part[((size_t)s * RB + bb) * C4 + c] = acc[bb];
-      }
+    cp_commit();
+    FPHASE(0);
+    const float* mrow = p.mode == 2 ? mask + (size_t)(p.mask_rows == 1 ? 0 : t) * B * H : nullptr;
+#pragma unroll 1
+    for (int b0 = 0; b0 < B; b0 += RC) {
+      const int nr = min(RC, B - b0);
+      const bool last = b0 + RC >= B;
+      poll_rows(xs, RC, klt, nk, L, b0, nr, B, ring + (size_t)((t - 1) & 1) * slot,
+                (unsigned)t, t == 0 ? h0 : nullptr, [&](int b, int u) {
+                  return mrow ? mrow[(size_t)b * H + u] * sc : sc;
+                });
       __syncthreads();
-      for (int e = tid; e < RB * J; e += NT) {
-        const int bb = e / J, q = e % J, b = b0 + bb;
-        if (b >= B || q >= Jc) continue;
-        const int j = j0 + q;
-        const size_t gofs = ((size_t)t * B + b) * G + j;
-        float sum[4] = {0.f, 0.f, 0.f, 0.f};   // four independent chains
-        for (int s2 = 0; s2 < S; ++s2) {
-          const float* pr = part + ((size_t)s2 * RB + bb) * C4 + q;
+      if (last && tid == 0) st_word(sent + L.i, (u64)(t + 1));
+      FPHASE(1);
+      float acc[FMT][16];
 #pragma unroll
-          for (int g2 = 0; g2 < 4; ++g2) sum[g2] += pr[g2 * J];
-        }
+      for (int i = 0; i < FMT; ++i)
+#pragma unroll
+        for (int e = 0; e < 16; ++e) acc[i][e] = 0.f;
+      tile_dot<RES>(acc, tt, xs, RC, klt, nk, Ws, C, U, L);
+      FPHASE(2);
+      cl_wait();   // the owners are done with buf
+      push_tiles(acc, tt, xs, buf, BR, W, clu_cols(Q, J), L, GateOwner{J, Q * J});
+      cp_wait<0>();
+      cl_arrive();
+      FPHASE(3);
+      // while the cluster arrives: every reader done with the slot this step
+      // overwrites (before its first publication), and row t + 1's list
+      if (b0 == 0 && t >= 2) wait_sentinels(sent, N, (unsigned)t);
+      __syncthreads();                        // and row t + 1's ids have landed
+      if (last && per_step && t + 1 < T) {
+        nk = kept_of_column(idsb, KI, t + 1, L, mk, kl + ((t + 1) & 1) * PJ, wsum);
+        if (t + 2 < T) fetch_ids(t + 2);
+        cp_commit();
+      }
+      cl_wait();
+      FPHASE(4);
+      // the own units (neighbouring threads along the units: the stores of
+      // a row are neighbours): sums in rank order, the pointwise update, h_t out
+#pragma unroll 1
+      for (int e = tid; e < nr * Jc; e += NT) {
+        const int r = dJc.q(e), q = e - r * Jc, b = b0 + r, j = j0 + q, o = b * J + q;
         float gv[4];
 #pragma unroll
         for (int g2 = 0; g2 < 4; ++g2) {
-          if (p.mode == 1) sum[g2] *= p.scale;
-          gv[g2] = gx[gofs + (size_t)g2 * H] + sum[g2];
+          float v[8];
+#pragma unroll
+          for (int p2 = 0; p2 < 8; ++p2)
+            v[p2] = p2 < Q ? buf[((size_t)p2 * W + g2 * J + q) * BR + r] : 0.f;
+          float sum = 0.f;
+#pragma unroll
+          for (int p2 = 0; p2 < 8; ++p2) sum += v[p2];
+          gv[g2] = gxs[(size_t)b * W + g2 * J + q] + sum;
         }
         const float ig = sigm(gv[0]);
         const float fg = sigm(gv[1] + p.forget_bias);
         const float gg = tanhf(gv[2]);
         const float og = sigm(gv[3]);
-        const float c_prev = cst[b * J + q];
+        const float c_prev = cst[o];
         float c_new = fg * c_prev + ig * gg;
         float h_new = og * tanhf(c_new);
-        if (p.ragged && t >= lens[b]) {       // frozen row: carry t-1 through
-          h_new = __ldcg(hprev + (size_t)b * H + j);
+        if (t >= lns[b]) {     // frozen row: carry t-1 through
+          h_new = hcar[o];
           c_new = c_prev;
         }
-        cst[b * J + q] = c_new;
-        const size_t hofs = ((size_t)t * B + b) * H + j;
+        cst[o] = c_new;
+        hcar[o] = h_new;
+        st_word(ring + (size_t)(t & 1) * slot + (size_t)j * B + b, pack(h_new, t + 1));
+        const size_t hofs = ((size_t)t * B + b) * H + j, gofs = ((size_t)t * B + b) * G + j;
         hs[hofs] = h_new;
         cs[hofs] = c_new;
 #pragma unroll
         for (int g2 = 0; g2 < 4; ++g2) gates[gofs + (size_t)g2 * H] = gv[g2];
       }
-      __syncthreads();
+      cl_arrive();   // done with buf
+      FPHASE(5);
     }
-    __threadfence();
-    grid.sync();
   }
+  FPHASE_END();
+  cl_wait();   // no CTA leaves while a peer may still push into it
 }
 
 // RES: the CTA's block of U (the rows of S_q x the cluster's columns) stays
@@ -426,13 +487,24 @@ lstm_bwd_kernel(const float* __restrict__ dy, const float* __restrict__ dcT,
   PHASE(7);
 }
 
-size_t fwd_smem(const ScanArgs& p, bool res) {
-  const int KC = p.mode == 1 ? p.k : p.H;
-  const int C4 = 4 * p.J;
-  const int S = NT / C4;
-  return sizeof(float) * ((res ? (size_t)p.H * C4 : 0) + (size_t)p.B * KC +
-                          (size_t)S * RB * C4 + (size_t)p.B * p.J) +
-         sizeof(int) * (size_t)KC;
+// The forward's shared memory in bytes at chunks of RC rows.
+size_t fwd_smem(const ScanArgs& p, bool res, int RC) {
+  const size_t PJ = (size_t)p.P * p.J, C = clu_cols8(p.Q, p.J), W = 4 * (size_t)p.J;
+  const size_t f = (res ? PJ * C : 0) + fwd_xs((int)PJ, RC, (int)C) + (size_t)p.Q * (RC + 4) * W +
+                   (size_t)p.B * W + 2 * (size_t)p.B * p.J;
+  const size_t ints = 3 * PJ + (p.mode == 1 ? p.k : 0) + 32 + p.B;
+  return 4 * (f + ints);
+}
+
+// The forward's plan at p's grid: into *res whether U's block stays in
+// shared memory (when it fits at all), into *RC the most rows a chunk
+// (a multiple of 4, at most B rounded up, its tiles at most FMT a thread)
+// whose shared memory fits; 0 when none does.
+void fwd_plan(const ScanArgs& p, bool* res, int* RC) {
+  *res = fwd_smem(p, true, 4) <= SMEM_MAX;
+  *RC = 0;
+  for (int rc = 4; rc <= ((p.B + 3) & ~3); rc += 4)
+    if (fwd_smem(p, *res, rc) <= SMEM_MAX && fits_tiles(rc, clu_cols8(p.Q, p.J))) *RC = rc;
 }
 
 size_t bwd_smem(const ScanArgs& p, bool res) {
@@ -443,59 +515,52 @@ size_t bwd_smem(const ScanArgs& p, bool res) {
   return std::max(4 * f + 4 * ints, WG_SMEM);
 }
 
-// Fills p.J and the grid size; returns a CUDA error code (0 = launchable).
-int plan_launch(ScanArgs* p, const void* kernel, size_t smem, int* grid) {
-  int dev = 0, sms = 0, coop = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (!coop) return (int)cudaErrorNotSupported;
-  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT, smem);
-  if (err != cudaSuccess) return (int)err;
-  *grid = (p->H + p->J - 1) / p->J;
-  if (per_sm * sms < *grid) return (int)cudaErrorCooperativeLaunchTooLarge;
-  return 0;
-}
-
-int units_per_cta(int H) {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return (H + sms - 1) / sms;
-}
-
 }  // namespace
+
+// K3's plan for clusters of Q CTAs of J units: into *max_clu the clusters
+// that can be resident at once (0 when no shared-memory plan fits), *res
+// whether U's block stays in shared memory, *smem its bytes, *rows the rows
+// of a chunk (fwd_plan).
+extern "C" int lstm_scan_fwd_clusters(int B, int H, int mode, int k, int Q, int J, int* max_clu,
+                                      int* res, int* smem, int* rows) {
+  cudaGetLastError();
+  ScanArgs p{1, B, H, mode, k, 1, 1, 0, J, 1.f, 0.f, Q, ((H + J - 1) / J + Q - 1) / Q, 0};
+  bool r = false;
+  fwd_plan(p, &r, rows);
+  *res = r;
+  *smem = *rows ? (int)fwd_smem(p, r, *rows) : 0;
+  *max_clu = 0;
+  if (!*rows || p.P * Q > NT) return 0;
+  const void* kernel = r ? (const void*)lstm_fwd_kernel<true> : (const void*)lstm_fwd_kernel<false>;
+  return max_clusters(kernel, Q, NT, *smem, max_clu);
+}
 
 // gx (T, B, 4H) with the bias folded in; U (H, 4H); h0, c0 (B, H);
 // ids (ids_rows, k) int32 unit ids (mode 1); mask (mask_rows, B, H) (mode 2);
-// lens (B,) int32 when ragged. Outputs hs, cs (T, B, H) and gates (T, B, 4H).
+// lens (B,) int32 when ragged; ring: the zeroed words of the exchange
+// (kernels/lstm_scan.py fwd_ring_words); a plan of P clusters of Q CTAs of J
+// units that lstm_scan_fwd_clusters found resident (the wrapper's cached
+// plan: the launch checks only its sizes). Outputs hs, cs (T, B, H) and
+// gates (T, B, 4H), every element written.
 extern "C" int lstm_scan_fwd_f32(const float* gx, const float* U, const float* h0,
                                  const float* c0, const int* ids, const float* mask,
-                                 const int* lens, float* hs, float* gates, float* cs,
+                                 const int* lens, float* hs, float* gates, float* cs, u64* ring,
                                  int T, int B, int H, int mode, int k, int ids_rows,
-                                 int mask_rows, int ragged, float scale,
+                                 int mask_rows, int ragged, int Q, int J, float scale,
                                  float forget_bias, void* stream) {
   cudaGetLastError();
   if (T <= 0 || B <= 0) return 0;
-  ScanArgs p{T, B, H, mode, k, ids_rows, mask_rows, ragged, units_per_cta(H), scale,
-             forget_bias, 0};
-  if (4 * p.J > NT) return (int)cudaErrorInvalidValue;
-  // U resident in shared memory when it fits, else read through L2.
-  const bool res = fwd_smem(p, true) <= SMEM_MAX;
+  if (Q < 1 || Q > 8 || J < 1) return (int)cudaErrorInvalidValue;
+  ScanArgs p{T, B, H, mode, k, ids_rows, mask_rows, ragged, J, scale, forget_bias, Q,
+             ((H + J - 1) / J + Q - 1) / Q, 0};
+  bool res = false;
+  fwd_plan(p, &res, &p.RC);
+  if (!p.RC || p.P * Q > NT) return (int)cudaErrorInvalidValue;
+  const size_t smem = fwd_smem(p, res, p.RC);
   const void* kernel = res ? (const void*)lstm_fwd_kernel<true>
                            : (const void*)lstm_fwd_kernel<false>;
-  const size_t smem = fwd_smem(p, res);
-  int grid = 0;
-  int code = plan_launch(&p, kernel, smem, &grid);
-  if (code) return code;
-  void* args[] = {&gx, &U, &h0, &c0, &ids, &mask, &lens, &hs, &gates, &cs, &p};
-  cudaError_t err = cudaLaunchCooperativeKernel(kernel, dim3(grid),
-                                                dim3(NT), args, smem, (cudaStream_t)stream);
+  void* args[] = {&gx, &U, &h0, &c0, &ids, &mask, &lens, &hs, &gates, &cs, &ring, &p};
+  cudaError_t err = launch_clusters(kernel, p.P, Q, NT, smem, args, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -557,6 +622,11 @@ extern "C" int lstm_scan_phases(unsigned long long* out) {
     err = cudaMemcpyToSymbol(g_phase, zero, sizeof(g_phase));
   }
   return (int)err;
+}
+
+extern "C" const char* lstm_scan_fwd_phase_names() {
+  return "gx prefetch,poll h_{t-1} (+ sentinels),product,wait + push + arrive,"
+         "next kept list + cluster wait,sums + pointwise + publish";
 }
 
 extern "C" const char* lstm_scan_phase_names() {

@@ -1,7 +1,9 @@
-// The backward machinery that K4 (csrc/lstm_scan.cu, lstm_bwd_kernel) and
-// K8 (csrc/decoder_scan.cu, dec_bwd_kernel) share on Hopper (sm_90a):
-// their per-step exchange of BP partial sums across a grid of thread-block
-// clusters, and the weight-gradient (WG) product they run after the scan.
+// The machinery that the LSTM scans K3/K4 (csrc/lstm_scan.cu) and the
+// decoder scan's backward K8 (csrc/decoder_scan.cu) share on Hopper
+// (sm_90a): the backwards' per-step exchange of BP partial sums across a
+// grid of thread-block clusters, the weight-gradient (WG) product they run
+// after the scan, and K3's exchange of partial gates on the same grid (see
+// "The forward exchange" below).
 //
 // Layout. The grid is P clusters of Q CTAs; CTA i = c Q + q (cluster c,
 // rank q) owns the J hidden units [i J, i J + J) and computes their four
@@ -427,6 +429,289 @@ struct Publish {
   unsigned tag;
   __device__ __forceinline__ void operator()(int n, int b, float v) const {
     st_word(ring_c + (size_t)ku[n] * B + b0 + b, pack(v, tag));
+  }
+};
+
+// ---------------------------------------------------------------------------
+// The forward exchange (K3 lstm_fwd_kernel)
+// ---------------------------------------------------------------------------
+//
+// The forward runs on the backward's grid and splits a step's product the
+// other way round. gates[b, col] = sum over the kept units u of x[b, u]
+// W[u, col]: CTA (c, q) sums over the kept units of S_q alone, for all 4QJ
+// columns of its cluster (W's block: the rows of S_q x the cluster's
+// columns, as BP's), and pushes the partial sums of each CTA's own columns
+// into that CTA's shared memory (distributed shared memory), where the
+// owner adds the Q partials of a column in rank order after a barrier of
+// the cluster. x arrives as tagged words that the owners of the units
+// published (h_t, in a two-slot ring, unit-major: word u B + b),
+// so a CTA polls B x k / Q words a step and pushes B x 4QJ floats, where the
+// first design read all B x k inputs through L2 into every CTA behind a
+// grid.sync(). The cluster barrier runs in split phases (arrive, then wait
+// just before the shared buffer is written again), so the only barrier on
+// a step's path is the one that makes the pushed sums visible. A CTA
+// publishes a sentinel (the steps whose inputs it has read) after its last
+// poll of a step; before a CTA first overwrites a slot in step t it waits
+// for every CTA's sentinel to reach t, so no slot is rewritten while one
+// of its readers may still poll it.
+
+constexpr int FMT = 3;   // most 4 x 4 tiles of partial sums a thread
+
+__device__ __forceinline__ void cl_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cl_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Waits until every CTA's sentinel sent[i] (i < n <= blockDim.x) has
+// reached `want`; the caller's next barrier makes it hold for the block.
+__device__ __forceinline__ void wait_sentinels(const u64* sent, int n, unsigned want) {
+  if (threadIdx.x >= n) return;
+  unsigned ns = 32;
+  for (unsigned spin = 0; (unsigned)ld_word(sent + threadIdx.x) < want; ++spin) {
+    if (spin == SPIN_MAX) __trap();
+    __nanosleep(ns);
+    ns = min(2 * ns, 256u);
+  }
+}
+
+// The units of S_q that an ids row keeps (ids: its k unit ids in shared
+// memory; nullptr: every unit of S_q in H), as S_q indices in ascending
+// order into kl; returns their count. mk: P J ints that start at -1, stamp:
+// a value no earlier call wrote into mk. Ends with a __syncthreads().
+__device__ int kept_of_column(const int* ids, int k, int stamp, const Clu& L, int* mk, int* kl,
+                              int* wsum) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nw = blockDim.x >> 5;
+  const int PJ = L.P * L.J;
+  if (ids) {
+#pragma unroll 1
+    for (int kk = tid; kk < k; kk += blockDim.x) {
+      const int u = ids[kk], ow = L.owner(u);
+      if (ow - L.dQ.q(ow) * L.Q == L.q) mk[L.sidx(u)] = stamp;
+    }
+    __syncthreads();
+  }
+  int base = 0;
+#pragma unroll 1
+  for (int s0 = 0; s0 < PJ; s0 += blockDim.x) {
+    const int s = s0 + tid;
+    const bool kept = s < PJ && L.unit(s) < L.H && (!ids || mk[s] == stamp);
+    const unsigned m = __ballot_sync(0xffffffffu, kept);
+    if (lane == 0) wsum[warp] = __popc(m);
+    __syncthreads();
+    int off = base, tot = 0;
+    for (int w = 0; w < nw; ++w) {
+      const int c = wsum[w];
+      off += w < warp ? c : 0;
+      tot += c;
+    }
+    if (kept) kl[off + __popc(m & ((1u << lane) - 1u))] = s;
+    base += tot;
+    __syncthreads();
+  }
+  return base;
+}
+
+// Stages rows b0 .. b0 + nr of one input at the units of S_q listed in kl
+// (nk of them): xs[n ldx + r] = x[b0 + r, u] f(b0 + r, u), u = unit(kl[n]),
+// x the tagged word src[u B + b] of tag `want` or, with init (the launch's
+// initial state, B x H), init[b H + u]; rows nr .. ldx are zero. XPW loads
+// in flight a thread.
+template <class F>
+__device__ __forceinline__ void poll_rows(float* xs, int ldx, const int* kl, int nk, const Clu& L,
+                                          int b0, int nr, int B, const u64* src, unsigned want,
+                                          const float* init, F f) {
+  const int n = nk * ldx;
+  const Div dl(ldx);
+#pragma unroll 1
+  for (int e0 = threadIdx.x; e0 < n; e0 += XPW * blockDim.x) {
+    u64 w[XPW];
+#pragma unroll
+    for (int i = 0; i < XPW; ++i) {
+      const int e = e0 + i * (int)blockDim.x, nn = dl.q(e), r = e - nn * ldx;
+      const bool ok = e < n && r < nr;
+      const int u = ok ? L.unit(kl[nn]) : 0;
+      w[i] = !ok ? 0
+             : init ? (u64)__float_as_uint(__ldg(init + (size_t)(b0 + r) * L.H + u))
+                    : ld_word(src + (size_t)u * B + b0 + r);
+    }
+#pragma unroll
+    for (int i = 0; i < XPW; ++i) {
+      const int e = e0 + i * (int)blockDim.x, nn = dl.q(e), r = e - nn * ldx;
+      if (e >= n) break;
+      float v = 0.f;
+      if (r < nr) {
+        const int u = L.unit(kl[nn]);
+        v = init ? __uint_as_float((unsigned)w[i])
+                 : wait_word(src + (size_t)u * B + b0 + r, w[i], want);
+        v *= f(b0 + r, u);
+      }
+      xs[e] = v;
+    }
+  }
+}
+
+// The 4 x 4 tiles of a rows4 x cols4 block of partial sums (both multiples
+// of 4) that a thread computes: one column quad cq0 (4 cq0 .. 4 cq0 + 3) and
+// the row quads rq(i) = rq0 + i rs, i < FMT (-1 past the block), so that a
+// thread reads one quad of weights and FMT quads of inputs a listed unit.
+// With fewer tiles than threads the sums are also split over the listed
+// units into ks groups (k-group kg).
+struct Tiles {
+  int nrq, ncq, rs, cq0, rq0, ks, kg, nt, ntl;   // ntl: most tiles a thread (block-uniform)
+  __device__ Tiles(int rows4, int cols4) {
+    const int n = blockDim.x, tid = threadIdx.x;
+    nrq = rows4 / 4;
+    ncq = cols4 / 4;
+    nt = nrq * ncq;
+    ks = 1;
+    while (ks < 8 && 2 * ks * nt <= n) ks *= 2;
+    const int per = ks > 1 ? nt : n;          // threads a k-group
+    kg = ks > 1 ? tid / nt : 0;
+    const int t = ks > 1 ? tid % nt : tid;
+    rs = max(1, per / ncq);
+    cq0 = t % ncq;
+    rq0 = t / ncq;
+    if (ks > 1 && tid >= ks * nt) rq0 = nrq;  // idle
+    if (rq0 >= rs) rq0 = nrq;                 // threads past rs x ncq idle
+    ntl = ks > 1 ? 1 : (nrq + rs - 1) / rs;
+  }
+  __device__ __forceinline__ int rq(int i) const {
+    const int r = rq0 + i * rs;
+    return r < nrq ? r : -1;
+  }
+};
+
+// acc[i] += tile (rq(i), cq0) of the partial sums over the listed units n =
+// kg, kg + ks, .. < nk: xs[n ldx + r] w(kl[n], c), for i < NTL (the most
+// tiles a thread has). The loop has no branch: a tile the thread lacks
+// reads row quad 0 and its sums are not sent (push_tiles). RES: w(s, c) =
+// Ws[s ldw + c]; else W (H x 4H) through L2, W[unit(s) 4H + col(c)] (0
+// outside H).
+template <bool RES, int NTL>
+__device__ __forceinline__ void tile_dot_n(float (&acc)[FMT][16], const Tiles& tt, const float* xs,
+                                           int ldx, const int* kl, int nk, const float* Ws,
+                                           int ldw, const float* __restrict__ Wg, const Clu& L) {
+  const int c0 = 4 * tt.cq0, K = clu_cols(L.Q, L.J), G = 4 * L.H, step = tt.ks;
+  const float* xr[NTL];
+#pragma unroll
+  for (int i = 0; i < NTL; ++i) xr[i] = xs + 4 * max(tt.rq(i), 0) + (size_t)tt.kg * ldx;
+  const int* kp = kl + tt.kg;
+  const int cnt = nk > tt.kg ? (nk - tt.kg + step - 1) / step : 0;
+  const size_t xstep = (size_t)step * ldx;
+#pragma unroll 4
+  for (int m = 0; m < cnt; ++m) {
+    const int s = kp[m * step];
+    float4 w4;
+    if (RES) {
+      w4 = *reinterpret_cast<const float4*>(Ws + (size_t)s * ldw + c0);
+    } else {
+      const float* wr = Wg + (size_t)L.unit(s) * G;
+      float w[4];
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const int lc = c0 + cc;
+        w[cc] = lc < K && L.col_ok(lc) ? __ldg(wr + L.col(lc)) : 0.f;
+      }
+      w4 = make_float4(w[0], w[1], w[2], w[3]);
+    }
+    const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+    for (int i = 0; i < NTL; ++i) {
+      const float4 x = *reinterpret_cast<const float4*>(xr[i] + m * xstep);
+      const float xv[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr)
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc)
+          acc[i][rr * 4 + cc] = fmaf(xv[rr], wv[cc], acc[i][rr * 4 + cc]);
+    }
+  }
+}
+
+template <bool RES>
+__device__ __forceinline__ void tile_dot(float (&acc)[FMT][16], const Tiles& tt, const float* xs,
+                                         int ldx, const int* kl, int nk, const float* Ws, int ldw,
+                                         const float* __restrict__ Wg, const Clu& L) {
+  if (tt.rq0 >= tt.nrq) return;
+  static_assert(FMT == 3, "tile_dot dispatches 1 to 3 tiles a thread");
+  if (tt.ntl == 1) tile_dot_n<RES, 1>(acc, tt, xs, ldx, kl, nk, Ws, ldw, Wg, L);
+  else if (tt.ntl == 2) tile_dot_n<RES, 2>(acc, tt, xs, ldx, kl, nk, Ws, ldw, Wg, L);
+  else tile_dot_n<RES, 3>(acc, tt, xs, ldx, kl, nk, Ws, ldw, Wg, L);
+}
+
+// Sends the thread's tiles to the owners of their columns: the partial
+// sums of rows r0 .. r0 + 3, cluster column c < ncol go to CTA p's
+// buf[(L.q W + w) ldr + r0 ..] (16 bytes; an owner finds the Q partials of
+// its column w by source rank, rows along; ldr a multiple of 4, at least
+// the rows), (p, w) = own(c). k-groups are
+// first summed (red: ks x tiles x 16 floats of shared memory no thread still
+// reads) in group order. The caller has waited for the owners to be done
+// with buf.
+template <class Own>
+__device__ __forceinline__ void push_tiles(float (&acc)[FMT][16], const Tiles& tt, float* red,
+                                           float* buf, int ldr, int W, int ncol, const Clu& L,
+                                           Own own) {
+  cg::cluster_group cl = cg::this_cluster();
+  const bool on = tt.rq0 < tt.nrq;
+  if (tt.ks > 1) {
+    const int tl = tt.rq0 * tt.ncq + tt.cq0;
+    __syncthreads();
+    if (on)
+#pragma unroll
+      for (int e = 0; e < 16; ++e) red[((size_t)tt.kg * tt.nt + tl) * 16 + e] = acc[0][e];
+    __syncthreads();
+    if (tt.kg != 0 || !on) return;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      float v = red[(size_t)tl * 16 + e];
+      for (int g = 1; g < tt.ks; ++g) v += red[((size_t)g * tt.nt + tl) * 16 + e];
+      acc[0][e] = v;
+    }
+  }
+  if (!on) return;
+#pragma unroll
+  for (int cc = 0; cc < 4; ++cc) {
+    const int c = 4 * tt.cq0 + cc;
+    if (c >= ncol) continue;
+    int p, w;
+    own(c, p, w);
+    float* dst = cl.map_shared_rank(buf, p) + ((size_t)L.q * W + w) * ldr;
+#pragma unroll
+    for (int i = 0; i < FMT; ++i) {
+      const int r = tt.rq(i);
+      if (r >= 0)
+        *reinterpret_cast<float4*>(dst + 4 * r) =
+            make_float4(acc[i][cc], acc[i][4 + cc], acc[i][8 + cc], acc[i][12 + cc]);
+    }
+  }
+}
+
+// Whether Tiles covers a rows4 x cols4 block with n threads (at most FMT
+// tiles a thread).
+__host__ __device__ inline bool fits_tiles(int rows4, int cols4, int n = 256) {
+  const int ncq = cols4 / 4;
+  return ncq <= n && rows4 / 4 <= FMT * (n / ncq);
+}
+
+// Floats of k-group sums push_tiles needs for a rows4 x cols4 block (0
+// without k-groups), as Tiles splits it for n threads.
+__host__ __device__ inline int red_floats(int rows4, int cols4, int n) {
+  const int nt = rows4 / 4 * (cols4 / 4);
+  int ks = 1;
+  while (ks < 8 && 2 * ks * nt <= n) ks *= 2;
+  return ks > 1 ? ks * nt * 16 : 0;
+}
+
+// own() of a gate block's cluster column lc = g QJ + p J + jj: CTA p, its
+// column g J + jj.
+struct GateOwner {
+  int J, QJ;
+  __device__ __forceinline__ void operator()(int lc, int& p, int& w) const {
+    const int g = lc / QJ, m = lc - g * QJ;
+    p = m / J;
+    w = g * J + m - p * J;
   }
 };
 

@@ -11,11 +11,12 @@ run through the headed cell_scan as its one-head case.
 
 The kernels take float32 only; the wrappers raise on anything else, on
 tensors of mixed devices, and on a non-zero CUDA status after the launch.
-K4 runs on a grid of thread-block clusters (``cluster_plan``,
-csrc/scan_exchange.cuh) and exchanges its BP partial sums through a zeroed
-ring of tagged words that the wrapper allocates (``ring_words``); a shape
-whose plan does not fit the card raises. ``LAUNCHES`` counts the kernel
-launches.
+Both run on a grid of thread-block clusters (csrc/scan_exchange.cuh) and
+pass their state between clusters through a zeroed ring of tagged words
+that the wrapper allocates: K3 its h_t (``fwd_cluster_plan``,
+``fwd_ring_words``), K4 its BP partial sums (``cluster_plan``,
+``ring_words``); a shape whose plan does not fit the card raises.
+``LAUNCHES`` counts the kernel launches.
 """
 from __future__ import annotations
 
@@ -72,13 +73,18 @@ def _lib():
     lib = _build.load("lstm_scan")
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.lstm_scan_fwd_f32.argtypes = [p] * 10 + [i] * 8 + [f, f, p]
-        lib.lstm_scan_fwd_f32.restype = i
         lib.lstm_scan_bwd_f32.argtypes = [p] * 16 + [i] * 10 + [f, f, p]
         lib.lstm_scan_bwd_f32.restype = i
         ip = ctypes.POINTER(i)
         lib.lstm_scan_bwd_clusters.argtypes = [i] * 6 + [ip] * 3
         lib.lstm_scan_bwd_clusters.restype = i
+        # a build of the first forward (launch/scan_bench.py drives one)
+        # has neither
+        if hasattr(lib, "lstm_scan_fwd_clusters"):
+            lib.lstm_scan_fwd_f32.argtypes = [p] * 11 + [i] * 10 + [f, f, p]
+            lib.lstm_scan_fwd_f32.restype = i
+            lib.lstm_scan_fwd_clusters.argtypes = [i] * 6 + [ip] * 4
+            lib.lstm_scan_fwd_clusters.restype = i
         lib._typed = True
     return lib
 
@@ -101,6 +107,34 @@ def cluster_plan(H: int, sms: int, fits) -> Tuple[int, int, int]:
     raise ValueError(f"no cluster plan fits H={H} on {sms} SMs")
 
 
+FWD_ROWS = 64     # a K3 plan that chunks the batch takes at least this many rows a chunk
+
+
+def fwd_cluster_plan(H: int, B: int, sms: int, query) -> Tuple[int, int, int]:
+    """(Q, J, P) of K3's grid: ``cluster_plan`` over the
+    plans that ``query(Q, J)`` -> (all clusters resident, rows a chunk)
+    finds resident, first among those that take min(B, FWD_ROWS) rows (B
+    rounded up to 4) a chunk, then among those that take any."""
+    def takes(least):
+        def fits(q, j):
+            resident, rows = query(q, j)
+            return resident and rows >= least
+        return fits
+
+    for least in (min(-(-B // 4) * 4, FWD_ROWS), 4):
+        try:
+            return cluster_plan(H, sms, takes(least))
+        except ValueError:
+            pass
+    raise ValueError(f"no forward cluster plan fits H={H}, B={B} on {sms} SMs")
+
+
+def fwd_ring_words(Q: int, J: int, P: int, B: int, H: int) -> int:
+    """64-bit words of the zeroed exchange a K3 launch needs: two slots of
+    B x H tagged h values, then a sentinel for each of the P x Q CTAs."""
+    return 2 * B * H + P * Q
+
+
 def ring_words(Q: int, J: int, P: int, B: int, H: int, keep_rows: int = 0) -> int:
     """64-bit words of the zeroed exchange a backward launch needs: two
     slots of B x H partials from each of the P clusters, two sentinels for
@@ -112,7 +146,7 @@ def ring_words(Q: int, J: int, P: int, B: int, H: int, keep_rows: int = 0) -> in
 @functools.lru_cache(maxsize=None)
 def _bwd_plan(device_index: int, B: int, H: int, mode: int, k: int):
     lib = _lib()
-    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    sms = _sms(device_index)
 
     def fits(q, j):
         mc, res, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
@@ -122,6 +156,25 @@ def _bwd_plan(device_index: int, B: int, H: int, mode: int, k: int):
         _build.check(lib, code, "lstm_scan backward plan")
         return mc.value >= -(-(-(-H // j)) // q)
     return cluster_plan(H, sms, fits)
+
+
+def _sms(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_plan(device_index: int, B: int, H: int, mode: int, k: int):
+    lib = _lib()
+
+    def query(q, j):
+        mc, res, smem, rows = (ctypes.c_int() for _ in range(4))
+        with torch.cuda.device(device_index):
+            code = lib.lstm_scan_fwd_clusters(B, H, mode, k, q, j, ctypes.byref(mc),
+                                              ctypes.byref(res), ctypes.byref(smem),
+                                              ctypes.byref(rows))
+        _build.check(lib, code, "lstm_scan forward plan")
+        return mc.value >= -(-(-(-H // j)) // q), rows.value
+    return fwd_cluster_plan(H, B, _sms(device_index), query)
 
 
 def _ptr(x: Optional[torch.Tensor]):
@@ -155,7 +208,8 @@ def _mode_args(ids, mask, T, B, H):
 
 def lstm_scan_fwd_cuda(gx, u, h0, states0, ids, mask, lengths, scale, *,
                        forget_bias):
-    """K3: the whole forward recurrence in one cooperative launch."""
+    """K3: the whole forward recurrence in one cooperative launch of
+    clusters."""
     (c0,) = states0
     T, B, G = gx.shape
     H = u.shape[0]
@@ -170,11 +224,13 @@ def lstm_scan_fwd_cuda(gx, u, h0, states0, ids, mask, lengths, scale, *,
     cs = torch.empty((T, B, H), dtype=f32, device=gx.device)
     gates = torch.empty((T, B, G), dtype=f32, device=gx.device)
     lib = _lib()
+    q, j, p = _fwd_plan(gx.device.index or 0, B, H, mode, k)
+    ring = torch.zeros(fwd_ring_words(q, j, p, B, H), dtype=torch.int64, device=gx.device)
     code = lib.lstm_scan_fwd_f32(
         gx.data_ptr(), u.data_ptr(), h0.data_ptr(), c0.data_ptr(), _ptr(ids),
         _ptr(mask), _ptr(lengths), hs.data_ptr(), gates.data_ptr(),
-        cs.data_ptr(), T, B, H, mode, k, ids_rows, mask_rows,
-        int(lengths is not None), float(scale), float(forget_bias),
+        cs.data_ptr(), ring.data_ptr(), T, B, H, mode, k, ids_rows, mask_rows,
+        int(lengths is not None), q, j, float(scale), float(forget_bias),
         torch.cuda.current_stream(gx.device).cuda_stream)
     _build.check(lib, code, "lstm_scan forward")
     LAUNCHES["lstm_scan_fwd"] += 1

@@ -1,48 +1,55 @@
-"""K4 (the LSTM scan's backward) and K8 (the decoder scan's backward) on the
-card: their latency floors, their phases and their times against other
-builds of their sources.
+"""The LSTM scan (K3 forward, K4 backward) and the decoder scan (K7 forward,
+K8 backward) on the card: their latency floors, their phases and their times
+against other builds of their sources.
 
-    PYTHONPATH=src python -m repro_torch.launch.scan_bench [--phases] [--phase-probes]
-        [--no-probes] [--wg-rate P ...] [--src NAME=DIR ...]
+    PYTHONPATH=src python -m repro_torch.launch.scan_bench [--kernels k3,k4,k7,k8]
+        [--phases] [--phase-probes] [--micro-probes] [--dot-probes] [--no-probes]
+        [--wg-rate P ...] [--fwd-clusters Q ...] [--src NAME=DIR ...]
 
 Shapes (inputs from ``chip_smoke.scan_inputs`` / ``chip_smoke.decoder_inputs``):
-K4 at zaremba-medium (T=35, B=20, H=650, structured p=0.5) and at the
-luong-nmt encoder (T=50, B=64, H=512, p=0.3); K8 at luong-nmt (T=50, B=64,
-S=50, H=512, nl=2, structured per-step sites at p=0.3).
+K3 and K4 at zaremba-medium (T=35, B=20, H=650, structured p=0.5) and at the
+luong-nmt encoder (T=50, B=64, H=512, p=0.3); K7 and K8 at luong-nmt (T=50,
+B=64, S=50, H=512, nl=2, structured per-step sites at p=0.3).
 
 * the floor: probe kernels (``PROBE_SRC``) on each kernel's own grid (one
-  CTA of 256 threads a slice of J units, J = ceil(H / SMs) as both kernels
-  take it) time T steps of (a) ``grid.sync()`` alone; (b) a barrier of all
-  CTAs on an L2 counter (release / acquire); (c) an exchange of 64-bit
-  words that carry value and step together (tagged), polled until the tags
-  match, at the kernels' sizes: every CTA publishes its B x 4J dgates and
-  reads all B x 4H ("all_dgates", what the first K4 / K8 read a step), or
-  publishes B x k partial dh and reads B x J from every CTA
-  ("column_owned"); (d) the same exchange inside thread-block clusters of
-  8 CTAs (``kernels/lstm_scan.cluster_plan``, as the redesigned kernels
-  lay them out): a ``cluster.sync()`` and a distributed-shared-
-  memory gather of B x 4J floats from each of the Q CTAs, then B x k / Q
-  tagged words out and B x J x P in (P clusters). The cheapest, x T, is the
-  kernel's latency floor (K8's step needs at least three such exchanges in
-  a row, so T x 3 x the cheapest is printed beside it);
-* each build's K4 and K8, CUDA events, cold L2, median of 20, the builds
+  CTA of 256 threads a slice of J units, J = ceil(H / SMs) as the first
+  designs take it) time T steps of (a) ``grid.sync()`` alone; (b) a barrier
+  of all CTAs on an L2 counter (release / acquire); for the backwards (c) an
+  exchange of 64-bit words that carry value and step together (tagged),
+  polled until the tags match: every CTA publishes its B x 4J dgates and
+  reads all B x 4H ("all_dgates"), or publishes B x k partial dh and reads
+  B x J from every CTA ("column_owned"); (d) the same exchange inside
+  thread-block clusters of 8 CTAs (``kernels/lstm_scan.cluster_plan``): a
+  ``cluster.sync()`` and a distributed-shared-memory gather of B x 4J floats
+  from each of the Q CTAs, then B x k / Q tagged words out and B x J x P in
+  (P clusters); for the forwards (``fwd_probe_cases``: k the inputs of an
+  exchange, two sites' for K7) every CTA reading all B x k inputs by
+  ``__ldcg`` before a ``grid.sync()`` (the first design), a tagged
+  broadcast, and clusters of 8 and 4 in a gather and a partial-sum form.
+  The cheapest, x T, is the kernel's latency floor (K7's step chains four
+  exchanges: T x 4 x the cheapest; K8's at least three, printed beside);
+* each build's kernels, CUDA events, cold L2, median of 20, the builds
   taken in turns (a, b, ..., b, a) twice; the builds are the repo's
   ``csrc/lstm_scan.cu`` and ``csrc/decoder_scan.cu`` ("repo") and, for each
   ``--src NAME=DIR``, the same files in DIR (e.g. a parent commit's
   ``src/repro_torch/csrc``; its headers must sit beside them), compiled with
-  the same nvcc flags; a build without the redesign's C interface is driven
-  through the first design's;
-* each build's distance to a float64 run of the plain version (on the
-  float32 forward's residuals), max |err| / max(1, |ref|) over the outputs,
-  beside the float32 plain version's own;
+  the same nvcc flags; a build without the redesigns' C interfaces is
+  driven through the first designs'; ``--fwd-clusters Q`` adds the repo's
+  K3 with its plan limited to clusters of at most Q CTAs;
+* each build's distance to a float64 run of the plain version (the
+  backwards on the float32 forward's residuals), max |err| / max(1, |ref|)
+  over the outputs, beside the float32 plain version's own;
 * with ``--phases``, the repo build's step split into its phases: the
   sources built with ``-DLSTM_PHASES`` / ``-DDEC_PHASES`` (thread 0 of
   each CTA counts the cycles between the step's barriers), as shares of the
   step and as us a step at the uninstrumented build's time (a phase after
   the scan, as us a step over T);
-* with ``--phase-probes``, pieces of the redesigned step alone at K4's two
-  shapes on their grid (``PHASE_PROBE_SRC``): a site's BP partials with and
-  without their stores, the cluster gather, a ``cluster.sync()``;
+* with ``--phase-probes``, pieces of K4's step alone at its two shapes on
+  its grid (``PHASE_PROBE_SRC``): a site's BP partials with and without
+  their stores, the cluster gather, a ``cluster.sync()``; with
+  ``--dot-probes`` and ``--micro-probes``, pieces of K3's step alone: its
+  product loop (``tile_dot``) and a plain FFMA loop at its shapes, reads of
+  tagged words already in place by load kind, and ``poll_rows``;
 * with ``--wg-rate P`` (repeatable), K4 also at zaremba-medium's shape with
   RH rate P, timed and split like the others: BP shrinks with the kept
   units, WG (dense over the units) does not.
@@ -151,9 +158,10 @@ __global__ void probe_tagged(u64* ring, float* sink, int T, int gmod, int pub, i
 
 // Clusters of Q CTAs: a step writes dsm floats into the CTA's shared
 // memory, cluster.sync(), gathers dsm floats from each CTA of the cluster
-// (distributed shared memory), then publishes pub tagged words and polls
-// rd words of each CTA of its column (j % Q == blockIdx.x % Q).
-__global__ void probe_cluster(u64* ring, float* sink, int T, int pub, int rd, int dsm) {
+// (distributed shared memory; keep: into its own shared memory, else summed
+// in registers), then publishes pub tagged words and polls rd words of each
+// CTA of its column (j % Q == blockIdx.x % Q).
+__global__ void probe_cluster(u64* ring, float* sink, int T, int pub, int rd, int dsm, int keep) {
   extern __shared__ float sm[];
   cg::cluster_group cl = cg::this_cluster();
   const int Q = (int)cl.num_blocks(), N = gridDim.x, me = blockIdx.x;
@@ -168,17 +176,38 @@ __global__ void probe_cluster(u64* ring, float* sink, int T, int pub, int rd, in
     float* own = sm + (t & 1) * dsm;
     for (int e = threadIdx.x; e < dsm; e += blockDim.x) own[e] = acc + e;
     cl.sync();
+    float g = 0.f;
     for (int e = threadIdx.x; e < Q * dsm; e += blockDim.x) {
       const float* peer = cl.map_shared_rank(own, e / dsm);
-      gath[e] = peer[e % dsm];
+      if (keep) gath[e] = peer[e % dsm];
+      else g += peer[e % dsm];
     }
     __syncthreads();
-    acc += gath[threadIdx.x % (Q * dsm)];
+    acc += keep ? gath[threadIdx.x % (Q * dsm)] : g;
     u64* o = ring + (size_t)(t & 1) * slot + (size_t)me * pub;
     for (int e = threadIdx.x; e < pub; e += blockDim.x)
       st_word(o + e, ((u64)(t + 1) << 32) | __float_as_uint(1.f));
   }
   cl.sync();
+  sink[blockIdx.x * blockDim.x + threadIdx.x] = acc;
+}
+
+// The first K3 / K7 design's staging: a step reads n floats written in the
+// launch through L2 (__ldcg, 16 loads in flight a thread), then grid.sync().
+__global__ void probe_ldcg(const float* x, float* sink, int T, int n) {
+  cg::grid_group grid = cg::this_grid();
+  float acc = 0.f;
+  for (int t = 0; t < T; ++t) {
+    for (int e0 = threadIdx.x; e0 < n; e0 += 16 * blockDim.x) {
+      float v[16];
+#pragma unroll
+      for (int u = 0; u < 16; ++u) v[u] = __ldcg(x + min(e0 + u * (int)blockDim.x, n - 1));
+#pragma unroll
+      for (int u = 0; u < 16; ++u)
+        if (e0 + u * (int)blockDim.x < n) acc += v[u];
+    }
+    grid.sync();
+  }
   sink[blockIdx.x * blockDim.x + threadIdx.x] = acc;
 }
 
@@ -228,7 +257,9 @@ extern "C" int probe_max_clusters(int Q, int smem, int* out) {
 }
 
 // which: 0 grid.sync, 1 L2 barrier, 2 tagged, 3 cluster (coop: also a
-// cooperative launch). Returns the launch's CUDA error.
+// cooperative launch; gathered into shared memory), 4 __ldcg of rd floats
+// and grid.sync, 5 cluster, the gathered floats summed in registers.
+// Returns the launch's CUDA error.
 extern "C" int probe_launch(int which, int T, int N, int gmod, int pub, int rd, int dsm,
                             int coop, void* buf, float* sink, void* stream) {
   cudaGetLastError();
@@ -245,12 +276,17 @@ extern "C" int probe_launch(int which, int T, int N, int gmod, int pub, int rd, 
     void* args[] = {&buf, &sink, &T, &gmod, &pub, &rd};
     err = cudaLaunchCooperativeKernel((const void*)probe_tagged, dim3(N), dim3(256), args, 0,
                                       (cudaStream_t)stream);
+  } else if (which == 4) {
+    void* args[] = {&buf, &sink, &T, &rd};
+    err = cudaLaunchCooperativeKernel((const void*)probe_ldcg, dim3(N), dim3(256), args, 0,
+                                      (cudaStream_t)stream);
   } else {
-    const size_t smem = (size_t)(2 + gmod) * dsm * sizeof(float);
+    int keep = which == 3;
+    const size_t smem = (size_t)(2 + (keep ? gmod : 0)) * dsm * sizeof(float);
     err = cudaFuncSetAttribute((const void*)probe_cluster,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    void* args[] = {&buf, &sink, &T, &pub, &rd, &dsm};
+    void* args[] = {&buf, &sink, &T, &pub, &rd, &dsm, &keep};
     err = launch_ex((const void*)probe_cluster, N, gmod, coop != 0, smem, args, stream);
   }
   if (err != cudaSuccess) return (int)err;
@@ -308,6 +344,157 @@ __global__ void probe_phase(int which, int T, int B, int H, int Q, int J, int P,
   cg::this_cluster().sync();
 }
 
+// T calls of the forwards' product (tile_dot) on CTA-resident synthetic
+// data, a rows x cols block of partial sums over nk listed units, into
+// sink; one CTA an SM (grid ctas).
+__global__ void probe_dot(int T, int rows, int cols, int nk, float* sink) {
+  extern __shared__ float4 sm4[];
+  float* sm = reinterpret_cast<float*>(sm4);
+  const Clu L(1, 1, 1, 1);
+  float* xs = sm;
+  float* Ws = xs + (size_t)nk * rows;
+  int* kl = reinterpret_cast<int*>(Ws + (size_t)nk * cols);
+  for (int e = threadIdx.x; e < nk * rows; e += blockDim.x) xs[e] = 1e-3f * (e % 89);
+  for (int e = threadIdx.x; e < nk * cols; e += blockDim.x) Ws[e] = 1e-3f * (e % 97);
+  for (int s = threadIdx.x; s < nk; s += blockDim.x) kl[s] = (s * 7) % nk;
+  __syncthreads();
+  const Tiles tt(rows, cols);
+  float acc[FMT][16];
+#pragma unroll
+  for (int i = 0; i < FMT; ++i)
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[i][e] = 0.f;
+  for (int t = 0; t < T; ++t) {
+    tile_dot<true>(acc, tt, xs, rows, kl, nk, Ws, cols, nullptr, L);
+    __syncthreads();
+  }
+  float v = 0.f;
+#pragma unroll
+  for (int i = 0; i < FMT; ++i)
+#pragma unroll
+    for (int e = 0; e < 16; ++e) v += acc[i][e];
+  sink[blockIdx.x * blockDim.x + threadIdx.x] = v;
+}
+
+extern "C" int probe_dot_launch(int T, int rows, int cols, int nk, int ctas, float* sink,
+                                void* stream) {
+  const size_t smem = 4 * ((size_t)nk * (rows + cols) + nk);
+  cudaError_t err = cudaFuncSetAttribute((const void*)probe_dot,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  probe_dot<<<ctas, 256, smem, (cudaStream_t)stream>>>(T, rows, cols, nk, sink);
+  return (int)cudaGetLastError();
+}
+
+// Micro-probes of the forwards' step pieces, on CTA-resident data (one CTA
+// an SM, T calls a launch):
+//   which 0: a 4 x 4 FFMA tile a thread over nk listed units, plain
+//            __shared__ indexing, no helper (the floor of tile_dot's loop);
+//   which 1: the same with the list indirection (row kl[n]);
+//   which 2-5: a read of nw tagged words of the ring (tags already there),
+//            16 loads in flight a thread: 2 ld.relaxed.gpu.b64 (the
+//            exchange's), 3 ld.global.cg.b64, 4 ld.volatile.global.b64,
+//            5 ld.relaxed.gpu.b64 with no "memory" clobber.
+__global__ void probe_micro(int which, int T, int rows, int cols, int nk, int nw,
+                            const unsigned long long* ring, float* sink) {
+  extern __shared__ float4 sm4[];
+  float* sm = reinterpret_cast<float*>(sm4);
+  float* xs = sm;
+  float* Ws = xs + (size_t)nk * rows;
+  int* kl = reinterpret_cast<int*>(Ws + (size_t)nk * cols);
+  for (int e = threadIdx.x; e < nk * rows; e += blockDim.x) xs[e] = 1e-3f * (e % 89);
+  for (int e = threadIdx.x; e < nk * cols; e += blockDim.x) Ws[e] = 1e-3f * (e % 97);
+  for (int s = threadIdx.x; s < nk; s += blockDim.x) kl[s] = (s * 7) % nk;
+  __syncthreads();
+  const int ncq = cols / 4, cq = threadIdx.x % ncq, rq = threadIdx.x / ncq;
+  float a[16];
+  for (int e = 0; e < 16; ++e) a[e] = 0.f;
+  float v = 0.f;
+  for (int t = 0; t < T; ++t) {
+    if (which <= 1) {
+      if (rq < rows / 4) {
+#pragma unroll 4
+        for (int n = 0; n < nk; ++n) {
+          const int s = which ? kl[n] : n;
+          const float4 w = reinterpret_cast<const float4*>(Ws + (size_t)s * cols)[cq];
+          const float4 x = reinterpret_cast<const float4*>(xs + (size_t)n * rows)[rq];
+          const float xv[4] = {x.x, x.y, x.z, x.w}, wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) a[r * 4 + c] = fmaf(xv[r], wv[c], a[r * 4 + c]);
+        }
+      }
+    } else {
+      const unsigned want = 1;
+      for (int e0 = threadIdx.x; e0 < nw; e0 += 16 * blockDim.x) {
+        unsigned long long w[16];
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const unsigned long long* p = ring + min(e0 + i * (int)blockDim.x, nw - 1);
+          if (which == 2)
+            asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];" : "=l"(w[i]) : "l"(p) : "memory");
+          else if (which == 3)
+            w[i] = __ldcg(p);
+          else if (which == 4)
+            asm volatile("ld.volatile.global.b64 %0, [%1];" : "=l"(w[i]) : "l"(p));
+          else
+            asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];" : "=l"(w[i]) : "l"(p));
+        }
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+          if ((unsigned)(w[i] >> 32) == want) v += __uint_as_float((unsigned)w[i]);
+      }
+    }
+    __syncthreads();
+  }
+  for (int e = 0; e < 16; ++e) v += a[e];
+  sink[blockIdx.x * blockDim.x + threadIdx.x] = v;
+}
+
+// poll_rows itself on words already in place (tag 1): B = 64 rows of the
+// nk = 45 listed units of a luong-nmt column (clusters of 8, J = 5), T calls;
+// pre: 0 none, 1 each thread first publishes 5 words (st.relaxed.gpu, as a
+// pointwise does), 2 the same 5 stores weak (st.global).
+__global__ void probe_poll(int T, int pre, unsigned long long* ring, float* sink) {
+  extern __shared__ float4 sm4[];
+  float* xs = reinterpret_cast<float*>(sm4);
+  int* kl = reinterpret_cast<int*>(xs + 45 * 64);
+  const Clu L(8, 5, 13, 512);
+  for (int s = threadIdx.x; s < 45; s += blockDim.x) kl[s] = (s * 3) % 65;
+  __syncthreads();
+  float v = 0.f;
+  unsigned long long* out = ring + 64 * 512 + (size_t)blockIdx.x * 256 * 5;
+  for (int t = 0; t < T; ++t) {
+    for (int i = 0; i < 5; ++i) {
+      unsigned long long* o = out + i * 256 + threadIdx.x;
+      if (pre == 1) st_word(o, pack(1.f, 1));
+      else if (pre == 2) *o = pack(1.f, 1);
+    }
+    poll_rows(xs, 64, kl, 45, L, 0, 64, 64, ring, 1u, nullptr, [](int, int) { return 1.f; });
+    __syncthreads();
+    v += xs[threadIdx.x];
+  }
+  sink[blockIdx.x * blockDim.x + threadIdx.x] = v;
+}
+
+extern "C" int probe_poll_launch(int T, int pre, void* ring, int ctas, float* sink, void* stream) {
+  const size_t smem = 4 * (45 * 64 + 64);
+  probe_poll<<<ctas, 256, smem, (cudaStream_t)stream>>>(T, pre, (unsigned long long*)ring, sink);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int probe_micro_launch(int which, int T, int rows, int cols, int nk, int nw,
+                                  const void* ring, int ctas, float* sink, void* stream) {
+  const size_t smem = 4 * ((size_t)nk * (rows + cols) + nk);
+  cudaError_t err = cudaFuncSetAttribute((const void*)probe_micro,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  probe_micro<<<ctas, 256, smem, (cudaStream_t)stream>>>(
+      which, T, rows, cols, nk, nw, (const unsigned long long*)ring, sink);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int probe_phase_launch(int which, int T, int B, int H, int Q, int J, int P, int nk,
                                   void* ring, void* stream) {
   const int PJ = P * J, ldc = clu_cols8(Q, J) + 4;
@@ -350,6 +537,77 @@ def phase_probes(cs, B, H, k, plan, calls=1000):
     return out
 
 
+# (rows, cols, kept units) of a CTA's product in K3's exchange: at
+# zaremba-medium, at luong-nmt (the shape of K7's gate phases on the same
+# exchange too), and of K7's readout K-split the same way
+DOT_SHAPES = {"k3_zaremba": (20, 192, 41), "k3_nmt_k7_gates": (64, 160, 45),
+              "k7_readout": (64, 40, 65)}
+
+
+def dot_probes(cs, calls=1000):
+    """us a call of the forwards' product (``tile_dot``, csrc/scan_exchange.cuh)
+    alone at ``DOT_SHAPES`` on 104 CTAs."""
+    src = _build.build_dir() / "scan_phase_probe.cu"
+    src.parent.mkdir(parents=True, exist_ok=True)
+    src.write_text(PHASE_PROBE_SRC)
+    hdr = _build.source_hash(_build.CSRC / "scan_exchange.cuh", [])
+    lib = compile_lib(src, f"scan_dot_probe_{hdr}", ["-I", str(_build.CSRC)])
+    i, p = ctypes.c_int, ctypes.c_void_p
+    lib.probe_dot_launch.argtypes = [i] * 5 + [p] * 2
+    lib.probe_dot_launch.restype = i
+    sink = torch.empty(132 * NT, device="cuda")
+    out = {}
+    for name, (rows, cols, nk) in DOT_SHAPES.items():
+        def run():
+            code = lib.probe_dot_launch(calls, rows, cols, nk, 104, sink.data_ptr(),
+                                        torch.cuda.current_stream().cuda_stream)
+            if code:
+                raise RuntimeError(f"dot probe: CUDA error {code}")
+        out[name] = cs.time_ms(run, reps=3, warmup=1) * 1e3 / calls
+    return out
+
+
+def micro_probes(cs, calls=1000):
+    """us a call of ``probe_micro``'s pieces at ``DOT_SHAPES`` (the product
+    floor without and with the list indirection) and of a read of 2900 and
+    11500 tagged words already in place, by load kind; 104 CTAs."""
+    src = _build.build_dir() / "scan_phase_probe.cu"
+    src.parent.mkdir(parents=True, exist_ok=True)
+    src.write_text(PHASE_PROBE_SRC)
+    hdr = _build.source_hash(_build.CSRC / "scan_exchange.cuh", [])
+    lib = compile_lib(src, f"scan_micro_probe_{hdr}", ["-I", str(_build.CSRC)])
+    i, p = ctypes.c_int, ctypes.c_void_p
+    lib.probe_micro_launch.argtypes = [i] * 6 + [p, i, p, p]
+    lib.probe_micro_launch.restype = i
+    sink = torch.empty(132 * NT, device="cuda")
+    ring = torch.full((104 * 11500,), 1 << 32, dtype=torch.int64, device="cuda")
+    out = {}
+    cases = [(w, f"dot{'_list' if w else ''}/{n}", r, c, k, 0)
+             for w in (0, 1) for n, (r, c, k) in DOT_SHAPES.items()]
+    cases += [(w, f"{kind}/{nw}", 4, 4, 4, nw)
+              for w, kind in ((2, "relaxed_gpu"), (3, "cg"), (4, "volatile"),
+                              (5, "relaxed_gpu_no_clobber")) for nw in (2900, 11500)]
+    for which, name, rows, cols, nk, nw in cases:
+        def run():
+            code = lib.probe_micro_launch(which, calls, rows, cols, nk, nw, ring.data_ptr(), 104,
+                                          sink.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            if code:
+                raise RuntimeError(f"micro probe {name}: CUDA error {code}")
+        out[name] = cs.time_ms(run, reps=3, warmup=1) * 1e3 / calls
+    lib.probe_poll_launch.argtypes = [i, i, p, i, p, p]
+    lib.probe_poll_launch.restype = i
+    pring = torch.full((64 * 512 + 104 * 256 * 5,), 1 << 32, dtype=torch.int64, device="cuda")
+    for pre, name in ((0, "poll_rows"), (1, "poll_rows_after_relaxed_stores"),
+                      (2, "poll_rows_after_weak_stores")):
+        def run():
+            code = lib.probe_poll_launch(calls, pre, pring.data_ptr(), 104, sink.data_ptr(),
+                                         torch.cuda.current_stream().cuda_stream)
+            if code:
+                raise RuntimeError(f"poll probe {name}: CUDA error {code}")
+        out[name] = cs.time_ms(run, reps=3, warmup=1) * 1e3 / calls
+    return out
+
+
 def compile_lib(src: Path, stem: str, extra=()) -> ctypes.CDLL:
     """``src`` compiled as ``_build`` compiles the port's sources (plus
     ``extra`` flags), its CUDA error strings typed where it has them."""
@@ -383,6 +641,50 @@ def probe_cases(B: int, H: int, k: int, sms: int, max_clusters: int, Q: int = CL
     }
 
 
+def fwd_probe_cases(B: int, H: int, k: int, sms: int, max_clusters: dict) -> dict:
+    """{name: (which, N, gmod, pub, rd, dsm)} of the forward floor probes at
+    one kernel's shape (B rows, H units, k kept inputs a step): on the first
+    design's grid (J = ceil(H / SMs) units a CTA) (a) ``grid.sync()``, (b)
+    the L2-counter barrier, (c) the first design's staging, every CTA reading
+    B x k floats through ``__ldcg`` before its ``grid.sync()``, (d) a tagged
+    broadcast, every CTA publishing its B x J values and reading B x k; and
+    for each cluster size Q of ``max_clusters`` ({Q: clusters resident}) on
+    ``lstm_scan.cluster_plan``'s grid of P clusters, every CTA publishing its
+    B x J values and polling its 1/Q share, B x k / Q words from the P CTAs
+    of its column, then a ``cluster.sync()`` and (e) the gather form: the
+    cluster's shares, B x k / Q floats from each of its Q CTAs, over
+    distributed shared memory; (f) the partial-sum form: B x 4J partial gates
+    from each of its Q CTAs (both summed in registers as they arrive)."""
+    J, N = first_grid(H, sms)
+    out = {
+        "a_grid_sync": (0, N, 1, 0, 0, 0),
+        "b_l2_barrier": (1, N, 1, 0, 0, 0),
+        "c_ldcg_all_inputs": (4, N, 1, 0, B * k, 0),
+        "d_tagged_broadcast": (2, N, 1, B * J, -(-B * k // N), 0),
+    }
+    for q, mc in max_clusters.items():
+        _, Jc, P = ls.cluster_plan(
+            H, sms, lambda q_, j: q_ == q and -(-(-(-H // j)) // q_) <= mc)
+        rd = -(-B * k // (P * q))
+        out[f"e_cluster{q}_gather"] = (5, P * q, q, B * Jc, rd, -(-B * k // q))
+        out[f"f_cluster{q}_partials"] = (5, P * q, q, B * Jc, rd, B * 4 * Jc)
+    return out
+
+
+def k3_fwd_ops(T: int, B: int, H: int, k: int) -> dict:
+    """K3's FLOPs, all on FFMA: drop(h_{t-1}) @ U at the k kept units, 2 B
+    k 4H a step (the pointwise update is not counted)."""
+    return {"tf32": 0, "f32": 2 * T * B * k * 4 * H}
+
+
+def k7_fwd_ops(T: int, B: int, S: int, H: int, kept) -> dict:
+    """K7's FLOPs, all on FFMA, ``kept`` the kept units a step of each of
+    the four sites: each site's product (2 B k 4H), the attention's scores
+    and context (2 B S H each) and the readout (2 B 2H H) a step."""
+    return {"tf32": 0, "f32": T * (sum(2 * B * k * 4 * H for k in kept) + 2 * 2 * B * S * H
+                                   + 2 * B * 2 * H * H)}
+
+
 def k4_bwd_ops(T: int, B: int, H: int, k: int) -> dict:
     """K4's FLOPs by the units that run them, at what the data needs (k
     kept units a step): BP and WG on the TF32 tensor cores, three products
@@ -407,10 +709,11 @@ def floor_ms(per_step_us: dict, T: int, exchanges: int = 1) -> float:
     return min(per_step_us.values()) * T * exchanges / 1e3
 
 
-def floor_probes(cs, T, B, H, k):
+def floor_probes(cs, T, B, H, k, forward=False):
     """{probe: us a step} on one kernel's grid, median of 5 runs of T
-    steps; also the grids and whether a cooperative launch of clusters was
-    taken."""
+    steps (``forward``: ``fwd_probe_cases`` at clusters of 8 and 4, else
+    ``probe_cases``); also the grids and whether a cooperative launch of
+    clusters was taken."""
     src = _build.build_dir() / "scan_probe.cu"
     src.parent.mkdir(parents=True, exist_ok=True)
     src.write_text(PROBE_SRC)
@@ -421,17 +724,22 @@ def floor_probes(cs, T, B, H, k):
     lib.probe_max_clusters.argtypes = [i, i, ctypes.POINTER(i)]
     lib.probe_max_clusters.restype = i
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    mc = ctypes.c_int()
-    # one CTA an SM, as the scans run
-    assert lib.probe_max_clusters(CLUSTER, 120 << 10, ctypes.byref(mc)) == 0
-    cases = probe_cases(B, H, k, sms, mc.value)
+    mcs = {}
+    for q in (CLUSTER, 4) if forward else (CLUSTER,):
+        mc = ctypes.c_int()
+        # one CTA an SM, as the scans run
+        assert lib.probe_max_clusters(q, 120 << 10, ctypes.byref(mc)) == 0
+        mcs[q] = mc.value
+    cases = (fwd_probe_cases(B, H, k, sms, mcs) if forward
+             else probe_cases(B, H, k, sms, mcs[CLUSTER]))
     stream = torch.cuda.current_stream().cuda_stream
     sink = torch.empty(2 * sms * NT, device="cuda")
-    out = {"sms": sms, "max_clusters": mc.value, "grids": {}, "us_per_step": {}}
+    out = {"sms": sms, "max_clusters": mcs[CLUSTER], "max_clusters_of": mcs, "grids": {},
+           "us_per_step": {}}
     for name, (which, N, gmod, pub, rd, dsm) in cases.items():
         out["grids"][name] = dict(ctas=N, group_mod=gmod, pub=pub, rd=rd, dsm=dsm)
-        words = max(2 * N * max(pub, 1), 16)
-        coop = [1, 0] if which == 3 else [0]
+        words = max(2 * N * max(pub, 1), rd, 16)
+        coop = [1, 0] if which in (3, 5) else [0]
         for c in coop:
             def run():
                 buf = torch.zeros(words, dtype=torch.int64, device="cuda")
@@ -441,7 +749,7 @@ def floor_probes(cs, T, B, H, k):
                     raise RuntimeError(f"probe {name}: CUDA error {code}")
             try:
                 out["us_per_step"][name] = cs.time_ms(run, reps=5, warmup=1) * 1e3 / T
-                if which == 3:
+                if which in (3, 5):
                     out["cluster_cooperative_launch"] = bool(c)
                 break
             except RuntimeError as e:
@@ -564,6 +872,76 @@ def k8_call(lib, bargs):
     return run
 
 
+def k3_call(lib, x):
+    """K3 of build ``lib`` on inputs ``x``: a callable returning (hs, gates,
+    cs)."""
+    gx, U, h0, c0 = x["ins"]
+    if hasattr(lib, "lstm_scan_fwd_clusters"):
+        lib._typed = False
+
+        def run():
+            with using("lstm_scan", lib):
+                hs, gates, (cs,) = ls.lstm_scan_fwd_cuda(gx, U, h0, (c0,), *x["rh"],
+                                                         forget_bias=0.0)
+            return hs, gates, cs
+        return run
+    ids, mask, lengths, scale = x["rh"]
+    T, B, G = gx.shape
+    H = U.shape[0]
+    mode, k, ids_rows, mask_rows = ls._mode_args(ids, mask, T, B, H)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ptr = lambda t: None if t is None else t.data_ptr()
+
+    def run():
+        fn = lib.lstm_scan_fwd_f32
+        fn.argtypes = [p] * 10 + [i] * 8 + [f, f, p]     # the first design's interface
+        fn.restype = i
+        lib._typed = False
+        hs, cs = torch.empty((T, B, H), device="cuda"), torch.empty((T, B, H), device="cuda")
+        gates = torch.empty((T, B, G), device="cuda")
+        code = fn(gx.data_ptr(), U.data_ptr(), h0.data_ptr(), c0.data_ptr(), ptr(ids), ptr(mask),
+                  ptr(lengths), hs.data_ptr(), gates.data_ptr(), cs.data_ptr(), T, B, H, mode, k,
+                  ids_rows, mask_rows, int(lengths is not None), float(scale), 0.0,
+                  torch.cuda.current_stream().cuda_stream)
+        assert code == 0, code
+        return hs, gates, cs
+    return run
+
+
+def k7_call(lib, fargs):
+    """K7 of build ``lib`` on ``kernel_fwd``'s arguments: a callable
+    returning (htil, gates, hs, cs, alpha)."""
+    lib._typed = False
+
+    def run():
+        with using("decoder_scan", lib):
+            return list(ds.kernel_fwd(*fargs))
+    return run
+
+
+_SIZES = ls.CLUSTER_SIZES
+
+
+def _set_cluster_sizes(sizes):
+    if ls.CLUSTER_SIZES != sizes:
+        ls.CLUSTER_SIZES = sizes
+        ls._fwd_plan.cache_clear()
+
+
+def restore_cluster_sizes():
+    _set_cluster_sizes(_SIZES)
+
+
+def with_cluster_sizes(fn, q):
+    """``fn`` run with K3's plans limited to clusters of at most q CTAs
+    (``lstm_scan.CLUSTER_SIZES``), the plan cache cleared when that changes
+    (so in a timing's warm-up calls)."""
+    def run():
+        _set_cluster_sizes(tuple(c for c in _SIZES if c <= q))
+        return fn()
+    return run
+
+
 def f64_dist(got, want):
     """max |got - want| / max(1, max |want|) over the tensors of a group."""
     return max((g.double() - w).abs().max().item() / max(1.0, w.abs().max().item())
@@ -608,18 +986,51 @@ def k8_inputs(cs, gen):
     return bargs, plain, ref
 
 
+def k3_inputs(cs, gen, T, B, H, p):
+    """K3's operands, the float32 plain forward on them and a float64 run of
+    it."""
+    cell = ls.lstm_cell_spec(0.0)
+    gx, U, h0, c0, ids, mask, lengths, scale, _, _ = cs.scan_inputs(gen, T, B, H, p, "structured")
+    rh = (ids, mask, lengths, scale)
+    flat = lambda o: (o[0], o[1], o[2][0])
+    plain = flat(cs_mod.plain_fwd(cell, gx, U, h0, (c0,), *rh))
+    d = lambda t: t.double()
+    ref = flat(cs_mod.plain_fwd(cell, d(gx), d(U), d(h0), (d(c0),), *rh))
+    return dict(ins=(gx, U, h0, c0), rh=rh), plain, ref
+
+
+def k7_inputs(cs, gen):
+    """K7's operands (``kernel_fwd``'s arguments), the float32 plain forward
+    on them and a float64 run of it."""
+    T, B, S, H, p = K8_SHAPE
+    descs, tables, o, lengths, _ = cs.decoder_inputs(gen, T, B, S, H, "sp", p, 1, False)
+    keys = ("gx0", "us", "ws", "bs", "w_feed", "w_comb", "enc_proj", "enc_out", "score_bias",
+            "h0", "c0", "feed0")
+    fargs = (descs, tables, *(o[k] for k in keys), lengths)
+    plain = list(ds.plain_fwd(*fargs))
+    d = lambda v: [x.double() for x in v] if isinstance(v, list) else v.double()
+    ref = list(ds.plain_fwd(descs, tables, *(d(o[k]) for k in keys), lengths))
+    return fargs, plain, ref
+
+
+# kind -> (source, phase flag, C function naming the phases)
+PHASE_SRC = {"k3": ("lstm_scan", "-DLSTM_PHASES", "lstm_scan_fwd_phase_names"),
+             "k4": ("lstm_scan", "-DLSTM_PHASES", "lstm_scan_phase_names"),
+             "k7": ("decoder_scan", "-DDEC_PHASES", "decoder_scan_fwd_phase_names"),
+             "k8": ("decoder_scan", "-DDEC_PHASES", "decoder_scan_phase_names")}
+
+
 def phases(kind, run_of, ms, T):
     """The repo build's step split into its phases: its source built with
     the phase flag, one launch; thread 0's cycles per phase, averaged over
     the CTAs that counted any, as shares of the step and as us a step at
     the uninstrumented build's time ``ms``."""
-    name, flag = {"k4": ("lstm_scan", "-DLSTM_PHASES"),
-                  "k8": ("decoder_scan", "-DDEC_PHASES")}[kind]
+    name, flag, names_fn = PHASE_SRC[kind]
     lib = compile_lib(_build.CSRC / f"{name}.cu", f"{name}_phases", [flag])
     getattr(lib, f"{name}_phases").argtypes = [ctypes.c_void_p]
     getattr(lib, f"{name}_phases").restype = ctypes.c_int
-    getattr(lib, f"{name}_phase_names").restype = ctypes.c_char_p
-    names = getattr(lib, f"{name}_phase_names")().decode().split(",")
+    getattr(lib, names_fn).restype = ctypes.c_char_p
+    names = getattr(lib, names_fn)().decode().split(",")
     buf = (ctypes.c_ulonglong * (1024 * 16))()
     run = run_of(lib)
     assert getattr(lib, f"{name}_phases")(buf) == 0      # zero
@@ -640,6 +1051,14 @@ def main(argv=None):
     ap.add_argument("--phases", action="store_true",
                     help="also split the repo build's step into phases")
     ap.add_argument("--no-probes", action="store_true", help="skip the floor probes")
+    ap.add_argument("--fwd-clusters", type=int, action="append", default=[], metavar="Q",
+                    help="also time K3 with its plans limited to clusters of <= Q")
+    ap.add_argument("--kernels", default="k3,k4,k7,k8",
+                    help="comma-separated subset of k3,k4,k7,k8 to run")
+    ap.add_argument("--micro-probes", action="store_true",
+                    help="also time the product floor and tagged-word reads alone")
+    ap.add_argument("--dot-probes", action="store_true",
+                    help="also time the forwards' product loop alone")
     ap.add_argument("--phase-probes", action="store_true",
                     help="also time pieces of the redesigned step alone")
     ap.add_argument("--wg-rate", type=float, action="append", default=[], metavar="P",
@@ -653,35 +1072,71 @@ def main(argv=None):
     import chip_smoke as cs   # the repo root's inputs and timing helpers
 
     libs = {"repo": (ls._lib(), ds._lib())}
+    for name, log in _build.BUILD_LOG.items():
+        if name in ("lstm_scan", "decoder_scan"):
+            for line in log.splitlines():
+                if any(w in line for w in ("Compiling entry", "registers", "spill")):
+                    print(f"  [{name}] {line.strip()}")
     for spec in args.src:
         name, path = spec.split("=", 1)
         libs[name] = tuple(compile_lib(Path(path) / f"{n}.cu", f"{n}_variant_{name}")
                            for n in ("lstm_scan", "decoder_scan"))
+    kinds = set(args.kernels.split(","))
     T, B, H, _ = K4_SHAPES["zaremba"]
     k4_shapes = dict(K4_SHAPES, **{f"zaremba_p{p:g}": (T, B, H, p) for p in args.wg_rate})
     out = {"card": cs.smi_line(), "k4_shapes": k4_shapes, "k8_shape": K8_SHAPE}
     gen = torch.Generator().manual_seed(0)
     rows = {}
-    for tag, (T, B, H, p) in k4_shapes.items():
-        x, plain, ref = k4_inputs(cs, gen, T, B, H, p)
-        rows[f"k4_{tag}"] = dict(T=T, kind="k4", plain=plain, ref=ref, B=B, H=H,
-                                 k=x["rh"][0].shape[1], run_of=lambda lib, x=x: k4_call(lib, x))
-    bargs, plain, ref = k8_inputs(cs, gen)
+    if "k3" in kinds:
+        for tag, (T, B, H, p) in K4_SHAPES.items():
+            x, plain, ref = k3_inputs(cs, gen, T, B, H, p)
+            k = x["rh"][0].shape[1]
+            rows[f"k3_{tag}"] = dict(T=T, kind="k3", plain=plain, ref=ref, B=B, H=H, k=k,
+                                     probe_k=k, run_of=lambda lib, x=x: k3_call(lib, x))
+    if "k4" in kinds:
+        for tag, (T, B, H, p) in k4_shapes.items():
+            x, plain, ref = k4_inputs(cs, gen, T, B, H, p)
+            k = x["rh"][0].shape[1]
+            rows[f"k4_{tag}"] = dict(T=T, kind="k4", plain=plain, ref=ref, B=B, H=H, k=k,
+                                     probe_k=k, run_of=lambda lib, x=x: k4_call(lib, x))
     T, B, S, H, p = K8_SHAPE
-    k8_k = bargs[1][1].shape[1]
-    rows["k8_nmt"] = dict(T=T, kind="k8", plain=plain, ref=ref, B=B, H=H, k=k8_k,
-                          run_of=lambda lib: k8_call(lib, bargs))
+    if "k7" in kinds:
+        fargs, plain, ref = k7_inputs(cs, gen)
+        k = fargs[1][1].shape[1]
+        # a gate phase reads two sites' kept units
+        rows["k7_nmt"] = dict(T=T, kind="k7", plain=plain, ref=ref, B=B, H=H, k=k, probe_k=2 * k,
+                              run_of=lambda lib: k7_call(lib, fargs))
+    if "k8" in kinds:
+        bargs, plain, ref = k8_inputs(cs, gen)
+        k = bargs[1][1].shape[1]
+        rows["k8_nmt"] = dict(T=T, kind="k8", plain=plain, ref=ref, B=B, H=H, k=k, probe_k=k,
+                              run_of=lambda lib: k8_call(lib, bargs))
     for r in rows.values():
-        r["fns"] = {n: r["run_of"](lib[0 if r["kind"] == "k4" else 1])
+        r["fns"] = {n: r["run_of"](lib[0 if r["kind"] in ("k3", "k4") else 1])
                     for n, lib in libs.items()}
+        if r["kind"] == "k3" and args.fwd_clusters:
+            repo = r["fns"]["repo"]
+            r["fns"]["repo"] = with_cluster_sizes(repo, max(_SIZES))
+            for q in args.fwd_clusters:   # the repo build on smaller clusters
+                r["fns"][f"repo_q{q}"] = with_cluster_sizes(repo, q)
     if not args.no_probes:
         out["floor"] = {}
         for row, r in rows.items():
-            fl = floor_probes(cs, r["T"], r["B"], r["H"], r["k"])
-            fl["floor_ms"] = floor_ms(fl["us_per_step"], r["T"])
+            fwd = r["kind"] in ("k3", "k7")
+            fl = floor_probes(cs, r["T"], r["B"], r["H"], r["probe_k"], forward=fwd)
+            # K7's step chains four dependent exchanges
+            fl["floor_ms"] = floor_ms(fl["us_per_step"], r["T"], 4 if r["kind"] == "k7" else 1)
             if r["kind"] == "k8":
                 fl["floor_ms_3_exchanges"] = floor_ms(fl["us_per_step"], r["T"], 3)
             out["floor"][row] = fl
+    if args.micro_probes:
+        out["micro_probes"] = micro_probes(cs)
+        print("pieces alone (us a call): " + ", ".join(
+            f"{n} {v:.3f}" for n, v in out["micro_probes"].items()))
+    if args.dot_probes:
+        out["dot_probes"] = dot_probes(cs)
+        print("product alone (us a call): " + ", ".join(
+            f"{n} {v:.3f}" for n, v in out["dot_probes"].items()))
     if args.phase_probes:
         out["phase_probes"] = {}
         for row, r in rows.items():
@@ -691,15 +1146,19 @@ def main(argv=None):
                 print(f"{row} pieces (us a call): " + ", ".join(
                     f"{n} {v:.3f}" for n, v in pp.items() if n != "plan") + f"; {pp['plan']}")
     out["f64_dist"] = {row: {"plain_f32": f64_dist(r["plain"], r["ref"])} for row, r in rows.items()}
+    restore_cluster_sizes()
     for row, r in rows.items():
         for n, fn in r["fns"].items():
             out["f64_dist"][row][n] = f64_dist(fn(), r["ref"])
-    out["ms"] = {row: {n: [] for n in libs} for row in rows}
-    turns = list(libs) + list(reversed(libs))
+    builds = list(libs) + [f"repo_q{q}" for q in args.fwd_clusters]
+    out["ms"] = {row: {n: [] for n in builds if n in r["fns"]} for row, r in rows.items()}
+    turns = builds + list(reversed(builds))
     for _ in range(2):
         for n in turns:
             for row, r in rows.items():
-                out["ms"][row][n].append(cs.time_ms(r["fns"][n], cold_l2=True))
+                if n in r["fns"]:
+                    out["ms"][row][n].append(cs.time_ms(r["fns"][n], cold_l2=True))
+    restore_cluster_sizes()
     if args.phases:
         out["phases"] = {}
         for row, r in rows.items():
@@ -710,8 +1169,8 @@ def main(argv=None):
             fl = out["floor"][row]
             print(f"{row} floor: " + ", ".join(f"{k} {v:.3f} us/step"
                                                 for k, v in fl["us_per_step"].items())
-                  + f"; floor {fl['floor_ms']:.4f} ms (clusters of {CLUSTER}: "
-                  f"{fl['max_clusters']} resident)")
+                  + f"; floor {fl['floor_ms']:.4f} ms (clusters resident: "
+                  f"{fl['max_clusters_of']})")
         for n, t in out["ms"][row].items():
             print(f"{row} {n}: {min(t):.4f} ms (best of {len(t)}; median "
                   f"{sorted(t)[len(t) // 2]:.4f}); float64 {out['f64_dist'][row][n]:.3e} "

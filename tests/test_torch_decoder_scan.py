@@ -412,3 +412,100 @@ def test_cuda_kernel_at_large_batch_plans(B_, want):
     first, again = case["kernel"](), case["kernel"]()
     for a, b in zip(first, again):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# K7 on the card: bits, float64 and edge cases
+# ---------------------------------------------------------------------------
+
+
+def _k7_case(dev, kind, T_, B_, S_, H_, lengths=None, bs=1, rate=0.3, drop_low_at=None,
+             seed=31):
+    """K7's operands on the card: sites of ``kind`` at ``rate`` (structured
+    ones keep an exact count a row; row ``drop_low_at`` keeps none of the
+    units below H/2), callables for the kernel and the plain forward in
+    float32 and float64 (flat outputs: htil, gates, hs, cs, alpha)."""
+    args = _inputs(T_, B_, S_, H_, seed=seed, w_std=0.05)
+    rng = np.random.default_rng(seed + 1)
+    sites = []
+    for k in _sites(kind, T_, B_, H_, bs=bs, seed=seed + 2):
+        if k[0] is not None:
+            nb = H_ // bs
+            kept = nb - int(np.ceil(rate * nb))
+            kb = np.stack([np.sort(rng.permutation(nb)[:kept]) for _ in range(k[0].shape[0])])
+            if drop_low_at is not None and kept <= nb // 2:
+                kb[min(drop_low_at, len(kb) - 1)] = np.arange(nb - kept, nb)
+            k = (kb.astype(np.int32), None, bs, nb / kept)
+        sites.append(k)
+    tt = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    o = {k: [tt(x) for x in v] if isinstance(v, list) else tt(v) for k, v in args.items()}
+    pairs = [t_ds._mk_site(None if kb is None else tt(kb), None if dm is None else tt(dm), b, sc)
+             for kb, dm, b, sc in sites]
+    descs = tuple(p[0] for p in pairs)
+    tables = tuple(None if p[1] is None else p[1].contiguous() for p in pairs)
+    lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device=dev)
+    keys = ("gx0", "us", "ws", "bs", "w_feed", "w_comb", "enc_proj", "enc_out", "score_bias",
+            "h0", "c0", "feed0")
+    d = lambda v: [x.double() for x in v] if isinstance(v, list) else v.double()
+    return dict(kernel=lambda: list(t_ds.kernel_fwd(descs, tables, *(o[k] for k in keys), lens)),
+                plain=lambda: list(t_ds.plain_fwd(descs, tables, *(o[k] for k in keys), lens)),
+                f64=lambda: list(t_ds.plain_fwd(descs, tables, *(d(o[k]) for k in keys), lens)))
+
+
+def _assert_k7_matches_plain(case):
+    for g, w, n in zip(case["kernel"](), case["plain"](), ("htil", "gates", "hs", "cs", "alpha")):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=1e-4, err_msg=n,
+                                   atol=1e-5 * max(1.0, w.abs().max().item()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,T_,B_,S_,H_", [("mixed", 7, 5, 6, 40), ("sp", 50, 64, 50, 512)])
+def test_cuda_forward_second_launch_gives_the_same_bits(kind, T_, B_, S_, H_):
+    case = _k7_case(require_cuda(), kind, T_, B_, S_, H_)
+    first, again = case["kernel"](), case["kernel"]()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,T_,B_,S_,H_", [("mixed", 7, 5, 6, 40), ("dp", 7, 5, 6, 40),
+                                              ("sp", 50, 64, 50, 512)])
+def test_cuda_forward_within_ten_times_plain_float32_of_float64(kind, T_, B_, S_, H_):
+    """K7's distance to a float64 run of the plain forward, max |err| /
+    max(1, |ref|) over every output, within 10 x the float32 plain
+    version's + 1e-6."""
+    case = _k7_case(require_cuda(), kind, T_, B_, S_, H_)
+    ref = case["f64"]()
+    dist = lambda xs: max((x.double() - r).abs().max().item() / max(1.0, r.abs().max().item())
+                          for x, r in zip(xs, ref))
+    dk, dp = dist(case["kernel"]()), dist(case["plain"]())
+    assert dk <= 10 * dp + 1e-6, (dk, dp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(kind="mixed", T_=5, B_=1, S_=4, H_=40),                   # one batch row
+    dict(kind="mixed", T_=5, B_=6, S_=4, H_=48, lengths=[0, 5, 2, 5, 0, 1]),
+    dict(kind="sp", T_=6, B_=4, S_=5, H_=516, drop_low_at=2, rate=0.5, lengths=[6, 0, 3, 6]),
+    dict(kind="sf", T_=5, B_=3, S_=4, H_=516, drop_low_at=0, rate=0.5),
+    dict(kind="dp", T_=5, B_=3, S_=4, H_=44, lengths=[5, 1, 0]),
+    dict(kind="off", T_=4, B_=3, S_=7, H_=42),                     # H % 4 != 0
+    dict(kind="df", T_=4, B_=40, S_=3, H_=40, lengths=[4, 0, 1] * 13 + [2]),
+])
+def test_cuda_forward_edge_cases_match_plain(kw):
+    """One row, ragged rows of length 0 and T, a step that keeps no unit of
+    half the CTAs, H not a multiple of the units a CTA (516 = 4 x 129) or of
+    4, more rows than CTAs a row."""
+    _assert_k7_matches_plain(_k7_case(require_cuda(), **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B_", [192, 256])
+def test_cuda_forward_at_large_batch(B_):
+    """At H=512 a large batch still matches the plain forward and gives the
+    same bits again."""
+    case = _k7_case(require_cuda(), "sp", 4, B_, 8, 512)
+    _assert_k7_matches_plain(case)
+    first, again = case["kernel"](), case["kernel"]()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)

@@ -308,3 +308,156 @@ def test_cuda_kernel_at_large_batch_plans(B_, want):
     first, again = case["kernel"](), case["kernel"]()
     for a, b, n in zip(first, again, ("dgx", "dU", "dh0", "dc0")):
         assert torch.equal(a, b), n
+
+
+# ---------------------------------------------------------------------------
+# K3's cluster layout: the host-side plan and exchange
+# ---------------------------------------------------------------------------
+
+# one-CTA-an-SM clusters resident at once on a 132-SM H100 (launch/scan_bench.py's
+# probe read 15 of 8 and 30 of 4)
+_RESIDENT_FWD = {8: 15, 4: 30, 2: 66, 1: 132}
+
+
+def _fwd_query(H_, rows, resident=_RESIDENT_FWD):
+    """A plan query as the wrappers' (all clusters resident, rows a chunk)."""
+    return lambda q, j: (-(-(-(-H_ // j)) // q) <= resident[q], rows(q, j))
+
+
+@pytest.mark.parametrize("H_,B_,want", [(650, 20, (8, 6, 14)), (512, 64, (8, 5, 13)),
+                                        (1500, 20, (8, 13, 15)), (40, 1, (8, 1, 5))])
+def test_fwd_cluster_plan_takes_clusters_of_eight_when_a_chunk_holds_the_batch(H_, B_, want):
+    assert t_ls.fwd_cluster_plan(H_, B_, 132, _fwd_query(H_, lambda q, j: 64)) == want
+
+
+def test_fwd_cluster_plan_prefers_whole_chunks_then_takes_any():
+    """A plan whose chunk holds min(B, 64) rows comes first, even at smaller
+    clusters; without one, the largest cluster whose chunk holds any rows."""
+    rows = lambda q, j: 24 if q == 8 else 64
+    assert t_ls.fwd_cluster_plan(512, 64, 132, _fwd_query(512, rows)) == (4, 5, 26)
+    rows = lambda q, j: 24 if q >= 4 else 0
+    assert t_ls.fwd_cluster_plan(512, 256, 132, _fwd_query(512, rows)) == (8, 5, 13)
+    with pytest.raises(ValueError, match="no forward cluster plan"):
+        t_ls.fwd_cluster_plan(512, 64, 132, _fwd_query(512, lambda q, j: 0))
+
+
+@pytest.mark.parametrize("Q,J,P,B_,H_", [(8, 6, 14, 20, 650), (8, 5, 13, 64, 512),
+                                         (8, 13, 15, 20, 1500), (1, 1, 41, 3, 41)])
+def test_fwd_ring_words_hold_two_slots_and_a_sentinel_a_cta(Q, J, P, B_, H_):
+    words = t_ls.fwd_ring_words(Q, J, P, B_, H_)
+    assert words == 2 * B_ * H_ + P * Q
+    assert P * Q * J >= H_            # every unit has an owner, and a sentinel
+
+
+# ---------------------------------------------------------------------------
+# K3 on the card: bits, float64 and the cluster layout's edge cases
+# ---------------------------------------------------------------------------
+
+
+def _k3_case(dev, T_=7, B_=5, H_=40, mode="structured", fixed=False, lengths=None, seed=8,
+             drop_low_at=None):
+    """K3's operands on the card (ids of k = H/2 unit ids a row; row
+    ``drop_low_at`` keeps none of the units below H/2), and callables for
+    the kernel and the plain forward in float32 and float64 (each returns
+    (hs, gates, cs))."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s, std: torch.from_numpy(
+        (rng.standard_normal(s) * std).astype(np.float32)).to(dev)
+    gx, u, h0, c0 = f(T_, B_, 4 * H_, std=0.5), f(H_, 4 * H_, std=0.05), \
+        f(B_, H_, std=0.5), f(B_, H_, std=0.5)
+    ids = mask = None
+    scale = 1.0
+    rows = 1 if fixed else T_
+    if mode == "structured":
+        k = H_ // 2
+        tab = np.stack([np.sort(rng.permutation(H_)[:k]) for _ in range(rows)])
+        if drop_low_at is not None:
+            tab[drop_low_at] = np.arange(H_ - k, H_)
+        ids = torch.from_numpy(tab.astype(np.int32)).to(dev)
+        scale = H_ / k
+    elif mode == "dense":
+        mask = torch.from_numpy((rng.random((rows, B_, H_)) > 0.5).astype(np.float32)).to(dev)
+        scale = 2.0
+    lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device=dev)
+    rh = (ids, mask, lens, scale)
+    cell = t_ls.lstm_cell_spec(0.0)
+    flat = lambda o: (o[0], o[1], o[2][0])
+    d = lambda t: None if t is None else t.double()
+    return dict(
+        kernel=lambda: flat(t_ls.lstm_scan_fwd_cuda(gx, u, h0, (c0,), *rh, forget_bias=0.0)),
+        plain=lambda: flat(t_cs.plain_fwd(cell, gx, u, h0, (c0,), *rh)),
+        f64=lambda: flat(t_cs.plain_fwd(cell, d(gx), d(u), d(h0), (d(c0),), ids, d(mask), lens,
+                                        scale)))
+
+
+def _assert_k3_matches_plain(case):
+    for g, w, n in zip(case["kernel"](), case["plain"](), ("hs", "gates", "cs")):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=1e-4, err_msg=n,
+                                   atol=1e-5 * max(1.0, w.abs().max().item()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T_,B_,H_", [(7, 5, 40), (35, 20, 650), (50, 64, 512)])
+def test_cuda_forward_second_launch_gives_the_same_bits(T_, B_, H_):
+    case = _k3_case(require_cuda(), T_, B_, H_)
+    first, again = case["kernel"](), case["kernel"]()
+    for a, b, n in zip(first, again, ("hs", "gates", "cs")):
+        assert torch.equal(a, b), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T_,B_,H_,mode", [(7, 5, 40, "structured"), (7, 5, 40, "dense"),
+                                           (35, 20, 650, "structured"),
+                                           (50, 64, 512, "structured")])
+def test_cuda_forward_within_ten_times_plain_float32_of_float64(T_, B_, H_, mode):
+    """K3's distance to a float64 run of the plain forward, max |err| /
+    max(1, |ref|), within 10 x the float32 plain version's + 1e-6."""
+    case = _k3_case(require_cuda(), T_, B_, H_, mode=mode)
+    ref = case["f64"]()
+    dk, dp = _f64_dist(case["kernel"](), ref), _f64_dist(case["plain"](), ref)
+    assert dk <= 10 * dp + 1e-6, (dk, dp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(T_=6, B_=1, H_=40),                                       # one batch row
+    dict(T_=6, B_=6, H_=48, lengths=[0, 6, 3, 6, 0, 1]),           # ragged rows of length 0 and T
+    dict(T_=6, B_=4, H_=650, drop_low_at=3),                       # a step that keeps no unit of
+    dict(T_=6, B_=4, H_=650, mode="dense", lengths=[6, 0, 2, 6]),  # half the CTAs; H % J != 0
+    dict(T_=5, B_=4, H_=1500),                                     # U's block through L2
+    dict(T_=5, B_=4, H_=1500, fixed=True, drop_low_at=0),
+    dict(T_=6, B_=3, H_=41, mode="off", lengths=[6, 2, 0]),
+    dict(T_=6, B_=5, H_=44, mode="dense", fixed=True),
+])
+def test_cuda_forward_edge_cases_match_plain(kw):
+    _assert_k3_matches_plain(_k3_case(require_cuda(), **kw))
+
+
+def _k3_plan(dev, B_, H_, k):
+    """K3's launch plan for a structured shape: (Q, J, P), whether U's block
+    stays in shared memory, and the rows of a chunk."""
+    q, j, p = t_ls._fwd_plan(dev.index or 0, B_, H_, 1, k)
+    mc, res, smem, rows = (ctypes.c_int() for _ in range(4))
+    assert t_ls._lib().lstm_scan_fwd_clusters(B_, H_, 1, k, q, j, ctypes.byref(mc),
+                                              ctypes.byref(res), ctypes.byref(smem),
+                                              ctypes.byref(rows)) == 0
+    return (q, j, p), bool(res.value), rows.value
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B_,want", [
+    (192, lambda plan, res, rows: res and rows < 192),   # the batch in chunks
+    (256, lambda plan, res, rows: res and rows < 256),
+], ids=["b192_chunks", "b256_chunks"])
+def test_cuda_forward_at_large_batch_plans(B_, want):
+    """At H=512 a large batch takes the plans the main paths do not (its
+    rows in chunks, a cluster exchange each): the kernel still matches the
+    plain forward and gives the same bits again."""
+    dev = require_cuda()
+    plan, res, rows = _k3_plan(dev, B_, 512, 256)
+    assert want(plan, res, rows), (plan, res, rows)
+    case = _k3_case(dev, T_=5, B_=B_, H_=512)
+    _assert_k3_matches_plain(case)
+    first, again = case["kernel"](), case["kernel"]()
+    for a, b, n in zip(first, again, ("hs", "gates", "cs")):
+        assert torch.equal(a, b), n

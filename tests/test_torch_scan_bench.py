@@ -1,5 +1,6 @@
-"""The host-side arithmetic of ``launch/scan_bench.py`` (K4's and K8's
-latency floors and probe sizes); the probes themselves run on the card."""
+"""The host-side arithmetic of ``launch/scan_bench.py`` (K3's, K4's, K7's
+and K8's latency floors, probe sizes and operation counts); the probes
+themselves run on the card."""
 import pytest
 
 from repro_torch.launch import scan_bench as sb
@@ -56,3 +57,46 @@ def test_k8_ops_split_the_tensor_core_products_from_the_ffma_rest(kept):
     assert ops["tf32"] % 3 == 0
     assert ops["tf32"] // 3 + ops["f32"] == T * (sum(4 * B * k * 4 * H for k in kept)
                                                  + 5 * att + 2 * ro)
+
+
+@pytest.mark.parametrize("B,H,k", [(20, 650, 325), (64, 512, 358), (64, 512, 716)])
+def test_fwd_probe_cases_move_the_forwards_words(B, H, k):
+    """The first forward's grid reads all B x k inputs (by __ldcg, or as
+    tagged words from every CTA); clusters of Q poll B x k / Q words from
+    the P CTAs of a column and gather B x k / Q floats (gather form) or
+    B x 4J partial gates (partial-sum form) from each of the Q CTAs."""
+    cases = sb.fwd_probe_cases(B, H, k, 132, {8: 15, 4: 30})
+    J, N = sb.first_grid(H, 132)
+    assert cases["a_grid_sync"][:2] == (0, N) and cases["b_l2_barrier"][:2] == (1, N)
+    which, n, gmod, pub, rd, dsm = cases["c_ldcg_all_inputs"]
+    assert (which, n, rd) == (4, N, B * k)
+    which, n, gmod, pub, rd, dsm = cases["d_tagged_broadcast"]
+    assert (which, n, gmod, pub) == (2, N, 1, B * J) and rd * N >= B * k > (rd - 1) * N
+    for q, most in ((8, 15), (4, 30)):
+        for form in ("gather", "partials"):
+            which, n, gmod, pub, rd, dsm = cases[f"e_cluster{q}_gather" if form == "gather"
+                                                 else f"f_cluster{q}_partials"]
+            assert which == 5 and gmod == q and n % q == 0 and n // q <= most
+            Jc = pub // B
+            assert n * Jc >= H > (n - q) * Jc
+            assert rd * n >= B * k > (rd - 1) * n        # B x k / Q words from n / Q CTAs
+            assert dsm == (-(-B * k // q) if form == "gather" else B * 4 * Jc)
+
+
+def test_fwd_ops_count_every_product_on_ffma():
+    """K3: 2 B k 4H a step; K7: each site's 2 B k 4H, the scores and the
+    context (2 B S H each) and the readout (2 B 2H H) a step; no TF32."""
+    T, B, H, k = 35, 20, 650, 325
+    assert sb.k3_fwd_ops(T, B, H, k) == {"tf32": 0, "f32": T * 2 * B * k * 4 * H}
+    T, B, S, H = 50, 64, 50, 512
+    kept = [358, 358, 358, 100]
+    ops = sb.k7_fwd_ops(T, B, S, H, kept)
+    assert ops["tf32"] == 0
+    assert ops["f32"] == T * (2 * B * 4 * H * sum(kept) + 4 * B * S * H + 4 * B * H * H)
+
+
+def test_k7_floor_is_four_exchanges_a_step():
+    """K7's step chains four dependent exchanges (two layers, attention,
+    readout): its floor is T x 4 x the cheapest probe."""
+    per_step = {"b_l2_barrier": 1.4, "f_cluster8_partials": 15.0}
+    assert sb.floor_ms(per_step, 50, exchanges=4) == pytest.approx(1.4 * 50 * 4 / 1e3)
