@@ -104,44 +104,6 @@ constexpr int BC = 64;           // backward: dgates rows per cluster gather
 constexpr int NFD = 12;          // backward: residual fields a (row, unit), both layers
 constexpr size_t SMEM_MAX = 227 * 1024;
 
-// Built with -DDEC_PHASES (launch/scan_bench.py --phases), each kernel adds
-// the SM cycles thread 0 of each CTA spends in each phase of a step to
-// g_phase[CTA][phase]; otherwise the macros are empty.
-#ifdef DEC_PHASES
-__device__ unsigned long long g_phase[1024][16];
-#define PHASE_START() long long ph_t = clock64()
-#define PHASE(i)                                                         \
-  if (threadIdx.x == 0) {                                                \
-    const long long ph_n = clock64();                                    \
-    g_phase[blockIdx.x][i] += (unsigned long long)(ph_n - ph_t);         \
-    ph_t = ph_n;                                                         \
-  }
-#else
-#define PHASE_START()
-#define PHASE(i)
-#endif
-// The forward's phases add to registers (thread 0), written out once at the
-// end (FPHASE_END), so that the counting puts no L2 round trip on a step.
-#ifdef DEC_PHASES
-#define FPHASE_START()                    \
-  long long ph_t = clock64();             \
-  unsigned long long ph_a[16];            \
-  for (int i = 0; i < 16; ++i) ph_a[i] = 0
-#define FPHASE(i)                                   \
-  if (threadIdx.x == 0) {                           \
-    const long long ph_n = clock64();               \
-    ph_a[i] += (unsigned long long)(ph_n - ph_t);   \
-    ph_t = ph_n;                                    \
-  }
-#define FPHASE_END()                                                   \
-  if (threadIdx.x == 0)                                                \
-    for (int i = 0; i < 16; ++i) g_phase[blockIdx.x][i] += ph_a[i]
-#else
-#define FPHASE_START()
-#define FPHASE(i)
-#define FPHASE_END()
-#endif
-
 __host__ __device__ inline size_t al4(size_t n) { return (n + 3) & ~size_t(3); }
 
 __device__ __forceinline__ float sigm(float x) { return 1.f / (1.f + expf(-x)); }

@@ -63,46 +63,6 @@ constexpr int NT = 256;   // threads per CTA
 constexpr int NF = 8;     // backward residual fields a (row, unit)
 constexpr size_t SMEM_MAX = 227 * 1024;
 
-// Built with -DLSTM_PHASES (launch/scan_bench.py --phases), each kernel
-// adds the SM cycles thread 0 of each CTA spends in each phase of a step to
-// g_phase[CTA][phase]; otherwise the macros are empty.
-#ifdef LSTM_PHASES
-__device__ unsigned long long g_phase[1024][16];
-#define PHASE_START() long long ph_t = clock64()
-#define PHASE(i)                                                         \
-  if (threadIdx.x == 0) {                                                \
-    const long long ph_n = clock64();                                    \
-    g_phase[blockIdx.x][i] += (unsigned long long)(ph_n - ph_t);         \
-    ph_t = ph_n;                                                         \
-  }
-#else
-#define PHASE_START()
-#define PHASE(i)
-#endif
-// The forwards' phases add to registers (thread 0), written out once at the
-// end (FPHASE_END), so that the counting puts no L2 round trip on a step.
-#ifdef LSTM_PHASES
-#define FPHASE_START()                    \
-  long long ph_t = clock64();             \
-  unsigned long long ph_a[16];            \
-  for (int i = 0; i < 16; ++i) ph_a[i] = 0
-#define FPHASE(i)                                   \
-  if (threadIdx.x == 0) {                           \
-    const long long ph_n = clock64();               \
-    ph_a[i] += (unsigned long long)(ph_n - ph_t);   \
-    ph_t = ph_n;                                    \
-  }
-#define FPHASE_RESET() ph_t = clock64()
-#define FPHASE_END()                                                   \
-  if (threadIdx.x == 0)                                                \
-    for (int i = 0; i < 16; ++i) g_phase[blockIdx.x][i] += ph_a[i]
-#else
-#define FPHASE_START()
-#define FPHASE(i)
-#define FPHASE_RESET()
-#define FPHASE_END()
-#endif
-
 struct ScanArgs {
   int T, B, H;
   int mode;        // 0 off, 1 structured, 2 dense

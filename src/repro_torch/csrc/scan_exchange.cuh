@@ -3,7 +3,7 @@
 // (sm_90a): the backwards' per-step exchange of BP partial sums across a
 // grid of thread-block clusters, the weight-gradient (WG) product they run
 // after the scan, and K3's exchange of partial gates on the same grid (see
-// "The forward exchange" below).
+// "The forward exchange" below); and the phase counters of both files.
 //
 // Layout. The grid is P clusters of Q CTAs; CTA i = c Q + q (cluster c,
 // rank q) owns the J hidden units [i J, i J + J) and computes their four
@@ -57,6 +57,42 @@ namespace cg = cooperative_groups;
 namespace {
 
 typedef unsigned long long u64;
+
+// Phase counters. Built with -DLSTM_PHASES or -DDEC_PHASES
+// (launch/scan_bench.py --phases), each kernel adds the SM cycles thread 0
+// of each CTA spends in each phase of a step to g_phase[CTA][phase]: the
+// backwards at each phase's end (PHASE), the forwards in registers (FPHASE),
+// written out once at the end (FPHASE_END), so that the counting puts no L2
+// round trip on a step. Otherwise the macros are empty.
+#if defined(LSTM_PHASES) || defined(DEC_PHASES)
+__device__ unsigned long long g_phase[1024][16];
+#define PHASE_START() long long ph_t = clock64()
+#define PHASE(i)                                                         \
+  if (threadIdx.x == 0) {                                                \
+    const long long ph_n = clock64();                                    \
+    g_phase[blockIdx.x][i] += (unsigned long long)(ph_n - ph_t);         \
+    ph_t = ph_n;                                                         \
+  }
+#define FPHASE_START()                    \
+  long long ph_t = clock64();             \
+  unsigned long long ph_a[16];            \
+  for (int i = 0; i < 16; ++i) ph_a[i] = 0
+#define FPHASE(i)                                   \
+  if (threadIdx.x == 0) {                           \
+    const long long ph_n = clock64();               \
+    ph_a[i] += (unsigned long long)(ph_n - ph_t);   \
+    ph_t = ph_n;                                    \
+  }
+#define FPHASE_END()                                                   \
+  if (threadIdx.x == 0)                                                \
+    for (int i = 0; i < 16; ++i) g_phase[blockIdx.x][i] += ph_a[i]
+#else
+#define PHASE_START()
+#define PHASE(i)
+#define FPHASE_START()
+#define FPHASE(i)
+#define FPHASE_END()
+#endif
 
 constexpr unsigned SPIN_MAX = 1u << 26;   // polls of one word before the launch fails
 constexpr int XPW = 16;                   // tagged words a thread polls at once

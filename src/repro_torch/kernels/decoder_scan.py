@@ -52,7 +52,7 @@ import torch
 from repro_torch.core.masks import keep_blocks_to_unit_ids
 from repro_torch.kernels import _build
 from repro_torch.kernels.lstm_scan import (_pointwise_bwd, _pointwise_fwd,
-                                           cluster_plan, ring_words)
+                                           cluster_plan, n_clusters, ring_words)
 
 LAUNCHES = {"decoder_scan_fwd": 0, "decoder_scan_bwd": 0}
 
@@ -426,7 +426,7 @@ def _bwd_plan(device_index: int, B: int, H: int, S: int):
             code = lib.decoder_scan_bwd_clusters(B, H, S, q, j, ctypes.byref(mc),
                                                  ctypes.byref(smem), ctypes.byref(pre))
         _build.check(lib, code, "decoder_scan backward plan")
-        return mc.value >= -(-(-(-H // j)) // q)
+        return mc.value >= n_clusters(H, j, q)
     return cluster_plan(H, sms, fits)
 
 

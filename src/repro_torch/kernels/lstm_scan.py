@@ -78,18 +78,21 @@ def _lib():
         ip = ctypes.POINTER(i)
         lib.lstm_scan_bwd_clusters.argtypes = [i] * 6 + [ip] * 3
         lib.lstm_scan_bwd_clusters.restype = i
-        # a build of the first forward (launch/scan_bench.py drives one)
-        # has neither
-        if hasattr(lib, "lstm_scan_fwd_clusters"):
-            lib.lstm_scan_fwd_f32.argtypes = [p] * 11 + [i] * 10 + [f, f, p]
-            lib.lstm_scan_fwd_f32.restype = i
-            lib.lstm_scan_fwd_clusters.argtypes = [i] * 6 + [ip] * 4
-            lib.lstm_scan_fwd_clusters.restype = i
+        lib.lstm_scan_fwd_f32.argtypes = [p] * 11 + [i] * 10 + [f, f, p]
+        lib.lstm_scan_fwd_f32.restype = i
+        lib.lstm_scan_fwd_clusters.argtypes = [i] * 6 + [ip] * 4
+        lib.lstm_scan_fwd_clusters.restype = i
         lib._typed = True
     return lib
 
 
 CLUSTER_SIZES = (8, 4, 2, 1)
+
+
+def n_clusters(H: int, J: int, Q: int) -> int:
+    """P, the clusters of Q CTAs of J units each that cover H units:
+    ceil(ceil(H / J) / Q)."""
+    return -(-(-(-H // J)) // Q)
 
 
 def cluster_plan(H: int, sms: int, fits) -> Tuple[int, int, int]:
@@ -103,7 +106,7 @@ def cluster_plan(H: int, sms: int, fits) -> Tuple[int, int, int]:
     for q in CLUSTER_SIZES:
         for j in range(j0, 2 * j0 + 1):
             if fits(q, j):
-                return q, j, -(-(-(-H // j)) // q)
+                return q, j, n_clusters(H, j, q)
     raise ValueError(f"no cluster plan fits H={H} on {sms} SMs")
 
 
@@ -154,7 +157,7 @@ def _bwd_plan(device_index: int, B: int, H: int, mode: int, k: int):
             code = lib.lstm_scan_bwd_clusters(B, H, mode, k, q, j, ctypes.byref(mc),
                                               ctypes.byref(res), ctypes.byref(smem))
         _build.check(lib, code, "lstm_scan backward plan")
-        return mc.value >= -(-(-(-H // j)) // q)
+        return mc.value >= n_clusters(H, j, q)
     return cluster_plan(H, sms, fits)
 
 
@@ -173,7 +176,7 @@ def _fwd_plan(device_index: int, B: int, H: int, mode: int, k: int):
                                               ctypes.byref(res), ctypes.byref(smem),
                                               ctypes.byref(rows))
         _build.check(lib, code, "lstm_scan forward plan")
-        return mc.value >= -(-(-(-H // j)) // q), rows.value
+        return mc.value >= n_clusters(H, j, q), rows.value
     return fwd_cluster_plan(H, B, _sms(device_index), query)
 
 

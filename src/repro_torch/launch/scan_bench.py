@@ -3,8 +3,8 @@ K8 backward) on the card: their latency floors, their phases and their times
 against other builds of their sources.
 
     PYTHONPATH=src python -m repro_torch.launch.scan_bench [--kernels k3,k4,k7,k8]
-        [--phases] [--phase-probes] [--micro-probes] [--dot-probes] [--no-probes]
-        [--wg-rate P ...] [--fwd-clusters Q ...] [--src NAME=DIR ...]
+        [--phases] [--phase-probes] [--no-probes] [--wg-rate P ...]
+        [--src NAME=DIR ...]
 
 Shapes (inputs from ``chip_smoke.scan_inputs`` / ``chip_smoke.decoder_inputs``):
 K3 and K4 at zaremba-medium (T=35, B=20, H=650, structured p=0.5) and at the
@@ -34,8 +34,7 @@ B=64, S=50, H=512, nl=2, structured per-step sites at p=0.3).
   ``--src NAME=DIR``, the same files in DIR (e.g. a parent commit's
   ``src/repro_torch/csrc``; its headers must sit beside them), compiled with
   the same nvcc flags; a build without the redesigns' C interfaces is
-  driven through the first designs'; ``--fwd-clusters Q`` adds the repo's
-  K3 with its plan limited to clusters of at most Q CTAs;
+  driven through the first designs';
 * each build's distance to a float64 run of the plain version (the
   backwards on the float32 forward's residuals), max |err| / max(1, |ref|)
   over the outputs, beside the float32 plain version's own;
@@ -46,10 +45,7 @@ B=64, S=50, H=512, nl=2, structured per-step sites at p=0.3).
   the scan, as us a step over T);
 * with ``--phase-probes``, pieces of K4's step alone at its two shapes on
   its grid (``PHASE_PROBE_SRC``): a site's BP partials with and without
-  their stores, the cluster gather, a ``cluster.sync()``; with
-  ``--dot-probes`` and ``--micro-probes``, pieces of K3's step alone: its
-  product loop (``tile_dot``) and a plain FFMA loop at its shapes, reads of
-  tagged words already in place by load kind, and ``poll_rows``;
+  their stores, the cluster gather, a ``cluster.sync()``;
 * with ``--wg-rate P`` (repeatable), K4 also at zaremba-medium's shape with
   RH rate P, timed and split like the others: BP shrinks with the kept
   units, WG (dense over the units) does not.
@@ -344,157 +340,6 @@ __global__ void probe_phase(int which, int T, int B, int H, int Q, int J, int P,
   cg::this_cluster().sync();
 }
 
-// T calls of the forwards' product (tile_dot) on CTA-resident synthetic
-// data, a rows x cols block of partial sums over nk listed units, into
-// sink; one CTA an SM (grid ctas).
-__global__ void probe_dot(int T, int rows, int cols, int nk, float* sink) {
-  extern __shared__ float4 sm4[];
-  float* sm = reinterpret_cast<float*>(sm4);
-  const Clu L(1, 1, 1, 1);
-  float* xs = sm;
-  float* Ws = xs + (size_t)nk * rows;
-  int* kl = reinterpret_cast<int*>(Ws + (size_t)nk * cols);
-  for (int e = threadIdx.x; e < nk * rows; e += blockDim.x) xs[e] = 1e-3f * (e % 89);
-  for (int e = threadIdx.x; e < nk * cols; e += blockDim.x) Ws[e] = 1e-3f * (e % 97);
-  for (int s = threadIdx.x; s < nk; s += blockDim.x) kl[s] = (s * 7) % nk;
-  __syncthreads();
-  const Tiles tt(rows, cols);
-  float acc[FMT][16];
-#pragma unroll
-  for (int i = 0; i < FMT; ++i)
-#pragma unroll
-    for (int e = 0; e < 16; ++e) acc[i][e] = 0.f;
-  for (int t = 0; t < T; ++t) {
-    tile_dot<true>(acc, tt, xs, rows, kl, nk, Ws, cols, nullptr, L);
-    __syncthreads();
-  }
-  float v = 0.f;
-#pragma unroll
-  for (int i = 0; i < FMT; ++i)
-#pragma unroll
-    for (int e = 0; e < 16; ++e) v += acc[i][e];
-  sink[blockIdx.x * blockDim.x + threadIdx.x] = v;
-}
-
-extern "C" int probe_dot_launch(int T, int rows, int cols, int nk, int ctas, float* sink,
-                                void* stream) {
-  const size_t smem = 4 * ((size_t)nk * (rows + cols) + nk);
-  cudaError_t err = cudaFuncSetAttribute((const void*)probe_dot,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  probe_dot<<<ctas, 256, smem, (cudaStream_t)stream>>>(T, rows, cols, nk, sink);
-  return (int)cudaGetLastError();
-}
-
-// Micro-probes of the forwards' step pieces, on CTA-resident data (one CTA
-// an SM, T calls a launch):
-//   which 0: a 4 x 4 FFMA tile a thread over nk listed units, plain
-//            __shared__ indexing, no helper (the floor of tile_dot's loop);
-//   which 1: the same with the list indirection (row kl[n]);
-//   which 2-5: a read of nw tagged words of the ring (tags already there),
-//            16 loads in flight a thread: 2 ld.relaxed.gpu.b64 (the
-//            exchange's), 3 ld.global.cg.b64, 4 ld.volatile.global.b64,
-//            5 ld.relaxed.gpu.b64 with no "memory" clobber.
-__global__ void probe_micro(int which, int T, int rows, int cols, int nk, int nw,
-                            const unsigned long long* ring, float* sink) {
-  extern __shared__ float4 sm4[];
-  float* sm = reinterpret_cast<float*>(sm4);
-  float* xs = sm;
-  float* Ws = xs + (size_t)nk * rows;
-  int* kl = reinterpret_cast<int*>(Ws + (size_t)nk * cols);
-  for (int e = threadIdx.x; e < nk * rows; e += blockDim.x) xs[e] = 1e-3f * (e % 89);
-  for (int e = threadIdx.x; e < nk * cols; e += blockDim.x) Ws[e] = 1e-3f * (e % 97);
-  for (int s = threadIdx.x; s < nk; s += blockDim.x) kl[s] = (s * 7) % nk;
-  __syncthreads();
-  const int ncq = cols / 4, cq = threadIdx.x % ncq, rq = threadIdx.x / ncq;
-  float a[16];
-  for (int e = 0; e < 16; ++e) a[e] = 0.f;
-  float v = 0.f;
-  for (int t = 0; t < T; ++t) {
-    if (which <= 1) {
-      if (rq < rows / 4) {
-#pragma unroll 4
-        for (int n = 0; n < nk; ++n) {
-          const int s = which ? kl[n] : n;
-          const float4 w = reinterpret_cast<const float4*>(Ws + (size_t)s * cols)[cq];
-          const float4 x = reinterpret_cast<const float4*>(xs + (size_t)n * rows)[rq];
-          const float xv[4] = {x.x, x.y, x.z, x.w}, wv[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) a[r * 4 + c] = fmaf(xv[r], wv[c], a[r * 4 + c]);
-        }
-      }
-    } else {
-      const unsigned want = 1;
-      for (int e0 = threadIdx.x; e0 < nw; e0 += 16 * blockDim.x) {
-        unsigned long long w[16];
-#pragma unroll
-        for (int i = 0; i < 16; ++i) {
-          const unsigned long long* p = ring + min(e0 + i * (int)blockDim.x, nw - 1);
-          if (which == 2)
-            asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];" : "=l"(w[i]) : "l"(p) : "memory");
-          else if (which == 3)
-            w[i] = __ldcg(p);
-          else if (which == 4)
-            asm volatile("ld.volatile.global.b64 %0, [%1];" : "=l"(w[i]) : "l"(p));
-          else
-            asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];" : "=l"(w[i]) : "l"(p));
-        }
-#pragma unroll
-        for (int i = 0; i < 16; ++i)
-          if ((unsigned)(w[i] >> 32) == want) v += __uint_as_float((unsigned)w[i]);
-      }
-    }
-    __syncthreads();
-  }
-  for (int e = 0; e < 16; ++e) v += a[e];
-  sink[blockIdx.x * blockDim.x + threadIdx.x] = v;
-}
-
-// poll_rows itself on words already in place (tag 1): B = 64 rows of the
-// nk = 45 listed units of a luong-nmt column (clusters of 8, J = 5), T calls;
-// pre: 0 none, 1 each thread first publishes 5 words (st.relaxed.gpu, as a
-// pointwise does), 2 the same 5 stores weak (st.global).
-__global__ void probe_poll(int T, int pre, unsigned long long* ring, float* sink) {
-  extern __shared__ float4 sm4[];
-  float* xs = reinterpret_cast<float*>(sm4);
-  int* kl = reinterpret_cast<int*>(xs + 45 * 64);
-  const Clu L(8, 5, 13, 512);
-  for (int s = threadIdx.x; s < 45; s += blockDim.x) kl[s] = (s * 3) % 65;
-  __syncthreads();
-  float v = 0.f;
-  unsigned long long* out = ring + 64 * 512 + (size_t)blockIdx.x * 256 * 5;
-  for (int t = 0; t < T; ++t) {
-    for (int i = 0; i < 5; ++i) {
-      unsigned long long* o = out + i * 256 + threadIdx.x;
-      if (pre == 1) st_word(o, pack(1.f, 1));
-      else if (pre == 2) *o = pack(1.f, 1);
-    }
-    poll_rows(xs, 64, kl, 45, L, 0, 64, 64, ring, 1u, nullptr, [](int, int) { return 1.f; });
-    __syncthreads();
-    v += xs[threadIdx.x];
-  }
-  sink[blockIdx.x * blockDim.x + threadIdx.x] = v;
-}
-
-extern "C" int probe_poll_launch(int T, int pre, void* ring, int ctas, float* sink, void* stream) {
-  const size_t smem = 4 * (45 * 64 + 64);
-  probe_poll<<<ctas, 256, smem, (cudaStream_t)stream>>>(T, pre, (unsigned long long*)ring, sink);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int probe_micro_launch(int which, int T, int rows, int cols, int nk, int nw,
-                                  const void* ring, int ctas, float* sink, void* stream) {
-  const size_t smem = 4 * ((size_t)nk * (rows + cols) + nk);
-  cudaError_t err = cudaFuncSetAttribute((const void*)probe_micro,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  probe_micro<<<ctas, 256, smem, (cudaStream_t)stream>>>(
-      which, T, rows, cols, nk, nw, (const unsigned long long*)ring, sink);
-  return (int)cudaGetLastError();
-}
-
 extern "C" int probe_phase_launch(int which, int T, int B, int H, int Q, int J, int P, int nk,
                                   void* ring, void* stream) {
   const int PJ = P * J, ldc = clu_cols8(Q, J) + 4;
@@ -537,77 +382,6 @@ def phase_probes(cs, B, H, k, plan, calls=1000):
     return out
 
 
-# (rows, cols, kept units) of a CTA's product in K3's exchange: at
-# zaremba-medium, at luong-nmt (the shape of K7's gate phases on the same
-# exchange too), and of K7's readout K-split the same way
-DOT_SHAPES = {"k3_zaremba": (20, 192, 41), "k3_nmt_k7_gates": (64, 160, 45),
-              "k7_readout": (64, 40, 65)}
-
-
-def dot_probes(cs, calls=1000):
-    """us a call of the forwards' product (``tile_dot``, csrc/scan_exchange.cuh)
-    alone at ``DOT_SHAPES`` on 104 CTAs."""
-    src = _build.build_dir() / "scan_phase_probe.cu"
-    src.parent.mkdir(parents=True, exist_ok=True)
-    src.write_text(PHASE_PROBE_SRC)
-    hdr = _build.source_hash(_build.CSRC / "scan_exchange.cuh", [])
-    lib = compile_lib(src, f"scan_dot_probe_{hdr}", ["-I", str(_build.CSRC)])
-    i, p = ctypes.c_int, ctypes.c_void_p
-    lib.probe_dot_launch.argtypes = [i] * 5 + [p] * 2
-    lib.probe_dot_launch.restype = i
-    sink = torch.empty(132 * NT, device="cuda")
-    out = {}
-    for name, (rows, cols, nk) in DOT_SHAPES.items():
-        def run():
-            code = lib.probe_dot_launch(calls, rows, cols, nk, 104, sink.data_ptr(),
-                                        torch.cuda.current_stream().cuda_stream)
-            if code:
-                raise RuntimeError(f"dot probe: CUDA error {code}")
-        out[name] = cs.time_ms(run, reps=3, warmup=1) * 1e3 / calls
-    return out
-
-
-def micro_probes(cs, calls=1000):
-    """us a call of ``probe_micro``'s pieces at ``DOT_SHAPES`` (the product
-    floor without and with the list indirection) and of a read of 2900 and
-    11500 tagged words already in place, by load kind; 104 CTAs."""
-    src = _build.build_dir() / "scan_phase_probe.cu"
-    src.parent.mkdir(parents=True, exist_ok=True)
-    src.write_text(PHASE_PROBE_SRC)
-    hdr = _build.source_hash(_build.CSRC / "scan_exchange.cuh", [])
-    lib = compile_lib(src, f"scan_micro_probe_{hdr}", ["-I", str(_build.CSRC)])
-    i, p = ctypes.c_int, ctypes.c_void_p
-    lib.probe_micro_launch.argtypes = [i] * 6 + [p, i, p, p]
-    lib.probe_micro_launch.restype = i
-    sink = torch.empty(132 * NT, device="cuda")
-    ring = torch.full((104 * 11500,), 1 << 32, dtype=torch.int64, device="cuda")
-    out = {}
-    cases = [(w, f"dot{'_list' if w else ''}/{n}", r, c, k, 0)
-             for w in (0, 1) for n, (r, c, k) in DOT_SHAPES.items()]
-    cases += [(w, f"{kind}/{nw}", 4, 4, 4, nw)
-              for w, kind in ((2, "relaxed_gpu"), (3, "cg"), (4, "volatile"),
-                              (5, "relaxed_gpu_no_clobber")) for nw in (2900, 11500)]
-    for which, name, rows, cols, nk, nw in cases:
-        def run():
-            code = lib.probe_micro_launch(which, calls, rows, cols, nk, nw, ring.data_ptr(), 104,
-                                          sink.data_ptr(), torch.cuda.current_stream().cuda_stream)
-            if code:
-                raise RuntimeError(f"micro probe {name}: CUDA error {code}")
-        out[name] = cs.time_ms(run, reps=3, warmup=1) * 1e3 / calls
-    lib.probe_poll_launch.argtypes = [i, i, p, i, p, p]
-    lib.probe_poll_launch.restype = i
-    pring = torch.full((64 * 512 + 104 * 256 * 5,), 1 << 32, dtype=torch.int64, device="cuda")
-    for pre, name in ((0, "poll_rows"), (1, "poll_rows_after_relaxed_stores"),
-                      (2, "poll_rows_after_weak_stores")):
-        def run():
-            code = lib.probe_poll_launch(calls, pre, pring.data_ptr(), 104, sink.data_ptr(),
-                                         torch.cuda.current_stream().cuda_stream)
-            if code:
-                raise RuntimeError(f"poll probe {name}: CUDA error {code}")
-        out[name] = cs.time_ms(run, reps=3, warmup=1) * 1e3 / calls
-    return out
-
-
 def compile_lib(src: Path, stem: str, extra=()) -> ctypes.CDLL:
     """``src`` compiled as ``_build`` compiles the port's sources (plus
     ``extra`` flags), its CUDA error strings typed where it has them."""
@@ -631,7 +405,7 @@ def probe_cases(B: int, H: int, k: int, sms: int, max_clusters: int, Q: int = CL
     grid for (a)-(c), clusters of Q for (d)."""
     J, N = first_grid(H, sms)
     _, Jc, P = ls.cluster_plan(
-        H, sms, lambda q, j: q == Q and -(-(-(-H // j)) // q) <= max_clusters)
+        H, sms, lambda q, j: q == Q and ls.n_clusters(H, j, q) <= max_clusters)
     return {
         "a_grid_sync": (0, N, 1, 0, 0, 0),
         "b_l2_barrier": (1, N, 1, 0, 0, 0),
@@ -664,7 +438,7 @@ def fwd_probe_cases(B: int, H: int, k: int, sms: int, max_clusters: dict) -> dic
     }
     for q, mc in max_clusters.items():
         _, Jc, P = ls.cluster_plan(
-            H, sms, lambda q_, j: q_ == q and -(-(-(-H // j)) // q_) <= mc)
+            H, sms, lambda q_, j: q_ == q and ls.n_clusters(H, j, q_) <= mc)
         rd = -(-B * k // (P * q))
         out[f"e_cluster{q}_gather"] = (5, P * q, q, B * Jc, rd, -(-B * k // q))
         out[f"f_cluster{q}_partials"] = (5, P * q, q, B * Jc, rd, B * 4 * Jc)
@@ -781,12 +555,32 @@ def _redesigned(lib, name) -> bool:
     return hasattr(lib, f"{name}_bwd_clusters")
 
 
+def _type_lstm(lib):
+    """Types ``lib``'s ``csrc/lstm_scan.cu`` interface for the wrappers:
+    ``lstm_scan._lib`` types the repo's; a build of the first K3 design
+    (no ``lstm_scan_fwd_clusters``) gets that design's forward typed here,
+    for ``k3_call`` to drive directly, and its K4 interface typed as the
+    wrapper expects when it has the redesigned one."""
+    if hasattr(lib, "lstm_scan_fwd_clusters"):
+        lib._typed = False
+        return
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.lstm_scan_fwd_f32.argtypes = [p] * 10 + [i] * 8 + [f, f, p]
+    lib.lstm_scan_fwd_f32.restype = i
+    if _redesigned(lib, "lstm_scan"):
+        lib.lstm_scan_bwd_f32.argtypes = [p] * 16 + [i] * 10 + [f, f, p]
+        lib.lstm_scan_bwd_f32.restype = i
+        lib.lstm_scan_bwd_clusters.argtypes = [i] * 6 + [ctypes.POINTER(i)] * 3
+        lib.lstm_scan_bwd_clusters.restype = i
+    lib._typed = True
+
+
 def k4_call(lib, x):
     """K4 of build ``lib`` on inputs ``x``: a callable returning (dgx, dU,
     dh0, dc0)."""
     dy, dcT, saved, rh = x["dy"], x["dcT"], x["saved"], x["rh"]
     if _redesigned(lib, "lstm_scan"):
-        lib._typed = False
+        _type_lstm(lib)
 
         def run():
             with using("lstm_scan", lib):
@@ -876,8 +670,8 @@ def k3_call(lib, x):
     """K3 of build ``lib`` on inputs ``x``: a callable returning (hs, gates,
     cs)."""
     gx, U, h0, c0 = x["ins"]
+    _type_lstm(lib)
     if hasattr(lib, "lstm_scan_fwd_clusters"):
-        lib._typed = False
 
         def run():
             with using("lstm_scan", lib):
@@ -889,17 +683,12 @@ def k3_call(lib, x):
     T, B, G = gx.shape
     H = U.shape[0]
     mode, k, ids_rows, mask_rows = ls._mode_args(ids, mask, T, B, H)
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ptr = lambda t: None if t is None else t.data_ptr()
 
     def run():
-        fn = lib.lstm_scan_fwd_f32
-        fn.argtypes = [p] * 10 + [i] * 8 + [f, f, p]     # the first design's interface
-        fn.restype = i
-        lib._typed = False
         hs, cs = torch.empty((T, B, H), device="cuda"), torch.empty((T, B, H), device="cuda")
         gates = torch.empty((T, B, G), device="cuda")
-        code = fn(gx.data_ptr(), U.data_ptr(), h0.data_ptr(), c0.data_ptr(), ptr(ids), ptr(mask),
+        code = lib.lstm_scan_fwd_f32(gx.data_ptr(), U.data_ptr(), h0.data_ptr(), c0.data_ptr(), ptr(ids), ptr(mask),
                   ptr(lengths), hs.data_ptr(), gates.data_ptr(), cs.data_ptr(), T, B, H, mode, k,
                   ids_rows, mask_rows, int(lengths is not None), float(scale), 0.0,
                   torch.cuda.current_stream().cuda_stream)
@@ -916,29 +705,6 @@ def k7_call(lib, fargs):
     def run():
         with using("decoder_scan", lib):
             return list(ds.kernel_fwd(*fargs))
-    return run
-
-
-_SIZES = ls.CLUSTER_SIZES
-
-
-def _set_cluster_sizes(sizes):
-    if ls.CLUSTER_SIZES != sizes:
-        ls.CLUSTER_SIZES = sizes
-        ls._fwd_plan.cache_clear()
-
-
-def restore_cluster_sizes():
-    _set_cluster_sizes(_SIZES)
-
-
-def with_cluster_sizes(fn, q):
-    """``fn`` run with K3's plans limited to clusters of at most q CTAs
-    (``lstm_scan.CLUSTER_SIZES``), the plan cache cleared when that changes
-    (so in a timing's warm-up calls)."""
-    def run():
-        _set_cluster_sizes(tuple(c for c in _SIZES if c <= q))
-        return fn()
     return run
 
 
@@ -1051,14 +817,8 @@ def main(argv=None):
     ap.add_argument("--phases", action="store_true",
                     help="also split the repo build's step into phases")
     ap.add_argument("--no-probes", action="store_true", help="skip the floor probes")
-    ap.add_argument("--fwd-clusters", type=int, action="append", default=[], metavar="Q",
-                    help="also time K3 with its plans limited to clusters of <= Q")
     ap.add_argument("--kernels", default="k3,k4,k7,k8",
                     help="comma-separated subset of k3,k4,k7,k8 to run")
-    ap.add_argument("--micro-probes", action="store_true",
-                    help="also time the product floor and tagged-word reads alone")
-    ap.add_argument("--dot-probes", action="store_true",
-                    help="also time the forwards' product loop alone")
     ap.add_argument("--phase-probes", action="store_true",
                     help="also time pieces of the redesigned step alone")
     ap.add_argument("--wg-rate", type=float, action="append", default=[], metavar="P",
@@ -1114,11 +874,6 @@ def main(argv=None):
     for r in rows.values():
         r["fns"] = {n: r["run_of"](lib[0 if r["kind"] in ("k3", "k4") else 1])
                     for n, lib in libs.items()}
-        if r["kind"] == "k3" and args.fwd_clusters:
-            repo = r["fns"]["repo"]
-            r["fns"]["repo"] = with_cluster_sizes(repo, max(_SIZES))
-            for q in args.fwd_clusters:   # the repo build on smaller clusters
-                r["fns"][f"repo_q{q}"] = with_cluster_sizes(repo, q)
     if not args.no_probes:
         out["floor"] = {}
         for row, r in rows.items():
@@ -1129,14 +884,6 @@ def main(argv=None):
             if r["kind"] == "k8":
                 fl["floor_ms_3_exchanges"] = floor_ms(fl["us_per_step"], r["T"], 3)
             out["floor"][row] = fl
-    if args.micro_probes:
-        out["micro_probes"] = micro_probes(cs)
-        print("pieces alone (us a call): " + ", ".join(
-            f"{n} {v:.3f}" for n, v in out["micro_probes"].items()))
-    if args.dot_probes:
-        out["dot_probes"] = dot_probes(cs)
-        print("product alone (us a call): " + ", ".join(
-            f"{n} {v:.3f}" for n, v in out["dot_probes"].items()))
     if args.phase_probes:
         out["phase_probes"] = {}
         for row, r in rows.items():
@@ -1146,19 +893,15 @@ def main(argv=None):
                 print(f"{row} pieces (us a call): " + ", ".join(
                     f"{n} {v:.3f}" for n, v in pp.items() if n != "plan") + f"; {pp['plan']}")
     out["f64_dist"] = {row: {"plain_f32": f64_dist(r["plain"], r["ref"])} for row, r in rows.items()}
-    restore_cluster_sizes()
     for row, r in rows.items():
         for n, fn in r["fns"].items():
             out["f64_dist"][row][n] = f64_dist(fn(), r["ref"])
-    builds = list(libs) + [f"repo_q{q}" for q in args.fwd_clusters]
-    out["ms"] = {row: {n: [] for n in builds if n in r["fns"]} for row, r in rows.items()}
-    turns = builds + list(reversed(builds))
+    out["ms"] = {row: {n: [] for n in libs} for row in rows}
+    turns = list(libs) + list(reversed(libs))
     for _ in range(2):
         for n in turns:
             for row, r in rows.items():
-                if n in r["fns"]:
-                    out["ms"][row][n].append(cs.time_ms(r["fns"][n], cold_l2=True))
-    restore_cluster_sizes()
+                out["ms"][row][n].append(cs.time_ms(r["fns"][n], cold_l2=True))
     if args.phases:
         out["phases"] = {}
         for row, r in rows.items():

@@ -164,7 +164,16 @@ _RESIDENT = {8: 15, 4: 33, 2: 66, 1: 132}
 
 
 def _fits(H_, resident=_RESIDENT):
-    return lambda q, j: -(-(-(-H_ // j)) // q) <= resident[q]
+    return lambda q, j: t_ls.n_clusters(H_, j, q) <= resident[q]
+
+
+@pytest.mark.parametrize("H_,J_,Q_,want", [(650, 6, 8, 14), (512, 5, 8, 13), (1500, 13, 8, 15),
+                                           (40, 1, 8, 5), (64, 8, 8, 1), (65, 8, 8, 2),
+                                           (7, 3, 1, 3)])
+def test_n_clusters_covers_the_units_with_the_fewest_clusters(H_, J_, Q_, want):
+    P = t_ls.n_clusters(H_, J_, Q_)
+    assert P == want
+    assert P * Q_ * J_ >= H_ > (P - 1) * Q_ * J_
 
 
 @pytest.mark.parametrize("H_,want", [(650, (8, 6, 14)), (512, (8, 5, 13)),
@@ -321,7 +330,7 @@ _RESIDENT_FWD = {8: 15, 4: 30, 2: 66, 1: 132}
 
 def _fwd_query(H_, rows, resident=_RESIDENT_FWD):
     """A plan query as the wrappers' (all clusters resident, rows a chunk)."""
-    return lambda q, j: (-(-(-(-H_ // j)) // q) <= resident[q], rows(q, j))
+    return lambda q, j: (t_ls.n_clusters(H_, j, q) <= resident[q], rows(q, j))
 
 
 @pytest.mark.parametrize("H_,B_,want", [(650, 20, (8, 6, 14)), (512, 64, (8, 5, 13)),
