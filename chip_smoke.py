@@ -19,6 +19,12 @@ plain PyTorch version at that path's full shapes, and times it:
     per-step exchange on the kernel's grid, ``launch/scan_bench.py``'s
     probes); K3 and K7 alike, against a float64 run of their plain
     forward, their floors from the forward probes (K7: T x four exchanges);
+  * bilstm-ner (T=64, B=32, H=200, block size 1, p=0.5: one direction of
+    the tagger's BiLSTM): K3/K4 on a grid of 13 clusters of 8, held to
+    their plain versions, to a float64 run of them, to their own bits on a
+    second launch, with their latency floors, and again with ragged rows
+    (lengths in 1..64); K1 FP/BP at the scheduled engine's in-scan product
+    (M=32, 100 of 200 units kept, N=800);
   * xlstm-1.3b (T=2048, B=2, 4 heads of dh=512, RH block 64, p=0.25, fresh
     start): K6, the fused sLSTM scan, whose backward computes dR after the
     scan with its WG kernel (``slstm_wg``, split-precision TF32 on the
@@ -59,7 +65,9 @@ plain PyTorch version at that path's full shapes, and times it:
     pointwise, with forget_bias 0 and 1 and odd shapes.
 
 Then it checks on small inputs that the kernel engines agree with the plain
-stepwise oracle (the three recurrent models), that the qwen3 smoke config
+stepwise oracle (the four recurrent models; bilstm-ner on a masked and a
+ragged batch), that Viterbi decodes the same emissions to the same paths
+on the card and on the CPU (ties included), that the qwen3 smoke config
 with ``attn_impl="flash"`` agrees with ``attn_impl="xla"`` and the mixtral
 smoke config with ``moe_impl="pallas"`` with ``"xla"``; runs the
 ``lstm_stack`` forward at zaremba-medium width (T=35, B=20, H=D=650, 2
@@ -67,8 +75,12 @@ layers, ``case3:0.5:pallas``) under ``torch.no_grad()`` with the scheduled
 and stepwise engines, ``pointwise_impl="pallas"`` (K5) against ``"xla"``;
 and drives each main path — the
 training step of ``repro_torch.launch.train`` at full width, zaremba-medium
-under ``case3:0.5:pallas`` and luong-nmt (batch 64, max_len 50) under
-``case3:0.3:pallas``, and ``launch.steps.make_train_step`` on xlstm-1.3b
+under ``case3:0.5:pallas``, luong-nmt (batch 64, max_len 50) under
+``case3:0.3:pallas`` and bilstm-ner (Ma & Hovy's widths, batch 32, 64
+words of 12 chars) under ``case3:0.5:pallas`` (its launches a step
+asserted: K3/K4 2 + 2 fused, K1 128 + 128 scheduled, nothing else; the
+CRF's loss and backward timed beside the step), and
+``launch.steps.make_train_step`` on xlstm-1.3b
 cut to 16 blocks (batch 2 x 2048, its own plan with ``impl="pallas"``)
 with the fused and the scheduled engine, and qwen3-8b cut to 4 layers
 (batch 1 x 4096, its own plan) with ``attn_impl="flash"`` and then
@@ -76,7 +88,10 @@ with the fused and the scheduled engine, and qwen3-8b cut to 4 layers
 4096, its own plan, flash attention) with ``moe_impl="pallas"`` and then
 ``"xla"`` — asserting that every kernel's launch counter grew in that
 path's run (and that K6, WG included, did not launch under the scheduled engine, nor
-K9-K11 under xla, nor K12 under the mixtral xla route).
+K9-K11 under xla, nor K12 under the mixtral xla route). Last, it resumes
+bilstm-ner fused from a checkpoint (2 steps, save, restore into fresh
+tensors, 2 more) and requires the losses and final parameters of 4
+straight steps, bit for bit.
 
 K1/K2 rows carry the kernel's and the library call's device time from
 ``torch.profiler`` (``device_ms``, ``library_device_ms``) beside their
@@ -123,6 +138,8 @@ MC = math.ceil(MB * MS * MK / ME * 1.25)              # capacity: 1280 slots
 M_LAYERS = 1                                          # depth cut from 56
 STEPS = 5
 LM, NMT, XLSTM, QWEN = "zaremba-medium", "luong-nmt", "xlstm-1.3b", "qwen3-8b"
+NER = "bilstm-ner"
+ES, EB, EH, EP = 64, 32, 200, 0.5                # bilstm-ner: seq, batch, H, p
 MIXTRAL, STACK = "mixtral-8x22b", "lstm_stack"
 
 
@@ -165,10 +182,11 @@ def time_ms(fn, reps: int = 20, warmup: int = 3, cold_l2: bool = False) -> float
     return times[len(times) // 2]
 
 
-def device_ms(fn, reps: int = 20, warmup: int = 3, cold_l2: bool = False) -> float:
+def device_ms(fn, reps: int = 20, warmup: int = 3, cold_l2: bool = False):
     """Mean device time of the kernels one call of ``fn`` launches, from
     ``torch.profiler`` over ``reps`` calls (with ``cold_l2`` each after the
-    same flush as ``time_ms``, whose own kernels are left out)."""
+    same flush as ``time_ms``, whose own kernels are left out), and None, or
+    where the time is an estimate, each kernel's recorded launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -191,7 +209,9 @@ def device_ms(fn, reps: int = 20, warmup: int = 3, cold_l2: bool = False) -> flo
             torch.cuda.synchronize()
         flush = set(kernels(prof))
     # the profiler has been seen to drop kernel records on the card: a run
-    # whose kernel counts are not a multiple of reps is taken again
+    # whose kernel counts are not a multiple of reps is taken again, and
+    # after three such runs each kernel's mean recorded duration is taken
+    # times its launches a call (its count over reps, rounded)
     for _ in range(3):
         with profile(activities=acts) as prof:
             for _ in range(reps):
@@ -201,8 +221,14 @@ def device_ms(fn, reps: int = 20, warmup: int = 3, cold_l2: bool = False) -> flo
             torch.cuda.synchronize()
         rows = [v for k_, v in kernels(prof).items() if k_ not in flush]
         if rows and all(n % reps == 0 for _, n in rows):
-            return sum(us for us, _ in rows) / reps / 1e3
-    raise RuntimeError("the profiler lost kernel records in 3 runs")
+            return sum(us for us, _ in rows) / reps / 1e3, None
+    if not rows:
+        raise RuntimeError("the profiler recorded no kernel in 3 runs")
+    counts = [n for _, n in rows]
+    print(f"  (device_ms: kernel records lost in 3 runs, counts {counts} for "
+          f"{reps} calls; mean recorded duration x launches a call, an "
+          f"estimate)")
+    return sum(us / n * max(1, round(n / reps)) for us, n in rows) / 1e3, counts
 
 
 def bound_ms(nbytes: float, flops, rate: float = F32_FLOPS):
@@ -264,7 +290,9 @@ def add_row(out, counter, arch, src, replaces, err, ms, pms, lms, nbytes,
 
 
 def check_gather_matmul(gen, out, arch=LM, T=T, B=B, H=H, D=D, P=P,
-                        extras=True):
+                        extras=True, k2=True):
+    """K1 (and, with ``k2``, K2) at one path's shapes against their plain
+    versions, timed beside the plain version and ``torch.matmul``."""
     from repro_torch.kernels import gather_matmul as gm
     k = H - math.ceil(P * H)
     U = torch.randn(H, 4 * H, generator=gen).cuda() * 0.05
@@ -273,8 +301,8 @@ def check_gather_matmul(gen, out, arch=LM, T=T, B=B, H=H, D=D, P=P,
     kbT = keep_table(gen, T, D, P)
     scale = H / k
     uniq = int(torch.unique(kbT).numel())
-    print(f"K1/K2 gather_matmul ({arch}): M={B} k={k} N={4 * H} T={T} "
-          f"(rows of W kept at some step: {uniq})")
+    print(f"K1{'/K2' if k2 else ''} gather_matmul ({arch}): M={B} k={k} "
+          f"N={4 * H} T={T} (rows of W kept at some step: {uniq})")
 
     def row(name, route_src, replaces, got, want, tol, fn, plain, lib,
             nbytes, flops, cold_l2, plan):
@@ -283,11 +311,16 @@ def check_gather_matmul(gen, out, arch=LM, T=T, B=B, H=H, D=D, P=P,
         pms = time_ms(plain, cold_l2=cold_l2)
         lms = time_ms(lib, cold_l2=cold_l2)
         # device time beside the event time: the difference is the host's
-        dms = device_ms(fn, cold_l2=cold_l2)
-        ldms = device_ms(lib, cold_l2=cold_l2)
+        # (an estimate, marked with the recorded launches, where the
+        # profiler lost records in three runs)
+        dms, lost = device_ms(fn, cold_l2=cold_l2)
+        ldms, llost = device_ms(lib, cold_l2=cold_l2)
+        est = {k_: v for k_, v in (("device_ms_estimated_from", lost),
+                                   ("library_device_ms_estimated_from", llost))
+               if v is not None}
         add_row(out, name, arch, route_src, replaces, err, ms, pms, lms,
                 nbytes, flops, "cold" if cold_l2 else "warm", device_ms=dms,
-                library_device_ms=ldms,
+                library_device_ms=ldms, **est,
                 plan=dict(bm=plan.bm, bn=plan.bn, split=plan.split,
                           ctas=math.prod(plan.grid)))
 
@@ -332,6 +365,8 @@ def check_gather_matmul(gen, out, arch=LM, T=T, B=B, H=H, D=D, P=P,
               f"bit-identical: {same}")
         if pl.split < 2 or not same:
             raise AssertionError("the cluster-split BP is not deterministic")
+    if not k2:
+        return
     # K2 FP: Phase A NR, x_c (T, B, k) @ W[kept_t].
     x = torch.randn(T, B, k, generator=gen).cuda()
     xf = torch.zeros(T, B, D, device="cuda").scatter_(
@@ -379,7 +414,8 @@ def check_gather_matmul(gen, out, arch=LM, T=T, B=B, H=H, D=D, P=P,
             gm.gather_matmul_stepped_plain(xf[..., :640], W8, kb8, block_size=8), 2e-4)
 
 
-def scan_inputs(gen, T_, B_, H_, rate, mode, fixed=False, ragged=False):
+def scan_inputs(gen, T_, B_, H_, rate, mode, fixed=False, ragged=False,
+                min_len=0):
     gx = (torch.randn(T_, B_, 4 * H_, generator=gen) * 0.5).cuda()
     U = (torch.randn(H_, 4 * H_, generator=gen) * 0.05).cuda()
     h0 = (torch.randn(B_, H_, generator=gen) * 0.5).cuda()
@@ -394,7 +430,7 @@ def scan_inputs(gen, T_, B_, H_, rate, mode, fixed=False, ragged=False):
         mask = (torch.rand(rows, B_, H_, generator=gen) >= rate).float().cuda()
         scale = 1.0 / (1.0 - rate)
     if ragged:
-        lengths = torch.randint(0, T_ + 1, (B_,), generator=gen,
+        lengths = torch.randint(min_len, T_ + 1, (B_,), generator=gen,
                                 dtype=torch.int32).cuda()
     dy = torch.randn(T_, B_, H_, generator=gen).cuda()
     dcT = torch.randn(B_, H_, generator=gen).cuda()
@@ -402,12 +438,15 @@ def scan_inputs(gen, T_, B_, H_, rate, mode, fixed=False, ragged=False):
 
 
 def check_scan(gen, T_, B_, H_, rate, mode, *, fixed=False, ragged=False,
-               out=None, tag="", arch=LM):
+               min_len=0, out=None, deep=False, tag="", arch=LM):
+    """K3 and K4 against their plain versions; with ``out`` (a main-path
+    shape, timed into a row of ``out``) or ``deep``, also against a second
+    launch for the same bits and a float64 run of the plain versions."""
     from repro_torch.kernels import cell_scan as cs_mod
     from repro_torch.kernels import lstm_scan as ls
     cell = ls.lstm_cell_spec(0.0)
     gx, U, h0, c0, ids, mask, lengths, scale, dy, dcT = scan_inputs(
-        gen, T_, B_, H_, rate, mode, fixed, ragged)
+        gen, T_, B_, H_, rate, mode, fixed, ragged, min_len)
     rh = (ids, mask, lengths, scale)
     fwd_k = lambda: ls.lstm_scan_fwd_cuda(gx, U, h0, (c0,), *rh, forget_bias=0.0)
     fwd_p = lambda: cs_mod.plain_fwd(cell, gx, U, h0, (c0,), *rh)
@@ -424,7 +463,7 @@ def check_scan(gen, T_, B_, H_, rate, mode, *, fixed=False, ragged=False,
     dgx_p, dU_p, dh0_p, (dc0_p,) = bwd_p()
     e_b = compare("  lstm_scan_bwd " + tag, [dgx, dU, dh0, dc0],
                   [dgx_p, dU_p, dh0_p, dc0_p], 1e-3)
-    if out is None:
+    if out is None and not deep:
         return
     # the main path: second launches for the same bits, and float64 runs of
     # the plain versions (the reverse on the same float32 residuals)
@@ -442,6 +481,8 @@ def check_scan(gen, T_, B_, H_, rate, mode, *, fixed=False, ragged=False,
     b_f64 = f64_gate("  lstm_scan_bwd " + tag, [dgx, dU, dh0, dc0],
                      [dgx_p, dU_p, dh0_p, dc0_p], ref)
     del ref
+    if out is None:
+        return
     k = ids.shape[1] if ids is not None else H_
     uniq = int(torch.unique(ids).numel()) if ids is not None else H_
     G = 4 * H_
@@ -1012,25 +1053,49 @@ def nmt_small_batch(cfg, dev):
     return {k: torch.from_numpy(v).to(dev) for k, v in d.items()}
 
 
+def ner_small_batches():
+    """The bilstm-ner smoke config's small batches on the CPU: "masked"
+    (``ner_examples``' all-true mask) and "ragged" (lengths 8, 3, 5, 1, the
+    masks derived from them)."""
+    from repro_torch import configs
+    from repro_torch.data import synthetic
+    cfg = configs.get_arch(NER).smoke()
+    d = {k: torch.from_numpy(v) for k, v in synthetic.ner_examples(
+        4, cfg.vocab, cfg.char_vocab, cfg.num_tags, seq=8, seed=1).items()}
+    ragged = {k: v for k, v in d.items() if k != "mask"}
+    ragged["lengths"] = torch.tensor([8, 3, 5, 1], dtype=torch.int32)
+    return {"masked": d, "ragged": ragged}
+
+
 def check_engines_small(arch=LM):
     """On a small input, the kernel engines (fused, scheduled under
     :pallas) agree with the plain stepwise oracle (:xla) for loss and every
     gradient, on the card and against the CPU (1e-4 x max(1, |ref|)).
     xlstm's oracle runs in float64, with 1e-3 x max(1, |ref|): at this size
     its mLSTM cell amplifies float32 rounding to ~1e-4 of a gradient's
-    largest entry, on the CPU and on the card alike."""
+    largest entry, on the CPU and on the card alike. bilstm-ner runs a
+    masked and a ragged batch."""
     from repro_torch import configs
-    from repro_torch.configs import adapters
-    from repro_torch.launch.steps import value_and_grad
-    from repro_torch.optim import tree_leaves
     spec = configs.get_arch(arch)
-    plan = {LM: "case3:0.5:bs8", NMT: "case3:0.3:bs8", XLSTM: "case3:0.5:bs4"}[arch]
+    plan = {LM: "case3:0.5:bs8", NMT: "case3:0.3:bs8", XLSTM: "case3:0.5:bs4",
+            NER: "case3:0.5:bs8"}[arch]
     g = torch.Generator().manual_seed(1)
-    if arch != NMT:
-        batch_cpu = {"tokens": torch.randint(0, 128, (4, 8), generator=g),
-                     "labels": torch.randint(0, 128, (4, 8), generator=g)}
+    if arch == NER:
+        batches = ner_small_batches()
+    elif arch == NMT:
+        batches = {"": nmt_small_batch(spec.smoke(), "cpu")}
     else:
-        batch_cpu = nmt_small_batch(spec.smoke(), "cpu")
+        batches = {"": {"tokens": torch.randint(0, 128, (4, 8), generator=g),
+                        "labels": torch.randint(0, 128, (4, 8), generator=g)}}
+    for what, batch_cpu in batches.items():
+        check_engines_batch(spec, arch, plan, batch_cpu, what)
+
+
+def check_engines_batch(spec, arch, plan, batch_cpu, what):
+    """``check_engines_small`` on one batch (``what`` names it)."""
+    from repro_torch.configs import adapters
+    from repro_torch.optim import value_and_grad
+    from repro_torch.optim import tree_leaves
     f64 = arch == XLSTM
     oracle, tol = (("stepwise/xla/cpu/float64", 1e-3) if f64
                    else ("stepwise/xla/cpu", 1e-4))
@@ -1058,7 +1123,7 @@ def check_engines_small(arch=LM):
         lfn = value_and_grad(lambda p, b, **kw: adapters.loss_fn(spec.kind)(p, b, cfg, **kw))
         loss, grads = lfn(params, batch, seed=7, step=3)
         results[name] = [loss.cpu()] + [g.cpu() for g in tree_leaves(grads)]
-    print(f"engines on a small input ({arch} smoke, {plan})")
+    print(f"engines on a small input ({arch} smoke, {plan}{', ' + what if what else ''})")
     ref = results[oracle]
     for name, got in results.items():
         if name != oracle:
@@ -1072,19 +1137,36 @@ MAIN_PATHS = (
     (NMT, NB, NT_, "case3:0.3:pallas",
      lambda c: (c.src_vocab, c.tgt_vocab, c.embed, c.hidden, c.num_layers)
      == (50000, 50000, 512, 512, 2)),
+    # Ma & Hovy 2016: word embed 100, 30 char filters of width 3 over 30-dim
+    # char embeddings (char vocab 100), BiLSTM 2 x 200, 9 tags; batch 32
+    # (benchmarks/table3_ner.py), sentences of 64 words of 12 chars
+    (NER, EB, ES, "case3:0.5:pallas",
+     lambda c: (c.vocab, c.char_vocab, c.char_embed, c.char_filters,
+                c.char_kernel, c.word_embed, c.hidden, c.num_tags)
+     == (20000, 100, 30, 30, 3, 100, 200, 9)),
 )
 
-NEED = {"fused": ("gather_matmul_stepped/fp", "gather_matmul_stepped/bp",
-                  "lstm_scan_fwd", "lstm_scan_bwd"),
-        "scheduled": ("gather_matmul/fp", "gather_matmul/bp",
-                      "gather_matmul_stepped/fp", "gather_matmul_stepped/bp")}
-NEED_NMT_FUSED = ("decoder_scan_fwd", "decoder_scan_bwd")
-# per training step, as the code implies: luong-nmt fused launches K7 and K8
-# once, K3/K4 once per encoder layer, K2 FP/BP for both encoder layers and
-# the decoder's hoisted layer-0 NR
-EXPECT_NMT_FUSED = {"decoder_scan_fwd": 1, "decoder_scan_bwd": 1,
-                    "lstm_scan_fwd": 2, "lstm_scan_bwd": 2,
-                    "gather_matmul_stepped/fp": 3, "gather_matmul_stepped/bp": 3}
+_K2 = ("gather_matmul_stepped/fp", "gather_matmul_stepped/bp")
+_K1 = ("gather_matmul/fp", "gather_matmul/bp")
+_K34 = ("lstm_scan_fwd", "lstm_scan_bwd")
+# the kernels each path's run must launch: the tagger has no NR site, so its
+# Phase-A product is a dense one (no K2)
+NEED = {LM: {"fused": _K2 + _K34, "scheduled": _K1 + _K2},
+        NMT: {"fused": _K2 + _K34 + ("decoder_scan_fwd", "decoder_scan_bwd"),
+              "scheduled": _K1 + _K2},
+        NER: {"fused": _K34, "scheduled": _K1}}
+# launches per training step, as the code implies, and no other kernel's
+# (asserted): luong-nmt fused launches K7 and K8 once, K3/K4 once per
+# encoder layer, K2 FP/BP for both encoder layers and the decoder's hoisted
+# layer-0 NR; bilstm-ner fused K3/K4 once per direction, scheduled K1 FP/BP
+# once per step and direction
+EXPECT = {(NMT, "fused"): {"decoder_scan_fwd": 1, "decoder_scan_bwd": 1,
+                           "lstm_scan_fwd": 2, "lstm_scan_bwd": 2,
+                           "gather_matmul_stepped/fp": 3,
+                           "gather_matmul_stepped/bp": 3},
+          (NER, "fused"): {"lstm_scan_fwd": 2, "lstm_scan_bwd": 2},
+          (NER, "scheduled"): {"gather_matmul/fp": 2 * ES,
+                               "gather_matmul/bp": 2 * ES}}
 
 
 def _counters():
@@ -1112,37 +1194,121 @@ def read_counts():
 
 def drive_main_path():
     """Each path's training step at full width with both engines; returns
-    {arch: {engine: {counter: launches}}}, {"arch/engine": [ms]}."""
+    {arch: {engine: {counter: launches}}}, {"arch/engine": [ms]},
+    {"arch/engine": peak bytes}."""
     from repro_torch.launch import train
 
-    totals, step_ms = {}, {}
+    totals, step_ms, peak = {}, {}, {}
     for arch, batch, seq, plan, full_width in MAIN_PATHS:
         for engine in ("fused", "scheduled"):
             print(f"main path: {arch}, batch {batch}, seq {seq}, {plan}, "
                   f"engine {engine}, {STEPS} steps")
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
             reset_counts()
             res = train.run(["--arch", arch, "--batch", str(batch),
                              "--seq", str(seq), "--dropout", plan,
                              "--engine", engine, "--steps", str(STEPS),
                              "--seed", "0"])
             c = read_counts()
+            peak[f"{arch}/{engine}"] = torch.cuda.max_memory_allocated()
             assert full_width(res["cfg"]), res["cfg"]
             assert len(res["losses"]) == STEPS
             assert all(math.isfinite(x) for x in res["losses"]), res["losses"]
             assert all(torch.isfinite(p).all() for p in _leaves(res["params"]))
-            need = NEED[engine] + (NEED_NMT_FUSED if (arch, engine) == (NMT, "fused") else ())
-            missing = [key for key in need if c[key] == 0]
+            missing = [key for key in NEED[arch][engine] if c[key] == 0]
             assert not missing, f"{arch}/{engine}: kernels never launched: {missing}"
             print(f"  launches per step ({arch}/{engine}): "
                   + ", ".join(f"{k_}={v / STEPS:g}" for k_, v in c.items() if v))
-            if (arch, engine) == (NMT, "fused"):
-                off = {k_: (c[k_] / STEPS, n) for k_, n in EXPECT_NMT_FUSED.items()
-                       if c[k_] != n * STEPS}
-                print("  luong-nmt fused launches per step "
+            want = EXPECT.get((arch, engine))
+            if want is not None:
+                off = {k_: (v / STEPS, want.get(k_, 0)) for k_, v in c.items()
+                       if v != want.get(k_, 0) * STEPS}
+                print(f"  {arch} {engine} launches per step "
                       + ("as expected" if not off else f"differ from the expected: {off}"))
+                assert not off, off
             totals.setdefault(arch, {})[engine] = c
             step_ms[f"{arch}/{engine}"] = res["ms"]
-    return totals, step_ms
+            print(f"  peak memory {peak[f'{arch}/{engine}']} bytes, steady median "
+                  f"{steady_median(res['ms']):.2f} ms/step")
+            del res         # its tensors would count in the next run's peak
+    return totals, step_ms, peak
+
+
+def check_viterbi():
+    """``viterbi_decode`` of the same emissions on the card and on the CPU
+    gives the same paths: random emissions, integer ones whose scores tie
+    (the first maximal index wins on both), and the emissions of the
+    full-width bilstm-ner model at init on one of its batches."""
+    from repro_torch import configs
+    from repro_torch.configs import adapters
+    from repro_torch.data import synthetic
+    from repro_torch.models import tagger
+    g = torch.Generator().manual_seed(3)
+    cfg = configs.get_arch(NER).full()
+    params = adapters.init_params("tagger", torch.Generator().manual_seed(0), cfg,
+                                  device="cuda")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in synthetic.ner_examples(
+        EB, cfg.vocab, cfg.char_vocab, cfg.num_tags, seq=ES, seed=5).items()}
+    with torch.no_grad():
+        model_emit = tagger.emissions(params, batch, cfg).cpu()
+    cases = (("normal", torch.randn(EB, ES, 9, generator=g) * 2,
+              torch.randn(9, 9, generator=g)),
+             ("integer, tied", torch.randint(-2, 3, (EB, ES, 9), generator=g).float(),
+              torch.randint(-1, 2, (9, 9), generator=g).float()),
+             ("model at init", model_emit, params["crf"].cpu()))
+    print(f"viterbi on the card and the CPU, B={EB} S={ES} 9 tags")
+    for what, emit, trans in cases:
+        cpu = tagger.viterbi_decode(emit, trans)
+        card = tagger.viterbi_decode(emit.cuda(), trans.cuda()).cpu()
+        same = torch.equal(cpu, card)
+        print(f"  {what}: paths equal {same}")
+        if not same:
+            raise AssertionError(f"viterbi ({what}) differs between the card "
+                                 f"and the CPU")
+
+
+def time_crf():
+    """CUDA-event ms of the CRF's loss terms (``crf_log_norm`` - ``crf_score``,
+    mean) and their backward at the bilstm-ner main path's (B, S, tags)."""
+    from repro_torch.models import tagger
+    g = torch.Generator().manual_seed(4)
+    emit = torch.randn(EB, ES, 9, generator=g).cuda().requires_grad_(True)
+    trans = torch.randn(9, 9, generator=g).cuda().requires_grad_(True)
+    tags = torch.randint(0, 9, (EB, ES), generator=g).cuda()
+    mask = torch.ones(EB, ES, dtype=torch.bool, device="cuda")
+
+    def fwd_bwd():
+        loss = (tagger.crf_log_norm(emit, trans, mask)
+                - tagger.crf_score(emit, tags, trans, mask)).mean()
+        torch.autograd.grad(loss, (emit, trans))
+    return time_ms(fwd_bwd, reps=10, warmup=2)
+
+
+def check_resume():
+    """bilstm-ner fused at full width: 4 steps straight, against 2 steps
+    with a checkpoint at the end and a ``--resume auto`` run of 2 more into
+    fresh tensors: the same losses and final parameters, bit for bit."""
+    import tempfile
+    from repro_torch.launch import train
+    args = ["--arch", NER, "--batch", str(EB), "--seq", str(ES), "--dropout",
+            "case3:0.5:pallas", "--engine", "fused", "--seed", "0"]
+    print("resume: bilstm-ner fused, 4 steps straight against 2 + checkpoint "
+          "+ 2 resumed")
+    straight = train.run(args + ["--steps", "4"])
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".resume_ckpt_") as d:
+        first = train.run(args + ["--steps", "2", "--ckpt-dir", d])
+        resumed = train.run(args + ["--steps", "4", "--ckpt-dir", d,
+                                    "--resume", "auto"])
+    losses = first["losses"] + resumed["losses"]
+    same_loss = resumed["start"] == 2 and losses == straight["losses"]
+    same_params = all(torch.equal(a, b) for a, b in zip(
+        _leaves(resumed["params"]), _leaves(straight["params"])))
+    print(f"  losses straight {straight['losses']}, resumed {losses}: equal "
+          f"{same_loss}; final parameters bit-equal {same_params}")
+    if not (same_loss and same_params):
+        raise AssertionError("the resumed run differs from the straight one")
 
 
 def drive_xlstm():
@@ -1215,7 +1381,7 @@ def check_qwen_small():
     from repro_torch import configs
     from repro_torch.configs import adapters
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.optim import value_and_grad
     from repro_torch.optim import tree_leaves
     spec = configs.get_arch(QWEN)
     g = torch.Generator().manual_seed(1)
@@ -1505,7 +1671,7 @@ def check_mixtral_small():
     from repro_torch import configs
     from repro_torch.configs import adapters
     from repro_torch.kernels import grouped_matmul as gmm
-    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.optim import value_and_grad
     from repro_torch.optim import tree_leaves
     spec = configs.get_arch(MIXTRAL)
     g = torch.Generator().manual_seed(1)
@@ -1662,6 +1828,14 @@ def main() -> int:
     check_gather_matmul(gen, rows, NMT, NT_, NB, NH, NH, NP, extras=False)
     check_scan(gen, NT_, NB, NH, NP, "structured", out=rows, tag="(luong-nmt encoder)",
                arch=NMT)
+    # bilstm-ner: K3/K4 at one direction's shape, then with ragged rows,
+    check_scan(gen, ES, EB, EH, EP, "structured", out=rows, tag="(bilstm-ner)",
+               arch=NER)
+    check_scan(gen, ES, EB, EH, EP, "structured", ragged=True, min_len=1,
+               deep=True, tag="(bilstm-ner ragged)")
+    # and K1 at the scheduled engine's in-scan product (no NR site: no K2)
+    check_gather_matmul(gen, rows, NER, ES, EB, EH, EH, EP, extras=False,
+                        k2=False)
     check_decoder(gen, NT_, NB, NS, NH, "sp", rate=NP, bs=1, out=rows, tag="(main path)")
     for kind in ("dp", "df", "sf", "off", "mixed"):
         check_decoder(gen, 7, 5, 6, 40, kind, tag=f"({kind})")
@@ -1694,10 +1868,20 @@ def main() -> int:
     check_engines_small()
     check_engines_small(NMT)
     check_engines_small(XLSTM)
+    check_engines_small(NER)
+    check_viterbi()
     check_qwen_small()
     check_mixtral_small()
 
-    counts, step_ms = drive_main_path()
+    counts, step_ms, path_peak = drive_main_path()
+    crf_ms = time_crf()
+    for engine in ("fused", "scheduled"):
+        med = steady_median(step_ms[f"{NER}/{engine}"])
+        print(f"{NER}/{engine}: steady median {med:.2f} ms/step, "
+              f"{EB * ES / med * 1e3:.1f} tokens/s, peak memory "
+              f"{path_peak[f'{NER}/{engine}']} bytes; CRF loss + backward "
+              f"{crf_ms:.3f} ms ({crf_ms / med:.1%} of the step)")
+    check_resume()
     counts[STACK] = drive_lstm_stack()
     gc.collect()
     torch.cuda.empty_cache()
@@ -1749,6 +1933,8 @@ def main() -> int:
     print(json.dumps({"kernels": kernels,
                       "step_ms": {k: steady_median(v)
                                   for k, v in step_ms.items()},
+                      "main_path_peak_bytes": path_peak,
+                      "crf_ms": crf_ms,
                       "xlstm_peak_bytes": x_peak,
                       "qwen3_peak_bytes": q_peak,
                       "mixtral_peak_bytes": m_peak}))

@@ -2,7 +2,7 @@
 
 The JAX package ``repro`` is the reference; this package mirrors its layout
 (``core/``, ``kernels/``, ``models/``, ``configs/``, ``optim/``, ``data/``,
-``launch/``) and its parameter pytrees leaf for leaf, so that each module's
+``checkpoint/``, ``launch/``) and its parameter pytrees leaf for leaf, so that each module's
 counterpart is easy to find and parameters convert one to one
 (``repro_torch.convert``).
 

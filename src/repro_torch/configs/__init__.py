@@ -1,6 +1,6 @@
 """Architecture registry: ``--arch <id>`` -> ArchSpec (the paper's LSTM LMs,
-the Luong NMT model, xlstm-1.3b, qwen3-8b and mixtral-8x22b in the port so
-far)."""
+the Luong NMT model, the BiLSTM-CNN-CRF tagger, xlstm-1.3b, qwen3-8b and
+mixtral-8x22b in the port so far)."""
 from __future__ import annotations
 
 from repro_torch.configs import mixtral_8x22b, paper_models, qwen3_8b, xlstm_1_3b

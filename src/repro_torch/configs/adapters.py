@@ -1,5 +1,5 @@
-"""Uniform model API over arch kinds (port of the lstm_lm, nmt, xlstm and
-dense transformer parts of repro.configs.adapters): ``loss_fn``, ``init_params``, and the
+"""Uniform model API over arch kinds (port of the lstm_lm, nmt, tagger, xlstm
+and dense transformer parts of repro.configs.adapters): ``loss_fn``, ``init_params``, and the
 ``--dropout`` / ``--engine`` overrides."""
 from __future__ import annotations
 
@@ -8,19 +8,20 @@ import dataclasses
 from repro_torch.configs.base import ArchSpec
 from repro_torch.core.dropout_plan import DropoutPlan
 from repro_torch.core.lstm import ENGINES
-from repro_torch.models import lstm_lm, seq2seq, transformer, xlstm
+from repro_torch.models import lstm_lm, seq2seq, tagger, transformer, xlstm
 
-_MODULES = {"lstm_lm": lstm_lm, "nmt": seq2seq, "xlstm": xlstm,
-            "transformer": transformer}
+_MODULES = {"lstm_lm": lstm_lm, "nmt": seq2seq, "tagger": tagger,
+            "xlstm": xlstm, "transformer": transformer}
 
 # Canonical application sites per kind: what ``case3:0.5:bs128`` turns on.
 DROPOUT_SITES = {"lstm_lm": ("embed", "nr", "rh", "out"),
                  "nmt": ("nr", "rh", "out"),
+                 "tagger": ("inp", "rh"),
                  "xlstm": ("nr", "rh"),
                  "transformer": ("nr",)}
 
 # Kinds with a time-recurrent scan the engine knob applies to.
-ENGINE_KINDS = ("lstm_lm", "nmt", "xlstm")
+ENGINE_KINDS = ("lstm_lm", "nmt", "tagger", "xlstm")
 
 
 def init_params(kind: str, generator, cfg, *, device="cpu"):

@@ -10,6 +10,6 @@ from typing import Callable
 class ArchSpec:
     name: str
     family: str                   # dense | moe | ssm | hybrid | vlm | audio | rnn
-    kind: str                     # lstm_lm | nmt | xlstm | transformer
+    kind: str                     # lstm_lm | nmt | tagger | xlstm | transformer
     full: Callable[..., object]   # full-size config factory (kw overrides ok)
     smoke: Callable[..., object]  # reduced CPU-runnable config factory

@@ -1,9 +1,10 @@
-"""The paper's configs (port of the lstm_lm and nmt parts of
-repro.configs.paper_models), selectable via ``--arch``."""
+"""The paper's configs (port of repro.configs.paper_models: the LSTM LMs of
+Table 1, the Luong NMT model of Table 2 and the BiLSTM-CNN-CRF tagger of
+Table 3), selectable via ``--arch``."""
 from repro_torch.configs.base import ArchSpec
 from repro_torch.core.dropout_plan import DropoutPlan
 from repro_torch.core.sdrop import DropoutSpec
-from repro_torch.models import lstm_lm, seq2seq
+from repro_torch.models import lstm_lm, seq2seq, tagger
 
 
 def _st(rate, bs=1):
@@ -45,4 +46,16 @@ LUONG_NMT = ArchSpec(
         src_vocab=96, tgt_vocab=96, embed=32, hidden=32,
         plan=_plan(0.3, 8, sites=("nr", "rh", "out")), **kw))
 
-PAPER_SPECS = [ZAREMBA_MEDIUM, ZAREMBA_LARGE, AWD_LSTM, LUONG_NMT]
+# Ma & Hovy 2016 (the TaggerConfig defaults): word embed 100, char CNN 30
+# filters of width 3 over 30-dim char embeddings, BiLSTM 2 x 200, 9 tags;
+# Case III p=0.5 on the concatenated features and RH.
+BILSTM_NER = ArchSpec(
+    name="bilstm-ner", family="rnn", kind="tagger",
+    full=lambda **kw: tagger.TaggerConfig(
+        plan=_plan(0.5, sites=("inp", "rh")), **kw),
+    smoke=lambda **kw: tagger.TaggerConfig(
+        vocab=96, char_vocab=30, hidden=32, num_tags=9,
+        word_embed=34, char_filters=30,    # 64-dim concat: 8-block divisible
+        plan=_plan(0.5, 8, sites=("inp", "rh")), **kw))
+
+PAPER_SPECS = [ZAREMBA_MEDIUM, ZAREMBA_LARGE, AWD_LSTM, LUONG_NMT, BILSTM_NER]

@@ -22,6 +22,14 @@ def uniform_init(generator: torch.Generator, shape, scale: float,
     return ((u * 2.0 - 1.0) * scale).to(device)
 
 
+def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows of ``table`` at ``ids`` (an embedding lookup). Indexing's gradient
+    is an ordered, sort-based accumulation on the card (``index_put_`` with
+    accumulate), so a step gives the same bits twice; ``F.embedding``'s
+    backward adds by atomics once a lookup has more than 3072 ids."""
+    return table[ids.long()]
+
+
 def init_dense(generator, in_dim, out_dim, *, bias=True, scale=None,
                dtype=torch.float32, device="cpu"):
     if scale is None:

@@ -5,6 +5,8 @@
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -13,6 +15,15 @@ def length_mask(lengths: torch.Tensor, seq_len: int) -> torch.Tensor:
     """(B,) lengths -> (B, T) float32 mask; 1.0 where t < lengths[b]."""
     t = torch.arange(seq_len, device=lengths.device)
     return (t[None, :] < lengths[:, None]).to(torch.float32)
+
+
+def resolve_mask(batch: dict, tokens: torch.Tensor,
+                 key: str = "lengths") -> Optional[torch.Tensor]:
+    """(B, T) mask from ``batch[key]`` lengths, or None if rectangular."""
+    lengths = batch.get(key)
+    if lengths is None:
+        return None
+    return length_mask(lengths, tokens.shape[1])
 
 
 def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -4,6 +4,8 @@
         --batch 20 --seq 35 --dropout case3:0.5:pallas --engine fused
     PYTHONPATH=src python -m repro_torch.launch.profile --arch luong-nmt \
         --batch 64 --seq 50 --dropout case3:0.3:pallas --engine fused
+    PYTHONPATH=src python -m repro_torch.launch.profile --arch bilstm-ner \
+        --batch 32 --seq 64 --dropout case3:0.5:pallas --engine fused
     PYTHONPATH=src python -m repro_torch.launch.profile --arch xlstm-1.3b \
         --layers 16 --batch 2 --seq 2048 --dropout case3:0.25:bs64:pallas \
         --engine fused --steps 2
@@ -29,7 +31,11 @@ last line is the same as one JSON object. CUDA only.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import glob
 import json
+import os
+import re
 import time
 
 import torch
@@ -38,7 +44,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.launch import steps as steps_mod
 from repro_torch.launch import train as train_mod
-from repro_torch.models import lstm_lm, seq2seq, transformer, xlstm
+from repro_torch.models import lstm_lm, seq2seq, tagger, transformer, xlstm
 
 VARIANTS = {
     "qwen3_flash": lambda c: dataclasses.replace(c, attn_impl="flash"),
@@ -57,14 +63,30 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+@functools.lru_cache(maxsize=None)
+def port_kernels() -> frozenset:
+    """The ``__global__`` function names of the port's csrc/*.cu sources."""
+    csrc = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
+    pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\("
+                     r"(?:[^()]|\([^()]*\))*\)\s*)?(\w+)\s*\(")
+    names = set()
+    for path in glob.glob(os.path.join(csrc, "*.cu")):
+        with open(path) as f:
+            names.update(pat.findall(f.read()))
+    return frozenset(names)
+
+
 def kernel_group(name: str) -> str:
     """The port's kernels (each in the top-level anonymous namespace of its
     csrc/*.cu) by their function name; cuBLAS/CUTLASS products as "matrix
-    products"; everything else (PyTorch's own kernels) as "other"."""
+    products"; everything else (PyTorch's own kernels, some of which sit in
+    an anonymous namespace too) as "other"."""
     tag = "(anonymous namespace)::"
     name = name.removeprefix("void ")     # a template kernel's name has it
     if name.startswith(tag):
-        return name[len(tag):].split("<", 1)[0].split("(", 1)[0]
+        fn = name[len(tag):].split("<", 1)[0].split("(", 1)[0]
+        if fn in port_kernels():
+            return fn
     return "matrix products" if "gemm" in name.lower() else "other"
 
 
@@ -78,7 +100,8 @@ def sampling_host_ms(kind: str, cfg, batch: int, seq: int, seed: int,
     sites = {"nmt": lambda: seq2seq.dropout_sites(cfg, batch, seq, seq),
              "xlstm": lambda: xlstm.dropout_sites(cfg, batch, seq),
              "transformer": lambda: transformer.dropout_sites(cfg, batch, seq),
-             "lstm_lm": lambda: lstm_lm.dropout_sites(cfg, batch, seq)}[kind]()
+             "lstm_lm": lambda: lstm_lm.dropout_sites(cfg, batch, seq),
+             "tagger": lambda: tagger.dropout_sites(cfg, batch, seq)}[kind]()
     times = []
     for step in range(reps):
         t0 = time.perf_counter()

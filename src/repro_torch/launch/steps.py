@@ -2,7 +2,8 @@
 
 ``make_train_step`` returns ``(params, opt_state, batch, step, seed) ->
 (params, opt_state, loss)``: loss and grads through autograd (the
-hand-written kernels' backward included), then the optimizer update, in
+hand-written kernels' backward included), over ``n_micro`` microbatches
+(``optim.gradient_accumulation``), then the optimizer update, in
 place and leaf by leaf (``Optimizer.update_``): the returned params and
 state are the tensors passed in, updated. PyTorch runs eagerly, so there is
 no jit or sharding here.
@@ -14,26 +15,17 @@ import torch
 from repro_torch import optim
 from repro_torch.configs import adapters
 from repro_torch.configs.base import ArchSpec
-from repro_torch.optim import tree_leaves, tree_map
-
-
-def value_and_grad(loss_fn):
-    """(params, batch, **kw) -> (loss, grads) with grads in params' tree."""
-    def run(params, batch, **kw):
-        req = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        loss = loss_fn(req, batch, **kw)
-        leaves = torch.autograd.grad(loss, tree_leaves(req))
-        it = iter(leaves)
-        return loss.detach(), tree_map(lambda _: next(it), req)
-    return run
 
 
 def make_train_step(spec: ArchSpec, cfg, opt: optim.Optimizer, *,
-                    use_dropout: bool = True):
+                    n_micro: int = 1, use_dropout: bool = True):
     """(params, opt_state, batch, step, seed, **loss_kw) -> (params,
-    opt_state, loss); ``loss_kw`` goes to the loss (e.g. ``injected``)."""
+    opt_state, loss); ``loss_kw`` goes to the loss (e.g. ``injected``).
+    ``n_micro`` > 1 splits the batch into that many microbatches and
+    averages their losses and gradients before the one update."""
     lfn = adapters.loss_fn(spec.kind)
-    grad_fn = value_and_grad(lambda p, b, **kw: lfn(p, b, cfg, **kw))
+    grad_fn = optim.gradient_accumulation(
+        lambda p, b, **kw: lfn(p, b, cfg, **kw), n_micro)
 
     def train_step(params, opt_state, batch, step, seed, **loss_kw):
         loss, grads = grad_fn(params, batch,

@@ -9,14 +9,25 @@
         --engine fused
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b \
         --layers 4 --batch 1 --seq 4096
+    PYTHONPATH=src python -m repro_torch.launch.train --arch bilstm-ner \
+        --batch 32 --seq 64 --dropout case3:0.5:pallas --engine fused \
+        --ckpt-dir /path/to/ckpt --resume auto
 
-``--seq`` is the unroll of an LM and the ``max_len`` of an NMT pair;
-``--layers`` overrides the arch's depth.
+``--seq`` is the unroll of an LM, the ``max_len`` of an NMT pair and the
+sentence length of a tagger batch; ``--layers`` overrides the arch's depth.
 
 Runs on the current CUDA device; ``--device cpu`` runs on the CPU (the
 kernels' plain versions). Without a GPU and without ``--device cpu`` it
 raises. Prints each step's loss and wall time (ms, ending in a device
 synchronisation).
+
+Checkpoints as the reference trainer: with ``--ckpt-dir``, every
+``--ckpt-every`` steps, at the last step, and at the step boundary after a
+SIGTERM (then it stops), (params, optimizer state) go to
+``checkpoint.save_checkpoint`` with the plan that ran in the manifest's
+``meta``; ``--resume auto`` restores the latest complete checkpoint and goes
+on from its step. Batches and masks are functions of (seed, step), so a
+resumed run takes the steps a straight run would.
 """
 from __future__ import annotations
 
@@ -27,8 +38,10 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import checkpoint as ckpt_mod
 from repro_torch import configs
 from repro_torch.configs import adapters
+from repro_torch.core.dropout_plan import DropoutPlan
 from repro_torch.data import synthetic
 from repro_torch.device import resolve_device
 from repro_torch.launch import steps as steps_mod
@@ -51,10 +64,15 @@ def make_batch_fn(kind: str, cfg, batch: int, seq: int, seed: int, device):
     lstm_lm, xlstm and transformer {"tokens", "labels"} (B, S) int32,
     contiguous windows of a deterministic ``lm_stream``; nmt
     ``nmt_pairs(batch, ..., max_len=seq, seed=seed + step)`` (src, tgt_in,
-    tgt_out and their bool masks)."""
+    tgt_out and their bool masks); tagger ``ner_examples(batch, ...,
+    seq=seq, seed=seed + step)`` (words, chars, tags, mask)."""
     if kind == "nmt":
         return lambda step: _to_device(synthetic.nmt_pairs(
             batch, cfg.src_vocab, cfg.tgt_vocab, max_len=seq,
+            seed=seed + step), device)
+    if kind == "tagger":
+        return lambda step: _to_device(synthetic.ner_examples(
+            batch, cfg.vocab, cfg.char_vocab, cfg.num_tags, seq=seq,
             seed=seed + step), device)
     if kind not in ("lstm_lm", "xlstm", "transformer"):
         raise ValueError(f"no batches for kind {kind!r}")
@@ -80,6 +98,9 @@ def parse_args(argv=None):
                     help="number of layers (blocks); 0 keeps the arch's own")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--resume", default="none", choices=["none", "auto"])
     ap.add_argument("--log-every", type=int, default=1)
     ap.add_argument("--no-dropout", action="store_true")
     ap.add_argument("--dropout", default="",
@@ -94,8 +115,9 @@ def parse_args(argv=None):
 
 
 def run(argv=None, cfg_fn=None) -> dict:
-    """Train and return {"losses": [...], "ms": [...], "cfg": cfg}.
-    ``cfg_fn`` maps the built config to the one trained (a variant such as
+    """Train and return {"losses": [...], "ms": [...], "cfg": cfg, "params":
+    params, "start": the first step run (> 0 after a resume)}. ``cfg_fn``
+    maps the built config to the one trained (a variant such as
     ``launch.profile.VARIANTS["qwen3_flash"]``)."""
     args = parse_args(argv)
     device = resolve_device(args.device)
@@ -120,23 +142,48 @@ def run(argv=None, cfg_fn=None) -> dict:
                                            use_dropout=not args.no_dropout)
     batch_fn = make_batch_fn(spec.kind, cfg, args.batch, args.seq, args.seed,
                              device)
+    start = 0
+    if args.ckpt_dir and args.resume == "auto" and \
+            ckpt_mod.latest_step(args.ckpt_dir) is not None:
+        (params, opt_state), start = ckpt_mod.restore_checkpoint(
+            args.ckpt_dir, (params, opt_state))
+        print(f"[resume] restored step {start} from {args.ckpt_dir}")
+    # the pattern that ran: --no-dropout passes no seed, so no site is active
+    plan_ran = DropoutPlan.off() if args.no_dropout else cfg.plan
+    meta = {"dropout_plan": plan_ran.to_dict()}
+    # a SIGTERM asks for a last checkpoint, so it is caught only with a dir
+    hook = ckpt_mod.PreemptionHook() if args.ckpt_dir else None
     losses, times = [], []
-    for step in range(args.steps):
-        t0 = time.perf_counter()
-        params, opt_state, loss = train_step(params, opt_state,
-                                             batch_fn(step), step, args.seed)
-        loss = float(loss)          # waits for the device
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        dt = time.perf_counter() - t0
-        losses.append(loss)
-        times.append(dt * 1e3)
-        if step % args.log_every == 0:
-            print(f"step {step:5d}  loss {loss:.4f}  {dt * 1e3:.1f} ms")
-    print(f"done: {args.steps} steps on {device}, median "
+    try:
+        for step in range(start, args.steps):
+            t0 = time.perf_counter()
+            params, opt_state, loss = train_step(params, opt_state,
+                                                 batch_fn(step), step, args.seed)
+            loss = float(loss)          # waits for the device
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            dt = time.perf_counter() - t0
+            losses.append(loss)
+            times.append(dt * 1e3)
+            if step % args.log_every == 0:
+                print(f"step {step:5d}  loss {loss:.4f}  {dt * 1e3:.1f} ms")
+            if hook is not None and ((step + 1) % args.ckpt_every == 0
+                                      or hook.should_save
+                                      or step + 1 == args.steps):
+                ckpt_mod.save_checkpoint(args.ckpt_dir, step + 1,
+                                         (params, opt_state), meta=meta)
+                if hook.should_save:
+                    print(f"[preempt] final checkpoint at step {step + 1}; "
+                          f"exiting")
+                    break
+    finally:
+        if hook is not None:
+            hook.restore()
+    print(f"done: {len(losses)} steps on {device}, median "
           f"{float(np.median(times)) if times else float('nan'):.1f} ms/step, "
           f"final loss {losses[-1] if losses else float('nan'):.4f}")
-    return {"losses": losses, "ms": times, "cfg": cfg, "params": params}
+    return {"losses": losses, "ms": times, "cfg": cfg, "params": params,
+            "start": start}
 
 
 def main(argv=None) -> int:

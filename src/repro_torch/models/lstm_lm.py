@@ -12,7 +12,6 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core import layers as L
 from repro_torch.core import lstm as lstm_mod
@@ -87,7 +86,7 @@ def forward(params, tokens: torch.Tensor, cfg: LSTMLMConfig, *, state=None,
     if ctx is None:
         ctx = cfg.plan.bind(None)
     B, _ = tokens.shape
-    x = F.embedding(tokens.long(), params["embed"])          # (B, S, E)
+    x = L.lookup(params["embed"], tokens)                    # (B, S, E)
     x = ctx.apply("embed", x)
     if state is None:
         state = lstm_mod.zero_state(cfg.num_layers, B, cfg.hidden,

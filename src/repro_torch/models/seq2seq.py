@@ -25,7 +25,6 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core import layers as L
 from repro_torch.core import lstm as lstm_mod
@@ -75,7 +74,7 @@ def encode(params, src, cfg: NMTConfig, *, ctx=None, lengths=None):
     if ctx is None:
         ctx = cfg.plan.bind(None)
     B = src.shape[0]
-    x = F.embedding(src.long(), params["src_embed"])
+    x = L.lookup(params["src_embed"], src)
     state = lstm_mod.zero_state(cfg.num_layers, B, cfg.hidden, dtype=x.dtype,
                                 device=x.device)
     ys, state = lstm_mod.lstm_stack(params["encoder"], x.transpose(0, 1), state,
@@ -159,7 +158,7 @@ def decode_train(params, tgt_in, enc_out, enc_state, cfg: NMTConfig, *,
     B, St = tgt_in.shape
     H, nl = cfg.hidden, cfg.num_layers
     dec = params["decoder"]
-    x_seq = F.embedding(tgt_in.long(), params["tgt_embed"]).transpose(0, 1)
+    x_seq = L.lookup(params["tgt_embed"], tgt_in).transpose(0, 1)
     enc_proj = L.dense(params["w_att"], enc_out)           # plain GEMM
     if src_mask is None:
         src_mask = torch.ones(enc_out.shape[:2], dtype=torch.bool,

@@ -43,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import layers as L
 from repro_torch.core import metrics
 from repro_torch.core import sparse_matmul as sm
 from repro_torch.core.dropout_plan import DropoutPlan, fit_block
@@ -536,7 +537,7 @@ def dropout_sites(cfg: TransformerConfig, batch: int, seq: int):
 
 
 def _embed_tokens(params, tokens, cfg):
-    x = F.embedding(tokens.long(), params["embed"]).to(cfg.compute_dtype)
+    x = L.lookup(params["embed"], tokens).to(cfg.compute_dtype)
     if cfg.scale_embed:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.compute_dtype)
     return x

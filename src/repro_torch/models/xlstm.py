@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import masks as _masks
+from repro_torch.core import layers as L
 from repro_torch.core import metrics
 from repro_torch.core import sparse_matmul as sm
 from repro_torch.core.dropout_plan import DropoutPlan
@@ -379,7 +380,7 @@ def forward(params, tokens, cfg: XLSTMConfig, *, ctx=None, lengths=None):
         raise ValueError(f"unknown engine {cfg.engine!r}; expected one of {ENGINES}")
     if ctx is None:
         ctx = cfg.plan.bind(None)
-    x = F.embedding(tokens.long(), params["embed"]).to(cfg.compute_dtype)
+    x = L.lookup(params["embed"], tokens).to(cfg.compute_dtype)
     kinds = cfg.layer_kinds
     n_groups = kinds.count("s")
     per_group = cfg.slstm_every - 1

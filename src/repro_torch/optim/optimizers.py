@@ -1,9 +1,14 @@
 """Optimizers as (init, update_) pairs over parameter trees.
 
-Port of ``repro.optim.optimizers``, with the reference's bias correction and
-eps placement, so the port's step matches the reference's
-(``torch.optim.AdamW`` places eps and weight decay differently). Trees are
-nested dicts / lists / tuples of tensors; moments are kept in float32.
+Port of ``repro.optim.optimizers`` (``clip_by_global_norm``, ``sgd``,
+``adamw``, ``nt_asgd`` with ``trigger_averaging`` / ``averaged_params``,
+``chain``), with the reference's bias correction and eps placement, so the
+port's step matches the reference's (``torch.optim.AdamW`` places eps and
+weight decay differently) and its learning-rate steps: ``sgd`` calls
+``lr(step)`` with the step count before the increment, ``adamw`` and
+``nt_asgd`` with the count after it. Trees are nested dicts / lists /
+tuples of tensors; moments and averages are kept in float32, step counts
+are Python ints.
 
 Unlike the reference's out-of-place ``update`` + ``apply_updates``,
 ``update_(grads, state, params) -> state`` works in place, leaf by leaf: it
@@ -74,6 +79,20 @@ def clip_by_global_norm(max_norm: float) -> Optimizer:
     return Optimizer(init, update_)
 
 
+def sgd(lr) -> Optimizer:
+    """lr: float or callable(step) -> rate. State: the step count."""
+    def init(params):
+        return 0
+
+    def update_(grads, step, params):
+        rate = lr(step) if callable(lr) else lr
+        for g, p in zip(tree_leaves(grads), tree_leaves(params)):
+            p.add_((-rate * g.float()).to(p.dtype))
+        return step + 1
+
+    return Optimizer(init, update_)
+
+
 def adamw(lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0) -> Optimizer:
     def init(params):
         zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
@@ -109,6 +128,45 @@ def adamw(lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0) -> Optimizer:
         return {"m": state["m"], "v": state["v"], "step": step}
 
     return Optimizer(init, update_)
+
+
+def nt_asgd(lr) -> Optimizer:
+    """Non-monotonically-triggered ASGD (AWD-LSTM's optimizer).
+
+    SGD until validation stops improving (the caller then switches the
+    averaging on with ``trigger_averaging``), then iterate averaging of the
+    parameters after each update. The float32 average lives in the state;
+    ``averaged_params`` reads it out."""
+    def init(params):
+        return {"step": 0, "avg_on": False, "avg_start": 0,
+                "avg": tree_map(lambda p: p.detach().float().clone(), params)}
+
+    def update_(grads, state, params):
+        step = state["step"] + 1
+        rate = lr(step) if callable(lr) else lr
+        k = float(max(step - state["avg_start"], 1))
+        for g, a, p in zip(tree_leaves(grads), tree_leaves(state["avg"]),
+                           tree_leaves(params)):
+            u = -rate * g.float()
+            moved = p.float() + u
+            if state["avg_on"]:
+                a.add_((moved - a) / k)
+            else:
+                a.copy_(moved)
+            p.add_(u.to(p.dtype))
+        return {**state, "step": step}
+
+    return Optimizer(init, update_)
+
+
+def trigger_averaging(state):
+    """An ``nt_asgd`` state with averaging on from its current step."""
+    return {**state, "avg_on": True, "avg_start": state["step"]}
+
+
+def averaged_params(state, params):
+    """The ``nt_asgd`` average, in the parameters' dtypes."""
+    return tree_map(lambda a, p: a.to(p.dtype), state["avg"], params)
 
 
 def chain(*opts: Optimizer) -> Optimizer:

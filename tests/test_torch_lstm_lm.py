@@ -32,7 +32,7 @@ from repro_torch.convert import from_reference, to_reference  # noqa: E402
 from repro_torch.data import synthetic as t_synth  # noqa: E402
 from repro_torch.launch import steps as t_steps  # noqa: E402
 from repro_torch.launch import train as t_train  # noqa: E402
-from repro_torch.optim import tree_leaves  # noqa: E402
+from repro_torch.optim import tree_leaves, value_and_grad  # noqa: E402
 from repro_torch.testing import (injection_from_ctx, lm_sites,  # noqa: E402
                                  to_numpy_tree, to_torch)
 
@@ -81,7 +81,7 @@ def reference():
 
 def _port_loss_grads(ref, cfg):
     params = from_reference(ref["params"])
-    lfn = t_steps.value_and_grad(
+    lfn = value_and_grad(
         lambda p, b, **kw: t_adapters.loss_fn("lstm_lm")(p, b, cfg, **kw))
     return lfn(params, to_torch(ref["batch"]), seed=0, step=STEP,
                injected=to_torch(ref["inj"]))
@@ -140,7 +140,7 @@ def test_ragged_batch_matches_reference():
     jb = {k: jax.numpy.asarray(v) for k, v in batch.items()}
     loss, grads = jax.value_and_grad(
         lambda p: r_lm.loss_fn(p, jb, r_cfg, drop_key=key, step=0))(params)
-    lfn = t_steps.value_and_grad(
+    lfn = value_and_grad(
         lambda p, b, **kw: t_adapters.loss_fn("lstm_lm")(p, b, t_cfg, **kw))
     t_loss, t_grads = lfn(from_reference(to_numpy_tree(params)),
                           to_torch(batch), seed=0, step=0,

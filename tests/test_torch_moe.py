@@ -46,10 +46,9 @@ from repro_torch import configs as t_configs  # noqa: E402
 from repro_torch.configs import adapters as t_adapters  # noqa: E402
 from repro_torch.convert import from_reference, to_reference  # noqa: E402
 from repro_torch.data import synthetic as t_synth  # noqa: E402
-from repro_torch.launch import steps as t_steps  # noqa: E402
 from repro_torch.launch import train as t_train  # noqa: E402
 from repro_torch.models import transformer as t_tf  # noqa: E402
-from repro_torch.optim import tree_leaves  # noqa: E402
+from repro_torch.optim import tree_leaves, value_and_grad  # noqa: E402
 from repro_torch.testing import (injection_from_ctx, to_numpy_tree,  # noqa: E402
                                  to_torch, transformer_sites)
 
@@ -208,7 +207,7 @@ def test_moe_sites_have_no_ffn_inner():
 def test_loss_and_grads_match_reference(name):
     ref = _reference(name)
     _, t_cfg = _step_cfgs(name)
-    lfn = t_steps.value_and_grad(
+    lfn = value_and_grad(
         lambda p, b, **kw: t_adapters.loss_fn("transformer")(p, b, t_cfg, **kw))
     loss, grads = lfn(from_reference(ref["params"]), to_torch(ref["batch"]),
                       seed=0, step=STEP, injected=to_torch(ref["inj"]))

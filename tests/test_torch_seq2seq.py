@@ -31,10 +31,9 @@ from repro_torch.configs import adapters as t_adapters  # noqa: E402
 from repro_torch.convert import from_reference, to_reference  # noqa: E402
 from repro_torch.core.dropout_plan import DropoutPlan as TPlan  # noqa: E402
 from repro_torch.data import synthetic as t_synth  # noqa: E402
-from repro_torch.launch import steps as t_steps  # noqa: E402
 from repro_torch.launch import train as t_train  # noqa: E402
 from repro_torch.models import seq2seq as t_s2s  # noqa: E402
-from repro_torch.optim import tree_leaves  # noqa: E402
+from repro_torch.optim import tree_leaves, value_and_grad  # noqa: E402
 from repro_torch.testing import (injection_from_ctx, nmt_sites,  # noqa: E402
                                  to_numpy_tree, to_torch)
 
@@ -111,7 +110,7 @@ def test_injected_sites_cover_plan():
 def test_loss_and_grads_match_reference(case, path, engine):
     ref = _reference(case, path)
     cfg = _port_cfg(case, engine)
-    lfn = t_steps.value_and_grad(
+    lfn = value_and_grad(
         lambda p, b, **kw: t_adapters.loss_fn("nmt")(p, b, cfg, **kw))
     loss, grads = lfn(from_reference(ref["params"]), to_torch(ref["batch"]),
                       seed=0, step=STEP, injected=to_torch(ref["inj"]))

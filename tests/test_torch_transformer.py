@@ -51,10 +51,9 @@ from repro_torch.core.dropout_plan import DropoutPlan  # noqa: E402
 from repro_torch.core.sdrop import DropoutSpec  # noqa: E402
 from repro_torch.data import synthetic as t_synth  # noqa: E402
 from repro_torch.launch import profile as t_profile  # noqa: E402
-from repro_torch.launch import steps as t_steps  # noqa: E402
 from repro_torch.launch import train as t_train  # noqa: E402
 from repro_torch.models import transformer as t_tf  # noqa: E402
-from repro_torch.optim import tree_leaves  # noqa: E402
+from repro_torch.optim import tree_leaves, value_and_grad  # noqa: E402
 from repro_torch.testing import (injection_from_ctx, to_numpy_tree,  # noqa: E402
                                  to_torch, transformer_sites)
 
@@ -153,7 +152,7 @@ def test_features_match_reference(name, attn_impl):
 def test_loss_and_grads_match_reference(name, attn_impl):
     ref = _reference(name, attn_impl)
     _, t_cfg = _cfgs(name, attn_impl)
-    lfn = t_steps.value_and_grad(
+    lfn = value_and_grad(
         lambda p, b, **kw: t_adapters.loss_fn("transformer")(p, b, t_cfg, **kw))
     loss, grads = lfn(from_reference(ref["params"]), to_torch(ref["batch"]),
                       seed=0, step=STEP, injected=to_torch(ref["inj"]))

@@ -53,7 +53,7 @@ from repro_torch.data import synthetic as t_synth  # noqa: E402
 from repro_torch.launch import steps as t_steps  # noqa: E402
 from repro_torch.launch import train as t_train  # noqa: E402
 from repro_torch.models import xlstm as t_xlstm  # noqa: E402
-from repro_torch.optim import tree_leaves  # noqa: E402
+from repro_torch.optim import tree_leaves, value_and_grad  # noqa: E402
 from repro_torch.testing import (injection_from_ctx, to_numpy_tree,  # noqa: E402
                                  to_torch, xlstm_sites)
 
@@ -115,7 +115,7 @@ def _reference(case):
 
 
 def _port_loss_grads(ref, cfg):
-    lfn = t_steps.value_and_grad(
+    lfn = value_and_grad(
         lambda p, b, **kw: t_adapters.loss_fn("xlstm")(p, b, cfg, **kw))
     return lfn(from_reference(ref["params"]), to_torch(ref["batch"]), seed=0,
                step=STEP, injected=to_torch(ref["inj"]))
@@ -195,7 +195,7 @@ def test_ragged_batch_matches_reference(engine):
         ref["ragged"] = (float(loss), to_numpy_tree(grads))
     want_loss, want = ref["ragged"]
     batch = dict(ref["batch"], lengths=np.array([S, 5], np.int32))
-    lfn = t_steps.value_and_grad(lambda p, b, **kw: t_adapters.loss_fn("xlstm")(
+    lfn = value_and_grad(lambda p, b, **kw: t_adapters.loss_fn("xlstm")(
         p, b, _cfgs(PLANS["case3"], engine)[1], **kw))
     loss, grads = lfn(from_reference(ref["params"]), to_torch(batch), seed=0,
                       step=STEP, injected=to_torch(ref["inj"]))
