@@ -93,6 +93,27 @@ bilstm-ner fused from a checkpoint (2 steps, save, restore into fresh
 tensors, 2 more) and requires the losses and final parameters of 4
 straight steps, bit for bit.
 
+Then the serving phase (``drive_serving``, under ``torch.inference_mode()``,
+random weights from a CUDA generator seeded 0), every model whole:
+qwen3-8b (36 of 36 layers, float32, ``attn_impl="flash"``) prefills batch 8
+x 511 tokens natively (K9 36 times a prefill and no other kernel,
+asserted), then generates 64 tokens by the engine's captured-CUDA-graph
+loop (chunks of 16; twice, the first run capturing) and by the per-token
+python loop, token for token equal, and the first decode logits after a
+native and a replay prefill of 63 tokens agree within ``PREFILL_TOL``;
+xlstm-1.3b (48 of 48 blocks) serves a trace of 32 ragged requests over 8
+slots through ``serve()`` twice (the same tokens; admission and decode
+time apart), then rectangular at batch 8 (graph loop = python loop);
+luong-nmt prefills 64 sentences of 50 source tokens and an 8-token target
+prefix through ``DecodeEngine.prefill`` and generates 50 tokens (graph loop
+= python loop). Each model's graph loop runs once more under
+``torch.profiler`` (device-busy ms a token). At smoke width, for the three
+families, the card's greedy tokens equal the CPU's and a small trace gives
+the same outputs in two arrival orders, on the card and on the CPU. K9 is
+also held to its plain version and a float64 forward and timed at the
+prefill's shape (B=8, S=511; row ``flash_fwd@prefill``, its launches the
+serving phase's).
+
 K1/K2 rows carry the kernel's and the library call's device time from
 ``torch.profiler`` (``device_ms``, ``library_device_ms``) beside their
 CUDA-event times, and the wrapper's launch plan; the cluster-split K1 BP
@@ -114,6 +135,8 @@ import re
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -1772,6 +1795,334 @@ def drive_moe():
     return totals, step_ms, peak, losses
 
 
+# ---------------------------------------------------------------------------
+# serving: the decode engine, prefill and the continuous-batching scheduler
+# ---------------------------------------------------------------------------
+
+SERVE = "serving"
+SQB, SQP, SQG, SQC, SQ_CHECK = 8, 512, 64, 16, 64    # qwen3-8b rectangular
+SXB, SXN, SXP, SXG = 8, 32, 64, 64     # xlstm-1.3b trace: slots, requests, max prompt, max budget
+SNB, SNS, SNT, SNG = 64, 50, 8, 50     # luong-nmt: batch, source, target prefix, generated
+# native (K9) vs replay prefill of qwen3-8b: the first decode logits agree
+# within this x max(1, |ref|) (float32 products in other orders over 36
+# layers; the measured distance is printed beside it)
+PREFILL_TOL = 1e-3
+
+
+def _serve_model(arch, check, **kw):
+    """Full-width params of ``arch`` on the card from a CUDA generator seeded
+    0, after the previous phase's tensors are freed."""
+    from repro_torch import configs
+    from repro_torch.configs import adapters
+    spec = configs.get_arch(arch)
+    cfg = spec.full(**kw)
+    assert check(cfg), cfg
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = adapters.init_params(
+        spec.kind, torch.Generator(device="cuda").manual_seed(0), cfg,
+        device=torch.device("cuda"))
+    return spec, cfg, params
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _device_split(fn):
+    """``fn()`` under ``torch.profiler``: (device-busy ms, {group: share})
+    with the groups of ``launch/profile.py`` (each port kernel, the
+    library's matrix products, the rest)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.profile import _device_us, kernel_group
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    groups = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) == DeviceType.CUDA:
+            g = kernel_group(e.key)
+            groups[g] = groups.get(g, 0.0) + _device_us(e) / 1e3
+    busy = sum(groups.values())
+    return busy, {g: v / busy for g, v in groups.items()} if busy else {}
+
+
+def _loops(eng, prefill, n_gen, B_, what):
+    """Prefill, then the graph loop twice (the first run captures its
+    graphs) and the python loop, each after its own prefill; the tokens of
+    all three must agree. A fourth graph run under ``torch.profiler`` gives
+    the device-busy time a token and its split. Returns the timings."""
+    res = {}
+    for loop in ("graph (first: capture)", "graph", "python"):
+        (tok0, pos0), pre_ms = _timed(prefill)
+        gen = eng.generate_python if loop == "python" else eng.generate
+        toks, ms = _timed(lambda: gen(tok0, n_gen, start_pos=pos0))
+        assert toks.shape == (B_, n_gen) and toks.min() >= 0, toks
+        res[loop] = dict(prefill_ms=pre_ms, decode_ms=ms, tokens=toks,
+                         ms_per_token=ms / n_gen,
+                         tokens_per_s=B_ * n_gen / ms * 1e3)
+        print(f"  {what} prefill {pre_ms:.1f} ms; {loop} loop: {n_gen} tokens in "
+              f"{ms:.1f} ms, {ms / n_gen:.3f} ms a token, "
+              f"{B_ * n_gen / ms * 1e3:.1f} tokens/s")
+    for loop in ("graph", "python"):
+        same = np.array_equal(res[loop]["tokens"], res["graph (first: capture)"]["tokens"])
+        print(f"  {what}: {loop} loop tokens equal the first graph run's: {same}")
+        assert same, f"{what}: {loop} loop tokens differ"
+    for r in res.values():
+        del r["tokens"]
+    tok0, pos0 = prefill()
+    busy, split = _device_split(lambda: eng.generate(tok0, n_gen, start_pos=pos0))
+    res["graph"]["device_ms_per_token"] = busy / n_gen
+    res["graph"]["device_split"] = split
+    print(f"  {what} graph loop under the profiler: device busy {busy / n_gen:.3f} "
+          f"ms a token (unprofiled wall {res['graph']['ms_per_token']:.3f}); "
+          + ", ".join(f"{g} {v:.1%}" for g, v in sorted(split.items(),
+                                                        key=lambda kv: -kv[1])))
+    return res
+
+
+def serve_qwen():
+    """qwen3-8b, 36 of 36 layers, float32, ``attn_impl="flash"``: prefill
+    SQB x (SQP - 1) tokens natively (K9 once a layer, no K10 / K11, no other
+    kernel), then SQG tokens by the graph loop and by the python loop;
+    native against replay prefill at SQ_CHECK tokens on the first decode
+    logits. Returns (numbers, counts, native prefills)."""
+    from repro_torch.models import transformer
+    from repro_torch.serving import DecodeEngine, prompt_prefill
+    spec, cfg, params = _serve_model(
+        QWEN, lambda c: (c.num_layers, c.d_model, c.n_heads, c.n_kv_eff, c.hd,
+                         c.d_ff, c.vocab) == (36, 4096, QHQ, QHKV, QD, 12288, 151936),
+        attn_impl="flash")
+    n_params = sum(p.numel() for p in _leaves(params))
+    print(f"serving: {QWEN}, 36 of 36 layers ({n_params} parameters, float32), "
+          f"flash, batch {SQB}, prompt {SQP}, {SQG} generated, chunk {SQC}")
+    eng = DecodeEngine(spec=spec, cfg=cfg, params=params, max_seq=SQP + SQG,
+                       batch=SQB, chunk=SQC)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    prompt = torch.randint(3, cfg.vocab, (SQB, SQP), generator=g, device="cuda",
+                           dtype=torch.int32)
+
+    n_native = [0]
+
+    def prefill(p=prompt, method="native"):
+        eng.reset()
+        n_native[0] += method == "native"
+        _, tok0, pos0 = prompt_prefill(spec, cfg, params, p, state=eng.state,
+                                       method=method)
+        return tok0, pos0
+
+    reset_counts()
+    res = _loops(eng, prefill, SQG, SQB, QWEN)
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    logits = {}
+    for method in ("native", "replay"):
+        (tok0, pos0), ms = _timed(lambda: prefill(prompt[:, :SQ_CHECK], method))
+        logits[method] = transformer.decode_step(params, cfg, eng.state, tok0,
+                                                 pos0)[0]
+        print(f"  {method} prefill of {SQ_CHECK - 1} tokens: {ms:.1f} ms")
+    c = read_counts()
+    n_native = n_native[0]
+    want = {k_: (36 * n_native if k_ == "flash_fwd" else 0) for k_ in c}
+    off = {k_: v for k_, v in c.items() if v != want[k_]}
+    print(f"  launches in {n_native} native prefills: flash_fwd={c['flash_fwd']} "
+          f"({c['flash_fwd'] / n_native:g} a prefill, 36 layers), "
+          + ("no other kernel" if not off else f"UNEXPECTED {off}"))
+    assert not off, off
+    err = compare(f"  first decode logits after native (K9) vs replay prefill of "
+                  f"{SQ_CHECK - 1} tokens", logits["native"], logits["replay"],
+                  PREFILL_TOL)
+    res["native_vs_replay_max_abs_err"] = err
+    res["native_vs_replay_rel_err"] = err / max(1.0, logits["replay"].abs().max().item())
+    print(f"  peak memory {res['peak_bytes']} bytes ({res['peak_bytes'] / 2**30:.2f} GiB)")
+    del eng, params, logits
+    return res, c, n_native
+
+
+def serve_xlstm():
+    """xlstm-1.3b, 48 of 48 blocks, float32: a continuous-batching trace of
+    SXN requests over SXB slots (prompts 2..SXP, budgets SXG // 4..SXG, the
+    reference's ``_ragged_trace`` with seed 0), chunk 16, run twice in the
+    same order for the same tokens; then rectangular at batch SXB (prompt
+    SXP, SXG generated), the graph loop against the python loop."""
+    from repro_torch.launch.serve import ragged_trace
+    from repro_torch.serving import DecodeEngine, prompt_prefill, serve
+    spec, cfg, params = _serve_model(
+        XLSTM, lambda c: (c.num_layers, c.d_model, c.n_heads, c.inner, c.vocab,
+                          c.slstm_every) == (48, 2048, 4, 4096, 50304, 8))
+    eng = DecodeEngine(spec=spec, cfg=cfg, params=params, max_seq=SXP + SXG,
+                       batch=SXB, chunk=16)
+    state_bytes = sum(v.numel() * v.element_size() for v in eng.state.values())
+    print(f"serving: {XLSTM}, 48 of 48 blocks, float32, {SXB} slots "
+          f"({state_bytes / SXB / 2**30:.3f} GiB of decode state a slot)")
+    reqs = ragged_trace(SXN, cfg.vocab, SXP, SXG, 0)
+    # host time in the engine's two calls (each ends in a device sync)
+    spent = {"admit": 0.0, "decode_chunk": 0.0}
+    for name in spent:
+        def timed(*a, _f=getattr(eng, name), _n=name):
+            t0 = time.perf_counter()
+            out = _f(*a)
+            torch.cuda.synchronize()
+            spent[_n] += (time.perf_counter() - t0) * 1e3
+            return out
+        setattr(eng, name, timed)
+    runs, res = [], {}
+    for i in range(2):
+        spent.update(admit=0.0, decode_chunk=0.0)
+        outs, ms = _timed(lambda: serve(eng, reqs, chunk=16))
+        total = sum(len(v) for v in outs.values())
+        assert len(outs) == SXN, len(outs)
+        assert all(len(outs[r.rid]) == r.max_new for r in reqs)
+        print(f"  trace run {i}: {SXN} requests over {SXB} slots (admitted == "
+              f"evicted == {len(outs)}), {total} tokens in {ms:.1f} ms, "
+              f"{total / ms * 1e3:.1f} tokens/s, {eng.chunks_run} chunks; "
+              f"admit {spent['admit']:.1f} ms, decode_chunk "
+              f"{spent['decode_chunk']:.1f} ms")
+        runs.append(outs)
+        res[f"trace_run{i}"] = dict(ms=ms, tokens=total,
+                                    tokens_per_s=total / ms * 1e3,
+                                    chunks_run=eng.chunks_run,
+                                    admit_ms=spent["admit"],
+                                    decode_chunk_ms=spent["decode_chunk"])
+    assert all(np.array_equal(runs[0][r], runs[1][r]) for r in runs[0]), \
+        "two runs of the trace in one order differ"
+    print("  the two trace runs give the same tokens")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    prompt = torch.randint(3, cfg.vocab, (SXB, SXP), generator=g, device="cuda",
+                           dtype=torch.int32)
+
+    def prefill():
+        eng.reset()
+        _, tok0, pos0 = prompt_prefill(spec, cfg, params, prompt, state=eng.state)
+        return tok0, pos0
+
+    res["rectangular"] = _loops(eng, prefill, SXG, SXB, XLSTM)
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    res["state_bytes_per_slot"] = state_bytes / SXB
+    print(f"  peak memory {res['peak_bytes']} bytes ({res['peak_bytes'] / 2**30:.2f} GiB)")
+    del eng, params
+    return res
+
+
+def serve_nmt():
+    """luong-nmt at full width: ``DecodeEngine.prefill`` with an encoder
+    batch (SNB sentences of SNS source tokens, target prefix SNT), then SNG
+    tokens, the graph loop against the python loop."""
+    from repro_torch.serving import DecodeEngine
+    spec, cfg, params = _serve_model(
+        NMT, lambda c: (c.src_vocab, c.tgt_vocab, c.embed, c.hidden,
+                        c.num_layers) == (50000, 50000, 512, 512, 2))
+    print(f"serving: {NMT}, batch {SNB}, source {SNS}, target prefix {SNT}, "
+          f"{SNG} generated")
+    eng = DecodeEngine(spec=spec, cfg=cfg, params=params, max_seq=SNS,
+                       batch=SNB, chunk=16)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    src = torch.randint(3, cfg.src_vocab, (SNB, SNS), generator=g, device="cuda")
+    prefix = torch.randint(3, cfg.tgt_vocab, (SNB, SNT), generator=g, device="cuda")
+
+    def prefill():
+        eng.reset()
+        eng.prefill({"src": src, "tgt_in": prefix[:, :-1]})
+        return prefix[:, -1:], SNT - 1
+
+    res = _loops(eng, prefill, SNG, SNB, NMT)
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del eng, params
+    return res
+
+
+def serve_smoke_card_vs_cpu():
+    """At smoke width (qwen3 with ``attn_impl="flash"``, head dim 16, which
+    K9 takes; xlstm; luong-nmt), the same params and prompts give the same
+    greedy tokens on the card (graph loop) as on the CPU, and a small trace
+    served in two arrival orders gives the same per-request outputs on the
+    card, and the CPU's (the transformer's trace is rectangular: equal
+    prompt lengths, policy "batch")."""
+    from repro_torch import configs
+    from repro_torch.configs import adapters
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.optim import tree_map
+    from repro_torch.serving import DecodeEngine, Request, serve
+    from repro_torch.testing import serve_rectangular
+    for arch, kw in ((QWEN, dict(attn_impl="flash")), (XLSTM, {}), (NMT, {})):
+        spec = configs.get_arch(arch)
+        cfg = spec.smoke(**kw)
+        if spec.kind == "transformer":
+            assert cfg.hd in fa.HEAD_DIMS, cfg.hd
+        vocab = cfg.tgt_vocab if spec.kind == "nmt" else cfg.vocab
+        p_cpu = adapters.init_params(spec.kind, torch.Generator().manual_seed(0), cfg)
+        rng = np.random.default_rng(4)
+        prompt = torch.from_numpy(rng.integers(3, vocab, (3, 9)).astype(np.int32))
+        plens = [5] * 6 if spec.kind == "transformer" else [2, 7, 4, 9, 3, 6]
+        reqs = [Request(rid=i, prompt=rng.integers(3, vocab, n), max_new=m)
+                for i, (n, m) in enumerate(zip(plens, [6, 3, 8, 4, 7, 5]))]
+        policy = "batch" if spec.kind == "transformer" else "continuous"
+        got = {}
+        for dev in ("cpu", "cuda"):
+            params = p_cpu if dev == "cpu" else tree_map(lambda a: a.cuda(), p_cpu)
+            got[dev] = serve_rectangular(spec, cfg, params, prompt.to(dev),
+                                         chunk=4)
+            eng = DecodeEngine(spec=spec, cfg=cfg, params=params, max_seq=32,
+                               batch=3, chunk=4)
+            got[f"{dev}/trace"] = serve(eng, reqs, policy=policy)
+            got[f"{dev}/trace reversed"] = serve(eng, reqs[::-1], policy=policy)
+        same = np.array_equal(got["cpu"], got["cuda"])
+        orders = all(np.array_equal(got["cuda/trace"][r.rid], got[k_][r.rid])
+                     for r in reqs for k_ in ("cuda/trace reversed", "cpu/trace"))
+        print(f"serving smoke ({cfg.name}): card graph loop tokens equal the "
+              f"CPU's: {same}; trace outputs equal across arrival orders and "
+              f"the CPU's: {orders}")
+        assert same and orders, (got["cpu"], got["cuda"])
+
+
+def drive_serving():
+    """The serving phase, under ``torch.inference_mode()``: qwen3-8b,
+    xlstm-1.3b and luong-nmt served whole at full width, then card against
+    CPU at smoke width. Returns ({arch: numbers}, {"prefill": counts},
+    native prefills)."""
+    with torch.inference_mode():
+        q, counts, n_native = serve_qwen()
+        out = {QWEN: q, XLSTM: serve_xlstm(), NMT: serve_nmt()}
+        serve_smoke_card_vs_cpu()
+    return out, {"prefill": counts}, n_native
+
+
+def check_flash_prefill(gen, out):
+    """K9 at qwen3-8b's serving prefill (B=SQB, Sq=Sk=SQP-1, 32 query heads
+    over 16 kv heads of 128, causal): against its plain version (1e-3 x
+    max(1, |ref|)) and a float64 forward over one (batch, kv head) group
+    (``FLASH_F64_TOL``), timed beside the plain version and SDPA's forward,
+    cold L2; the row takes its launches from the serving phase."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    S = SQP - 1
+    r = lambda *shape: torch.randn(*shape, generator=gen).cuda()
+    q, k, v = r(SQB, S, QHQ, QD), r(SQB, S, QHKV, QD), r(SQB, S, QHKV, QD)
+    print(f"flash_attention forward at the serving prefill: B={SQB} S={S} "
+          f"Hq={QHQ} Hkv={QHKV} d={QD} causal")
+    fwd_k = lambda: fa.flash_fwd_cuda(q, k, v, True)
+    fwd_p = lambda: fa.attention_plain(q, k, v, True)
+    err = compare("  flash_fwd (prefill)", list(fwd_k()), list(fwd_p()), 1e-3)
+    f64 = flash_fwd_f64(fa, q, k, v, True, None)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), cold_l2=True)
+    pairs = S * (S + 1) // 2
+    prod = 2 * SQB * QHQ * pairs * QD
+    qb, kb = SQB * S * QHQ * QD * 4, SQB * S * QHKV * QD * 4
+    add_row(out, "flash_fwd", SERVE, "src/repro_torch/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:45", err,
+            time_ms(fwd_k, cold_l2=True), time_ms(fwd_p, cold_l2=True), lib,
+            qb + 2 * kb + qb + 4 * SQB * QHQ * S, 3 * 2 * prod, "cold",
+            name="flash_fwd@prefill", rate=TF32_FLOPS,
+            f64_rel_err=f64["flash_fwd"], library_f64_rel_err=f64["sdpa_fwd"])
+
+
 def steady_median(ms):
     """Median step time without the first two steps: the first fills the
     allocator's pools and the libraries' caches, and the second is still
@@ -1860,6 +2211,7 @@ def main() -> int:
     # qwen3-8b: K9-K11 at the attention's shape, then every mode on small
     # inputs
     check_flash(gen, QB, QS, QS, QHQ, QHKV, QD, out=rows, tag="(main path)")
+    check_flash_prefill(gen, rows)
     check_flash_modes(gen)
     # mixtral-8x22b: K12 at the expert products' shapes, then small modes;
     # K5 at zaremba-medium's cell
@@ -1913,6 +2265,9 @@ def main() -> int:
         print(f"{MIXTRAL}/{impl}: steady median {med:.2f} ms/step, "
               f"{MB * MS / med * 1e3:.1f} tokens/s, peak memory "
               f"{m_peak[impl]} bytes ({m_peak[impl] / 2**30:.2f} GiB)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    serving, counts[SERVE], n_native = drive_serving()
     for key, ms in step_ms.items():
         print(f"step ms ({key}): " + ", ".join(f"{x:.2f}" for x in ms))
     kernels = []
@@ -1923,6 +2278,8 @@ def main() -> int:
         r["launches"] = sum(c.get(counter, 0) for c in per.values())
         if arch == STACK:       # one lstm_stack forward per engine
             r["launches_per_call"] = {e: c.get(counter, 0) for e, c in per.items()}
+        elif arch == SERVE:     # qwen3-8b's native prefills
+            r["launches_per_prefill"] = r["launches"] / n_native
         else:
             r["launches_per_step"] = {e: c.get(counter, 0) / STEPS
                                       for e, c in per.items()}
@@ -1937,7 +2294,8 @@ def main() -> int:
                       "crf_ms": crf_ms,
                       "xlstm_peak_bytes": x_peak,
                       "qwen3_peak_bytes": q_peak,
-                      "mixtral_peak_bytes": m_peak}))
+                      "mixtral_peak_bytes": m_peak,
+                      "serving": serving}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

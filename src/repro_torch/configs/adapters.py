@@ -1,6 +1,13 @@
 """Uniform model API over arch kinds (port of the lstm_lm, nmt, tagger, xlstm
-and dense transformer parts of repro.configs.adapters): ``loss_fn``, ``init_params``, and the
-``--dropout`` / ``--engine`` overrides."""
+and dense transformer parts of repro.configs.adapters): ``loss_fn``,
+``init_params``, the ``--dropout`` / ``--engine`` overrides, and the serving
+half (``init_decode_state``, ``decode_fn``, ``has_native_prefill``,
+``prefill_fn``) for the kinds transformer, xlstm and nmt.
+
+Serving runs on one device: the decode state is made on ``device`` and the
+model functions run where their tensors are. Every decode-state leaf is
+``(L, B, ...)`` with the slot axis at 1, and ``decode_fn`` / ``prefill_fn``
+update the state in place (they return it too)."""
 from __future__ import annotations
 
 import dataclasses
@@ -52,3 +59,55 @@ def apply_engine(spec: ArchSpec, cfg, text: str):
     if spec.kind not in ENGINE_KINDS:
         return cfg
     return dataclasses.replace(cfg, engine=text)
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+SERVING_KINDS = ("transformer", "xlstm", "nmt")
+
+
+def _serving(spec: ArchSpec):
+    if spec.kind == "ssm":
+        raise NotImplementedError("ssm serving is not ported (ROADMAP A11)")
+    if spec.kind not in SERVING_KINDS:
+        raise ValueError(f"{spec.kind} has no decode path")
+    return _MODULES[spec.kind]
+
+
+def init_decode_state(spec: ArchSpec, cfg, batch: int, max_seq: int, *,
+                      device="cpu"):
+    """Fresh decode state on ``device``: the transformer's KV cache over
+    ``max_seq`` positions, xlstm's recurrent state, or the NMT state with
+    ``max_seq`` encoder-memory positions."""
+    mod = _serving(spec)
+    if spec.kind == "transformer":
+        return mod.init_cache(cfg, batch, max_seq, device=device)
+    if spec.kind == "xlstm":
+        return mod.init_state(cfg, batch, device=device)
+    return mod.init_state(cfg, batch, max_src=max_seq, device=device)
+
+
+def decode_fn(spec: ArchSpec):
+    """(params, cfg, state, tokens (B, 1), pos) -> (logits (B, 1, V), state)."""
+    return _serving(spec).decode_step
+
+
+def has_native_prefill(spec: ArchSpec) -> bool:
+    """True where ``prefill_fn`` fills the decode state in one rectangular
+    pass: every serving kind of the port (the reference's ssm, whose
+    forward emits no state, is not ported)."""
+    _serving(spec)
+    return True
+
+
+def prefill_fn(spec: ArchSpec):
+    """(params, batch, cfg, state) -> (features or None, state): the
+    transformer and xlstm read ``batch["tokens"]``, NMT an encoder batch
+    {"src", "tgt_in", ["src_mask"]}."""
+    mod = _serving(spec)
+    if spec.kind == "nmt":
+        return mod.prefill
+    return lambda params, batch, cfg, state: mod.prefill(
+        params, batch["tokens"], cfg, state)

@@ -1,6 +1,6 @@
-"""Luong'15 attention NMT (paper Table 2), training part: 2-layer
+"""Luong'15 attention NMT (paper Table 2): 2-layer
 unidirectional LSTM encoder-decoder with general attention and input
-feeding. Port of the training half of ``repro.models.seq2seq``.
+feeding. Port of ``repro.models.seq2seq``.
 
 Dropout comes from a ``DropoutPlan`` over named sites: "nr" / "rh" resolve
 for both stacks (full names "enc/layer0/nr", "dec/feed/nr", ...), "out"
@@ -18,6 +18,11 @@ Python loop over pre-sampled masks; ``"stepwise"``: the per-step-mask
 oracle); pass 2 is output dropout and the vocab projection over all steps.
 Parameters mirror the reference's tree leaf for leaf (``decoder`` W has
 embed-only fan-in, ``w_feed`` (H, 4H) is separate).
+
+Free-running inference takes the single-step path: ``init_state`` /
+``prefill`` (the encoder in eval, its memory parked in the state, the
+target prefix replayed) / ``decode_step``, which serve through
+``serving.DecodeEngine`` token by token and update the state in place.
 """
 from __future__ import annotations
 
@@ -253,3 +258,83 @@ def loss_fn(params, batch, cfg: NMTConfig, *, seed: Optional[int] = None,
         mask = mask.to(nll.dtype)
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return nll.mean()
+
+
+# ---------------------------------------------------------------------------
+# Serving: free-running inference on the single-step path (the two-pass
+# restructure needs all target inputs up front: teacher forcing)
+# ---------------------------------------------------------------------------
+
+
+def init_state(cfg: NMTConfig, batch: int, max_src: int, *, device="cpu"):
+    """Fresh decode state, every leaf batch at axis 1: (h, c) per layer, the
+    input feed, and the encoder memory (enc_out, enc_proj, score_bias) over
+    ``max_src`` positions. score_bias starts at -1e30: before a prefill the
+    softmax is uniform over zero memory (finite, contributes nothing)."""
+    nl, H = cfg.num_layers, cfg.hidden
+    z = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=device)
+    return {"h": z(nl, batch, H), "c": z(nl, batch, H), "feed": z(1, batch, H),
+            "enc_out": z(1, batch, max_src, H), "enc_proj": z(1, batch, max_src, H),
+            "score_bias": torch.full((1, batch, max_src), -1e30,
+                                     dtype=torch.float32, device=device)}
+
+
+def _eval_step(params, nl, x_t, h, c, feed, enc_proj, enc_out, score_bias):
+    """One no-dropout decoder step (the training step with eval states)."""
+    dec = params["decoder"]
+    gx0_t = L.dense_sdrop({"w": dec[0]["W"], "b": dec[0]["b"]}, x_t, None)
+    return _dec_step(params, nl, (h, c, feed), gx0_t, [None] * (2 * nl),
+                     enc_proj, enc_out, score_bias)
+
+
+def prefill(params, batch, cfg: NMTConfig, state):
+    """Fill ``state`` (in place) from an encoder batch {"src" (B, S),
+    "tgt_in" (B, T), ["src_mask"]}: the encoder in eval, its memory
+    (enc_out, enc_proj, score_bias) parked in the state, then the target
+    prefix replayed through eval decoder steps so (h, c, feed) sit where
+    teacher-forced decoding left them. Returns (None, state)."""
+    if "src" not in batch or "tgt_in" not in batch:
+        raise ValueError(
+            f"NMT prefill needs an encoder batch {{'src': (B, S), 'tgt_in': "
+            f"(B, T)[, 'src_mask']}} (DecodeEngine.prefill takes one); got "
+            f"keys {sorted(batch)}: a target prompt alone has no source "
+            f"sentence (replay it with prompt_prefill(..., method='replay'))")
+    src = batch["src"]
+    B, Ss = src.shape
+    if Ss > state["enc_out"].shape[2]:
+        raise ValueError(f"source of {Ss} tokens exceeds the state's "
+                         f"{state['enc_out'].shape[2]} memory positions")
+    enc, enc_state = encode(params, src, cfg)              # eval ctx
+    src_mask = batch.get("src_mask")
+    if src_mask is None:
+        src_mask = torch.ones((B, Ss), dtype=torch.bool, device=src.device)
+    state["enc_out"][0, :, :Ss] = enc
+    state["enc_proj"][0, :, :Ss] = L.dense(params["w_att"], enc)
+    state["score_bias"].fill_(-1e30)
+    state["score_bias"][0, :, :Ss] = torch.where(src_mask.bool(), 0.0, -1e30)
+    nl = cfg.num_layers
+    mem = (state["enc_proj"][0], state["enc_out"][0], state["score_bias"][0])
+    x = L.lookup(params["tgt_embed"], batch["tgt_in"])
+    h, c = enc_state.h, enc_state.c
+    feed = torch.zeros((B, cfg.hidden), dtype=enc.dtype, device=enc.device)
+    for t in range(x.shape[1]):
+        h, c, feed = _eval_step(params, nl, x[:, t], h, c, feed, *mem)
+    state["h"].copy_(h)
+    state["c"].copy_(c)
+    state["feed"][0].copy_(feed)
+    return None, state
+
+
+def decode_step(params, cfg: NMTConfig, state, tokens, pos):
+    """One decode step: tokens (B, 1) -> (logits (B, 1, V) float32, state),
+    the state updated in place. ``pos`` is unused: the recurrent state is
+    O(1) in position."""
+    del pos
+    x_t = L.lookup(params["tgt_embed"], tokens[:, 0])
+    h, c, h_tilde = _eval_step(
+        params, cfg.num_layers, x_t, state["h"], state["c"], state["feed"][0],
+        state["enc_proj"][0], state["enc_out"][0], state["score_bias"][0])
+    state["h"].copy_(h)
+    state["c"].copy_(c)
+    state["feed"][0].copy_(h_tilde)
+    return L.dense(params["fc"], h_tilde).float()[:, None], state

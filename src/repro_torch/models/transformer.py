@@ -28,10 +28,18 @@ three expert products picked by the port-only field ``moe_impl``: ``"xla"``
 capacity buffer, ``"pallas"`` runs K12 (``kernels/grouped_matmul.py``) on
 the flattened buffer, one row block of C rows per (shard, expert).
 
+Serving (``init_cache``, ``prefill``, ``decode_step``): the KV cache is a
+dict of stacked ``(L, B, Smax, KVeff, hd)`` tensors that ``prefill`` and
+``decode_step`` write IN PLACE, at positions held in device tensors (the
+reference's ``dynamic_update_slice``, clamped as it clamps), so a decode
+step runs inside a captured CUDA graph (``serving/engine.py``). Prefill
+attends within the fresh span through ``_attend`` (K9 under ``flash``);
+decode attends over the whole cache through ``decode_attention`` (plain
+PyTorch, float32 scores, as the reference's).
+
 Not ported (raise ``NotImplementedError``): the whisper
 encoder-decoder (``is_encoder_decoder``), embeddings in (``embeds_in``),
-``pos="sinusoidal"``, ``remat="dots"``, ``attn_impl="identity"``, and the
-serving entry points (KV cache, prefill, decode).
+``pos="sinusoidal"``, ``remat="dots"`` and ``attn_impl="identity"``.
 """
 from __future__ import annotations
 
@@ -106,7 +114,7 @@ class TransformerConfig:
                            ("remat='dots'", self.remat == "dots")):
             if bad:
                 raise NotImplementedError(
-                    f"TransformerConfig {field} is not ported (ROADMAP A12)")
+                    f"TransformerConfig {field} is not ported (ROADMAP A8)")
         if self.attn_impl not in ("xla", "flash"):
             raise NotImplementedError(f"attn_impl={self.attn_impl!r} is not ported")
         if self.moe_impl not in ("xla", "pallas"):
@@ -236,6 +244,24 @@ def chunked_attention(q, k, v, *, causal: bool, window: Optional[int],
         out = o / torch.clamp(l[..., None], min=1e-30)        # (B, Hkv, G, cq, hd)
         outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, cq, Hq, hd).to(q.dtype))
     return torch.cat(outs, dim=1)
+
+
+def decode_attention(q, k_cache, v_cache, pos, *, window: Optional[int]):
+    """Single-token attention over a (B, Smax, Hkv, hd) cache. q (B, 1, Hq,
+    hd); ``pos`` a 0-dim tensor: keys at positions <= pos (and within the
+    window) are seen. Scores and the weighted sum in float32."""
+    B, _, Hq, hd = q.shape
+    Smax, Hkv = k_cache.shape[1], k_cache.shape[2]
+    qr = q.reshape(B, Hkv, Hq // Hkv, hd)
+    s = torch.einsum("bkgd,bskd->bkgs", qr.float(), k_cache.float()) * hd ** -0.5
+    idx = torch.arange(Smax, device=q.device)
+    mask = idx <= pos
+    if window is not None:
+        mask &= idx > pos - window
+    p = torch.softmax(torch.where(mask, s, torch.full_like(s, -1e30)), dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(),
+                     v_cache.float())
+    return o.reshape(B, 1, Hq, hd).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -470,17 +496,43 @@ def _attend(q, k, v, cfg, causal):
                              q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
 
 
+def _write_kv(entry, k, v, pos):
+    """K, V (B, S, KVeff, hd) into one layer's cache entry {"k", "v"} (B,
+    Smax, KVeff, hd), in place, at positions pos .. pos + S - 1; ``pos`` is
+    a 0-dim device tensor, clamped to Smax - S as the reference's
+    ``dynamic_update_slice`` clamps its start."""
+    S, Smax = k.shape[1], entry["k"].shape[1]
+    if S > Smax:
+        raise ValueError(f"{S} positions do not fit a cache of {Smax}")
+    idx = pos.clamp(0, Smax - S) + torch.arange(S, device=k.device)
+    entry["k"].index_copy_(1, idx, k.to(entry["k"].dtype))
+    entry["v"].index_copy_(1, idx, v.to(entry["v"].dtype))
+
+
 def block_apply(pl, x, cfg: TransformerConfig, *, causal: bool,
-                drop_states=(None, None, None), positions=None):
+                drop_states=(None, None, None), positions=None, cache=None,
+                cache_pos=None):
     """One transformer block; ``drop_states`` = (attention-in, mlp-in,
     FFN-inner) DropoutStates or None. With ``moe`` the FFN is ``moe_ffn``
     (plus the dense-residual FFN, which consumes the mlp-in state, when
-    ``dense_ff`` is set)."""
+    ``dense_ff`` is set).
+
+    With ``cache`` (one layer's {"k", "v"}, (B, Smax, KVeff, hd)) the
+    block's K and V are written into it in place at ``cache_pos`` (a 0-dim
+    device tensor); a single token (S == 1) then attends over the cache,
+    a prefill span attends within itself through ``_attend``."""
     B, S, D = x.shape
     d_attn, d_mlp, inner = drop_states
     h = _norm(cfg, pl["ln1"], x)
     q, k, v = _qkv(pl, h, cfg, d_attn, positions)
-    attn = _attend(q, k, v, cfg, causal).reshape(B, S, cfg.n_heads * cfg.hd)
+    if cache is not None:
+        _write_kv(cache, k, v, cache_pos)
+    if cache is not None and S == 1:
+        attn = decode_attention(q, cache["k"], cache["v"], cache_pos,
+                                window=cfg.window)
+    else:
+        attn = _attend(q, k, v, cfg, causal)
+    attn = attn.reshape(B, S, cfg.n_heads * cfg.hd)
     x = x + (attn @ pl["wo"]).to(x.dtype)
     h2 = _norm(cfg, pl["ln2"], x)
     if cfg.moe is None:
@@ -580,3 +632,52 @@ def loss_fn(params, batch, cfg: TransformerConfig, *, seed: Optional[int] = None
     feats = forward(params, batch["tokens"], cfg, ctx=ctx)
     return metrics.lm_loss(lambda f: lm_logits(params, f, cfg), feats,
                            batch["labels"], cfg.loss_chunks)
+
+
+# ---------------------------------------------------------------------------
+# Serving: KV cache, prefill, decode step
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: TransformerConfig, batch: int, max_seq: int, dtype=None,
+               *, device="cpu"):
+    """KV cache: {"k", "v"} stacked (L, B, Smax, KVeff, hd), zeros in
+    ``compute_dtype``."""
+    dtype = dtype or cfg.compute_dtype
+    shape = (cfg.num_layers, batch, max_seq, cfg.n_kv_eff, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _serve_stack(params, x, cfg, cache, pos, positions, causal):
+    for li in range(cfg.num_layers):
+        pl = tree_map(lambda a: a[li], params["blocks"])
+        entry = {"k": cache["k"][li], "v": cache["v"][li]}
+        x = block_apply(pl, x, cfg, causal=causal, positions=positions,
+                        cache=entry, cache_pos=pos)
+    return _norm(cfg, params["ln_f"], x)
+
+
+def prefill(params, tokens, cfg: TransformerConfig, cache):
+    """Forward pass over tokens (B, S) that also writes their K/V into
+    ``cache`` at positions 0 .. S-1 (in place; attention within the span
+    through ``_attend``, so K9 under ``flash``). Returns (final-norm
+    features (B, S, D), cache)."""
+    x = _embed_tokens(params, tokens, cfg)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    pos = torch.zeros((), dtype=torch.long, device=x.device)
+    return _serve_stack(params, x, cfg, cache, pos, positions, True), cache
+
+
+def decode_step(params, cfg: TransformerConfig, cache, tokens, pos):
+    """One decode step: tokens (B, 1) at position ``pos`` (an int or a 0-dim
+    integer tensor, one position for every row). Writes K/V into ``cache``
+    in place and returns (logits (B, 1, V) float32, cache). With a tensor
+    ``pos`` nothing reads back to the host, so the step can be captured in
+    a CUDA graph."""
+    x = _embed_tokens(params, tokens, cfg)
+    pos = torch.as_tensor(pos, device=x.device).reshape(()).long()
+    positions = pos.expand(x.shape[0], 1)
+    feats = _serve_stack(params, x, cfg, cache, pos, positions, True)
+    return lm_logits(params, feats, cfg), cache

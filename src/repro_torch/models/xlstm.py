@@ -139,6 +139,27 @@ def mlstm_chunkwise(q, k, v, lf, li, chunk: int, initial=None):
     return h.to(q.dtype), (C, n, m)
 
 
+def mlstm_decode(q, k, v, lf, li, state):
+    """One-token mLSTM step. q, k, v (B, H, d); lf, li (B, H); state (C, n,
+    m) float32, updated IN PLACE. Returns (h (B, H, d), (C, n, m))."""
+    C, n, m = state
+    B, H, d = q.shape
+    scale = d ** -0.5
+    m_new = torch.maximum(lf + m, li)
+    fw = torch.exp(lf + m - m_new)
+    iw = torch.exp(li - m_new)
+    # C <- fw C + iw k v^T as one rank-1 batched update, in place
+    C.mul_(fw[..., None, None]).view(B * H, d, d).baddbmm_(
+        (iw[..., None] * k).reshape(B * H, d, 1).to(C.dtype),
+        v.reshape(B * H, 1, d).to(C.dtype))
+    n.mul_(fw[..., None]).add_(iw[..., None] * k)
+    m.copy_(m_new)
+    h_num = (q[..., None, :].to(C.dtype) @ C)[..., 0, :] * scale
+    qn = (q * n).sum(-1) * scale
+    denom = torch.maximum(qn.abs(), torch.exp(-m_new))
+    return (h_num / denom[..., None]).to(q.dtype), (C, n, m)
+
+
 # ---------------------------------------------------------------------------
 # sLSTM: scalar-memory cell with a true h -> h recurrence
 # ---------------------------------------------------------------------------
@@ -274,8 +295,12 @@ def _group_rms(g, x, H, eps=1e-6):
     return (y.reshape(shp) * g).to(x.dtype)
 
 
-def mlstm_block_apply(pl, x, cfg: XLSTMConfig, drop_state=None):
-    """x (B, S, D) -> (x + block(x), final (C, n, m))."""
+def mlstm_block_apply(pl, x, cfg: XLSTMConfig, drop_state=None,
+                      return_conv=False):
+    """x (B, S, D) -> (x + block(x), final (C, n, m)). ``return_conv``
+    returns ``(x + block(x), ((C, n, m), conv_tail))`` instead: the last
+    conv_kernel - 1 pre-conv ``u`` rows (zero-padded in front for a short
+    prompt), the ring buffer ``decode_step`` continues from."""
     B, S, _ = x.shape
     H, I = cfg.n_heads, cfg.inner
     h = _rms(pl["ln"]["g"], x)
@@ -292,7 +317,12 @@ def mlstm_block_apply(pl, x, cfg: XLSTMConfig, drop_state=None):
         F.logsigmoid(gf).transpose(1, 2), li.transpose(1, 2), cfg.chunk)
     hcell = hcell.transpose(1, 2).reshape(B, S, I)
     out = _group_rms(pl["gn"]["g"], hcell, H) * F.silu(z)
-    return x + (out @ pl["w_down"]).to(x.dtype), state
+    y = x + (out @ pl["w_down"]).to(x.dtype)
+    if return_conv:
+        K = cfg.conv_kernel
+        tail = F.pad(u[:, max(0, S - (K - 1)):], (0, 0, max(0, K - 1 - S), 0))
+        return y, (state, tail)
+    return y, state
 
 
 def slstm_block_apply(pl, x, cfg: XLSTMConfig, nr_state=None, ctx=None,
@@ -381,37 +411,32 @@ def forward(params, tokens, cfg: XLSTMConfig, *, ctx=None, lengths=None):
     if ctx is None:
         ctx = cfg.plan.bind(None)
     x = L.lookup(params["embed"], tokens).to(cfg.compute_dtype)
-    kinds = cfg.layer_kinds
-    n_groups = kinds.count("s")
-    per_group = cfg.slstm_every - 1
-
-    def m_run(x, lo, count, base):
-        for i in range(count):
-            pl = tree_map(lambda a: a[lo + i], params["mlstm"])
-            # layer index = the NR site's time axis
-            ds = ctx.state("mlstm/nr", x.shape[:2], cfg.d_model, t=base + i)
+    # the layer index li is the NR sites' time axis
+    for li, (kind, i) in enumerate(_blocks(cfg)):
+        if kind == "m":
+            pl = tree_map(lambda a: a[i], params["mlstm"])
+            ds = ctx.state("mlstm/nr", x.shape[:2], cfg.d_model, t=li)
             body = lambda x_, pl=pl, ds=ds: mlstm_block_apply(pl, x_, cfg, ds)[0]
             x = (checkpoint(body, x, use_reentrant=False)
                  if cfg.remat != "none" and torch.is_grad_enabled() else body(x))
-        return x
-
-    if n_groups == 0:
-        return _finish(params, m_run(x, 0, len(kinds), 0), cfg)
-    # groups of (per_group mLSTM + 1 sLSTM), then trailing mLSTMs
-    mi = 0
-    for g in range(n_groups):
-        if per_group:      # slstm_every=1 -> all-sLSTM, no mLSTM sub-stack
-            x = m_run(x, mi, per_group, g * cfg.slstm_every)
-        sl = tree_map(lambda a: a[g], params["slstm"])
-        nr = ctx.state("slstm/nr", x.shape[:2], cfg.d_model,
-                       t=g * cfg.slstm_every + per_group)
-        x, _ = slstm_block_apply(sl, x, cfg, nr_state=nr, ctx=ctx,
-                                 rh_site=f"slstm{g}/rh", lengths=lengths)
-        mi += per_group
-    n_m = kinds.count("m")
-    if mi < n_m:
-        x = m_run(x, mi, n_m - mi, n_groups * cfg.slstm_every)
+        else:
+            sl = tree_map(lambda a: a[i], params["slstm"])
+            nr = ctx.state("slstm/nr", x.shape[:2], cfg.d_model, t=li)
+            x, _ = slstm_block_apply(sl, x, cfg, nr_state=nr, ctx=ctx,
+                                     rh_site=f"slstm{i}/rh", lengths=lengths)
     return _finish(params, x, cfg)
+
+
+def _blocks(cfg: XLSTMConfig):
+    """The blocks in layer order as ("m", index in the mLSTM family) or
+    ("s", index in the sLSTM family): groups of slstm_every - 1 mLSTMs and
+    one sLSTM, then the trailing mLSTMs."""
+    counts = {"m": 0, "s": 0}
+    order = []
+    for kind in cfg.layer_kinds:
+        order.append((kind, counts[kind]))
+        counts[kind] += 1
+    return order
 
 
 def _finish(params, x, cfg):
@@ -454,3 +479,107 @@ def loss_fn(params, batch, cfg: XLSTMConfig, *, seed: Optional[int] = None,
                                       batch["labels"], mask, chunk=chunk)
     return metrics.lm_loss(lambda f: lm_logits(params, f), feats,
                            batch["labels"], cfg.loss_chunks)
+
+
+# ---------------------------------------------------------------------------
+# Serving: recurrent state, prefill, decode step
+# ---------------------------------------------------------------------------
+
+
+def init_state(cfg: XLSTMConfig, batch: int, dtype=torch.float32, *,
+               device="cpu"):
+    """Recurrent serving state, O(1) in position: mLSTM (C, n, m) and the
+    conv ring buffer per mLSTM block, sLSTM (h, c, n, m) per sLSTM block.
+    Cells in float32 with the stabilizers m at -1e30; the conv ring in
+    ``compute_dtype`` (it feeds products)."""
+    kinds = cfg.layer_kinds
+    n_m, n_s = kinds.count("m"), kinds.count("s")
+    H, dm, dh = cfg.n_heads, cfg.dh_m, cfg.dh_s
+    z = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
+    state = {
+        "m_C": z(n_m, batch, H, dm, dm),
+        "m_n": z(n_m, batch, H, dm),
+        "m_m": torch.full((n_m, batch, H), -1e30, dtype=dtype, device=device),
+        "m_conv": torch.zeros((n_m, batch, cfg.conv_kernel - 1, cfg.inner),
+                              dtype=cfg.compute_dtype, device=device),
+    }
+    if n_s:
+        state.update({"s_h": z(n_s, batch, H, dh), "s_c": z(n_s, batch, H, dh),
+                      "s_n": z(n_s, batch, H, dh),
+                      "s_m": torch.full((n_s, batch, H, dh), -1e30,
+                                        dtype=dtype, device=device)})
+    return state
+
+
+def prefill(params, tokens, cfg: XLSTMConfig, state=None):
+    """The eval block stack over tokens (B, S) that also writes every
+    block's final recurrent state into ``state`` (in place; a fresh
+    ``init_state`` when None): mLSTM (C, n, m) and conv tail, sLSTM (h, c,
+    n, m), the stabilizer m included, so ``decode_step`` continues where
+    the prompt left off. Dropout is off. Returns (features (B, S, D),
+    state)."""
+    ctx = cfg.plan.bind(None)
+    x = L.lookup(params["embed"], tokens).to(cfg.compute_dtype)
+    if state is None:
+        state = init_state(cfg, x.shape[0], device=x.device)
+    for kind, i in _blocks(cfg):
+        if kind == "m":
+            pl = tree_map(lambda a: a[i], params["mlstm"])
+            x, ((C, n, m), conv) = mlstm_block_apply(pl, x, cfg,
+                                                      return_conv=True)
+            for key, v in (("m_C", C), ("m_n", n), ("m_m", m), ("m_conv", conv)):
+                state[key][i].copy_(v)
+        else:
+            pl = tree_map(lambda a: a[i], params["slstm"])
+            x, (h, (c, n, m)) = slstm_block_apply(pl, x, cfg, ctx=ctx)
+            for key, v in (("s_h", h), ("s_c", c), ("s_n", n), ("s_m", m)):
+                state[key][i].copy_(v)
+    return _finish(params, x, cfg), state
+
+
+def _mlstm_decode_block(pl, x, cfg, state, i):
+    B = x.shape[0]
+    H, I = cfg.n_heads, cfg.inner
+    u, z = (_rms(pl["ln"]["g"], x) @ pl["w_up"]).chunk(2, dim=-1)
+    conv = state["m_conv"][i]
+    win = torch.cat([conv, u[:, None, :].to(conv.dtype)], dim=1)   # (B, K, I)
+    uc = F.silu(torch.einsum("bki,ki->bi", win, pl["conv_w"]) + pl["conv_b"])
+    q = (uc @ pl["wq"]).reshape(B, H, -1)
+    k = (uc @ pl["wk"]).reshape(B, H, -1)
+    v = (u @ pl["wv"]).reshape(B, H, -1)
+    li, gf = (uc @ pl["w_gates"] + pl["b_gates"]).chunk(2, dim=-1)
+    hc, _ = mlstm_decode(q, k, v, F.logsigmoid(gf), li,
+                         (state["m_C"][i], state["m_n"][i], state["m_m"][i]))
+    conv.copy_(win[:, 1:])
+    out = _group_rms(pl["gn"]["g"], hc.reshape(B, I), H) * F.silu(z)
+    return x + (out @ pl["w_down"]).to(x.dtype)
+
+
+def _slstm_decode_block(pl, x, cfg, state, g):
+    B = x.shape[0]
+    xg = _rms(pl["ln"]["g"], x) @ pl["w_gates"] + pl["b_gates"]
+    h_new, st_new = slstm_step(xg, state["s_h"][g], (state["s_c"][g],
+                               state["s_n"][g], state["s_m"][g]), pl["R"])
+    for key, v in zip(("s_h", "s_c", "s_n", "s_m"), (h_new, *st_new)):
+        state[key][g].copy_(v)
+    x = x + _group_rms(pl["gn"]["g"], h_new.reshape(B, -1), cfg.n_heads).to(x.dtype)
+    h2 = _rms(pl["ln2"]["g"], x)
+    y = (F.gelu(h2 @ pl["w_up1"], approximate="tanh") * (h2 @ pl["w_up2"])) \
+        @ pl["w_down"]
+    return x + y.to(x.dtype)
+
+
+def decode_step(params, cfg: XLSTMConfig, state, tokens, pos):
+    """One-token decode: tokens (B, 1) -> (logits (B, 1, V) float32,
+    state), the state updated in place. ``pos`` is unused: the recurrent
+    state is O(1) in position."""
+    del pos
+    x = L.lookup(params["embed"], tokens[:, 0]).to(cfg.compute_dtype)   # (B, D)
+    for kind, i in _blocks(cfg):
+        if kind == "m":
+            x = _mlstm_decode_block(tree_map(lambda a: a[i], params["mlstm"]),
+                                    x, cfg, state, i)
+        else:
+            x = _slstm_decode_block(tree_map(lambda a: a[i], params["slstm"]),
+                                    x, cfg, state, i)
+    return lm_logits(params, _finish(params, x, cfg))[:, None, :], state

@@ -80,3 +80,23 @@ def require_cuda() -> torch.device:
     from repro_torch.device import set_full_fp32
     set_full_fp32()
     return torch.device("cuda")
+
+
+def serve_rectangular(spec, cfg, params, prompt, loop="device", n=10, *,
+                      batch=None, max_seq=32, **kw):
+    """Greedy (or ``kw``-configured) continuation of a rectangular prompt
+    (B, L) on a fresh ``DecodeEngine``: NMT prefills the encoder batch
+    {"src": prompt, "tgt_in": prompt[:, :-1]}, the others ``prompt_prefill``.
+    ``loop`` "device" is ``generate`` (chunked; CUDA graphs on the card),
+    "python" ``generate_python``. Returns (B, n) numpy tokens."""
+    from repro_torch.serving import DecodeEngine, prompt_prefill
+    eng = DecodeEngine(spec=spec, cfg=cfg, params=params, max_seq=max_seq,
+                       batch=batch or prompt.shape[0], **kw)
+    if spec.kind == "nmt":
+        eng.prefill({"src": prompt, "tgt_in": prompt[:, :-1]})
+        tok0, pos0 = prompt[:, -1:], prompt.shape[1] - 1
+    else:
+        eng.state, tok0, pos0 = prompt_prefill(spec, cfg, params, prompt,
+                                               state=eng.state)
+    gen = eng.generate if loop == "device" else eng.generate_python
+    return gen(tok0, n, start_pos=pos0, seed=3)
