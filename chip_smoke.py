@@ -37,7 +37,12 @@ plain PyTorch version at that path's full shapes, and times it:
     launches each direction twice for the same bits (also in dense, FIXED,
     off, ragged and mid-stream handoff modes on small inputs, 3 heads of
     16, and with one head of 2048, whose R columns do not fit in shared
-    memory);
+    memory); then K6 at the reference's dtype contract, bfloat16 xg and R
+    with float32 states, at the same shape in the structured, dense,
+    FIXED, ragged and handoff modes (and two small ones): each output in
+    its dtype, each direction and WG within 10 x the bfloat16 plain
+    version's distance to float64 + 1e-6, twice for the same bits, the
+    main mode timed (rows ``slstm_*/bf16``);
   * qwen3-8b (B=1, S=4096, 32 query heads over 16 kv heads after
     kv_repeat, head_dim 128, causal): K9 flash forward, K10 dq, K11 dk/dv,
     with ``scaled_dot_product_attention`` timed beside them as the library
@@ -49,7 +54,8 @@ plain PyTorch version at that path's full shapes, and times it:
     instructions (also
     non-causal, windowed, MQA, G=4, G=3 (mixtral's group),
     ragged, Sq != Sk, head_dim 16 / 64 / 256 and bfloat16 modes on small
-    inputs);
+    inputs; and K9-K11 with bfloat16 inputs at that shape, beside SDPA in
+    bfloat16, rows ``flash_*/bf16``);
   * mixtral-8x22b (the expert products over the (8 experts x 1280 slots)
     capacity buffer: x (10240, 6144) by w (8, 6144, 16384), and x (10240,
     16384) by w (8, 16384, 6144)): K12 grouped matmul, split-precision
@@ -57,7 +63,8 @@ plain PyTorch version at that path's full shapes, and times it:
     .) buffer timed as the library yardstick; both are held to a float64
     product over one row block by 256 columns, K12 within 1e-5 x max(1,
     |ref|) (float32's accuracy, which single-pass TF32 misses), and the
-    float32 instantiation's SASS must hold TF32 HMMA instructions (also
+    float32 instantiation's SASS must hold TF32 HMMA instructions; the same
+    in bfloat16, rows ``grouped_matmul*/bf16`` (also
     the reference test's four shapes in float32 and bfloat16, bm not a
     multiple of the tile, an empty expert, unsorted repeated ids and
     ragged T, D, F);
@@ -69,7 +76,9 @@ stepwise oracle (the four recurrent models; bilstm-ner on a masked and a
 ragged batch), that Viterbi decodes the same emissions to the same paths
 on the card and on the CPU (ties included), that the qwen3 smoke config
 with ``attn_impl="flash"`` agrees with ``attn_impl="xla"`` and the mixtral
-smoke config with ``moe_impl="pallas"`` with ``"xla"``; runs the
+smoke config with ``moe_impl="pallas"`` with ``"xla"``, and the bfloat16
+steps of the xlstm, qwen3 and mixtral smoke configs with a float64 run
+(``check_bf16_small``); runs the
 ``lstm_stack`` forward at zaremba-medium width (T=35, B=20, H=D=650, 2
 layers, ``case3:0.5:pallas``) under ``torch.no_grad()`` with the scheduled
 and stepwise engines, ``pointwise_impl="pallas"`` (K5) against ``"xla"``;
@@ -80,28 +89,30 @@ under ``case3:0.5:pallas``, luong-nmt (batch 64, max_len 50) under
 words of 12 chars) under ``case3:0.5:pallas`` (its launches a step
 asserted: K3/K4 2 + 2 fused, K1 128 + 128 scheduled, nothing else; the
 CRF's loss and backward timed beside the step), and
-``launch.steps.make_train_step`` on xlstm-1.3b
-cut to 16 blocks (batch 2 x 2048, its own plan with ``impl="pallas"``)
-with the fused and the scheduled engine, and qwen3-8b cut to 4 layers
+``launch.steps.make_train_step`` on the three configs in their
+bfloat16: xlstm-1.3b at all 48 blocks (batch 2 x 2048, its own plan with
+``impl="pallas"``) with the fused engine, qwen3-8b cut to 19 of 36 layers
 (batch 1 x 4096, its own plan) with ``attn_impl="flash"`` and then
-``"xla"``, and mixtral-8x22b cut to 1 of 56 layers (float32, batch 1 x
-4096, its own plan, flash attention) with ``moe_impl="pallas"`` and then
-``"xla"`` — asserting that every kernel's launch counter grew in that
-path's run (and that K6, WG included, did not launch under the scheduled engine, nor
-K9-K11 under xla, nor K12 under the mixtral xla route). Last, it resumes
+``"xla"``, and mixtral-8x22b cut to 1 of 56 layers (batch 1 x 4096, its
+own plan, flash attention) with ``moe_impl="pallas"`` and then ``"xla"``
+— the deepest cuts whose measured peak leaves 8 GB of the card free,
+asserted — each followed by one step traced for its device-time split,
+asserting that every kernel's launch counter grew in that path's run (K6
+once a sLSTM block and step, and neither K9-K11 under xla nor K12 under
+the mixtral xla route). Last, it resumes
 bilstm-ner fused from a checkpoint (2 steps, save, restore into fresh
 tensors, 2 more) and requires the losses and final parameters of 4
 straight steps, bit for bit.
 
 Then the serving phase (``drive_serving``, under ``torch.inference_mode()``,
 random weights from a CUDA generator seeded 0), every model whole:
-qwen3-8b (36 of 36 layers, float32, ``attn_impl="flash"``) prefills batch 8
+qwen3-8b (36 of 36 layers, bfloat16, ``attn_impl="flash"``) prefills batch 8
 x 511 tokens natively (K9 36 times a prefill and no other kernel,
 asserted), then generates 64 tokens by the engine's captured-CUDA-graph
 loop (chunks of 16; twice, the first run capturing) and by the per-token
 python loop, token for token equal, and the first decode logits after a
-native and a replay prefill of 63 tokens agree within ``PREFILL_TOL``;
-xlstm-1.3b (48 of 48 blocks) serves a trace of 32 ragged requests over 8
+native and a replay prefill of 63 tokens agree within ``BF16_TOL``;
+xlstm-1.3b (48 of 48 blocks, bfloat16) serves a trace of 32 ragged requests over 8
 slots through ``serve()`` twice (the same tokens; admission and decode
 time apart), then rectangular at batch 8 (graph loop = python loop);
 luong-nmt prefills 64 sentences of 50 source tokens and an 8-token target
@@ -144,22 +155,29 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import torch  # noqa: E402
 
 # Peaks of one H100 SXM (NVIDIA data sheet, 700 W), used only for the
-# bound_ms column: float32 outside the tensor cores, HBM3 bandwidth, and
-# dense TF32 on the tensor cores (K12's route).
+# bound_ms column: float32 outside the tensor cores, HBM3 bandwidth, dense
+# TF32 on the tensor cores (K12's route) and dense bfloat16 (the rows of
+# bfloat16 inputs).
 F32_FLOPS = 67e12
 HBM_BYTES = 3.35e12
 TF32_FLOPS = 495e12
+BF16_FLOPS = 989e12
 
 T, B, H, D, P = 35, 20, 650, 650, 0.5          # zaremba-medium
 NT_, NB, NH, NS, NP = 50, 64, 512, 50, 0.3      # luong-nmt: T=S, B, H=E, p
 XT, XB, XNH, XDH, XBS, XP = 2048, 2, 4, 512, 64, 0.25   # xlstm-1.3b sLSTM
-X_LAYERS = 16                                           # depth cut from 48
+X_LAYERS = 48                                           # depth cut from 48
+XS_LAYERS = 8      # the scheduled engine's cut: one sLSTM block (host-bound)
 QB, QS, QHQ, QHKV, QD = 1, 4096, 32, 16, 128   # qwen3-8b attention (kv_repeat 2)
-Q_LAYERS = 4                                    # depth cut from 36
+Q_LAYERS = 19                                   # depth cut from 36
 MB, MS, MD, MF, ME, MK = 1, 4096, 6144, 16384, 8, 2   # mixtral-8x22b
 MC = math.ceil(MB * MS * MK / ME * 1.25)              # capacity: 1280 slots
 M_LAYERS = 1                                          # depth cut from 56
 STEPS = 5
+# the training drives' depth cut: the deepest whose measured peak leaves at
+# least this much of the card's memory free
+FREE_BYTES = 8 * 10**9
+BF16_TOL = 3e-2       # the bfloat16 gate (the reference's bfloat16 tolerance)
 LM, NMT, XLSTM, QWEN = "zaremba-medium", "luong-nmt", "xlstm-1.3b", "qwen3-8b"
 NER = "bilstm-ner"
 ES, EB, EH, EP = 64, 32, 200, 0.5                # bilstm-ner: seq, batch, H, p
@@ -723,17 +741,31 @@ def slstm_inputs(gen, T_, B_, NH_, dh_, rate, mode, bs, fixed, ragged, fresh,
 
 
 def check_slstm(gen, T_, B_, NH_, dh_, rate, mode, *, bs=1, fixed=False,
-                ragged=False, fresh=False, mask_heads=1, out=None, tag=""):
+                ragged=False, fresh=False, mask_heads=1, out=None, tag="",
+                dtype=torch.float32):
     """K6 forward (hs, gates, c, n, m) and backward (dxg, dR, dh0, dc0, dn0,
     dm0; the scan, then dR from the WG kernel) against the plain cell_scan
     with SLSTM_CELL on the same inputs, and a second launch of each for the
     same bits. At the main path (``out``) also against a float64 run of the
     plain versions, beside the float32 plain version's distance to it, and
-    the WG kernel alone against its plain version."""
+    the WG kernel alone against its plain version.
+
+    ``dtype=torch.bfloat16``: xg and R rounded to bfloat16 (states float32),
+    the reference's dtype contract. Every output must come back in its
+    dtype; the kernels are held to the plain versions within 3e-2 x max(1,
+    |ref|) (a gate value's or cotangent's bfloat16 rounding may flip where
+    the float32 sums differ in their last bits), and, in every mode, to a
+    float64 run of the plain versions on the same rounded inputs within 10 x
+    the bfloat16 plain version's distance + 1e-6 (its outputs rounded to
+    their dtypes, as the autograd wrapper returns them); WG alone too."""
     from repro_torch.kernels import cell_scan as cs_mod
     from repro_torch.kernels import slstm_scan as ss
     gx, R, h0, st0, ids, mask, lengths, scale, dy, dstT = slstm_inputs(
         gen, T_, B_, NH_, dh_, rate, mode, bs, fixed, ragged, fresh, mask_heads)
+    bf = dtype == torch.bfloat16
+    gx, R = gx.to(dtype), R.to(dtype)
+    f32, tol = torch.float32, 3e-2 if bf else 1e-3
+    sfx = "/bf16" if bf else ""
     rh = (ids, mask, lengths, scale)
     fwd_k = lambda: ss.slstm_scan_fwd_cuda(gx, R, h0, st0, *rh)
     fwd_p = lambda: cs_mod.plain_fwd(ss.SLSTM_CELL, gx, R, h0, st0, *rh)
@@ -741,23 +773,27 @@ def check_slstm(gen, T_, B_, NH_, dh_, rate, mode, *, bs=1, fixed=False,
     hs_p, gates_p, sts_p = fwd_p()
     print(f"slstm_scan T={T_} B={B_} heads={NH_} dh={dh_} {mode}"
           f"{' FIXED' if fixed else ''}{' ragged' if ragged else ''}"
-          f"{' fresh' if fresh else ' handoff'}")
+          f"{' fresh' if fresh else ' handoff'} {str(dtype)[6:]}")
     e_f = compare("  slstm_scan_fwd " + tag, [hs, gates, *sts],
-                  [hs_p, gates_p, *sts_p], 1e-3)
+                  [hs_p, gates_p, *sts_p], tol)
     saved = (gates_p, sts_p, st0, hs_p, h0, R)
     bwd_k = lambda: ss.slstm_scan_bwd_cuda(dy, dstT, *saved, *rh)
     bwd_p = lambda: cs_mod.plain_bwd(ss.SLSTM_CELL, dy, dstT, *saved, *rh)
     dgx, dR, dh0, dst0 = bwd_k()
-    dgx_p, dR_p, dh0_p, dst0_p = bwd_p()
+    dgx_p, dR_p, dh0_p, dst0_p = bwd_p()      # float32 dgates and dR
     e_b = compare("  slstm_scan_bwd " + tag, [dgx, dR, dh0, *dst0],
-                  [dgx_p, dR_p, dh0_p, *dst0_p], 1e-3)
+                  [dgx_p, dR_p, dh0_p, *dst0_p], tol)
+    want = [f32, dtype, f32, f32, f32, dtype, dtype, f32, f32, f32, f32]
+    got_dt = [x.dtype for x in (hs, gates, *sts, dgx, dR, dh0, *dst0)]
+    if got_dt != want:
+        raise AssertionError(f"slstm_scan {tag}: dtypes {got_dt}, want {want}")
     same_bits("  slstm_scan_fwd/bwd second launch " + tag,
               [hs, gates, *sts, dgx, dR, dh0, *dst0],
               lambda: (*(lambda o: (o[0], o[1], *o[2]))(fwd_k()),
                        *(lambda o: (o[0], o[1], o[2], *o[3]))(bwd_k())))
-    if out is None:
+    if out is None and not bf:
         return
-    # float64 runs of the plain versions: the backward's on the float32
+    # float64 runs of the plain versions: the backward's on the plain
     # forward's residuals, so that each measures its own rounding
     d = lambda t: t.double()
     ref_f = cs_mod.plain_fwd(ss.SLSTM_CELL, d(gx), d(R), d(h0), tuple(map(d, st0)), *rh)
@@ -767,50 +803,64 @@ def check_slstm(gen, T_, B_, NH_, dh_, rate, mode, *, bs=1, fixed=False,
     f64_gate("  slstm_scan_fwd " + tag, [hs, gates, *sts], [hs_p, gates_p, *sts_p],
              [ref_f[0], ref_f[1], *ref_f[2]])
     f64_gate("  slstm_scan_bwd " + tag, [dgx, dR, dh0, *dst0],
-             [dgx_p, dR_p, dh0_p, *dst0_p], [ref_b[0], ref_b[1], ref_b[2], *ref_b[3]])
+             [dgx_p.to(dtype), dR_p.to(dtype), dh0_p, *dst0_p],
+             [ref_b[0], ref_b[1], ref_b[2], *ref_b[3]])
     del ref_f, ref_b
-    # WG alone on the plain scan's dgx, with the wrapper's own tables
+    # WG alone on the plain scan's float32 dgates, with the wrapper's tables
     tables = ss.wg_tables(ids, T_, dh_, gx.device)
-    wg_k = lambda: ss.slstm_wg(dgx_p, hs_p, h0, tables, mask, scale)
+    wg_k = lambda: ss.slstm_wg(dgx_p, hs_p, h0, tables, mask, scale, out_dtype=dtype)
     wg_p = lambda: ss.plain_wg(dgx_p, hs_p, h0, tables, mask, scale)
     dR_w = wg_k()
-    e_w = compare("  slstm_wg " + tag, dR_w, wg_p(), 1e-3)
+    e_w = compare("  slstm_wg " + tag, dR_w, wg_p(), tol)
+    if bf:
+        ref = ss.plain_wg(d(dgx_p), d(hs_p), d(h0), tables, mask, scale)
+        w_f64 = f64_gate("  slstm_wg " + tag, [dR_w], [wg_p().to(dtype)], [ref])
+        del ref
+    if out is None:
+        return
     # the library yardstick: one torch.bmm over the heads on masked operands
     hp = torch.cat([h0[None], hs_p[:-1]])
     hp = hp * tables[2][:, None, None, :] if ids is not None else hp
     hp_t = hp.permute(2, 3, 0, 1).reshape(NH_, dh_, T_ * B_).contiguous()
     dg_t = dgx_p.permute(2, 0, 1, 3).reshape(NH_, T_ * B_, 4 * dh_).contiguous()
     wg_lib = lambda: torch.bmm(hp_t, dg_t)
-    # float32's accuracy (3xTF32): head 0 x 256 columns against a float64
-    # product of the same masked operands, torch.bmm's distance beside it
     sc = scale if ids is not None else 1.0
-    ref = (hp_t[0].double() @ dg_t[0, :, :256].double()) * sc
-    w_f64 = compare("  slstm_wg " + tag + " vs float64, head 0 x 256", dR_w[0, :, :256],
-                    ref, 1e-5) / max(1.0, ref.abs().max().item())
-    w_lib_f64 = ((wg_lib()[0, :, :256].double() * sc - ref).abs().max().item()
-                 / max(1.0, ref.abs().max().item()))
-    print(f"  torch.bmm vs float64, head 0 x 256: max_rel_err {w_lib_f64:.3e} "
-          f"(the yardstick's own)")
-    del ref, dR_w
-    hmma = sass_hmma("slstm_scan")
-    wg_syms = [tf for sym, (tf, _) in hmma.items() if "slstm_wg_kernel" in sym]
-    if not wg_syms or not all(wg_syms):
-        raise AssertionError("slstm_wg_kernel: no TF32 HMMA in its SASS")
+    if not bf:
+        # float32's accuracy (3xTF32): head 0 x 256 columns against a
+        # float64 product of the same masked operands, torch.bmm's beside it
+        ref = (hp_t[0].double() @ dg_t[0, :, :256].double()) * sc
+        w_f64 = compare("  slstm_wg " + tag + " vs float64, head 0 x 256",
+                        dR_w[0, :, :256], ref, 1e-5) / max(1.0, ref.abs().max().item())
+        w_lib_f64 = ((wg_lib()[0, :, :256].double() * sc - ref).abs().max().item()
+                     / max(1.0, ref.abs().max().item()))
+        print(f"  torch.bmm vs float64, head 0 x 256: max_rel_err {w_lib_f64:.3e} "
+              f"(the yardstick's own)")
+        del ref
+        hmma = sass_hmma("slstm_scan")
+        wg_syms = [tf for sym, (tf, _) in hmma.items() if "slstm_wg_kernel" in sym]
+        if not wg_syms or not all(wg_syms):
+            raise AssertionError("slstm_wg_kernel: no TF32 HMMA in its SASS")
+    else:
+        w_lib_f64 = None
+    del dR_w
     # the work this call's data needs: k kept units a step, R rows kept at
     # some step
     k = ids.shape[1] if ids is not None else dh_
     uniq = int(torch.unique(ids).numel()) if ids is not None else dh_
     G, st = 4 * dh_, B_ * NH_ * dh_
     idsz = 0 if ids is None else ids.numel()
-    f_bytes = 4 * (T_ * B_ * NH_ * G + NH_ * uniq * G + 4 * st + idsz
-                   + 4 * T_ * st + T_ * B_ * NH_ * G)
-    b_bytes = 4 * (T_ * st + 3 * st + T_ * B_ * NH_ * G + 3 * T_ * st + 3 * st
-                   + T_ * st + st + NH_ * uniq * G + idsz
-                   + T_ * B_ * NH_ * G + NH_ * dh_ * G + 4 * st)
+    e = gx.element_size()      # xg, R, the gates residual, dgx and dR
+    f_bytes = (e * (T_ * B_ * NH_ * G + NH_ * uniq * G + T_ * B_ * NH_ * G)
+               + 4 * (4 * st + idsz + 4 * T_ * st))
+    b_bytes = (e * (T_ * B_ * NH_ * G + NH_ * uniq * G + T_ * B_ * NH_ * G
+                    + NH_ * dh_ * G)
+               + 4 * (T_ * st + 3 * st + 3 * T_ * st + 3 * st + T_ * st + st
+                      + idsz + 4 * st))
     kept_steps = int(tables[1].sum()) * ss.WG_UNITS if ids is not None else T_ * dh_
-    w_bytes = 4 * (T_ * st + st + T_ * B_ * NH_ * G + NH_ * dh_ * G
-                   + tables[0].numel() + tables[1].numel()
-                   + sum(0 if x is None else x.numel() for x in tables[2:]))
+    w_bytes = (4 * (T_ * st + st + T_ * B_ * NH_ * G + tables[0].numel()
+                    + tables[1].numel()
+                    + sum(0 if x is None else x.numel() for x in tables[2:]))
+               + e * NH_ * dh_ * G)
     src = "src/repro_torch/csrc/slstm_scan.cu"
     # the scans on FFMA; WG on the TF32 tensor cores, three TF32 products
     # for each float32 product (3xTF32)
@@ -828,7 +878,7 @@ def check_slstm(gen, T_, B_, NH_, dh_, rate, mode, *, bs=1, fixed=False,
         pms = time_ms(fp, reps=3, warmup=1, cold_l2=True)
         lms = None if fl is None else time_ms(fl, cold_l2=True)
         add_row(out, name, XLSTM, src, rep, err, ms, pms, lms, nbytes, flops,
-                "cold", rate=rate, **extra)
+                "cold", rate=rate, name=name + sfx, dtype=str(dtype)[6:], **extra)
 
 
 def same_bits(name, first, again):
@@ -841,14 +891,14 @@ def same_bits(name, first, again):
 
 def f64_gate(name, got, plain, ref):
     """Distances to a float64 run, max |err| / max(1, |ref|) over a group:
-    fail where the kernel's exceeds 10 x the float32 plain version's (the
-    rounding yardstick) + 1e-6."""
+    fail where the kernel's exceeds 10 x the plain version's in the same
+    dtype (the rounding yardstick) + 1e-6."""
     def dist(xs):
         return max((x.double() - r).abs().max().item() / max(1.0, r.abs().max().item())
                    for x, r in zip(xs, ref))
     dk, dp = dist(got), dist(plain)
     ok = dk <= 10 * dp + 1e-6
-    print(f"  {name} vs float64: kernel {dk:.3e}, float32 plain {dp:.3e} "
+    print(f"  {name} vs float64: kernel {dk:.3e}, plain {dp:.3e} "
           f"(gate 10 x plain + 1e-6)  {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: float64 distance {dk:.3e} beyond its gate")
@@ -889,16 +939,20 @@ def check_flash(gen, B_, Sq_, Sk_, Hq_, Hkv_, d_, *, causal=True, window=None,
     if out is None:
         return
     del o_p
-    f64 = flash_f64(fa, q, k, v, do, causal, window)
-    f64.update(flash_fwd_f64(fa, q, k, v, causal, window))
+    bf = dtype == torch.bfloat16
     same_bits("flash_fwd, flash_dq, flash_dkv second launch", [*fwd_k(), dq_k(), *dkv_k()],
               lambda: [*fwd_k(), dq_k(), *dkv_k()])
-    hmma = sass_hmma("flash_attention")
-    for name in ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"):
-        for d in fa.HEAD_DIMS:
-            f32 = [tf for sym, (tf, _) in hmma.items() if f"{name}IfLi{d}E" in sym]
-            if not f32 or not all(f32):
-                raise AssertionError(f"{name} (float32, d={d}): no TF32 HMMA in its SASS")
+    if bf:
+        f64 = flash_f64_bf16(fa, q, k, v, do, causal, window)
+    else:
+        f64 = flash_f64(fa, q, k, v, do, causal, window)
+        f64.update(flash_fwd_f64(fa, q, k, v, causal, window))
+        hmma = sass_hmma("flash_attention")
+        for name in ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"):
+            for d in fa.HEAD_DIMS:
+                f32 = [tf for sym, (tf, _) in hmma.items() if f"{name}IfLi{d}E" in sym]
+                if not f32 or not all(f32):
+                    raise AssertionError(f"{name} (float32, d={d}): no TF32 HMMA in its SASS")
     # the work this call's data needs: the visible (query, key) pairs
     pairs = int(fa._visible(Sq_, Sk_, causal, window, "cuda").sum())
     prod = 2 * B_ * Hq_ * pairs * d_              # flops of one product
@@ -909,25 +963,30 @@ def check_flash(gen, B_, Sq_, Sk_, Hq_, Hkv_, d_, *, causal=True, window=None,
     lib_f, lib_b = sdpa_yardstick(q, k, v, do, causal)
     src = "src/repro_torch/csrc/flash_attention.cu"
     rep = "src/repro/kernels/flash_attention.py:"
-    # on the TF32 tensor cores, three TF32 products for each float32
-    # product (3xTF32)
+    # float32: on the TF32 tensor cores, three TF32 products for each
+    # float32 product (3xTF32); bfloat16 inputs: the products themselves at
+    # the bfloat16 rate, the route-independent least
+    passes, rate = (1, BF16_FLOPS) if bf else (3, TF32_FLOPS)
     for name, fk, fp, err, nbytes, flops, lms, line in (
-            ("flash_fwd", fwd_k, fwd_p, e9, qb + 2 * kb + qb + rows, 3 * 2 * prod,
+            ("flash_fwd", fwd_k, fwd_p, e9, qb + 2 * kb + qb + rows, passes * 2 * prod,
              lib_f, "45"),
-            ("flash_dq", dq_k, dq_p, e10, 3 * qb + 2 * kb + 2 * rows, 3 * 3 * prod,
+            ("flash_dq", dq_k, dq_p, e10, 3 * qb + 2 * kb + 2 * rows, passes * 3 * prod,
              lib_b, "127"),
             ("flash_dkv", dkv_k, dkv_p, e11, 2 * qb + 4 * kb + 2 * rows,
-             3 * 4 * prod, lib_b, "158")):
+             passes * 4 * prod, lib_b, "158")):
         # once per layer and pass, after other work: cold L2
         ms = time_ms(fk, cold_l2=True)
         pms = time_ms(fp, cold_l2=True)
-        if name == "flash_fwd":
+        if bf:
+            extra = dict(dtype="bfloat16", f64_rel_err=f64[name])
+        elif name == "flash_fwd":
             extra = dict(f64_rel_err=f64[name], library_f64_rel_err=f64["sdpa_fwd"])
         else:
             extra = dict(f64_rel_err=f64[name], library_f64_rel_err=f64["sdpa"],
                          library_covers="flash_dq + flash_dkv (one backward)")
         add_row(out, name, QWEN, src, rep + line, err, ms, pms, lms, nbytes,
-                flops, "cold", rate=TF32_FLOPS, **extra)
+                flops, "cold", rate=rate, name=name + ("/bf16" if bf else ""),
+                **extra)
 
 
 # K9 against a float64 forward, K10 / K11 against a float64 backward
@@ -1004,6 +1063,49 @@ def flash_fwd_f64(fa, q, k, v, causal, window, b=0, hk=0):
           f"yardstick's own); tol {FLASH_F64_TOL:g} x max(1, |ref|)")
     if res["flash_fwd"] > FLASH_F64_TOL:
         raise AssertionError("flash forward: beyond the float64 gate")
+    return res
+
+
+def flash_f64_bf16(fa, q, k, v, do, causal, window, backward=True):
+    """bfloat16 K9 (and, with ``backward``, K10 and K11) against float64
+    runs over every (batch, kv head) group, each output gated on its own by
+    ``f64_gate`` with the bfloat16 plain version as the yardstick (10 x its
+    distance + 1e-6): o and lse, dq, dk and dv. Both backward passes take
+    lse and delta from the float64 forward, rounded to float32. Returns
+    {"flash_fwd", "flash_dq", "flash_dkv": the kernel's distance}."""
+    B_, Hkv = q.shape[0], k.shape[2]
+    G = q.shape[2] // Hkv
+    groups = [(b, hk, slice(hk * G, (hk + 1) * G)) for b in range(B_) for hk in range(Hkv)]
+    o_k, lse_k = fa.flash_fwd_cuda(q, k, v, causal, window)
+    o_p, lse_p = fa.attention_plain(q, k, v, causal, window)
+    fwd = [fa.forward_float64(q, k, v, causal, window, b, hk) for b, hk, _ in groups]
+    pick = lambda x, qh: [x[b, :, hs] if qh else x[b, hs] for b, _, hs in groups]
+    n = len(groups)
+    res = {"flash_fwd": max(
+        f64_gate(f"flash_fwd o (bf16, {n} groups)", pick(o_k, 1), pick(o_p, 1),
+                 [o for o, _ in fwd]),
+        f64_gate(f"flash_fwd lse (bf16, {n} groups)", pick(lse_k, 0), pick(lse_p, 0),
+                 [lse for _, lse in fwd]))}
+    del o_k, lse_k, o_p, lse_p, fwd
+    if not backward:
+        return res
+    lse = torch.empty(q.shape[0], q.shape[2], q.shape[1], device=q.device)
+    delta = torch.empty_like(lse)
+    want = []
+    for b, hk, hs in groups:
+        lse64, delta64, *w = fa.backward_float64(q, k, v, do, causal, window, b, hk)
+        lse[b, hs], delta[b, hs] = lse64.float(), delta64.float()
+        want.append(w)
+    args = (q, k, v, do, lse, delta, causal, window)
+    dq_k, dq_p = fa.flash_dq_cuda(*args), fa.flash_dq_plain(*args)
+    res["flash_dq"] = f64_gate(f"flash_dq (bf16, {n} groups)", pick(dq_k, 1),
+                               pick(dq_p, 1), [w[0] for w in want])
+    del dq_k, dq_p
+    (dk_k, dv_k), (dk_p, dv_p) = fa.flash_dkv_cuda(*args), fa.flash_dkv_plain(*args)
+    kv = lambda x: [x[b, :, hk] for b, hk, _ in groups]
+    res["flash_dkv"] = max(
+        f64_gate(f"flash_dkv dk (bf16, {n} groups)", kv(dk_k), kv(dk_p), [w[1] for w in want]),
+        f64_gate(f"flash_dkv dv (bf16, {n} groups)", kv(dv_k), kv(dv_p), [w[2] for w in want]))
     return res
 
 
@@ -1334,29 +1436,56 @@ def check_resume():
         raise AssertionError("the resumed run differs from the straight one")
 
 
+def peak_check(what, peak):
+    """Fail unless the measured peak leaves FREE_BYTES of the card free."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    free = total - peak
+    print(f"  {what}: peak {peak} bytes ({peak / 2**30:.2f} GiB) of {total} "
+          f"({total / 2**30:.2f} GiB): {free / 1e9:.2f} GB free (limit "
+          f"{FREE_BYTES / 1e9:g} GB)")
+    assert free >= FREE_BYTES, f"{what}: only {free / 1e9:.2f} GB free"
+
+
+def traced_step(what, step_fn, params, state, batch_fn):
+    """One more training step under ``torch.profiler``: the step's
+    device-time split (``launch/profile.py trace_steps``)."""
+    from repro_torch.launch.profile import trace_steps
+    params, state, rep_ = trace_steps(step_fn, params, state,
+                                      lambda s: batch_fn(STEPS + s), 1, 0,
+                                      top=8, label=f"  {what} traced step")
+    return params, state, rep_
+
+
 def drive_xlstm():
-    """xlstm-1.3b at full width, cut to X_LAYERS blocks, batch XB x XT, its
-    own plan (nr p=0.25 bs 128, rh p=0.25 bs 64) with impl="pallas", STEPS
-    training steps per engine through ``steps.make_train_step`` with the
-    trainer's batches. Returns {engine: counts}, {engine: [ms]},
-    {engine: peak bytes}, and each run's losses."""
+    """xlstm-1.3b at full width in its config's bfloat16 (float32 states
+    and moments), batch XB x XT, its own plan (nr p=0.25 bs 128, rh p=0.25
+    bs 64) with impl="pallas", STEPS training steps per engine through
+    ``steps.make_train_step`` with the trainer's batches: the fused engine
+    (K6 on the RH site: its bfloat16 instantiation) cut to X_LAYERS blocks,
+    then one traced step; the scheduled engine (the config's default: the
+    sLSTM cell a step at a time in plain PyTorch, no K6) cut to XS_LAYERS
+    blocks, one sLSTM block, as its host-bound step loop is ~4 s an sLSTM
+    block. Returns {engine: counts}, {engine: [ms]}, {engine: peak bytes},
+    each run's losses and {"fused": device-time split}."""
     from repro_torch import configs
     from repro_torch.configs import adapters
     from repro_torch.core.dropout_plan import DropoutPlan
     from repro_torch.launch import steps, train
 
     spec = configs.get_arch(XLSTM)
-    base = spec.full(num_layers=X_LAYERS)
-    plan = DropoutPlan({n: sp.with_(impl="pallas") for n, sp in base.plan.sites})
     dev = torch.device("cuda")
-    totals, step_ms, peak, losses = {}, {}, {}, {}
-    for engine in ("fused", "scheduled"):
+    k6 = ("slstm_scan_fwd", "slstm_scan_bwd", "slstm_wg")
+    totals, step_ms, peak, losses, split = {}, {}, {}, {}, {}
+    for engine, layers in (("fused", X_LAYERS), ("scheduled", XS_LAYERS)):
+        base = spec.full(num_layers=layers)
+        plan = DropoutPlan({n: sp.with_(impl="pallas") for n, sp in base.plan.sites})
         cfg = dataclasses.replace(base, plan=plan, engine=engine)
         assert (cfg.d_model, cfg.n_heads, cfg.dh_s, cfg.inner, cfg.vocab,
-                cfg.conv_kernel, cfg.chunk, cfg.slstm_every) == (
-                    2048, 4, 512, 4096, 50304, 4, 256, 8), cfg
-        print(f"main path: {XLSTM}, {X_LAYERS} blocks, batch {XB}, seq {XT}, "
-              f"plan {cfg.plan.to_dict()}, engine {engine}, {STEPS} steps")
+                cfg.conv_kernel, cfg.chunk, cfg.slstm_every, cfg.param_dtype,
+                cfg.compute_dtype) == (2048, 4, 512, 4096, 50304, 4, 256, 8,
+                                       torch.bfloat16, torch.bfloat16), cfg
+        print(f"main path: {XLSTM}, {layers} of 48 blocks, bfloat16, batch {XB}, "
+              f"seq {XT}, plan {cfg.plan.to_dict()}, engine {engine}, {STEPS} steps")
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1380,20 +1509,26 @@ def drive_xlstm():
         c = read_counts()
         assert all(math.isfinite(x) for x in ls_), ls_
         assert all(torch.isfinite(p).all() for p in _leaves(params))
-        k6 = c["slstm_scan_fwd"] + c["slstm_scan_bwd"] + c["slstm_wg"]
+        assert all(p.dtype == torch.bfloat16 for p in _leaves(params))
         if engine == "fused":
-            assert c["slstm_scan_fwd"] > 0 and c["slstm_scan_bwd"] > 0, c
-            assert c["slstm_wg"] > 0, c
+            # one sLSTM block in every slstm_every: a K6 forward and
+            # backward (scan + WG) a block and step
+            n_s = layers // cfg.slstm_every
+            want = {k_: n_s * STEPS for k_ in k6}
         else:
-            assert k6 == 0, f"K6 launched under the scheduled engine: {c}"
+            want = {k_: 0 for k_ in k6}
+        assert {k_: c[k_] for k_ in k6} == want, (engine, c, want)
         peak[engine] = torch.cuda.max_memory_allocated()
         print(f"  launches per step ({XLSTM}/{engine}): "
               + (", ".join(f"{k_}={v / STEPS:g}" for k_, v in c.items() if v)
-                 or "none of the port's kernels")
-              + f"; peak memory {peak[engine] / 2**30:.2f} GiB")
+                 or "none of the port's kernels"))
+        peak_check(f"{XLSTM}/{engine}", peak[engine])
         totals[engine], step_ms[engine], losses[engine] = c, ms, ls_
+        if engine == "fused":
+            params, state, split[engine] = traced_step(f"{XLSTM}/{engine}", step_fn,
+                                                       params, state, batch_fn)
         del params, state
-    return totals, step_ms, peak, losses
+    return totals, step_ms, peak, losses, split
 
 
 def check_qwen_small():
@@ -1433,14 +1568,116 @@ def check_qwen_small():
                 results["xla/cpu"], 1e-4)
 
 
+def check_bf16_small(dev="cuda"):
+    """On small inputs, the bfloat16 step of each of the three configs that
+    train in bfloat16 (parameters and compute bfloat16, as their full()),
+    against a float64 run of the same function on the CPU (the same
+    parameters, rounded to bfloat16, then widened; router in float64):
+    loss and every gradient within BF16_TOL x max(1, |ref|), and each
+    config's two routes within BF16_TOL of each other. xlstm smoke with the
+    fused engine and its RH site on K6 (``:pallas``) and with the scheduled
+    engine (the sLSTM step in plain PyTorch, no K6), from the reference's
+    init: its zero mLSTM conv leaves the mLSTM cells silent and the check
+    on the sLSTM blocks (with the conv perturbed as in
+    ``check_engines_small`` the smoke mLSTM amplifies rounding ~1000x, and
+    bfloat16 gradients, the reference's included, land up to 4x their
+    largest entry off float64); qwen3 smoke with ``attn_impl`` "flash"
+    (K9-K11) and "xla"; mixtral smoke with flash attention and
+    ``moe_impl`` "pallas" (K12) and "xla", its matrices drawn at std
+    fan_in ** -0.5 and its embedding at std 1 (``_fan_in_init``): the
+    reference's init draws a stacked leaf at (layer count) ** -0.5, std
+    0.71 at two layers, and its expert FFNs then take the residual from rms
+    0.02 to ~160 in one layer, so the smoke step amplifies rounding ~1700x
+    and bfloat16 gradients land 40-110% of their largest entry off float64,
+    the reference's own bfloat16 run's too
+    (tests/test_torch_bf16_models.py); with the matrices alone rescaled the
+    embedding's gradient, 50x through the first norm, still lands ~3e-2
+    off. ``dev="cpu"``
+    runs the bfloat16 steps on the CPU (the kernels' plain versions)."""
+    from repro_torch import configs
+    from repro_torch.configs import adapters
+    from repro_torch.optim import tree_leaves, tree_map, value_and_grad
+    bf, f64 = torch.bfloat16, torch.float64
+    g = torch.Generator().manual_seed(1)
+    tok = lambda shape: {"tokens": torch.randint(0, 128, shape, generator=g),
+                         "labels": torch.randint(0, 128, shape, generator=g)}
+    k6 = ("slstm_scan_fwd", "slstm_scan_bwd", "slstm_wg")
+    cases = {XLSTM: (tok((4, 8)), [("fused/pallas", dict(engine="fused")),
+                                   ("scheduled", dict(engine="scheduled"))]),
+             QWEN: (tok((2, 24)), [("flash", dict(attn_impl="flash")),
+                                   ("xla", dict(attn_impl="xla"))]),
+             MIXTRAL: (tok((2, 24)), [("pallas", dict(attn_impl="flash", moe_impl="pallas")),
+                                      ("xla", dict(attn_impl="flash", moe_impl="xla"))])}
+    need = {(XLSTM, "fused/pallas"): k6, (XLSTM, "scheduled"): (),
+            (QWEN, "flash"): ("flash_fwd", "flash_dq", "flash_dkv"), (QWEN, "xla"): (),
+            (MIXTRAL, "pallas"): ("flash_fwd", "grouped_matmul"),
+            (MIXTRAL, "xla"): ("flash_fwd",)}
+    for arch, (batch_cpu, routes) in cases.items():
+        spec = configs.get_arch(arch)
+        base = spec.smoke(param_dtype=bf, compute_dtype=bf)
+        if arch == XLSTM:
+            base = adapters.apply_dropout(spec, base, "case3:0.5:bs4:pallas")
+        params = adapters.init_params(spec.kind, torch.Generator().manual_seed(0), base)
+        if arch == MIXTRAL:
+            params = _fan_in_init(params, base.num_layers)
+        wide = dict(param_dtype=f64, compute_dtype=f64)
+        if base.__class__.__name__ == "TransformerConfig" and base.moe is not None:
+            wide["moe"] = dataclasses.replace(base.moe, router_dtype=f64)
+        runs = [("oracle", dataclasses.replace(
+            base, **wide, **({"engine": "fused"} if arch == XLSTM else
+                             {"attn_impl": "xla", "moe_impl": "xla"}
+                             if arch == MIXTRAL else {"attn_impl": "xla"})),
+                 tree_map(lambda p: p.double(), params), "cpu")]
+        runs += [(name, dataclasses.replace(base, **kw), params, dev) for name, kw in routes]
+        results = {}
+        for name, cfg, p, d in runs:
+            if name == "oracle" and arch == XLSTM:
+                cfg = adapters.apply_dropout(spec, cfg, "case3:0.5:bs4:xla")
+            pd = tree_map(lambda x: x.to(d), p)
+            batch = {k_: v.to(d) for k_, v in batch_cpu.items()}
+            lfn = value_and_grad(lambda q, b, **kw: adapters.loss_fn(spec.kind)(q, b, cfg, **kw))
+            reset_counts()
+            loss, grads = lfn(pd, batch, seed=7, step=3)
+            c = read_counts()
+            if d == "cuda" and name != "oracle":
+                assert all(c.get(k_, 0) > 0 for k_ in need[arch, name]), (arch, name, c)
+                if arch == XLSTM and name == "scheduled":
+                    assert not any(c.get(k_, 0) for k_ in k6), (arch, name, c)
+            assert all(x.dtype == (f64 if name == "oracle" else bf)
+                       for x in tree_leaves(grads)), (arch, name)
+            results[name] = [loss.cpu()] + [x.cpu() for x in tree_leaves(grads)]
+        print(f"{arch} smoke in bfloat16 on a small input ({dev}), against float64")
+        for name, _ in routes:
+            compare(f"  {name}/{dev} vs float64 (loss + grads)", results[name],
+                    results["oracle"], BF16_TOL)
+        a, b = routes[0][0], routes[1][0]
+        compare(f"  {a} vs {b}/{dev} (loss + grads)", results[a], results[b], BF16_TOL)
+
+
+def _fan_in_init(params, num_layers):
+    """The transformer's block matrices redrawn at std fan_in ** -0.5 in
+    place of the reference's (layer count) ** -0.5, and the embedding at
+    std 1 in place of 0.02 (a residual stream of rms 1, which the first
+    norm does not amplify 50x): the same normal draws, rescaled in float32
+    and rounded to the leaf's dtype once."""
+    blocks = dict(params["blocks"])
+    for k_ in ("wq", "wk", "wv", "wo", "router", "we_gate", "we_up"):
+        w = blocks[k_]
+        blocks[k_] = (w.float() * (num_layers ** 0.5 * w.shape[-2] ** -0.5)).to(w.dtype)
+    embed = (params["embed"].float() / 0.02).to(params["embed"].dtype)
+    return {**params, "blocks": blocks, "embed": embed}
+
+
 def drive_transformer():
-    """qwen3-8b at full width, cut to Q_LAYERS layers, float32, batch QB x
-    QS, its own plan (nr p=0.25 block 128), remat "full": STEPS training
-    steps through ``steps.make_train_step`` with the trainer's batches, with
-    ``attn_impl="flash"`` (the main path: K9 twice a layer, forward and
-    recompute, K10 and K11 once) and then with ``attn_impl="xla"`` (the
-    step's yardstick, no kernel). Returns {impl: counts}, {impl: [ms]},
-    {impl: peak bytes}."""
+    """qwen3-8b at full width in its config's bfloat16, cut to Q_LAYERS
+    layers, batch QB x QS, its own plan (nr p=0.25 block 128), remat "full":
+    STEPS training steps through ``steps.make_train_step`` with the
+    trainer's batches, with ``attn_impl="flash"`` (the main path: K9 twice
+    a layer, forward and recompute, K10 and K11 once, all bfloat16
+    instantiations) and then with ``attn_impl="xla"`` (the step's
+    yardstick, no kernel), each followed by one traced step. Returns
+    {impl: counts}, {impl: [ms]}, {impl: peak bytes}, {impl: device-time
+    split}."""
     from repro_torch import configs
     from repro_torch.configs import adapters
     from repro_torch.kernels import flash_attention as fa
@@ -1448,14 +1685,15 @@ def drive_transformer():
 
     spec = configs.get_arch(QWEN)
     dev = torch.device("cuda")
-    totals, step_ms, peak = {}, {}, {}
+    totals, step_ms, peak, split = {}, {}, {}, {}
     for impl in ("flash", "xla"):
         cfg = spec.full(num_layers=Q_LAYERS, attn_impl=impl)
         assert (cfg.d_model, cfg.n_heads, cfg.n_kv_eff, cfg.hd, cfg.d_ff,
-                cfg.vocab, cfg.remat) == (4096, QHQ, QHKV, QD, 12288, 151936,
-                                          "full"), cfg
-        print(f"main path: {QWEN}, {Q_LAYERS} layers, batch {QB}, seq {QS}, "
-              f"plan {cfg.plan.to_dict()}, attn_impl {impl}, {STEPS} steps")
+                cfg.vocab, cfg.remat, cfg.param_dtype, cfg.compute_dtype) == (
+                    4096, QHQ, QHKV, QD, 12288, 151936, "full", torch.bfloat16,
+                    torch.bfloat16), cfg
+        print(f"main path: {QWEN}, {Q_LAYERS} of 36 layers, bfloat16, batch {QB}, "
+              f"seq {QS}, plan {cfg.plan.to_dict()}, attn_impl {impl}, {STEPS} steps")
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1490,14 +1728,17 @@ def drive_transformer():
                      f"differ from the expected {want}: {flash}"))
         else:
             assert not any(flash.values()), f"flash kernels launched under xla: {c}"
+        assert all(p.dtype == torch.bfloat16 for p in _leaves(params))
         peak[impl] = torch.cuda.max_memory_allocated()
         print(f"  launches per step ({QWEN}/{impl}): "
               + (", ".join(f"{k_}={v / STEPS:g}" for k_, v in c.items() if v)
-                 or "none of the port's kernels")
-              + f"; peak memory {peak[impl] / 2**30:.2f} GiB")
+                 or "none of the port's kernels"))
+        peak_check(f"{QWEN}/{impl}", peak[impl])
         totals[impl], step_ms[impl] = c, ms
+        params, state, split[impl] = traced_step(f"{QWEN}/{impl}", step_fn,
+                                                 params, state, batch_fn)
         del params, state
-    return totals, step_ms, peak
+    return totals, step_ms, peak, split
 
 
 def check_grouped(out):
@@ -1553,6 +1794,36 @@ def check_grouped(out):
                 "src/repro/kernels/grouped_matmul.py:31", err, ms, pms, lms,
                 nbytes, ops, "cold", name=name, rate=TF32_FLOPS,
                 f64_rel_err=f64_rel, library_f64_rel_err=lib_rel)
+        del x, w, xb
+    # the same at the bfloat16 model's dtype: bfloat16 in and out, float32
+    # sums; against a float64 product within 10 x the bfloat16 plain
+    # version's distance + 1e-6; bound at the bfloat16 rate
+    for tag, D_, F_ in (("gate/up", MD, MF), ("down", MF, MD)):
+        x = torch.randn(T_, D_, device="cuda", generator=g).bfloat16()
+        w = (torch.randn(ME, D_, F_, device="cuda", generator=g) * D_ ** -0.5).bfloat16()
+        print(f"grouped_matmul ({MIXTRAL} {tag}, bfloat16): x ({T_}, {D_}) "
+              f"w ({ME}, {D_}, {F_}) bm={MC}")
+        fk = lambda: gm.grouped_matmul(x, w, blk, bm=MC)
+        fp = lambda: gm.grouped_matmul_plain(x, w, blk, bm=MC)
+        xb = x.view(ME, MC, D_)
+        fl = lambda: torch.bmm(xb, w)
+        got, plain = fk(), fp()
+        assert got.dtype == torch.bfloat16, got.dtype
+        err = compare(f"  grouped_matmul ({tag}, bf16)", got, plain, BF16_TOL)
+        same_bits(f"grouped_matmul ({tag}, bf16) second launch", [got], lambda: [fk()])
+        ref = x[:MC].double() @ w[0, :, :256].double()
+        f64_rel = f64_gate(f"  grouped_matmul ({tag}, bf16), {MC} x 256",
+                           [got[:MC, :256]], [plain[:MC, :256]], [ref])
+        del got, plain, ref
+        ms = time_ms(fk, reps=10, warmup=2, cold_l2=True)
+        pms = time_ms(fp, reps=10, warmup=2, cold_l2=True)
+        lms = time_ms(fl, reps=10, warmup=2, cold_l2=True)
+        nbytes = 2 * (T_ * D_ + ME * D_ * F_ + T_ * F_) + 4 * ME
+        name = "grouped_matmul" if tag == "gate/up" else "grouped_matmul/down"
+        add_row(out, f"grouped_matmul/{D_}x{F_}", MIXTRAL, src,
+                "src/repro/kernels/grouped_matmul.py:31", err, ms, pms, lms,
+                nbytes, 2 * T_ * D_ * F_, "cold", name=name + "/bf16",
+                rate=BF16_FLOPS, f64_rel_err=f64_rel, dtype="bfloat16")
         del x, w, xb
     torch.cuda.empty_cache()
 
@@ -1731,27 +2002,32 @@ def check_mixtral_small():
 
 
 def drive_moe():
-    """mixtral-8x22b at full width, cut to M_LAYERS layer, float32, batch MB
-    x MS (train_4k's sequence), its own plan (nr p=0.25 block 128), remat
-    "full", flash attention: STEPS training steps through
-    ``steps.make_train_step`` with the trainer's batches, with
+    """mixtral-8x22b at full width in its config's bfloat16, cut to
+    M_LAYERS layers, batch MB x MS (train_4k's sequence), its own plan (nr
+    p=0.25 block 128), remat "full", flash attention: STEPS training steps
+    through ``steps.make_train_step`` with the trainer's batches, with
     ``moe_impl="pallas"`` (the main path: K12 six times a layer, three
-    expert products forward and three in the recompute) and then with
-    ``"xla"`` (``torch.matmul``, the step's yardstick). Returns {impl:
-    counts}, {impl: [ms]}, {impl: peak bytes}, {impl: losses}."""
+    expert products forward and three in the recompute, bfloat16 in and
+    out) and then with ``"xla"`` (``torch.matmul`` on the widened operands,
+    the reference's float32 sums; the step's yardstick), each followed by
+    one traced step. Returns {impl: counts}, {impl: [ms]}, {impl: peak
+    bytes}, {impl: losses}, {impl: device-time split}."""
     from repro_torch import configs
     from repro_torch.configs import adapters
     from repro_torch.launch import steps, train
     spec = configs.get_arch(MIXTRAL)
     dev = torch.device("cuda")
-    totals, step_ms, peak, losses = {}, {}, {}, {}
+    totals, step_ms, peak, losses, split = {}, {}, {}, {}, {}
     for impl in ("pallas", "xla"):
         cfg = spec.full(num_layers=M_LAYERS, attn_impl="flash", moe_impl=impl)
         assert (cfg.d_model, cfg.n_heads, cfg.n_kv_eff, cfg.hd, cfg.d_ff, cfg.vocab,
-                cfg.moe.num_experts, cfg.moe.top_k, cfg.window, cfg.remat) == (
-                    MD, 48, 16, 128, MF, 32768, ME, MK, 4096, "full"), cfg
-        print(f"main path: {MIXTRAL}, {M_LAYERS} layer, batch {MB}, seq {MS}, "
-              f"plan {cfg.plan.to_dict()}, moe_impl {impl}, flash, {STEPS} steps")
+                cfg.moe.num_experts, cfg.moe.top_k, cfg.window, cfg.remat,
+                cfg.param_dtype, cfg.compute_dtype) == (
+                    MD, 48, 16, 128, MF, 32768, ME, MK, 4096, "full",
+                    torch.bfloat16, torch.bfloat16), cfg
+        print(f"main path: {MIXTRAL}, {M_LAYERS} of 56 layers, bfloat16, batch {MB}, "
+              f"seq {MS}, plan {cfg.plan.to_dict()}, moe_impl {impl}, flash, "
+              f"{STEPS} steps")
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1782,17 +2058,22 @@ def drive_moe():
                 "flash_dkv": M_LAYERS * STEPS}
         got = {k_: c.get(k_, 0) for k_ in want}
         assert got == want, f"{MIXTRAL}/{impl}: launches {got}, expected {want}"
+        assert all(p.dtype == torch.bfloat16 for p in _leaves(params))
         peak[impl] = torch.cuda.max_memory_allocated()
         print(f"  {n_params} parameters; launches per step ({MIXTRAL}/{impl}): "
-              + ", ".join(f"{k_}={v / STEPS:g}" for k_, v in c.items() if v)
-              + f"; peak memory {peak[impl] / 2**30:.2f} GiB")
+              + ", ".join(f"{k_}={v / STEPS:g}" for k_, v in c.items() if v))
+        peak_check(f"{MIXTRAL}/{impl}", peak[impl])
         totals[impl], step_ms[impl], losses[impl] = c, ms, ls_
+        params, state, split[impl] = traced_step(f"{MIXTRAL}/{impl}", step_fn,
+                                                 params, state, batch_fn)
         del params, state
+    # K12 rounds its sums into bfloat16 where the xla route keeps the
+    # reference's float32 sums; at the loss ~1e-6 (9.6e-7 on an H100, 700 W)
     rel = abs(losses["pallas"][0] - losses["xla"][0]) / abs(losses["xla"][0])
     print(f"  step-0 loss pallas {losses['pallas'][0]:.6f} vs xla "
           f"{losses['xla'][0]:.6f}: relative difference {rel:.3e} (limit 1e-4)")
     assert rel <= 1e-4, rel
-    return totals, step_ms, peak, losses
+    return totals, step_ms, peak, losses, split
 
 
 # ---------------------------------------------------------------------------
@@ -1805,7 +2086,10 @@ SXB, SXN, SXP, SXG = 8, 32, 64, 64     # xlstm-1.3b trace: slots, requests, max 
 SNB, SNS, SNT, SNG = 64, 50, 8, 50     # luong-nmt: batch, source, target prefix, generated
 # native (K9) vs replay prefill of qwen3-8b: the first decode logits agree
 # within this x max(1, |ref|) (float32 products in other orders over 36
-# layers; the measured distance is printed beside it)
+# layers; the measured distance is printed beside it); in bfloat16 within
+# BF16_TOL (activations rounded to bfloat16 at other points: K9 keeps a
+# prompt's scores in float32 where the replay's decode steps read bfloat16
+# caches)
 PREFILL_TOL = 1e-3
 
 
@@ -1888,7 +2172,8 @@ def _loops(eng, prefill, n_gen, B_, what):
 
 
 def serve_qwen():
-    """qwen3-8b, 36 of 36 layers, float32, ``attn_impl="flash"``: prefill
+    """qwen3-8b, 36 of 36 layers, in its config's bfloat16 (bfloat16 KV
+    cache, float32 logits), ``attn_impl="flash"``: prefill
     SQB x (SQP - 1) tokens natively (K9 once a layer, no K10 / K11, no other
     kernel), then SQG tokens by the graph loop and by the python loop;
     native against replay prefill at SQ_CHECK tokens on the first decode
@@ -1900,8 +2185,10 @@ def serve_qwen():
                          c.d_ff, c.vocab) == (36, 4096, QHQ, QHKV, QD, 12288, 151936),
         attn_impl="flash")
     n_params = sum(p.numel() for p in _leaves(params))
-    print(f"serving: {QWEN}, 36 of 36 layers ({n_params} parameters, float32), "
-          f"flash, batch {SQB}, prompt {SQP}, {SQG} generated, chunk {SQC}")
+    assert cfg.param_dtype == cfg.compute_dtype == torch.bfloat16, cfg
+    print(f"serving: {QWEN}, 36 of 36 layers ({n_params} parameters, "
+          f"{str(cfg.param_dtype)[6:]}), flash, batch {SQB}, prompt {SQP}, "
+          f"{SQG} generated, chunk {SQC}")
     eng = DecodeEngine(spec=spec, cfg=cfg, params=params, max_seq=SQP + SQG,
                        batch=SQB, chunk=SQC)
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -1917,6 +2204,8 @@ def serve_qwen():
                                        method=method)
         return tok0, pos0
 
+    assert all(v.dtype == torch.bfloat16 for v in eng.state.values()), \
+        "the KV cache is not bfloat16"
     reset_counts()
     res = _loops(eng, prefill, SQG, SQB, QWEN)
     res["peak_bytes"] = torch.cuda.max_memory_allocated()
@@ -1936,7 +2225,7 @@ def serve_qwen():
     assert not off, off
     err = compare(f"  first decode logits after native (K9) vs replay prefill of "
                   f"{SQ_CHECK - 1} tokens", logits["native"], logits["replay"],
-                  PREFILL_TOL)
+                  PREFILL_TOL if cfg.compute_dtype == torch.float32 else BF16_TOL)
     res["native_vs_replay_max_abs_err"] = err
     res["native_vs_replay_rel_err"] = err / max(1.0, logits["replay"].abs().max().item())
     print(f"  peak memory {res['peak_bytes']} bytes ({res['peak_bytes'] / 2**30:.2f} GiB)")
@@ -1945,7 +2234,8 @@ def serve_qwen():
 
 
 def serve_xlstm():
-    """xlstm-1.3b, 48 of 48 blocks, float32: a continuous-batching trace of
+    """xlstm-1.3b, 48 of 48 blocks, in its config's bfloat16 (float32
+    recurrent state, bfloat16 conv ring): a continuous-batching trace of
     SXN requests over SXB slots (prompts 2..SXP, budgets SXG // 4..SXG, the
     reference's ``_ragged_trace`` with seed 0), chunk 16, run twice in the
     same order for the same tokens; then rectangular at batch SXB (prompt
@@ -1958,7 +2248,10 @@ def serve_xlstm():
     eng = DecodeEngine(spec=spec, cfg=cfg, params=params, max_seq=SXP + SXG,
                        batch=SXB, chunk=16)
     state_bytes = sum(v.numel() * v.element_size() for v in eng.state.values())
-    print(f"serving: {XLSTM}, 48 of 48 blocks, float32, {SXB} slots "
+    assert cfg.param_dtype == cfg.compute_dtype == torch.bfloat16, cfg
+    assert eng.state["m_C"].dtype == torch.float32 and eng.state["m_conv"].dtype == \
+        torch.bfloat16, {k_: v.dtype for k_, v in eng.state.items()}
+    print(f"serving: {XLSTM}, 48 of 48 blocks, {str(cfg.param_dtype)[6:]}, {SXB} slots "
           f"({state_bytes / SXB / 2**30:.3f} GiB of decode state a slot)")
     reqs = ragged_trace(SXN, cfg.vocab, SXP, SXG, 0)
     # host time in the engine's two calls (each ends in a device sync)
@@ -2080,6 +2373,57 @@ def serve_smoke_card_vs_cpu():
         assert same and orders, (got["cpu"], got["cuda"])
 
 
+def decode_dtypes():
+    """The python loop's cost in float32 against bfloat16 within this call:
+    qwen3-8b (36 layers) and xlstm-1.3b (48 blocks) whole, batch SQB,
+    ``decode_step`` alone, SQC steps timed after 2 warm-ups, in
+    the order float32, bfloat16, bfloat16, float32 (mean of the two runs
+    of each); and the device kernels one step launches
+    (``torch.profiler``'s count of CUDA kernel events, once a run; the
+    profiler may drop a record), which the python loop pays one launch
+    each and the captured graph replays. Returns {arch: {dtype: {"ms",
+    "kernels", "ms_per_step"}}}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
+    from repro_torch.configs import adapters
+    out = {}
+    for arch in (QWEN, XLSTM):
+        spec = configs.get_arch(arch)
+        res = {}
+        for dt in (torch.float32, torch.bfloat16, torch.bfloat16, torch.float32):
+            cfg = spec.full(param_dtype=dt, compute_dtype=dt)
+            gc.collect()
+            torch.cuda.empty_cache()
+            params = adapters.init_params(
+                spec.kind, torch.Generator(device="cuda").manual_seed(0), cfg,
+                device=torch.device("cuda"))
+            state = adapters.init_decode_state(spec, cfg, SQB, SQC + 4, device="cuda")
+            tok = torch.ones((SQB, 1), dtype=torch.int32, device="cuda")
+            step = adapters.decode_fn(spec)
+            for pos in range(2):
+                step(params, cfg, state, tok, pos)
+            _, ms = _timed(lambda: [step(params, cfg, state, tok, 2 + i)
+                                    for i in range(SQC)])
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                step(params, cfg, state, tok, 2 + SQC)
+                torch.cuda.synchronize()
+            n = sum(e.count for e in prof.key_averages()
+                    if getattr(e, "device_type", None) == DeviceType.CUDA)
+            r = res.setdefault(str(dt)[6:], {"ms": [], "kernels": []})
+            r["ms"].append(ms / SQC)
+            r["kernels"].append(n)
+            del params, state
+        for r in res.values():
+            r["ms_per_step"] = sum(r["ms"]) / 2
+        print(f"  {arch} decode_step, {cfg.num_layers} layers, batch {SQB}: "
+              + "; ".join(f"{d} {r['ms_per_step']:.3f} ms a step ({', '.join(f'{x:.3f}' for x in r['ms'])}), "
+                          f"{' / '.join(map(str, r['kernels']))} kernels a step"
+                          for d, r in res.items()))
+        out[arch] = res
+    return out
+
+
 def drive_serving():
     """The serving phase, under ``torch.inference_mode()``: qwen3-8b,
     xlstm-1.3b and luong-nmt served whole at full width, then card against
@@ -2089,38 +2433,54 @@ def drive_serving():
         q, counts, n_native = serve_qwen()
         out = {QWEN: q, XLSTM: serve_xlstm(), NMT: serve_nmt()}
         serve_smoke_card_vs_cpu()
+        out["decode_dtypes"] = decode_dtypes()
     return out, {"prefill": counts}, n_native
 
 
-def check_flash_prefill(gen, out):
+def check_flash_prefill(gen, out, dtype=torch.float32):
     """K9 at qwen3-8b's serving prefill (B=SQB, Sq=Sk=SQP-1, 32 query heads
-    over 16 kv heads of 128, causal): against its plain version (1e-3 x
-    max(1, |ref|)) and a float64 forward over one (batch, kv head) group
-    (``FLASH_F64_TOL``), timed beside the plain version and SDPA's forward,
-    cold L2; the row takes its launches from the serving phase."""
+    over 16 kv heads of 128, causal), timed beside the plain version and
+    SDPA's forward, cold L2; the row takes its launches from the serving
+    phase, which runs the bfloat16 instantiation. float32: against its
+    plain version (1e-3 x max(1, |ref|)) and a float64 forward over one
+    (batch, kv head) group (``FLASH_F64_TOL``). bfloat16 (the serving
+    path's dtype): against its plain version within BF16_TOL and, over
+    every group, against float64 within 10 x the bfloat16 plain version's
+    distance + 1e-6 (``flash_f64_bf16``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     S = SQP - 1
-    r = lambda *shape: torch.randn(*shape, generator=gen).cuda()
+    bf = dtype == torch.bfloat16
+    r = lambda *shape: torch.randn(*shape, generator=gen).to("cuda", dtype)
     q, k, v = r(SQB, S, QHQ, QD), r(SQB, S, QHKV, QD), r(SQB, S, QHKV, QD)
     print(f"flash_attention forward at the serving prefill: B={SQB} S={S} "
-          f"Hq={QHQ} Hkv={QHKV} d={QD} causal")
+          f"Hq={QHQ} Hkv={QHKV} d={QD} causal {dtype}")
     fwd_k = lambda: fa.flash_fwd_cuda(q, k, v, True)
     fwd_p = lambda: fa.attention_plain(q, k, v, True)
-    err = compare("  flash_fwd (prefill)", list(fwd_k()), list(fwd_p()), 1e-3)
-    f64 = flash_fwd_f64(fa, q, k, v, True, None)
+    tag = " (prefill, bf16)" if bf else " (prefill)"
+    err = compare("  flash_fwd" + tag, list(fwd_k()), list(fwd_p()),
+                  BF16_TOL if bf else 1e-3)
+    if bf:
+        same_bits("flash_fwd second launch" + tag, list(fwd_k()), lambda: list(fwd_k()))
+        f64 = flash_f64_bf16(fa, q, k, v, None, True, None, backward=False)
+        extra = dict(dtype="bfloat16", f64_rel_err=f64["flash_fwd"])
+    else:
+        f64 = flash_fwd_f64(fa, q, k, v, True, None)
+        extra = dict(f64_rel_err=f64["flash_fwd"], library_f64_rel_err=f64["sdpa_fwd"])
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     lib = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True), cold_l2=True)
     pairs = S * (S + 1) // 2
     prod = 2 * SQB * QHQ * pairs * QD
-    qb, kb = SQB * S * QHQ * QD * 4, SQB * S * QHKV * QD * 4
+    es = torch.finfo(dtype).bits // 8
+    qb, kb = SQB * S * QHQ * QD * es, SQB * S * QHKV * QD * es
+    # bfloat16: the products at the bfloat16 rate; float32: 3xTF32
+    passes, rate = (1, BF16_FLOPS) if bf else (3, TF32_FLOPS)
     add_row(out, "flash_fwd", SERVE, "src/repro_torch/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention.py:45", err,
             time_ms(fwd_k, cold_l2=True), time_ms(fwd_p, cold_l2=True), lib,
-            qb + 2 * kb + qb + 4 * SQB * QHQ * S, 3 * 2 * prod, "cold",
-            name="flash_fwd@prefill", rate=TF32_FLOPS,
-            f64_rel_err=f64["flash_fwd"], library_f64_rel_err=f64["sdpa_fwd"])
+            qb + 2 * kb + qb + 4 * SQB * QHQ * S, passes * 2 * prod, "cold",
+            name="flash_fwd@prefill" + ("/bf16" if bf else ""), rate=rate, **extra)
 
 
 def steady_median(ms):
@@ -2208,10 +2568,29 @@ def main() -> int:
     check_slstm(gen, 9, 4, 3, 16, 0.5, "structured", bs=1, tag="(handoff)")
     check_slstm(gen, 6, 2, 1, 2048, XP, "structured", bs=XBS, fresh=True,
                 tag="(one head of 2048: R columns through L2)")
+    # the same at the reference's dtype: bfloat16 xg and R, float32 states,
+    # at xlstm-1.3b's shape in each mode, then on small inputs
+    bf = dict(dtype=torch.bfloat16)
+    check_slstm(gen, XT, XB, XNH, XDH, XP, "structured", bs=XBS, fresh=True,
+                out=rows, tag="(main path, bf16)", **bf)
+    check_slstm(gen, XT, XB, XNH, XDH, XP, "dense", fresh=True, tag="(dense, bf16)", **bf)
+    check_slstm(gen, XT, XB, XNH, XDH, XP, "structured", bs=XBS, fixed=True,
+                fresh=True, tag="(FIXED, bf16)", **bf)
+    check_slstm(gen, XT, XB, XNH, XDH, XP, "structured", bs=XBS, ragged=True,
+                fresh=True, tag="(ragged, bf16)", **bf)
+    check_slstm(gen, XT, XB, XNH, XDH, XP, "structured", bs=XBS,
+                tag="(handoff, bf16)", **bf)
+    check_slstm(gen, 9, 5, 3, 15, 0.5, "structured", bs=1, ragged=True,
+                tag="(odd dh, ragged, bf16)", **bf)
+    check_slstm(gen, 6, 2, 1, 2048, XP, "structured", bs=XBS, fresh=True,
+                tag="(one head of 2048, bf16)", **bf)
     # qwen3-8b: K9-K11 at the attention's shape, then every mode on small
     # inputs
     check_flash(gen, QB, QS, QS, QHQ, QHKV, QD, out=rows, tag="(main path)")
+    check_flash(gen, QB, QS, QS, QHQ, QHKV, QD, out=rows, tag="(main path, bf16)",
+                dtype=torch.bfloat16)
     check_flash_prefill(gen, rows)
+    check_flash_prefill(gen, rows, torch.bfloat16)
     check_flash_modes(gen)
     # mixtral-8x22b: K12 at the expert products' shapes, then small modes;
     # K5 at zaremba-medium's cell
@@ -2224,6 +2603,7 @@ def main() -> int:
     check_viterbi()
     check_qwen_small()
     check_mixtral_small()
+    check_bf16_small()
 
     counts, step_ms, path_peak = drive_main_path()
     crf_ms = time_crf()
@@ -2237,7 +2617,7 @@ def main() -> int:
     counts[STACK] = drive_lstm_stack()
     gc.collect()
     torch.cuda.empty_cache()
-    x_counts, x_ms, x_peak, _ = drive_xlstm()
+    x_counts, x_ms, x_peak, _, x_split = drive_xlstm()
     counts[XLSTM] = x_counts
     for engine, ms in x_ms.items():
         step_ms[f"{XLSTM}/{engine}"] = ms
@@ -2247,7 +2627,7 @@ def main() -> int:
               f"{x_peak[engine]} bytes ({x_peak[engine] / 2**30:.2f} GiB)")
     gc.collect()
     torch.cuda.empty_cache()
-    q_counts, q_ms, q_peak = drive_transformer()
+    q_counts, q_ms, q_peak, q_split = drive_transformer()
     counts[QWEN] = q_counts
     for impl, ms in q_ms.items():
         step_ms[f"{QWEN}/{impl}"] = ms
@@ -2257,7 +2637,7 @@ def main() -> int:
               f"{q_peak[impl]} bytes ({q_peak[impl] / 2**30:.2f} GiB)")
     gc.collect()
     torch.cuda.empty_cache()
-    m_counts, m_ms, m_peak, _ = drive_moe()
+    m_counts, m_ms, m_peak, _, m_split = drive_moe()
     counts[MIXTRAL] = m_counts
     for impl, ms in m_ms.items():
         step_ms[f"{MIXTRAL}/{impl}"] = ms
@@ -2295,6 +2675,9 @@ def main() -> int:
                       "xlstm_peak_bytes": x_peak,
                       "qwen3_peak_bytes": q_peak,
                       "mixtral_peak_bytes": m_peak,
+                      "depths": {XLSTM: {"fused": X_LAYERS, "scheduled": XS_LAYERS}, QWEN: Q_LAYERS, MIXTRAL: M_LAYERS},
+                      "device_split": {XLSTM: x_split, QWEN: q_split,
+                                       MIXTRAL: m_split},
                       "serving": serving}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,8 +10,9 @@ other wrote (one directory a step):
   * Leaves are keyed by their "/"-joined tree paths (dict keys, list and
     tuple indices: "0/fwd/0/W", "1/1/m/crf"), the keys JAX's
     ``tree_flatten_with_path`` gives the same tree; a None subtree has no
-    leaves. Tensors are stored as numpy arrays, Python ints as int32,
-    floats as float32, bools as bool.
+    leaves. Tensors are stored as numpy arrays (bfloat16 ones as float32,
+    which holds them exactly: a restore casts back to the same bits),
+    Python ints as int32, floats as float32, bools as bool.
   * A step without MANIFEST.json is incomplete (a crash mid-write): it is
     ignored, and removed by the next save once a later step is complete.
     ``keep`` complete steps are kept.
@@ -35,6 +36,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.convert import to_numpy, to_tensor
+
 
 def _items(tree, prefix=""):
     """(path key, leaf) pairs in tree order (dict keys sorted, as JAX
@@ -52,7 +55,7 @@ def _items(tree, prefix=""):
 
 def _np(v) -> np.ndarray:
     if torch.is_tensor(v):
-        return v.detach().cpu().numpy()
+        return to_numpy(v)
     if isinstance(v, (bool, np.bool_)):
         return np.asarray(v, np.bool_)
     if isinstance(v, (int, np.integer)):
@@ -121,8 +124,7 @@ def _like(ref, v: np.ndarray):
     """A stored array as the kind of leaf ``ref`` is: a tensor of ref's
     dtype on ref's device, or a Python scalar."""
     if torch.is_tensor(ref):
-        return torch.from_numpy(np.array(v, copy=True)).to(
-            device=ref.device, dtype=ref.dtype)
+        return to_tensor(v).to(device=ref.device, dtype=ref.dtype)
     if isinstance(ref, bool):
         return bool(v)
     if isinstance(ref, int):

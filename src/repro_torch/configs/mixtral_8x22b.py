@@ -5,9 +5,10 @@ theta 1e6 [arXiv:2401.04088].
 
 Widths, depth, experts, window, ``kv_repeat=2`` (the attention kernels see
 16 kv heads, a group of 3 query heads each), the attention chunks and the
-dropout plan (NR p=0.25, block 128) are the reference's. The dtype is
-float32 (the reference's config trains in bfloat16): the port's kernels are
-float32 and its matrix products run without TF32 (repro_torch/device.py).
+dropout plan (NR p=0.25, block 128) are the reference's, and so are the
+dtypes: bfloat16 parameters and compute (float32 router, logits, loss and
+optimizer moments); ``full(param_dtype=torch.float32,
+compute_dtype=torch.float32)`` gives the float32 model.
 ``moe_impl="pallas"`` (set with ``dataclasses.replace``) runs the expert
 products on K12, ``attn_impl="flash"`` the attention on K9-K11.
 """
@@ -25,7 +26,7 @@ def full(**kw):
         n_kv_heads=8, head_dim=128, d_ff=16384, vocab=32768,
         moe=MoEConfig(num_experts=8, top_k=2), window=4096,
         mlp="swiglu", rope_theta=1e6, max_seq=1 << 20,
-        param_dtype=torch.float32, compute_dtype=torch.float32,
+        param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
         kv_repeat=2, q_chunk=1024, kv_chunk=1024,
         plan=DropoutPlan({"nr": DropoutSpec(rate=0.25, block_size=128)}),
     )

@@ -6,9 +6,10 @@ Widths, depth, ``kv_repeat=2`` (the kernels see 16 kv heads), the attention
 chunks and the dropout plan (NR p=0.25, block 128) are the reference's, and
 so is the default ``attn_impl="xla"``; ``attn_impl="flash"`` (set with
 ``dataclasses.replace``, as the reference's ``qwen3_flash`` experiment)
-runs the flash-attention kernels. The dtype is float32 (the reference's
-config trains in bfloat16): the port's kernels are float32 and its matrix
-products run without TF32 (repro_torch/device.py).
+runs the flash-attention kernels. The dtypes are the reference's:
+bfloat16 parameters and compute (float32 logits, loss and optimizer
+moments); ``full(param_dtype=torch.float32, compute_dtype=torch.float32)``
+gives the float32 model.
 """
 import torch
 
@@ -23,7 +24,7 @@ def full(**kw):
         name="qwen3-8b", num_layers=36, d_model=4096, n_heads=32,
         n_kv_heads=8, head_dim=128, d_ff=12288, vocab=151936,
         qk_norm=True, mlp="swiglu", rope_theta=1e6, max_seq=1 << 20,
-        param_dtype=torch.float32, compute_dtype=torch.float32,
+        param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
         kv_repeat=2, q_chunk=1024, kv_chunk=1024,
         plan=DropoutPlan({"nr": DropoutSpec(rate=0.25, block_size=128)}),
     )

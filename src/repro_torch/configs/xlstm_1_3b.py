@@ -3,9 +3,10 @@
 architecture closest to the paper: sLSTM blocks carry a true h -> h
 recurrence, so RH structured dropout applies directly.
 
-Widths, depth and the dropout plan are the reference's. The dtype is
-float32 (the reference's config trains in bfloat16): the port's kernels are
-float32 and its matrix products run without TF32 (repro_torch/device.py).
+Widths, depth, the dropout plan and the dtypes are the reference's:
+bfloat16 parameters and compute, float32 recurrent states and optimizer
+moments. ``full(param_dtype=torch.float32, compute_dtype=torch.float32)``
+gives the float32 model.
 """
 import torch
 
@@ -19,7 +20,7 @@ def full(**kw):
     d = dict(
         name="xlstm-1.3b", num_layers=48, d_model=2048, n_heads=4,
         vocab=50304, proj_factor=2.0, slstm_every=8, conv_kernel=4,
-        chunk=256, param_dtype=torch.float32, compute_dtype=torch.float32,
+        chunk=256, param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
         plan=DropoutPlan({"nr": DropoutSpec(rate=0.25, block_size=128),
                           "rh": DropoutSpec(rate=0.25, block_size=64)}),
     )

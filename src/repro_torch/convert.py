@@ -6,6 +6,12 @@ W (D, 4H), U (H, 4H), gate order i,f,g,o; xLSTM's stacked per-family
 leaves, R (H, dh, 4dh) — so conversion is a leaf-wise copy.
 ``from_reference`` builds the port's tensors on a device; ``to_reference``
 returns numpy arrays.
+
+bfloat16 crosses bit for bit in both directions without ``ml_dtypes``: a
+reference bfloat16 array (``a.dtype.name == "bfloat16"``) is viewed as
+uint16 and reinterpreted as ``torch.bfloat16``; a bfloat16 tensor comes back
+as float32 numpy, which holds every bfloat16 value exactly (casting it to
+bfloat16 gives the same bits).
 """
 from __future__ import annotations
 
@@ -23,8 +29,25 @@ def from_reference(tree, device="cpu", dtype=None):
     if isinstance(tree, (list, tuple)):
         out = [from_reference(v, device, dtype) for v in tree]
         return type(tree)(out) if isinstance(tree, tuple) else out
-    t = torch.from_numpy(np.array(tree, copy=True))
+    t = to_tensor(tree)
     return t.to(device=device, dtype=dtype) if dtype is not None else t.to(device)
+
+
+def to_tensor(a) -> torch.Tensor:
+    """An array-like as a new CPU tensor of its dtype; bfloat16 numpy arrays
+    (``ml_dtypes``) by their bits."""
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array on the host; bfloat16 as float32 (exact)."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
 
 
 def to_reference(tree):
@@ -36,4 +59,4 @@ def to_reference(tree):
     if isinstance(tree, (list, tuple)):
         out = [to_reference(v) for v in tree]
         return type(tree)(out) if isinstance(tree, tuple) else out
-    return tree.detach().cpu().numpy()
+    return to_numpy(tree)

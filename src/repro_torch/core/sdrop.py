@@ -60,6 +60,14 @@ class DropoutSpec:
                            impl=d.get("impl", "xla"))
 
 
+def scale_as(scale: float, dtype: torch.dtype) -> float:
+    """The inverted-dropout scale as the reference applies it to a tensor of
+    ``dtype``: ``jnp.asarray(scale, dtype)``, rounded to that dtype (in
+    bfloat16, 4/3 is 1.3359375). For float32 the same bits as multiplying
+    by the Python float."""
+    return float(torch.tensor(scale, dtype=dtype))
+
+
 @dataclasses.dataclass
 class DropoutState:
     """Materialized dropout decision for one application point.
@@ -87,8 +95,8 @@ class DropoutState:
         if self.structured:
             m = masks.keep_blocks_to_mask(self.keep_blocks, x.shape[-1],
                                           self.spec.block_size)
-            return x * m.to(x.dtype) * self.scale
-        return x * self.dense_mask.to(x.dtype) * self.scale
+            return x * m.to(x.dtype) * scale_as(self.scale, x.dtype)
+        return x * self.dense_mask.to(x.dtype) * scale_as(self.scale, x.dtype)
 
 
 def make_state(generator: Optional[torch.Generator], spec: DropoutSpec,

@@ -22,6 +22,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import masks as _masks
+from repro_torch.core.sdrop import scale_as
 from repro_torch.kernels import gather_matmul as _gm
 
 
@@ -31,6 +32,14 @@ def _unit_ids(keep_blocks: torch.Tensor, block_size: int) -> torch.Tensor:
 
 def _flat(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(-1, x.shape[-1])
+
+
+def _wg(a: torch.Tensor, b: torch.Tensor, scale: float) -> torch.Tensor:
+    """scale * (a @ b) (batched for 3-D operands), the float32 sums scaled
+    before their one rounding (``addmm``'s alpha), as the reference scales
+    its float32 product and then casts."""
+    mm = torch.baddbmm if a.dim() == 3 else torch.addmm
+    return mm(a.new_zeros(()), a, b, beta=0, alpha=scale)
 
 
 # ---------------------------------------------------------------------------
@@ -50,7 +59,8 @@ class _SdropMatmulIn(torch.autograd.Function):
                                   alpha=scale)
             y = y.reshape(*x.shape[:-1], w.shape[-1])
         else:
-            y = (x_c @ w[ids]) * scale
+            y = x_c @ w[ids]
+            y = y * scale_as(scale, y.dtype)
         ctx.save_for_backward(x_c, w, keep_blocks)
         ctx.cfg = (scale, block_size, x_is_compact, impl, x.shape[-1])
         return y
@@ -69,14 +79,15 @@ class _SdropMatmulIn(torch.autograd.Function):
                                      alpha=scale)
             dx_c = dx_c.reshape(*dy.shape[:-1], x_c.shape[-1])
         else:
-            dx_c = (dy @ w[ids].t()) * scale
+            dx_c = dy @ w[ids].t()
+            dx_c = dx_c * scale_as(scale, dx_c.dtype)
         if x_is_compact:
             dx = dx_c
         else:
             dx = dy.new_zeros((*dy.shape[:-1], in_dim)).index_copy_(
                 dy.ndim - 1, ids, dx_c)
         # WG (row sparsity): a compact (k, N) product into the kept rows.
-        dw_c = (_flat(x_c).t() @ dy2) * scale
+        dw_c = _wg(_flat(x_c).t(), dy2, scale)
         dw = torch.zeros_like(w).index_copy_(0, ids, dw_c)
         return dx, dw, None, None, None, None, None
 
@@ -103,7 +114,7 @@ class _SdropMatmulSched(torch.autograd.Function):
             ctx.save_for_backward(x_c, w, kb_table)
             return y
         m = _masks.keep_blocks_to_mask(kb_table, x.shape[-1], block_size)  # (T, D)
-        xm = x * m[:, None, :].to(x.dtype) * scale
+        xm = x * m[:, None, :].to(x.dtype) * scale_as(scale, x.dtype)
         ctx.save_for_backward(xm, w, kb_table)
         return xm @ w
 
@@ -124,13 +135,13 @@ class _SdropMatmulSched(torch.autograd.Function):
             # WG: per-step compact (k, N) products summed into the kept
             # rows (rows kept at several steps accumulate; on CUDA the
             # index_add_ order is not deterministic).
-            dw_c = torch.bmm(x_c.transpose(1, 2), dy) * scale  # (T, k, N)
+            dw_c = _wg(x_c.transpose(1, 2), dy, scale)             # (T, k, N)
             dw = torch.zeros_like(w).index_add_(
                 0, ids.reshape(-1), dw_c.reshape(T * k, -1))
             return dx, dw, None, None, None, None
         xm, w, kb_table = ctx.saved_tensors
         m = _masks.keep_blocks_to_mask(kb_table, w.shape[0], block_size)
-        dx = (dy @ w.t()) * m[:, None, :].to(dy.dtype) * scale
+        dx = (dy @ w.t()) * m[:, None, :].to(dy.dtype) * scale_as(scale, dy.dtype)
         dw = _flat(xm).t() @ _flat(dy)
         return dx, dw, None, None, None, None
 
@@ -151,7 +162,8 @@ class _SdropMatmulOut(torch.autograd.Function):
                                     alpha=scale)
             y_c = y_c.reshape(*x.shape[:-1], y_c.shape[-1])
         else:
-            y_c = (x @ w[:, ids]) * scale
+            y_c = x @ w[:, ids]
+            y_c = y_c * scale_as(scale, y_c.dtype)
         ctx.save_for_backward(x, w, keep_blocks)
         ctx.cfg = (scale, block_size)
         return y_c
@@ -162,8 +174,8 @@ class _SdropMatmulOut(torch.autograd.Function):
         scale, block_size = ctx.cfg
         ids = _unit_ids(keep_blocks, block_size)
         w_c = w[:, ids]
-        dx = (dy_c @ w_c.t()) * scale
-        dw_c = (_flat(x).t() @ _flat(dy_c)) * scale
+        dx = (dy_c @ w_c.t()) * scale_as(scale, dy_c.dtype)
+        dw_c = _wg(_flat(x).t(), _flat(dy_c), scale)
         dw = torch.zeros_like(w).index_copy_(1, ids, dw_c)
         return dx, dw, None, None, None, None
 

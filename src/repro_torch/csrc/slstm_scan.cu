@@ -1,4 +1,5 @@
-// Fused persistent-scan sLSTM recurrence on Hopper (sm_90a), float32.
+// Fused persistent-scan sLSTM recurrence on Hopper (sm_90a), float32 or
+// bfloat16 xg and R with float32 states and float32 arithmetic.
 //
 // Replaces the Pallas TPU kernels of repro/kernels/cell_scan.py in their
 // sLSTM instance (repro/kernels/slstm_scan.py, SLSTM_CELL), K6:
@@ -25,6 +26,17 @@
 // stabilizer's branch (lf + m_prev >= gi, ties to forget) from the gates and
 // m values that the forward stored. Every sum runs in a fixed order (no
 // atomics), so a second launch gives the same bits.
+//
+// bfloat16 (the reference's dtype contract, repro/kernels/cell_scan.py):
+// xg and R may be bfloat16, h0 and the states float32. Loads widen to
+// float32 and every product and state update stays float32; the gates
+// residual and dgx are written in xg's dtype, hs and the state sequences
+// in float32, dR in R's dtype. The backward reads the rounded gates
+// residual, as the reference's does, and also writes its float32 dgates to
+// a second buffer: WG sums dR from those, not from the rounded dgx. The
+// scans stage a step's bfloat16 xg or gates columns in shared memory by
+// 4-byte cp.async of unit pairs (by plain copies where dh or J is odd); R
+// is widened into the same float32 shared-memory tile as in float32.
 //
 // What bounds it on the H100: the recurrence is serial in T, and one step's
 // product is tiny (xlstm-1.3b: B=2 rows x k=384 kept units x 2048 columns
@@ -93,6 +105,7 @@
 // walks the unit blocks fastest, so CTAs resident together share their
 // dgx columns in L2. Each output is summed by one thread in chunk order:
 // no atomics.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -244,15 +257,23 @@ __device__ __forceinline__ float sum_split(const float* v, size_t stride, int n)
   return (c[0] + c[1]) + (c[2] + c[3]);
 }
 
+__device__ __forceinline__ float ld_f(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld_f(const __nv_bfloat16* p) { return __bfloat162float(__ldg(p)); }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
 // One unit's four gate columns (i, f, z, o) of row u of this head's R.
-__device__ __forceinline__ float4 r_quad(const float* Rh, int u, int D, int col, bool ok) {
+template <class TI>
+__device__ __forceinline__ float4 r_quad(const TI* Rh, int u, int D, int col, bool ok) {
   if (!ok) return make_float4(0.f, 0.f, 0.f, 0.f);
-  const float* r = Rh + (size_t)u * 4 * D + col;
-  return make_float4(__ldg(r), __ldg(r + D), __ldg(r + 2 * D), __ldg(r + 3 * D));
+  const TI* r = Rh + (size_t)u * 4 * D + col;
+  return make_float4(ld_f(r), ld_f(r + D), ld_f(r + 2 * D), ld_f(r + 3 * D));
 }
 
 // Rs[u * stride + q]: the quads of the own units q < J, rows u < D.
-__device__ __forceinline__ void fill_rs(float4* Rs, int stride, const float* Rh, int D, int J,
+template <class TI>
+__device__ __forceinline__ void fill_rs(float4* Rs, int stride, const TI* Rh, int D, int J,
                                         int j0, int Jc) {
 #pragma unroll 1
   for (int e = threadIdx.x; e < D * J; e += NT) {
@@ -261,15 +282,46 @@ __device__ __forceinline__ void fill_rs(float4* Rs, int stride, const float* Rh,
   }
 }
 
-// RES: the CTA's R columns (D x 4J) stay resident in shared memory.
-template <bool RES>
+// bfloat16 scans: the own units' four gate columns of one step (xg in the
+// forward, the gates residual in the backward; src_t at the step's first
+// row) into dst[(b * 4 + g) * JE + q], JE = J rounded up to even. Unit
+// pairs go by 4-byte cp.async where `pairs` (dh and J even, src 4-byte
+// aligned), the rest by plain copies.
+__device__ __forceinline__ void stage_gates(__nv_bfloat16* dst, const __nv_bfloat16* src_t,
+                                            int B, int NH, int hd, int D, int j0, int Jc,
+                                            int JE, bool pairs) {
+  const int np = (Jc + 1) / 2;
+#pragma unroll 1
+  for (int e = threadIdx.x; e < B * 4 * np; e += NT) {
+    const int bg = e / np, pq = e - bg * np, b = bg >> 2, g = bg & 3, q = 2 * pq;
+    const __nv_bfloat16* s = src_t + ((size_t)b * NH + hd) * 4 * D + (size_t)g * D + j0 + q;
+    __nv_bfloat16* d = dst + (size_t)bg * JE + q;
+    if (pairs && q + 1 < Jc) {
+      cp4(d, s, true);
+    } else {
+      d[0] = s[0];
+      if (q + 1 < Jc) d[1] = s[1];
+    }
+  }
+}
+
+// The four gate values of unit q, row b, from stage_gates's layout.
+__device__ __forceinline__ float4 staged_quad(const __nv_bfloat16* gs, int b, int q, int JE) {
+  const __nv_bfloat16* p = gs + (size_t)b * 4 * JE + q;
+  return make_float4(to_f(p[0]), to_f(p[JE]), to_f(p[2 * JE]), to_f(p[3 * JE]));
+}
+
+// RES: the CTA's R columns (D x 4J) stay resident in shared memory. TI:
+// the dtype of xg, R and the gates residual.
+template <class TI, bool RES>
 __global__ void __launch_bounds__(NT, 1)
-slstm_fwd_kernel(const float* __restrict__ gx, const float* __restrict__ R,
+slstm_fwd_kernel(const TI* __restrict__ gx, const TI* __restrict__ R,
                  const float* __restrict__ h0, const float* __restrict__ c0,
                  const float* __restrict__ n0, const float* __restrict__ m0,
                  const int* __restrict__ ids, const float* __restrict__ mask,
-                 const int* __restrict__ lens, float* hs, float* gates, float* cs,
+                 const int* __restrict__ lens, float* hs, TI* gates, float* cs,
                  float* ns, float* ms, u64* ring, ScanArgs p) {
+  constexpr bool BF = std::is_same<TI, __nv_bfloat16>::value;
   extern __shared__ float4 smem4[];
   const int T = p.T, B = p.B, NH = p.NH, D = p.D, G = 4 * D, J = p.J, cph = p.cph;
   const int hd = blockIdx.x / cph, me = blockIdx.x % cph;
@@ -277,13 +329,16 @@ slstm_fwd_kernel(const float* __restrict__ gx, const float* __restrict__ R,
   const int KC = p.mode == 1 ? p.k : D;
   const int S = min(NT / J, SMAX);
   const int Bp = (B + BT - 1) / BT * BT;
-  const int BJ = B * J;
-  const float* Rh = R + (size_t)hd * D * G;
+  const int BJ = B * J, JE = J + (J & 1);
+  const TI* Rh = R + (size_t)hd * D * G;
   const Div dJ(J), dJc(Jc), d4Jc(4 * Jc), dKC(KC), dD(D);
   float4* Rs = smem4;                                  // RES: D x J unit quads
   float4* part = Rs + (RES ? (size_t)D * J : 0);       // S x BT x J partial sums
   float4* gxb = part + (size_t)S * BT * J;             // 2 x B x J: xg of a step
-  float* hsm = reinterpret_cast<float*>(gxb + 2 * (size_t)BJ);  // Bp x KC h_{t-1}
+  // bfloat16: 2 x B x 4 x JE staged xg values (stage_gates) in its place
+  __nv_bfloat16* gsb = reinterpret_cast<__nv_bfloat16*>(gxb);
+  const bool pairs = BF && D % 2 == 0 && J % 2 == 0 && ((uintptr_t)gx & 3) == 0;
+  float* hsm = reinterpret_cast<float*>(gxb + (BF ? (size_t)B * JE : 2 * (size_t)BJ));  // Bp x KC h_{t-1}
   float* mkb = hsm + (size_t)Bp * KC;                  // mode 2: 2 x B x D mask rows
   float* hc = mkb + (p.mode == 2 ? 2 * (size_t)B * D : 0);  // B x J carries
   float* cc = hc + BJ;
@@ -320,12 +375,17 @@ slstm_fwd_kernel(const float* __restrict__ gx, const float* __restrict__ R,
 #pragma unroll 1
       for (int kk = tid; kk < KC; kk += NT) cp4(uidb + buf * KC + kk, src + kk, true);
     }
-    float* gdst = reinterpret_cast<float*>(gxb + (size_t)buf * BJ);
+    if constexpr (BF) {
+      stage_gates(gsb + (size_t)buf * 4 * B * JE, gx + (size_t)t * B * NH * G, B, NH, hd, D,
+                  j0, Jc, JE, pairs);
+    } else {
+      float* gdst = reinterpret_cast<float*>(gxb + (size_t)buf * BJ);
 #pragma unroll 1
-    for (int e = tid; e < B * 4 * Jc; e += NT) {
-      const int b = d4Jc.q(e), r = e - b * 4 * Jc, g = dJc.q(r), q = r - g * Jc;
-      cp4(gdst + ((size_t)b * J + q) * 4 + g,
-          gx + (((size_t)t * B + b) * NH + hd) * G + (size_t)g * D + j0 + q, true);
+      for (int e = tid; e < B * 4 * Jc; e += NT) {
+        const int b = d4Jc.q(e), r = e - b * 4 * Jc, g = dJc.q(r), q = r - g * Jc;
+        cp4(gdst + ((size_t)b * J + q) * 4 + g,
+            gx + (((size_t)t * B + b) * NH + hd) * G + (size_t)g * D + j0 + q, true);
+      }
     }
     if (p.mode == 2) {
       const int row = p.mask_rows == 1 ? 0 : t;
@@ -413,7 +473,9 @@ slstm_fwd_kernel(const float* __restrict__ gx, const float* __restrict__ R,
         if (b >= B || q >= Jc) continue;
         const float4 sum = sum_split(part + (size_t)bb * J + q, (size_t)BT * J, S);
         PHASE(0, 3);
-        const float4 xg = gxb[(size_t)buf * BJ + b * J + q];
+        float4 xg;
+        if constexpr (BF) xg = staged_quad(gsb + (size_t)buf * 4 * B * JE, b, q, JE);
+        else xg = gxb[(size_t)buf * BJ + b * J + q];
         const float gv[4] = {xg.x + sum.x * sc, xg.y + sum.y * sc, xg.z + sum.z * sc,
                              xg.w + sum.w * sc};
         const int o = b * J + q;
@@ -449,7 +511,7 @@ slstm_fwd_kernel(const float* __restrict__ gx, const float* __restrict__ R,
         ns[hofs] = n_new;
         ms[hofs] = m_new;
 #pragma unroll
-        for (int g2 = 0; g2 < 4; ++g2) gates[gofs + (size_t)g2 * D] = gv[g2];
+        for (int g2 = 0; g2 < 4; ++g2) put(gates + gofs + (size_t)g2 * D, gv[g2]);
         PHASE(0, 5);
       }
       if (b0 + BT < B) __syncthreads();
@@ -458,31 +520,36 @@ slstm_fwd_kernel(const float* __restrict__ gx, const float* __restrict__ R,
   }
 }
 
-// Backward.
-template <bool RES>
+// Backward. TI: the dtype of the gates residual, R and dgx; with bfloat16,
+// dg32 receives the float32 dgates for WG.
+template <class TI, bool RES>
 __global__ void __launch_bounds__(NT, 1)
 slstm_bwd_kernel(const float* __restrict__ dy, const float* __restrict__ dcT,
                  const float* __restrict__ dnT, const float* __restrict__ dmT,
-                 const float* __restrict__ gates, const float* __restrict__ cs,
+                 const TI* __restrict__ gates, const float* __restrict__ cs,
                  const float* __restrict__ ns, const float* __restrict__ ms,
                  const float* __restrict__ c0, const float* __restrict__ n0,
-                 const float* __restrict__ m0, const float* __restrict__ R,
+                 const float* __restrict__ m0, const TI* __restrict__ R,
                  const int* __restrict__ ids, const float* __restrict__ mask,
-                 const int* __restrict__ lens, float* dgx, float* dh0, float* dc0,
+                 const int* __restrict__ lens, TI* dgx, float* dg32, float* dh0, float* dc0,
                  float* dn0, float* dm0, u64* ring, ScanArgs p) {
+  constexpr bool BF = std::is_same<TI, __nv_bfloat16>::value;
   extern __shared__ float4 smem4[];
   const int T = p.T, B = p.B, NH = p.NH, D = p.D, G = 4 * D, J = p.J, cph = p.cph;
   const int hd = blockIdx.x / cph, me = blockIdx.x % cph;
   const int j0 = me * J, Jc = min(J, D - j0);
   const int KC = p.mode == 1 ? p.k : D;
   const int Bp = (B + BT - 1) / BT * BT;
-  const int BJ = B * J;
-  const float* Rh = R + (size_t)hd * D * G;
+  const int BJ = B * J, JE = J + (J & 1);
+  const TI* Rh = R + (size_t)hd * D * G;
   const Div dJ(J), dJc(Jc), dBJc(B * Jc), dcph(cph);
   const int JP = J + 1;   // row stride of Rs: 32 consecutive rows hit distinct banks
   float4* Rs = smem4;                                  // RES: D x JP unit quads
   float4* dgs = Rs + (RES ? (size_t)D * JP : 0);       // Bp x J: own dgates quads
-  float* resb = reinterpret_cast<float*>(dgs + (size_t)Bp * J);  // 2 x NF x B x J
+  // bfloat16: 2 x B x 4 x JE staged gates (stage_gates); resb's fields 0-3 unused
+  __nv_bfloat16* gsb = reinterpret_cast<__nv_bfloat16*>(dgs + (size_t)Bp * J);
+  const bool pairs = BF && D % 2 == 0 && J % 2 == 0 && ((uintptr_t)gates & 3) == 0;
+  float* resb = reinterpret_cast<float*>(dgs + (size_t)Bp * J + (BF ? (size_t)B * JE : 0));  // 2 x NF x B x J
   float* psum = resb + 2 * NF * (size_t)BJ;            // B x cph x J polled partials
   float* cn = psum + (size_t)B * cph * J;              // B x J: c, n, m at step r
   float* nn = cn + BJ;
@@ -535,14 +602,18 @@ slstm_bwd_kernel(const float* __restrict__ dy, const float* __restrict__ dcT,
     }
     float* dst = resb + (size_t)buf * NF * BJ;
     const int nf = p.mode == 2 && r + 1 < T ? NF : NF - 1;
+    const int f0 = BF ? 4 : 0;                 // bfloat16: the gates go to gsb
+    if constexpr (BF)
+      stage_gates(gsb + (size_t)buf * 4 * B * JE, gates + (size_t)r * B * NH * G, B, NH, hd, D,
+                  j0, Jc, JE, pairs);
 #pragma unroll 1
-    for (int e = tid; e < nf * B * Jc; e += NT) {
+    for (int e = f0 * B * Jc + tid; e < nf * B * Jc; e += NT) {
       const int f = dBJc.q(e), bq = e - f * B * Jc, b = dJc.q(bq), q = bq - b * Jc;
       const size_t row = ((size_t)r * B + b) * NH + hd;
       const size_t h = row * D + j0 + q;
       const size_t h0o = ((size_t)b * NH + hd) * D + j0 + q;
-      const float* src;
-      if (f < 4) src = gates + row * G + (size_t)f * D + j0 + q;
+      const void* src;
+      if (f < 4) src = gates + row * G + (size_t)f * D + j0 + q;   // float32 only
       else if (f == 4) src = dy + h;
       else if (f < 8) {
         const float* seq = f == 5 ? cs : f == 6 ? ns : ms;
@@ -618,7 +689,10 @@ slstm_bwd_kernel(const float* __restrict__ dy, const float* __restrict__ dcT,
       const float c_prev = rs[5 * BJ + o], n_prev = rs[6 * BJ + o], m_prev = rs[7 * BJ + o];
       float4 dg = make_float4(0.f, 0.f, 0.f, 0.f);
       if (!p.ragged || r < lns[b]) {
-        const float gi = rs[o], gf = rs[BJ + o], gz = rs[2 * BJ + o], go = rs[3 * BJ + o];
+        float4 gq;
+        if constexpr (BF) gq = staged_quad(gsb + (size_t)buf * 4 * B * JE, b, q, JE);
+        else gq = make_float4(rs[o], rs[BJ + o], rs[2 * BJ + o], rs[3 * BJ + o]);
+        const float gi = gq.x, gf = gq.y, gz = gq.z, go = gq.w;
         const float cnv = cn[o], nnv = nn[o], mnv = mn[o];
         const float lfm = log_sigm(gf) + m_prev;
         const float ig = expf(gi - mnv);
@@ -646,10 +720,16 @@ slstm_bwd_kernel(const float* __restrict__ dy, const float* __restrict__ dcT,
       }
       PHASE(1, 3);
       const size_t gofs = (((size_t)r * B + b) * NH + hd) * G + j0 + q;
-      dgx[gofs] = dg.x;
-      dgx[gofs + D] = dg.y;
-      dgx[gofs + 2 * (size_t)D] = dg.z;
-      dgx[gofs + 3 * (size_t)D] = dg.w;
+      put(dgx + gofs, dg.x);
+      put(dgx + gofs + D, dg.y);
+      put(dgx + gofs + 2 * (size_t)D, dg.z);
+      put(dgx + gofs + 3 * (size_t)D, dg.w);
+      if constexpr (BF) {
+        dg32[gofs] = dg.x;
+        dg32[gofs + D] = dg.y;
+        dg32[gofs + 2 * (size_t)D] = dg.z;
+        dg32[gofs + 3 * (size_t)D] = dg.w;
+      }
       dgs[o] = dg;
       cn[o] = c_prev;
       nn[o] = n_prev;
@@ -728,14 +808,15 @@ slstm_bwd_kernel(const float* __restrict__ dy, const float* __restrict__ dcT,
 // units, a pair's row of WC columns). The factor (the keep table in mode 1
 // where partial[blk] says an active step keeps part of the block, the mask
 // in mode 2) is staged beside hp and applied to each A value where it is
-// split; the scale multiplies the sums at the end.
-template <bool VEC>
+// split; the scale multiplies the sums at the end. dgx is float32 (the
+// backward's dg32 for bfloat16 inputs); TO is dR's dtype.
+template <class TO, bool VEC>
 __global__ void __launch_bounds__(WT, 1)
 slstm_wg_kernel(const float* __restrict__ hs, const float* __restrict__ h0,
                 const float* __restrict__ dgx, const int* __restrict__ steps,
                 const int* __restrict__ nsteps, const int* __restrict__ partial,
                 const float* __restrict__ keep, const float* __restrict__ mask,
-                float* __restrict__ dR, ScanArgs p, int nblk, int ncol) {
+                TO* __restrict__ dR, ScanArgs p, int nblk, int ncol) {
   extern __shared__ __align__(16) float wsm[];
   const int T = p.T, B = p.B, NH = p.NH, D = p.D, G = 4 * D;
   // the unit block fastest, then the column tile, then the head: the CTAs
@@ -897,7 +978,7 @@ slstm_wg_kernel(const float* __restrict__ hs, const float* __restrict__ h0,
     for (int h = 0; h < 2; ++h) {
       const int u = u0 + 16 * i + g + 8 * h;
       if (u >= D) continue;
-      float* out = dR + ((size_t)hd * D + u) * G;
+      TO* out = dR + ((size_t)hd * D + u) * G;
 #pragma unroll
       for (int j = 0; j < WNI; ++j) {
         const int c = c0 + wn + 8 * j + 2 * t;
@@ -906,18 +987,18 @@ slstm_wg_kernel(const float* __restrict__ hs, const float* __restrict__ h0,
     }
 }
 
-size_t fwd_smem(const ScanArgs& p, bool res) {
-  const size_t KC = p.mode == 1 ? p.k : p.D, J = p.J, B = p.B;
+size_t fwd_smem(const ScanArgs& p, bool res, bool bf) {
+  const size_t KC = p.mode == 1 ? p.k : p.D, J = p.J, B = p.B, JE = J + (J & 1);
   const size_t S = std::min(NT / p.J, SMAX), Bp = (B + BT - 1) / BT * BT;
-  return 16 * ((res ? (size_t)p.D * J : 0) + S * BT * J + 2 * B * J) +
+  return 16 * ((res ? (size_t)p.D * J : 0) + S * BT * J + (bf ? B * JE : 2 * B * J)) +
          4 * (Bp * KC + (p.mode == 2 ? 2 * B * p.D : 0) + 4 * B * J) +
          4 * ((p.mode == 1 ? 2 * KC : 0) + B);
 }
 
-size_t bwd_smem(const ScanArgs& p, bool res) {
-  const size_t KC = p.mode == 1 ? p.k : p.D, J = p.J, B = p.B;
+size_t bwd_smem(const ScanArgs& p, bool res, bool bf) {
+  const size_t KC = p.mode == 1 ? p.k : p.D, J = p.J, B = p.B, JE = J + (J & 1);
   const size_t Bp = (B + BT - 1) / BT * BT;
-  return 16 * ((res ? (size_t)p.D * (J + 1) : 0) + Bp * J) +
+  return 16 * ((res ? (size_t)p.D * (J + 1) : 0) + Bp * J + (bf ? B * JE : 0)) +
          4 * (2 * NF * B * J + B * p.cph * J + 7 * B * J) +
          4 * ((p.mode == 1 ? 2 * KC + 2 * J : 0) + B);
 }
@@ -975,6 +1056,70 @@ int launch(const ScanArgs& p, const void* kernel, size_t smem, void** args, void
   return (int)cudaGetLastError();
 }
 
+template <class TI>
+int scan_fwd(const TI* gx, const TI* R, const float* h0, const float* c0, const float* n0,
+             const float* m0, const int* ids, const float* mask, const int* lens, float* hs,
+             TI* gates, float* cs, float* ns, float* ms, u64* ring, int T, int B, int NH, int D,
+             int mode, int k, int ids_rows, int mask_rows, int mask_heads, int ragged,
+             float scale, void* stream) {
+  constexpr bool BF = std::is_same<TI, __nv_bfloat16>::value;
+  cudaGetLastError();
+  if (T <= 0 || B <= 0) return 0;
+  ScanArgs p = scan_args(T, B, NH, D, mode, k, ids_rows, mask_rows, mask_heads, ragged, scale);
+  if (4 * p.J > NT) return (int)cudaErrorInvalidValue;
+  // R columns resident in shared memory when they fit, else read through L2.
+  const bool res = fwd_smem(p, true, BF) <= SMEM_MAX;
+  const void* kernel = res ? (const void*)slstm_fwd_kernel<TI, true>
+                           : (const void*)slstm_fwd_kernel<TI, false>;
+  void* args[] = {&gx, &R, &h0, &c0, &n0, &m0, &ids, &mask, &lens,
+                  &hs, &gates, &cs, &ns, &ms, &ring, &p};
+  return launch(p, kernel, fwd_smem(p, res, BF), args, stream);
+}
+
+template <class TI>
+int scan_bwd(const float* dy, const float* dcT, const float* dnT, const float* dmT,
+             const TI* gates, const float* cs, const float* ns, const float* ms,
+             const float* c0, const float* n0, const float* m0, const TI* R, const int* ids,
+             const float* mask, const int* lens, TI* dgx, float* dg32, float* dh0, float* dc0,
+             float* dn0, float* dm0, u64* ring, int T, int B, int NH, int D, int mode, int k,
+             int ids_rows, int mask_rows, int mask_heads, int ragged, float scale,
+             void* stream) {
+  constexpr bool BF = std::is_same<TI, __nv_bfloat16>::value;
+  cudaGetLastError();
+  if (T <= 0 || B <= 0) return 0;
+  ScanArgs p = scan_args(T, B, NH, D, mode, k, ids_rows, mask_rows, mask_heads, ragged, scale);
+  const bool res = bwd_smem(p, true, BF) <= SMEM_MAX;
+  const void* kernel = res ? (const void*)slstm_bwd_kernel<TI, true>
+                           : (const void*)slstm_bwd_kernel<TI, false>;
+  void* args[] = {&dy, &dcT, &dnT, &dmT, &gates, &cs, &ns, &ms, &c0, &n0, &m0, &R,
+                  &ids, &mask, &lens, &dgx, &dg32, &dh0, &dc0, &dn0, &dm0, &ring, &p};
+  return launch(p, kernel, bwd_smem(p, res, BF), args, stream);
+}
+
+template <class TO>
+int wg(const float* hs, const float* h0, const float* dgx, const int* steps, const int* nsteps,
+       const int* partial, const float* keep, const float* mask, TO* dR, int T, int B, int NH,
+       int D, int mode, int ids_rows, int mask_rows, int mask_heads, float scale,
+       void* stream) {
+  cudaGetLastError();
+  if (D <= 0 || NH <= 0) return 0;
+  ScanArgs p{T, B, NH, D, mode, 0, ids_rows, mask_rows, mask_heads, 0, 0, 0, scale};
+  const int nblk = (D + WU - 1) / WU, ncol = (4 * D + WC - 1) / WC;
+  const long long ctas = (long long)nblk * ncol * NH;
+  if (ctas > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  // 16-byte copies where every row starts on 16 bytes
+  const uintptr_t bases = (uintptr_t)hs | (uintptr_t)h0 | (uintptr_t)dgx |
+                          (uintptr_t)keep | (uintptr_t)mask;
+  const bool vec = D % 4 == 0 && bases % 16 == 0;
+  auto kern = vec ? slstm_wg_kernel<TO, true> : slstm_wg_kernel<TO, false>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         W_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<(unsigned)ctas, WT, W_SMEM, (cudaStream_t)stream>>>(
+      hs, h0, dgx, steps, nsteps, partial, keep, mask, dR, p, nblk, ncol);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // K6's grid for NH heads of D units: *J units a CTA, *cph CTAs a head.
@@ -996,7 +1141,8 @@ extern "C" long long slstm_scan_ring_words(int direction, int B, int NH, int D) 
 // m0 (B, NH, dh); ids (ids_rows, k) int32 unit ids (mode 1); mask
 // (mask_rows, B, mask_heads, dh) (mode 2); lens (B,) int32 when ragged;
 // ring: slstm_scan_ring_words(0, ...) zeroed words.
-// Outputs hs, cs, ns, ms (T, B, NH, dh) and gates (T, B, NH, 4dh).
+// Outputs hs, cs, ns, ms (T, B, NH, dh) and gates (T, B, NH, 4dh). The
+// _bf16 entry takes xg and R and writes gates in bfloat16, the rest float32.
 extern "C" int slstm_scan_fwd_f32(const float* gx, const float* R, const float* h0,
                                   const float* c0, const float* n0, const float* m0,
                                   const int* ids, const float* mask, const int* lens,
@@ -1004,23 +1150,27 @@ extern "C" int slstm_scan_fwd_f32(const float* gx, const float* R, const float* 
                                   u64* ring, int T, int B, int NH, int D, int mode, int k,
                                   int ids_rows, int mask_rows, int mask_heads, int ragged,
                                   float scale, void* stream) {
-  cudaGetLastError();
-  if (T <= 0 || B <= 0) return 0;
-  ScanArgs p = scan_args(T, B, NH, D, mode, k, ids_rows, mask_rows, mask_heads, ragged, scale);
-  if (4 * p.J > NT) return (int)cudaErrorInvalidValue;
-  // R columns resident in shared memory when they fit, else read through L2.
-  const bool res = fwd_smem(p, true) <= SMEM_MAX;
-  const void* kernel = res ? (const void*)slstm_fwd_kernel<true>
-                           : (const void*)slstm_fwd_kernel<false>;
-  void* args[] = {&gx, &R, &h0, &c0, &n0, &m0, &ids, &mask, &lens,
-                  &hs, &gates, &cs, &ns, &ms, &ring, &p};
-  return launch(p, kernel, fwd_smem(p, res), args, stream);
+  return scan_fwd(gx, R, h0, c0, n0, m0, ids, mask, lens, hs, gates, cs, ns, ms, ring, T, B,
+                  NH, D, mode, k, ids_rows, mask_rows, mask_heads, ragged, scale, stream);
+}
+
+extern "C" int slstm_scan_fwd_bf16(const __nv_bfloat16* gx, const __nv_bfloat16* R,
+                                   const float* h0, const float* c0, const float* n0,
+                                   const float* m0, const int* ids, const float* mask,
+                                   const int* lens, float* hs, __nv_bfloat16* gates, float* cs,
+                                   float* ns, float* ms, u64* ring, int T, int B, int NH, int D,
+                                   int mode, int k, int ids_rows, int mask_rows, int mask_heads,
+                                   int ragged, float scale, void* stream) {
+  return scan_fwd(gx, R, h0, c0, n0, m0, ids, mask, lens, hs, gates, cs, ns, ms, ring, T, B,
+                  NH, D, mode, k, ids_rows, mask_rows, mask_heads, ragged, scale, stream);
 }
 
 // dy (T, B, NH, dh): dL/dhs with dL/dh_T already added at T-1; dcT, dnT, dmT
 // (B, NH, dh); gates, cs, ns, ms from the forward; ring:
 // slstm_scan_ring_words(1, ...) zeroed words. Outputs dgx (T, B, NH, 4dh),
-// dh0, dc0, dn0, dm0 (B, NH, dh). dR is slstm_wg_f32's.
+// dh0, dc0, dn0, dm0 (B, NH, dh). dR is slstm_wg_*'s. The _bf16 entry takes
+// gates and R and writes dgx in bfloat16, and writes the float32 dgates to
+// dg32 (T, B, NH, 4dh) for slstm_wg_bf16.
 extern "C" int slstm_scan_bwd_f32(const float* dy, const float* dcT, const float* dnT,
                                   const float* dmT, const float* gates, const float* cs,
                                   const float* ns, const float* ms, const float* c0,
@@ -1030,45 +1180,48 @@ extern "C" int slstm_scan_bwd_f32(const float* dy, const float* dcT, const float
                                   u64* ring, int T, int B, int NH, int D, int mode, int k,
                                   int ids_rows, int mask_rows, int mask_heads, int ragged,
                                   float scale, void* stream) {
-  cudaGetLastError();
-  if (T <= 0 || B <= 0) return 0;
-  ScanArgs p = scan_args(T, B, NH, D, mode, k, ids_rows, mask_rows, mask_heads, ragged, scale);
-  const bool res = bwd_smem(p, true) <= SMEM_MAX;
-  const void* kernel = res ? (const void*)slstm_bwd_kernel<true>
-                           : (const void*)slstm_bwd_kernel<false>;
-  void* args[] = {&dy, &dcT, &dnT, &dmT, &gates, &cs, &ns, &ms, &c0, &n0, &m0, &R,
-                  &ids, &mask, &lens, &dgx, &dh0, &dc0, &dn0, &dm0, &ring, &p};
-  return launch(p, kernel, bwd_smem(p, res), args, stream);
+  return scan_bwd(dy, dcT, dnT, dmT, gates, cs, ns, ms, c0, n0, m0, R, ids, mask, lens, dgx,
+                  (float*)nullptr, dh0, dc0, dn0, dm0, ring, T, B, NH, D, mode, k, ids_rows,
+                  mask_rows, mask_heads, ragged, scale, stream);
 }
 
-// hs (T, B, NH, dh), h0 (B, NH, dh), dgx (T, B, NH, 4dh); steps (ceil(dh /
-// 64), T) int32: each 64-unit block's active steps, ascending, nsteps of
-// them; mode 1: partial (ceil(dh / 64),) int32, 1 where an active step keeps
-// only part of the block, and keep (ids_rows, dh) 1/0; mode 2: mask as the
-// scan's. Output dR (NH, dh, 4dh), every element written. Returns the error
-// of cudaFuncSetAttribute or of the launch.
+extern "C" int slstm_scan_bwd_bf16(const float* dy, const float* dcT, const float* dnT,
+                                   const float* dmT, const __nv_bfloat16* gates,
+                                   const float* cs, const float* ns, const float* ms,
+                                   const float* c0, const float* n0, const float* m0,
+                                   const __nv_bfloat16* R, const int* ids, const float* mask,
+                                   const int* lens, __nv_bfloat16* dgx, float* dg32, float* dh0,
+                                   float* dc0, float* dn0, float* dm0, u64* ring, int T, int B,
+                                   int NH, int D, int mode, int k, int ids_rows, int mask_rows,
+                                   int mask_heads, int ragged, float scale, void* stream) {
+  return scan_bwd(dy, dcT, dnT, dmT, gates, cs, ns, ms, c0, n0, m0, R, ids, mask, lens, dgx,
+                  dg32, dh0, dc0, dn0, dm0, ring, T, B, NH, D, mode, k, ids_rows, mask_rows,
+                  mask_heads, ragged, scale, stream);
+}
+
+// hs (T, B, NH, dh), h0 (B, NH, dh), dgx (T, B, NH, 4dh) float32 dgates;
+// steps (ceil(dh / 64), T) int32: each 64-unit block's active steps,
+// ascending, nsteps of them; mode 1: partial (ceil(dh / 64),) int32, 1 where
+// an active step keeps only part of the block, and keep (ids_rows, dh) 1/0;
+// mode 2: mask as the scan's. Output dR (NH, dh, 4dh), every element
+// written, float32 (_f32) or bfloat16 (_bf16). Returns the error of
+// cudaFuncSetAttribute or of the launch.
 extern "C" int slstm_wg_f32(const float* hs, const float* h0, const float* dgx,
                             const int* steps, const int* nsteps, const int* partial,
                             const float* keep, const float* mask, float* dR, int T, int B,
                             int NH, int D, int mode, int ids_rows, int mask_rows,
                             int mask_heads, float scale, void* stream) {
-  cudaGetLastError();
-  if (D <= 0 || NH <= 0) return 0;
-  ScanArgs p{T, B, NH, D, mode, 0, ids_rows, mask_rows, mask_heads, 0, 0, 0, scale};
-  const int nblk = (D + WU - 1) / WU, ncol = (4 * D + WC - 1) / WC;
-  const long long ctas = (long long)nblk * ncol * NH;
-  if (ctas > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  // 16-byte copies where every row starts on 16 bytes
-  const uintptr_t bases = (uintptr_t)hs | (uintptr_t)h0 | (uintptr_t)dgx |
-                          (uintptr_t)keep | (uintptr_t)mask;
-  const bool vec = D % 4 == 0 && bases % 16 == 0;
-  auto kern = vec ? slstm_wg_kernel<true> : slstm_wg_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         W_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  kern<<<(unsigned)ctas, WT, W_SMEM, (cudaStream_t)stream>>>(
-      hs, h0, dgx, steps, nsteps, partial, keep, mask, dR, p, nblk, ncol);
-  return (int)cudaGetLastError();
+  return wg(hs, h0, dgx, steps, nsteps, partial, keep, mask, dR, T, B, NH, D, mode, ids_rows,
+            mask_rows, mask_heads, scale, stream);
+}
+
+extern "C" int slstm_wg_bf16(const float* hs, const float* h0, const float* dgx,
+                             const int* steps, const int* nsteps, const int* partial,
+                             const float* keep, const float* mask, __nv_bfloat16* dR, int T,
+                             int B, int NH, int D, int mode, int ids_rows, int mask_rows,
+                             int mask_heads, float scale, void* stream) {
+  return wg(hs, h0, dgx, steps, nsteps, partial, keep, mask, dR, T, B, NH, D, mode, ids_rows,
+            mask_rows, mask_heads, scale, stream);
 }
 
 #ifdef SLSTM_PHASES

@@ -3,7 +3,10 @@
 Entry points run on CUDA unless the caller asks for the CPU; a missing GPU is
 an error, never a silent fallback. Float32 matrix products and convolutions
 are pinned to full float32 (no TF32), so results on the card compare with
-the CPU and with the JAX reference at float32 tolerances.
+the CPU and with the JAX reference at float32 tolerances. bfloat16 products
+accumulate in float32, as the reference asks of every one
+(``preferred_element_type=jnp.float32``): cuBLAS may otherwise reduce a
+bfloat16 GEMM's split-K partial sums in bfloat16.
 """
 from __future__ import annotations
 
@@ -13,9 +16,11 @@ import torch
 
 
 def set_full_fp32() -> None:
-    """Disable TF32 for float32 matmuls and cuDNN convolutions."""
+    """Disable TF32 for float32 matmuls and cuDNN convolutions, and reduced-
+    precision reductions in bfloat16 GEMMs."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None

@@ -20,7 +20,15 @@ structured ids table (compact gathers) OR ``dense_mask`` ``(T|1, B, 1|NH,
 dh)``, with the inverted-dropout ``scale``; a leading 1 is the FIXED time
 pattern. ``lengths`` (B,) int32 freezes each row past its length: forward
 carries t-1's state through, backward routes the carry cotangents straight
-through with zero dgates. Every cotangent carries its primal's dtype.
+through with zero dgates.
+
+Dtypes follow the reference's contract: gx and u may be bfloat16 beside
+float32 h0 and states. All products and pointwise math run in float32
+(bfloat16 operands widen exactly); hs comes back in h0's dtype, each state
+sequence in its state's, and the gates residual in gx's, rounded there as
+the reference stores it; the backward reads that rounded residual. Every
+cotangent carries its primal's dtype, and du is summed from the float32
+dgates before it is rounded to u's dtype.
 
 ``impl="pallas"`` runs the cell's CUDA kernels for CUDA tensors (raising if
 the cell has none) and the plain version for CPU tensors; ``impl="xla"``
@@ -61,6 +69,11 @@ def _headed(gx, u, h0, states0, mask):
             None if mask is None else mask[:, :, None])
 
 
+def _wide(x):
+    """x in float32 or wider: bfloat16 widens (exactly), float64 stays."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def _bmm(x, w):
     """(B, NH, K) x (NH, K, G) -> (B, NH, G), one product per head."""
     return torch.matmul(x.transpose(0, 1), w).transpose(0, 1)
@@ -77,6 +90,7 @@ def plain_fwd(cell: CellSpec, gx, u, h0, states0, ids, mask, lengths,
     squeeze = gx.dim() == 3
     gx, u, h0, states0, mask = _headed(gx, u, h0, states0, mask)
     T = gx.shape[0]
+    u = _wide(u)
     h, sts = h0, tuple(states0)
     fixed_u = None
     if ids is not None and ids.shape[0] == 1:
@@ -86,20 +100,22 @@ def plain_fwd(cell: CellSpec, gx, u, h0, states0, ids, mask, lengths,
         if ids is not None:
             ids_t = _row(ids, t).long()
             u_c = fixed_u if fixed_u is not None else u.index_select(1, ids_t)
-            r = _bmm(h.index_select(2, ids_t), u_c) * scale
+            r = _bmm(_wide(h.index_select(2, ids_t)), u_c) * scale
         elif mask is not None:
-            r = _bmm(h * _row(mask, t) * scale, u)
+            r = _bmm(_wide(h * _row(mask, t) * scale), u)
         else:
-            r = _bmm(h, u)
-        gates = gx[t] + r
-        h2, st2 = cell.pointwise_fwd(gates, sts)
+            r = _bmm(_wide(h), u)
+        gates = _wide(gx[t]) + r
+        h2, st2 = cell.pointwise_fwd(gates, tuple(_wide(s) for s in sts))
+        h2 = h2.to(h0.dtype)
+        st2 = tuple(v.to(s.dtype) for v, s in zip(st2, sts))
         if lengths is not None:
             act = (t < lengths)[:, None, None]
             h2 = torch.where(act, h2, h)
             st2 = tuple(torch.where(act, v, s) for v, s in zip(st2, sts))
         h, sts = h2, st2
         hs.append(h)
-        gates_seq.append(gates)
+        gates_seq.append(gates.to(gx.dtype))
         for seq, v in zip(st_seqs, sts):
             seq.append(v)
     out = (torch.stack(hs), torch.stack(gates_seq),
@@ -126,6 +142,8 @@ def plain_bwd(cell: CellSpec, dy, dstT, gates, st_seqs, states0, hs, h0, u,
         st_seqs = tuple(s[:, :, None] for s in st_seqs)
     T, B, NH, _ = gates.shape
     dh_dim = u.shape[1]
+    acc = torch.promote_types(h0.dtype, torch.float32)
+    u = _wide(u)
     fixed = ids is not None and ids.shape[0] == 1
     if fixed:
         ids0 = ids[0].long()
@@ -133,11 +151,11 @@ def plain_bwd(cell: CellSpec, dy, dstT, gates, st_seqs, states0, hs, h0, u,
         du = u.new_zeros((NH, ids0.shape[0], u.shape[2]))  # compact until the end
     else:
         du = torch.zeros_like(u)
-    dh_next = h0.new_zeros((B, NH, dh_dim))
-    dst_next = tuple(dstT)
+    dh_next = h0.new_zeros((B, NH, dh_dim), dtype=acc)
+    dst_next = tuple(_wide(d) for d in dstT)
     dgx = []
     for t in range(T - 1, -1, -1):
-        dh = dy[t] + dh_next
+        dh = _wide(dy[t]) + dh_next
         if lengths is not None:
             act = (t < lengths)[:, None, None]
             dh_c = torch.where(act, dh, torch.zeros_like(dh))
@@ -145,12 +163,12 @@ def plain_bwd(cell: CellSpec, dy, dstT, gates, st_seqs, states0, hs, h0, u,
                           for d in dst_next)
         else:
             dh_c, dst_c = dh, dst_next
-        st_prev = tuple(s0 if t == 0 else seq[t - 1]
+        st_prev = tuple(_wide(s0 if t == 0 else seq[t - 1])
                         for s0, seq in zip(states0, st_seqs))
-        st_new = tuple(seq[t] for seq in st_seqs)
-        h_prev = h0 if t == 0 else hs[t - 1]
-        dgates, dst_prev = cell.pointwise_bwd(gates[t], st_prev, st_new,
-                                              dh_c, dst_c)
+        st_new = tuple(_wide(seq[t]) for seq in st_seqs)
+        h_prev = _wide(h0 if t == 0 else hs[t - 1])
+        dgates, dst_prev = cell.pointwise_bwd(_wide(gates[t]), st_prev,
+                                              st_new, dh_c, dst_c)
         if lengths is not None:
             # exactly zero, also where the cell's arithmetic on a frozen
             # step's stored values is not finite (0 x inf)
@@ -159,7 +177,7 @@ def plain_bwd(cell: CellSpec, dy, dstT, gates, st_seqs, states0, hs, h0, u,
             ids_t = ids0 if fixed else ids[t].long()
             u_c = u_c0 if fixed else u.index_select(1, ids_t)
             # BP: only the kept columns of dh_{t-1} get a contribution.
-            dh_prev = h0.new_zeros((B, NH, dh_dim)).index_copy_(
+            dh_prev = h0.new_zeros((B, NH, dh_dim), dtype=acc).index_copy_(
                 2, ids_t, _bmm(dgates, u_c.transpose(1, 2)) * scale)
             # WG: compact (NH, k, G) product into the kept rows.
             contrib = torch.matmul(
@@ -252,7 +270,7 @@ def cell_scan(gx: torch.Tensor, u: torch.Tensor, h0: torch.Tensor,
     if lengths is not None:
         lengths = lengths.to(device=gx.device, dtype=torch.int32)
     if dense_mask is not None:
-        dense_mask = dense_mask.to(gx.dtype).contiguous()
+        dense_mask = dense_mask.to(torch.float32).contiguous()
     use_kernel = impl == "pallas" and gx.is_cuda
     outs = _CellScan.apply(cell, float(scale), use_kernel, ids, dense_mask,
                            lengths, gx.contiguous(), u.contiguous(),

@@ -12,10 +12,15 @@ persistent CUDA kernel (``csrc/slstm_scan.cu``: K6 forward and
 reverse-time backward, whose weight gradient dR runs after the scan as a
 second kernel over the kept (step, unit block) pairs) for CUDA tensors,
 and as cell_scan's plain forward / plain hand-written reverse with this
-cell's pointwise math for CPU tensors and for ``impl="xla"``. The kernels
-take float32 only; the wrappers raise on anything else, on tensors of mixed
-devices, and on a non-zero CUDA status after the launch. ``LAUNCHES``
-counts the kernel launches.
+cell's pointwise math for CPU tensors and for ``impl="xla"``.
+
+Dtypes are the reference's (``repro.kernels.cell_scan``): xg and R float32
+or bfloat16 (the same), h0 and the states float32. The arithmetic is float32
+throughout; the gates residual comes back in xg's dtype and hs and the state
+sequences in float32; the cotangents carry their primals' dtypes, and dR is
+summed from the float32 dgates, not from the rounded dgx. The wrappers
+raise on other dtypes, on tensors of mixed devices, and on a non-zero CUDA
+status after the launch. ``LAUNCHES`` counts the kernel launches.
 """
 from __future__ import annotations
 
@@ -91,16 +96,22 @@ def _pointwise_bwd(gates, states_prev, states_new, dh, dstates):
 # ---------------------------------------------------------------------------
 
 
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
 def _lib():
     lib = _build.load("slstm_scan")
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.slstm_scan_fwd_f32.argtypes = [p] * 15 + [i] * 10 + [f, p]
-        lib.slstm_scan_fwd_f32.restype = i
-        lib.slstm_scan_bwd_f32.argtypes = [p] * 21 + [i] * 10 + [f, p]
-        lib.slstm_scan_bwd_f32.restype = i
-        lib.slstm_wg_f32.argtypes = [p] * 9 + [i] * 8 + [f, p]
-        lib.slstm_wg_f32.restype = i
+        for sfx in _SUFFIX.values():
+            fwd = getattr(lib, f"slstm_scan_fwd_{sfx}")
+            fwd.argtypes = [p] * 15 + [i] * 10 + [f, p]
+            bwd = getattr(lib, f"slstm_scan_bwd_{sfx}")
+            # bfloat16: the float32 dgates buffer after dgx
+            bwd.argtypes = [p] * (21 if sfx == "f32" else 22) + [i] * 10 + [f, p]
+            wg = getattr(lib, f"slstm_wg_{sfx}")
+            wg.argtypes = [p] * 9 + [i] * 8 + [f, p]
+            fwd.restype = bwd.restype = wg.restype = i
         lib.slstm_scan_ring_words.argtypes = [i] * 4
         lib.slstm_scan_ring_words.restype = ctypes.c_longlong
         lib.slstm_scan_units.argtypes = [i, i, p, p]
@@ -115,6 +126,14 @@ def _shapes(gx, u):
     if G != 4 * dh or tuple(u.shape) != (NH, dh, G):
         raise ValueError(f"xg {tuple(gx.shape)} / R {tuple(u.shape)} mismatch")
     return T, B, NH, dh
+
+
+def _in_dtype(gx):
+    """xg's dtype, the one of R, the gates residual and dgx: float32 or
+    bfloat16."""
+    if gx.dtype not in _SUFFIX:
+        raise TypeError(f"xg must be float32 or bfloat16, got {gx.dtype}")
+    return gx.dtype
 
 
 def _mode_args(ids, mask, T, B, NH, dh):
@@ -143,8 +162,8 @@ def slstm_scan_fwd_cuda(gx, u, h0, states0, ids, mask, lengths, scale):
     """K6 forward: the whole recurrence in one persistent launch."""
     c0, n0, m0 = states0
     T, B, NH, dh = _shapes(gx, u)
-    f32, i32 = torch.float32, torch.int32
-    _check(gx, {"xg": (gx, f32), "R": (u, f32), "h0": (h0, f32),
+    dt, f32, i32 = _in_dtype(gx), torch.float32, torch.int32
+    _check(gx, {"xg": (gx, dt), "R": (u, dt), "h0": (h0, f32),
                 "c0": (c0, f32), "n0": (n0, f32), "m0": (m0, f32),
                 "ids": (ids, i32), "mask": (mask, f32),
                 "lengths": (lengths, i32)})
@@ -152,10 +171,10 @@ def slstm_scan_fwd_cuda(gx, u, h0, states0, ids, mask, lengths, scale):
                                                           NH, dh)
     st = lambda: torch.empty((T, B, NH, dh), dtype=f32, device=gx.device)
     hs, cs, ns, ms = st(), st(), st(), st()
-    gates = torch.empty((T, B, NH, 4 * dh), dtype=f32, device=gx.device)
+    gates = torch.empty((T, B, NH, 4 * dh), dtype=dt, device=gx.device)
     lib = _lib()
     ring = _ring(lib, 0, B, NH, dh, gx.device)
-    code = lib.slstm_scan_fwd_f32(
+    code = getattr(lib, f"slstm_scan_fwd_{_SUFFIX[dt]}")(
         gx.data_ptr(), u.data_ptr(), h0.data_ptr(), c0.data_ptr(),
         n0.data_ptr(), m0.data_ptr(), _ptr(ids), _ptr(mask), _ptr(lengths),
         hs.data_ptr(), gates.data_ptr(), cs.data_ptr(), ns.data_ptr(),
@@ -170,36 +189,41 @@ def slstm_scan_fwd_cuda(gx, u, h0, states0, ids, mask, lengths, scale):
 def slstm_scan_bwd_cuda(dy, dstT, gates, st_seqs, states0, hs, h0, u, ids,
                         mask, lengths, scale):
     """K6 backward: the reverse-time recurrence in one persistent launch
-    (dgx, dh0, dc0, dn0, dm0), then dR from the WG kernel."""
+    (dgx in the gates' dtype, dh0, dc0, dn0, dm0), then dR in R's dtype from
+    the WG kernel over the float32 dgates."""
     (dcT, dnT, dmT), (cs, ns, ms), (c0, n0, m0) = dstT, st_seqs, states0
     T, B, NH, dh = _shapes(gates, u)
-    f32, i32 = torch.float32, torch.int32
+    dt, f32, i32 = _in_dtype(gates), torch.float32, torch.int32
     _check(dy, {"dy": (dy, f32), "dcT": (dcT, f32), "dnT": (dnT, f32),
-                "dmT": (dmT, f32), "gates": (gates, f32), "cs": (cs, f32),
+                "dmT": (dmT, f32), "gates": (gates, dt), "cs": (cs, f32),
                 "ns": (ns, f32), "ms": (ms, f32), "c0": (c0, f32),
                 "n0": (n0, f32), "m0": (m0, f32), "hs": (hs, f32),
-                "h0": (h0, f32), "R": (u, f32), "ids": (ids, i32),
+                "h0": (h0, f32), "R": (u, dt), "ids": (ids, i32),
                 "mask": (mask, f32), "lengths": (lengths, i32)})
     mode, k, ids_rows, mask_rows, mask_heads = _mode_args(ids, mask, T, B,
                                                           NH, dh)
     dgx = torch.empty_like(gates)
+    # bfloat16: the float32 dgates WG sums dR from
+    dg32 = dgx if dt == f32 else torch.empty(dgx.shape, dtype=f32,
+                                             device=dy.device)
     st = lambda: torch.empty((B, NH, dh), dtype=f32, device=dy.device)
     dh0, dc0, dn0, dm0 = st(), st(), st(), st()
     lib = _lib()
     ring = _ring(lib, 1, B, NH, dh, dy.device)
-    code = lib.slstm_scan_bwd_f32(
+    extra = () if dt == f32 else (dg32.data_ptr(),)
+    code = getattr(lib, f"slstm_scan_bwd_{_SUFFIX[dt]}")(
         dy.data_ptr(), dcT.data_ptr(), dnT.data_ptr(), dmT.data_ptr(),
         gates.data_ptr(), cs.data_ptr(), ns.data_ptr(), ms.data_ptr(),
         c0.data_ptr(), n0.data_ptr(), m0.data_ptr(), u.data_ptr(), _ptr(ids),
-        _ptr(mask), _ptr(lengths), dgx.data_ptr(), dh0.data_ptr(),
+        _ptr(mask), _ptr(lengths), dgx.data_ptr(), *extra, dh0.data_ptr(),
         dc0.data_ptr(), dn0.data_ptr(), dm0.data_ptr(), ring.data_ptr(), T,
         B, NH, dh, mode, k, ids_rows, mask_rows, mask_heads,
         int(lengths is not None), float(scale),
         torch.cuda.current_stream(dy.device).cuda_stream)
     _build.check(lib, code, "slstm_scan backward")
     LAUNCHES["slstm_scan_bwd"] += 1
-    du = slstm_wg(dgx, hs, h0, wg_tables(ids, T, dh, dy.device), mask,
-                  scale)
+    du = slstm_wg(dg32, hs, h0, wg_tables(ids, T, dh, dy.device), mask,
+                  scale, out_dtype=dt)
     return dgx, du, dh0, (dc0, dn0, dm0)
 
 
@@ -234,7 +258,8 @@ def wg_tables(ids, T, dh, device):
 def plain_wg(dgx, hs, h0, tables, mask, scale):
     """dR (NH, dh, 4dh) = sc * sum over each unit block's active steps t and
     rows b of (h_{t-1} x keep or mask x scale)[t, b, hd, u] dgx[t, b, hd, :]
-    (sc = scale with a keep table, else 1): the WG kernel's plain version."""
+    (sc = scale with a keep table, else 1): the WG kernel's plain version,
+    in dgx's dtype."""
     steps, counts, keep, _ = tables
     T, B, NH, G = dgx.shape
     dh = G // 4
@@ -252,11 +277,12 @@ def plain_wg(dgx, hs, h0, tables, mask, scale):
     return du * scale if keep is not None else du
 
 
-def slstm_wg(dgx, hs, h0, tables, mask, scale):
-    """dR from dgx and the forward's hs: the WG kernel for CUDA tensors, its
-    plain version (``plain_wg``) for CPU tensors."""
+def slstm_wg(dgx, hs, h0, tables, mask, scale, out_dtype=torch.float32):
+    """dR in ``out_dtype`` (float32 or bfloat16) from the float32 dgates
+    ``dgx`` and the forward's hs: the WG kernel for CUDA tensors, its plain
+    version (``plain_wg``, rounded once at the end) for CPU tensors."""
     if not dgx.is_cuda:
-        return plain_wg(dgx, hs, h0, tables, mask, scale)
+        return plain_wg(dgx, hs, h0, tables, mask, scale).to(out_dtype)
     steps, counts, keep, partial = tables
     T, B, NH, G = dgx.shape
     dh = G // 4
@@ -266,9 +292,11 @@ def slstm_wg(dgx, hs, h0, tables, mask, scale):
                  "partial": (partial, i32), "keep": (keep, f32),
                  "mask": (mask, f32)})
     mode = 1 if keep is not None else 2 if mask is not None else 0
-    du = torch.empty((NH, dh, G), dtype=f32, device=dgx.device)
+    if out_dtype not in _SUFFIX:
+        raise TypeError(f"dR must be float32 or bfloat16, got {out_dtype}")
+    du = torch.empty((NH, dh, G), dtype=out_dtype, device=dgx.device)
     lib = _lib()
-    code = lib.slstm_wg_f32(
+    code = getattr(lib, f"slstm_wg_{_SUFFIX[out_dtype]}")(
         hs.data_ptr(), h0.data_ptr(), dgx.data_ptr(), steps.data_ptr(),
         counts.data_ptr(), _ptr(partial), _ptr(keep), _ptr(mask),
         du.data_ptr(), T, B, NH,

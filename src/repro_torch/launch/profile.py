@@ -26,7 +26,8 @@ so they do not overlap), the idle share, the kernels that take the most
 device time, the device time per group (each of the port's own kernels,
 the library's matrix products, the rest), and the host time to sample one
 step's dropout masks. The
-last line is the same as one JSON object. CUDA only.
+last line is the same as one JSON object. CUDA only. ``trace_steps`` is the
+tracing part, for a caller that has its own step (chip_smoke.py).
 """
 from __future__ import annotations
 
@@ -116,6 +117,49 @@ def sampling_host_ms(kind: str, cfg, batch: int, seq: int, seed: int,
     return sorted(times)[len(times) // 2]
 
 
+def trace_steps(step_fn, params, state, batch_fn, n_steps: int, seed: int,
+                top: int = 12, label: str = ""):
+    """Trace ``n_steps`` calls of ``step_fn`` (``launch.steps`` signature)
+    with ``torch.profiler`` and print the step's device-time split: host
+    wall and device-busy ms a step, the idle share, the ``top`` kernels and
+    the groups (``kernel_group``). Returns (params, state, report dict)."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for step in range(n_steps):
+            params, state, loss = step_fn(params, state, batch_fn(step), step, seed)
+            float(loss)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n_steps * 1e3
+    # device-side events only (kernels, copies, memsets): CPU ops also carry
+    # their kernels' time and would count it twice
+    rows = [(e.key, _device_us(e), e.count) for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA]
+    rows = [r for r in rows if r[1] > 0]
+    if not rows:
+        raise RuntimeError("the profiler recorded no device time")
+    busy = sum(r[1] for r in rows) / n_steps / 1e3
+    rows.sort(key=lambda r: -r[1])
+    print(f"{label}: wall {wall:.3f} ms/step, device busy "
+          f"{busy:.3f} ms/step, idle share {max(0.0, 1 - busy / wall):.3f}")
+    tops = []
+    for name, us, count in rows[:top]:
+        ms = us / n_steps / 1e3
+        print(f"  {ms:9.4f} ms/step  {count / n_steps:7.1f} calls/step  {name[:90]}")
+        tops.append({"name": name[:120], "ms_per_step": ms,
+                     "calls_per_step": count / n_steps})
+    groups = {}
+    for name, us, _ in rows:
+        g = kernel_group(name)
+        groups[g] = groups.get(g, 0.0) + us / n_steps / 1e3
+    for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"  group {g}: {ms:.3f} ms/step ({ms / busy:.3f} of busy)")
+    report = {"engine": label, "wall_ms": wall, "busy_ms": busy,
+              "idle_share": max(0.0, 1 - busy / wall), "top": tops,
+              "groups_ms": groups}
+    return params, state, report
+
+
 def main(argv=None) -> dict:
     import argparse
     ap = argparse.ArgumentParser()
@@ -138,49 +182,15 @@ def main(argv=None) -> dict:
     batch_fn = train_mod.make_batch_fn(spec.kind, cfg, args.batch, args.seq,
                                        args.seed,
                                        torch.device("cuda"))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for step in range(args.steps):
-            params, state, loss = step_fn(params, state, batch_fn(step), step,
-                                          args.seed)
-            float(loss)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / args.steps * 1e3
-    # device-side events only (kernels, copies, memsets): CPU ops also carry
-    # their kernels' time and would count it twice
-    rows = [(e.key, _device_us(e), e.count) for e in prof.key_averages()
-            if getattr(e, "device_type", None) == DeviceType.CUDA]
-    rows = [r for r in rows if r[1] > 0]
-    if not rows:
-        raise RuntimeError("the profiler recorded no device time")
-    busy = sum(r[1] for r in rows) / args.steps / 1e3
-    rows.sort(key=lambda r: -r[1])
     # the recurrent engine, or the attention of a transformer
     label = getattr(cfg, "engine", None) or f"attn_impl={cfg.attn_impl}"
     if getattr(cfg, "moe", None) is not None:
         label += f" moe_impl={cfg.moe_impl}"
-    print(f"{label}: wall {wall:.3f} ms/step, device busy "
-          f"{busy:.3f} ms/step, idle share {max(0.0, 1 - busy / wall):.3f}")
-    top = []
-    for name, us, count in rows[:own.top]:
-        ms = us / args.steps / 1e3
-        print(f"  {ms:9.4f} ms/step  {count / args.steps:7.1f} calls/step  {name[:90]}")
-        top.append({"name": name[:120], "ms_per_step": ms,
-                    "calls_per_step": count / args.steps})
-    groups = {}
-    for name, us, _ in rows:
-        g = kernel_group(name)
-        groups[g] = groups.get(g, 0.0) + us / args.steps / 1e3
-    for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"  group {g}: {ms:.3f} ms/step ({ms / busy:.3f} of busy)")
+    _, _, out = trace_steps(step_fn, params, state, batch_fn, args.steps,
+                            args.seed, top=own.top, label=label)
     sampling = sampling_host_ms(spec.kind, cfg, args.batch, args.seq, args.seed)
     print(f"  host time to sample one step's dropout masks: {sampling:.3f} ms")
-    out = {"engine": label, "wall_ms": wall, "busy_ms": busy,
-           "idle_share": max(0.0, 1 - busy / wall), "top": top,
-           "groups_ms": groups,
-           "sampling_host_ms": sampling,
-           "device": torch.cuda.get_device_name(0)}
+    out.update(sampling_host_ms=sampling, device=torch.cuda.get_device_name(0))
     print(json.dumps(out))
     return out
 

@@ -19,7 +19,10 @@ sentence length of a tagger batch; ``--layers`` overrides the arch's depth.
 Runs on the current CUDA device; ``--device cpu`` runs on the CPU (the
 kernels' plain versions). Without a GPU and without ``--device cpu`` it
 raises. Prints each step's loss and wall time (ms, ending in a device
-synchronisation).
+synchronisation) and, on the card, the run's peak device memory
+(``torch.cuda.max_memory_allocated``). Configs train in their own dtypes:
+the full xlstm-1.3b, qwen3-8b and mixtral-8x22b in bfloat16 (float32
+moments), the smoke configs and the paper's models in float32.
 
 Checkpoints as the reference trainer: with ``--ckpt-dir``, every
 ``--ckpt-every`` steps, at the last step, and at the step boundary after a
@@ -134,6 +137,8 @@ def run(argv=None, cfg_fn=None) -> dict:
         print(f"[engine] recurrent engine -> {cfg.engine!r}")
     if cfg_fn is not None:
         cfg = cfg_fn(cfg)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     gen = torch.Generator().manual_seed(args.seed)
     params = adapters.init_params(spec.kind, gen, cfg, device=device)
     opt = steps_mod.default_opt(args.lr)
@@ -179,9 +184,12 @@ def run(argv=None, cfg_fn=None) -> dict:
     finally:
         if hook is not None:
             hook.restore()
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
     print(f"done: {len(losses)} steps on {device}, median "
           f"{float(np.median(times)) if times else float('nan'):.1f} ms/step, "
-          f"final loss {losses[-1] if losses else float('nan'):.4f}")
+          f"final loss {losses[-1] if losses else float('nan'):.4f}"
+          + ("" if peak is None else f", peak memory {peak} bytes "
+             f"({peak / 2**30:.2f} GiB)"))
     return {"losses": losses, "ms": times, "cfg": cfg, "params": params,
             "start": start}
 

@@ -357,25 +357,35 @@ class _GroupedExperts(torch.autograd.Function):
         buf, w = ctx.saved_tensors
         S, E, C, D = buf.shape
         F_ = w.shape[2]
-        dx = torch.matmul(dy, w.transpose(1, 2))
-        dw = torch.bmm(buf.transpose(0, 1).reshape(E, S * C, D).transpose(1, 2),
-                       dy.transpose(0, 1).reshape(E, S * C, F_))
-        return dx, dw
+        # float32 sums, each rounded once to its primal's dtype, as XLA
+        # transposes the reference's float32-accumulating einsum (K12's
+        # bfloat16 output gives a bfloat16 cotangent: bfloat16 products)
+        dy = dy.to(torch.promote_types(dy.dtype, w.dtype))
+        dx = torch.matmul(dy, w.to(dy.dtype).transpose(1, 2))
+        dw = torch.bmm(buf.to(dy.dtype).transpose(0, 1).reshape(E, S * C, D)
+                       .transpose(1, 2), dy.transpose(0, 1).reshape(E, S * C, F_))
+        return dx.to(buf.dtype), dw.to(w.dtype)
 
 
 def _expert_product(buf, w, cfg):
-    """(S, E, C, D) @ (E, D, F) -> (S, E, C, F), float32 sums."""
+    """(S, E, C, D) @ (E, D, F) -> (S, E, C, F), float32 sums. The xla route
+    returns them unrounded, as the reference's ``einsum(...,
+    preferred_element_type=float32)`` (bfloat16 operands widened exactly);
+    K12 returns them in buf's dtype, as the reference's grouped_matmul."""
     if cfg.moe_impl == "pallas":
         return _GroupedExperts.apply(buf, w)
-    return torch.matmul(buf, w)
+    wide = torch.promote_types(buf.dtype, torch.float32)
+    return torch.matmul(buf.to(wide), w.to(wide))
 
 
-def moe_ffn(pl, x2d, cfg: TransformerConfig):
+def moe_ffn(pl, x2d, cfg: TransformerConfig, out_dtype=None):
     """x2d (T, D) -> (T, D): route each token to its top-k experts, sort by
     expert per shard, drop past capacity C, run the grouped SwiGLU FFN and
     combine the top-k outputs with the renormalised gates (the reference's
     ``moe_ffn``, step for step). Dropped tokens go to a scratch row that is
-    sliced off, so they contribute zero."""
+    sliced off, so they contribute zero. The result is in ``out_dtype``
+    (default x2d's); the block takes the float32 combine and rounds once
+    after its residual add."""
     mcfg = cfg.moe
     T, D = x2d.shape
     E, K = mcfg.num_experts, mcfg.top_k
@@ -419,14 +429,22 @@ def moe_ffn(pl, x2d, cfg: TransformerConfig):
         * valid[..., None]
     inv = torch.argsort(order, dim=-1)
     y_unsorted = torch.gather(y_sorted, 1, inv[..., None].expand(S, Tl * K, D))
-    y = (y_unsorted.reshape(S, Tl, K, D)
-         * gate_vals[..., None].to(x2d.dtype)).sum(dim=2)
+    y = (y_unsorted.reshape(S, Tl, K, D).float()
+         * gate_vals[..., None].to(x2d.dtype)).sum(dim=2).to(out_dtype or x2d.dtype)
     return y.reshape(T, D)
 
 
 # ---------------------------------------------------------------------------
 # Block
 # ---------------------------------------------------------------------------
+
+
+def _residual_mm(x, a, w):
+    """``x + a @ w`` in x's dtype, the product's float32 sums and the
+    residual added before the one rounding (``torch.addmm``'s epilogue), as
+    XLA's fused convert-add gives the reference in bfloat16."""
+    y = torch.addmm(x.reshape(-1, x.shape[-1]), a.reshape(-1, a.shape[-1]), w)
+    return y.reshape(x.shape)
 
 
 def _proj_sdrop(x, w, b, drop_state):
@@ -454,19 +472,23 @@ def _act(cfg, gt, up):
     return F.gelu(up, approximate="tanh")
 
 
-def _mlp(pl, h, cfg, drop_state, inner=None):
+def _mlp(pl, h, cfg, drop_state, inner=None, residual=None):
     """Dense FFN with NR sdrop on its input; ``inner`` (a structured
     DropoutState over d_ff) drops FFN-inner blocks: compact up/gate
-    columns and compact down rows."""
+    columns and compact down rows. With ``residual`` the result is
+    ``residual + ffn(h)`` (``_residual_mm`` for the dense down product)."""
     gated = cfg.mlp in ("swiglu", "geglu")
     if inner is not None:
         kw = dict(rate=inner.spec.rate, block_size=inner.spec.block_size)
         up = sm.sdrop_matmul_out(h, pl["w_up"], inner.keep_blocks, **kw)
         gt = sm.sdrop_matmul_out(h, pl["w_gate"], inner.keep_blocks, **kw) if gated else None
-        return sm.sdrop_matmul(_act(cfg, gt, up), pl["w_down"], inner.keep_blocks,
-                               x_is_compact=True, scale=inner.scale, **kw)
+        y = sm.sdrop_matmul(_act(cfg, gt, up), pl["w_down"], inner.keep_blocks,
+                            x_is_compact=True, scale=inner.scale, **kw)
+        return y if residual is None else residual + y
     up = _proj_sdrop(h, pl["w_up"], None, drop_state)
     gt = _proj_sdrop(h, pl["w_gate"], None, drop_state) if gated else None
+    if residual is not None:
+        return _residual_mm(residual, _act(cfg, gt, up), pl["w_down"])
     return (_act(cfg, gt, up) @ pl["w_down"]).to(h.dtype)
 
 
@@ -533,14 +555,15 @@ def block_apply(pl, x, cfg: TransformerConfig, *, causal: bool,
     else:
         attn = _attend(q, k, v, cfg, causal)
     attn = attn.reshape(B, S, cfg.n_heads * cfg.hd)
-    x = x + (attn @ pl["wo"]).to(x.dtype)
+    x = _residual_mm(x, attn, pl["wo"])
     h2 = _norm(cfg, pl["ln2"], x)
     if cfg.moe is None:
-        return x + _mlp(pl, h2, cfg, d_mlp, inner)
-    y = moe_ffn(pl, h2.reshape(B * S, D), cfg).reshape(B, S, D)
+        return _mlp(pl, h2, cfg, d_mlp, inner, residual=x)
+    y = moe_ffn(pl, h2.reshape(B * S, D), cfg, out_dtype=torch.float32)
+    y = y.reshape(B, S, D)
     if cfg.moe.dense_ff:
         y = y + _mlp(pl, h2, cfg, d_mlp)
-    return x + y
+    return (x + y).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -110,6 +110,10 @@ def mlstm_chunkwise(q, k, v, lf, li, chunk: int, initial=None):
     above = ~torch.ones((c, c), dtype=torch.bool, device=q.device).tril()
     hs = []
     for qq, kk, vv, lff, lii in zip(qc, kc, vc, lfc, lic):
+        # the reference's products take q, k, v into float32 sums
+        # (preferred_element_type) beside the float32 carries: widened here
+        # once a chunk, exactly
+        qq, kk, vv = (x.to(C.dtype) for x in (qq, kk, vv))
         # stabilized carry: the true C is C * exp(m)
         b = torch.cumsum(lff, dim=-1)                    # incl. own lf
         Mt = torch.cummax(lii - b, dim=-1).values        # running max of li - b
@@ -174,6 +178,7 @@ def slstm_step(x_gates, h_prev, state, R, *, rh_state=None):
     unit ids (compacted product) or a (B, 1, dh) dense mask.
     """
     B, H, dh = h_prev.shape
+    R = R.to(h_prev.dtype)      # bfloat16 R into the float32 carry's products
     if rh_state is not None and rh_state.structured:
         ids = _masks.keep_blocks_to_unit_ids(
             rh_state.keep_blocks, rh_state.spec.block_size).long()
@@ -287,12 +292,21 @@ def _rms(g, x, eps=1e-6):
     return (y * g).to(x.dtype)
 
 
-def _group_rms(g, x, H, eps=1e-6):
-    """Per-head RMS norm over the head dim. x (..., H*dh)."""
+def _group_rms(g, x, H, eps=1e-6, dtype=None):
+    """Per-head RMS norm over the head dim. x (..., H*dh); the result in
+    ``dtype`` (default x's)."""
     shp = x.shape
     xf = x.reshape(*shp[:-1], H, shp[-1] // H).float()
     y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
-    return (y.reshape(shp) * g).to(x.dtype)
+    return (y.reshape(shp) * g).to(dtype or x.dtype)
+
+
+def _f32(x):
+    """x in float32 or wider. In bfloat16 models the elementwise chains run
+    in float32 and round once where the reference's tensor is stored or
+    enters a product (XLA fuses such chains without rounding between their
+    steps)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def mlstm_block_apply(pl, x, cfg: XLSTMConfig, drop_state=None,
@@ -306,17 +320,18 @@ def mlstm_block_apply(pl, x, cfg: XLSTMConfig, drop_state=None,
     h = _rms(pl["ln"]["g"], x)
     up = _proj_sdrop(h, pl["w_up"], drop_state)          # NR structured drop
     u, z = up.chunk(2, dim=-1)
-    uc = F.silu(_causal_conv(u, pl["conv_w"], pl["conv_b"]))
+    uc = F.silu(_causal_conv(_f32(u), pl["conv_w"], pl["conv_b"])).to(u.dtype)
     q = (uc @ pl["wq"]).reshape(B, S, H, -1)
     k = (uc @ pl["wk"]).reshape(B, S, H, -1)
     v = (u @ pl["wv"]).reshape(B, S, H, -1)
-    gates = uc @ pl["w_gates"] + pl["b_gates"]
+    gates = _f32(uc @ pl["w_gates"]) + pl["b_gates"]
     li, gf = gates.chunk(2, dim=-1)                      # (B, S, H) each
     hcell, state = mlstm_chunkwise(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         F.logsigmoid(gf).transpose(1, 2), li.transpose(1, 2), cfg.chunk)
     hcell = hcell.transpose(1, 2).reshape(B, S, I)
-    out = _group_rms(pl["gn"]["g"], hcell, H) * F.silu(z)
+    out = (_group_rms(pl["gn"]["g"], hcell, H, dtype=_f32(x).dtype)
+           * F.silu(_f32(z))).to(x.dtype)
     y = x + (out @ pl["w_down"]).to(x.dtype)
     if return_conv:
         K = cfg.conv_kernel
@@ -387,13 +402,12 @@ def slstm_block_apply(pl, x, cfg: XLSTMConfig, nr_state=None, ctx=None,
             h_prev, st = h_new, st_new
             outs.append(h_new)
         hs, hf, stf = torch.stack(outs, dim=1), h_prev, st
-    hs = hs.reshape(B, S, D).to(x.dtype)
-    x = x + _group_rms(pl["gn"]["g"], hs, H)
+    x = x + _group_rms(pl["gn"]["g"], hs.reshape(B, S, D), H, dtype=x.dtype)
     # gated FFN (pf 4/3); jax.nn.gelu's default is the tanh approximation
     h2 = _rms(pl["ln2"]["g"], x)
     u1 = _proj_sdrop(h2, pl["w_up1"], nr_state)
     u2 = _proj_sdrop(h2, pl["w_up2"], nr_state)
-    y = (F.gelu(u1, approximate="tanh") * u2) @ pl["w_down"]
+    y = (F.gelu(_f32(u1), approximate="tanh") * u2).to(x.dtype) @ pl["w_down"]
     return x + y.to(x.dtype), (hf, stf)
 
 
@@ -543,15 +557,17 @@ def _mlstm_decode_block(pl, x, cfg, state, i):
     u, z = (_rms(pl["ln"]["g"], x) @ pl["w_up"]).chunk(2, dim=-1)
     conv = state["m_conv"][i]
     win = torch.cat([conv, u[:, None, :].to(conv.dtype)], dim=1)   # (B, K, I)
-    uc = F.silu(torch.einsum("bki,ki->bi", win, pl["conv_w"]) + pl["conv_b"])
+    uc = F.silu(torch.einsum("bki,ki->bi", _f32(win), _f32(pl["conv_w"]))
+                + pl["conv_b"]).to(u.dtype)
     q = (uc @ pl["wq"]).reshape(B, H, -1)
     k = (uc @ pl["wk"]).reshape(B, H, -1)
     v = (u @ pl["wv"]).reshape(B, H, -1)
-    li, gf = (uc @ pl["w_gates"] + pl["b_gates"]).chunk(2, dim=-1)
+    li, gf = (_f32(uc @ pl["w_gates"]) + pl["b_gates"]).chunk(2, dim=-1)
     hc, _ = mlstm_decode(q, k, v, F.logsigmoid(gf), li,
                          (state["m_C"][i], state["m_n"][i], state["m_m"][i]))
     conv.copy_(win[:, 1:])
-    out = _group_rms(pl["gn"]["g"], hc.reshape(B, I), H) * F.silu(z)
+    out = (_group_rms(pl["gn"]["g"], hc.reshape(B, I), H, dtype=_f32(x).dtype)
+           * F.silu(_f32(z))).to(x.dtype)
     return x + (out @ pl["w_down"]).to(x.dtype)
 
 
@@ -562,10 +578,11 @@ def _slstm_decode_block(pl, x, cfg, state, g):
                                state["s_n"][g], state["s_m"][g]), pl["R"])
     for key, v in zip(("s_h", "s_c", "s_n", "s_m"), (h_new, *st_new)):
         state[key][g].copy_(v)
-    x = x + _group_rms(pl["gn"]["g"], h_new.reshape(B, -1), cfg.n_heads).to(x.dtype)
+    x = x + _group_rms(pl["gn"]["g"], h_new.reshape(B, -1), cfg.n_heads,
+                       dtype=x.dtype)
     h2 = _rms(pl["ln2"]["g"], x)
-    y = (F.gelu(h2 @ pl["w_up1"], approximate="tanh") * (h2 @ pl["w_up2"])) \
-        @ pl["w_down"]
+    y = (F.gelu(_f32(h2 @ pl["w_up1"]), approximate="tanh")
+         * (h2 @ pl["w_up2"])).to(x.dtype) @ pl["w_down"]
     return x + y.to(x.dtype)
 
 

@@ -16,10 +16,18 @@ scales ``grads``, moves the moments and adds each leaf's update to
 ``params`` where they lie, so a step holds parameters, gradients and
 moments plus one leaf's temporaries. A caller that needs the parameters
 before the step clones them first. Nothing on the host waits for the card.
+
+The clip follows the reference's dtypes: its scale is a float32 scalar,
+and JAX promotes ``g * scale`` of a bfloat16 ``g`` to float32, so the
+update reads the clipped gradient unrounded. ``chain`` therefore hands a
+clip's scale to the next transform, whose leaf update computes ``g.float()
+* scale`` as it reads each leaf (for float32 leaves the same bits as
+scaling in place first); on its own, ``clip_by_global_norm`` scales the
+leaves in place, in their dtypes.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -27,7 +35,8 @@ import torch
 
 class Optimizer(NamedTuple):
     init: Callable
-    update_: Callable
+    update_: Callable                       # (grads, state, params[, scale])
+    grad_scale: Optional[Callable] = None   # a clip's: grads -> float32 scale
 
 
 OptState = Any
@@ -71,12 +80,19 @@ def clip_by_global_norm(max_norm: float) -> Optimizer:
         return torch.clamp(max_norm / torch.clamp(g, min=1e-12), max=1.0)
 
     def update_(grads, state, params=None):
-        scale = scale_of(grads)
+        s = scale_of(grads)
         for x in tree_leaves(grads):
-            x.mul_(scale)
+            x.mul_(s)
         return state
 
-    return Optimizer(init, update_)
+    return Optimizer(init, update_, scale_of)
+
+
+def _g32(g, scale):
+    """A gradient leaf as the update reads it: float32, times the clip's
+    scale where a chain passed one."""
+    g = g.float()
+    return g if scale is None else g * scale
 
 
 def sgd(lr) -> Optimizer:
@@ -84,10 +100,10 @@ def sgd(lr) -> Optimizer:
     def init(params):
         return 0
 
-    def update_(grads, step, params):
+    def update_(grads, step, params, scale=None):
         rate = lr(step) if callable(lr) else lr
         for g, p in zip(tree_leaves(grads), tree_leaves(params)):
-            p.add_((-rate * g.float()).to(p.dtype))
+            p.add_((-rate * _g32(g, scale)).to(p.dtype))
         return step + 1
 
     return Optimizer(init, update_)
@@ -108,10 +124,10 @@ def adamw(lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0) -> Optimizer:
         c2 = float(np.float32(1.0) - np.float32(b2) ** np.float32(step))
         return step, rate, c1, c2
 
-    def leaf_(g, m, v, p, rate, c1, c2):
+    def leaf_(g, m, v, p, rate, c1, c2, scale):
         """Moves m and v in place and returns the leaf's update
         -rate * ((m / c1) / (sqrt(v / c2) + eps) + weight_decay * p)."""
-        g = g.float()
+        g = _g32(g, scale)
         m.mul_(b1).add_((1 - b1) * g)
         v.mul_(b2).add_((1 - b2) * torch.square(g))
         u = m / c1
@@ -120,11 +136,11 @@ def adamw(lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0) -> Optimizer:
         del d
         return u.add_(weight_decay * p.float()).mul_(-rate)
 
-    def update_(grads, state, params):
+    def update_(grads, state, params, scale=None):
         step, rate, c1, c2 = constants(state)
         for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state["m"]),
                               tree_leaves(state["v"]), tree_leaves(params)):
-            p.add_(leaf_(g, m, v, p, rate, c1, c2).to(p.dtype))
+            p.add_(leaf_(g, m, v, p, rate, c1, c2, scale).to(p.dtype))
         return {"m": state["m"], "v": state["v"], "step": step}
 
     return Optimizer(init, update_)
@@ -141,13 +157,13 @@ def nt_asgd(lr) -> Optimizer:
         return {"step": 0, "avg_on": False, "avg_start": 0,
                 "avg": tree_map(lambda p: p.detach().float().clone(), params)}
 
-    def update_(grads, state, params):
+    def update_(grads, state, params, scale=None):
         step = state["step"] + 1
         rate = lr(step) if callable(lr) else lr
         k = float(max(step - state["avg_start"], 1))
         for g, a, p in zip(tree_leaves(grads), tree_leaves(state["avg"]),
                            tree_leaves(params)):
-            u = -rate * g.float()
+            u = -rate * _g32(g, scale)
             moved = p.float() + u
             if state["avg_on"]:
                 a.add_((moved - a) / k)
@@ -170,11 +186,22 @@ def averaged_params(state, params):
 
 
 def chain(*opts: Optimizer) -> Optimizer:
-    """Compose transforms left to right (e.g. clip -> adamw)."""
+    """Compose transforms left to right (e.g. clip -> adamw). A clip followed
+    by another transform scales nothing in place: its scale goes on to the
+    next transform's leaf updates."""
     def init(params):
         return tuple(o.init(params) for o in opts)
 
-    def update_(grads, states, params):
-        return tuple(o.update_(grads, s, params) for o, s in zip(opts, states))
+    def update_(grads, states, params, scale=None):
+        out = []
+        for i, (o, s) in enumerate(zip(opts, states)):
+            if o.grad_scale is not None and i + 1 < len(opts):
+                s_new = o.grad_scale(grads)
+                scale = s_new if scale is None else scale * s_new
+                out.append(s)
+            else:
+                kw = {} if scale is None else {"scale": scale}
+                out.append(o.update_(grads, s, params, **kw))
+        return tuple(out)
 
     return Optimizer(init, update_)

@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.convert import to_tensor
 from repro_torch.models import lstm_lm, seq2seq, transformer, xlstm
 
 
@@ -68,7 +69,7 @@ def to_torch(tree, device="cpu"):
     if isinstance(tree, (list, tuple)):
         out = [to_torch(v, device) for v in tree]
         return type(tree)(out) if isinstance(tree, tuple) else out
-    return torch.from_numpy(np.array(tree, copy=True)).to(device)
+    return to_tensor(tree).to(device)
 
 
 def require_cuda() -> torch.device:

@@ -1,7 +1,9 @@
 """The port stands alone: every module of ``repro_torch`` (found by
 ``pkgutil.walk_packages``) and ``chip_smoke.py`` import in a fresh
-interpreter in which ``jax`` and the reference package ``repro`` cannot be
-imported (``sys.modules[name] = None`` makes any import of them raise)."""
+interpreter in which ``jax``, the reference package ``repro`` and
+``ml_dtypes`` (absent on the card's machine; the port reads a reference
+bfloat16 array by its dtype's name) cannot be imported
+(``sys.modules[name] = None`` makes any import of them raise)."""
 import os
 import subprocess
 import sys
@@ -10,7 +12,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 GUARD = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "repro"):
+for name in ("jax", "jaxlib", "repro", "ml_dtypes"):
     sys.modules[name] = None
 import repro_torch
 names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
@@ -20,7 +22,7 @@ for name in names:
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
 leaked = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "repro")
+                if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")
                 and sys.modules[m] is not None)
 assert not leaked, leaked
 print(len(names), "modules")

@@ -234,8 +234,9 @@ def test_param_tree_matches_reference():
 
 def test_full_config_matches_reference():
     """mixtral-8x22b: the reference's widths, heads, kv_repeat, window,
-    experts, chunks, plan and every other field; the dtypes differ
-    (float32 in the port) and ``moe_impl`` is the port's own."""
+    experts, chunks, plan and every other field, and its dtypes (bfloat16
+    parameters and compute, a float32 router); ``moe_impl`` is the port's
+    own."""
     r_cfg, t_cfg = r_configs.get_arch(ARCH).full(), t_configs.get_arch(ARCH).full()
     for f in dataclasses.fields(t_cfg):
         if f.name in ("param_dtype", "compute_dtype", "plan", "moe", "moe_impl"):
@@ -245,7 +246,10 @@ def test_full_config_matches_reference():
         if f.name != "router_dtype":
             assert getattr(t_cfg.moe, f.name) == getattr(r_cfg.moe, f.name), f.name
     assert t_cfg.plan.to_dict() == r_cfg.plan.to_dict()
-    assert t_cfg.moe.router_dtype == t_cfg.param_dtype == torch.float32
+    assert t_cfg.moe.router_dtype == torch.float32
+    assert t_cfg.param_dtype == t_cfg.compute_dtype == torch.bfloat16
+    assert str(jnp.dtype(r_cfg.param_dtype)) == str(jnp.dtype(r_cfg.compute_dtype)) == "bfloat16"
+    assert str(jnp.dtype(r_cfg.moe.router_dtype)) == "float32"
     assert (t_cfg.d_model, t_cfg.n_heads, t_cfg.n_kv_eff, t_cfg.hd, t_cfg.d_ff,
             t_cfg.vocab, t_cfg.window, t_cfg.moe.num_experts, t_cfg.moe.top_k) == (
                 6144, 48, 16, 128, 16384, 32768, 4096, 8, 2)

@@ -212,7 +212,7 @@ def test_chunked_attention_matches_reference(window, causal):
 
 def test_full_config_matches_reference():
     """qwen3-8b: the reference's widths, heads, kv_repeat, chunks, plan and
-    every other field; only the dtype differs (float32 in the port), and
+    every other field, and its dtypes (bfloat16 parameters and compute);
     ``moe_impl`` is the port's own."""
     r_cfg, t_cfg = r_configs.get_arch(ARCH).full(), t_configs.get_arch(ARCH).full()
     for f in dataclasses.fields(t_cfg):
@@ -222,7 +222,8 @@ def test_full_config_matches_reference():
     assert t_cfg.plan.to_dict() == r_cfg.plan.to_dict()
     assert (t_cfg.d_model, t_cfg.n_heads, t_cfg.n_kv_eff, t_cfg.hd, t_cfg.d_ff,
             t_cfg.vocab, t_cfg.q_chunk) == (4096, 32, 16, 128, 12288, 151936, 1024)
-    assert t_cfg.param_dtype == t_cfg.compute_dtype == torch.float32
+    assert t_cfg.param_dtype == t_cfg.compute_dtype == torch.bfloat16
+    assert str(jnp.dtype(r_cfg.param_dtype)) == str(jnp.dtype(r_cfg.compute_dtype)) == "bfloat16"
     assert t_cfg.attn_impl == "xla"
 
 
