@@ -55,7 +55,11 @@ plain PyTorch version at that path's full shapes, and times it:
     non-causal, windowed, MQA, G=4, G=3 (mixtral's group),
     ragged, Sq != Sk, head_dim 16 / 64 / 256 and bfloat16 modes on small
     inputs; and K9-K11 with bfloat16 inputs at that shape, beside SDPA in
-    bfloat16, rows ``flash_*/bf16``);
+    bfloat16, rows ``flash_*/bf16``: bfloat16 K9 and K11 at head_dim 64
+    and 128 take the wgmma route, ``csrc/flash_attention_sm90.cu``, whose
+    SASS must hold HGMMA instructions, timed in turns with the tf32 route
+    on the same inputs, ``tf32_route_ms``; the launches of the main paths
+    are counted by route and all of bfloat16 K9 and K11 must take wgmma);
   * mixtral-8x22b (the expert products over the (8 experts x 1280 slots)
     capacity buffer: x (10240, 6144) by w (8, 6144, 16384), and x (10240,
     16384) by w (8, 16384, 6144)): K12 grouped matmul, split-precision
@@ -137,6 +141,7 @@ any failed phase. Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -944,6 +949,7 @@ def check_flash(gen, B_, Sq_, Sk_, Hq_, Hkv_, d_, *, causal=True, window=None,
               lambda: [*fwd_k(), dq_k(), *dkv_k()])
     if bf:
         f64 = flash_f64_bf16(fa, q, k, v, do, causal, window)
+        check_wgmma_sass(fa)
     else:
         f64 = flash_f64(fa, q, k, v, do, causal, window)
         f64.update(flash_fwd_f64(fa, q, k, v, causal, window))
@@ -961,7 +967,6 @@ def check_flash(gen, B_, Sq_, Sk_, Hq_, Hkv_, d_, *, causal=True, window=None,
     rows = 4 * B_ * Hq_ * Sq_                     # one float32 per query row
     assert window is None, "the library yardstick has no window"
     lib_f, lib_b = sdpa_yardstick(q, k, v, do, causal)
-    src = "src/repro_torch/csrc/flash_attention.cu"
     rep = "src/repro/kernels/flash_attention.py:"
     # float32: on the TF32 tensor cores, three TF32 products for each
     # float32 product (3xTF32); bfloat16 inputs: the products themselves at
@@ -974,19 +979,52 @@ def check_flash(gen, B_, Sq_, Sk_, Hq_, Hkv_, d_, *, causal=True, window=None,
              lib_b, "127"),
             ("flash_dkv", dkv_k, dkv_p, e11, 2 * qb + 4 * kb + 2 * rows,
              passes * 4 * prod, lib_b, "158")):
+        rt = fa.route(name, dtype, d_)
+        counter = f"{name}/{rt}" if bf else name
         # once per layer and pass, after other work: cold L2
-        ms = time_ms(fk, cold_l2=True)
+        if rt == "wgmma":
+            ms, prev = wgmma_vs_tf32(fa, fk)
+        else:
+            ms = time_ms(fk, cold_l2=True)
         pms = time_ms(fp, cold_l2=True)
         if bf:
-            extra = dict(dtype="bfloat16", f64_rel_err=f64[name])
+            extra = dict(dtype="bfloat16", f64_rel_err=f64[name], kernel_route=rt)
+            if rt == "wgmma":
+                extra["tf32_route_ms"] = prev
+            if rt == "wgmma" and name == "flash_dkv":
+                # the route's own work: s^T, dp^T and p, ds in two terms each
+                extra["route_bound_ms"] = bound_ms(nbytes, 6 * prod, BF16_FLOPS)[0]
         elif name == "flash_fwd":
             extra = dict(f64_rel_err=f64[name], library_f64_rel_err=f64["sdpa_fwd"])
         else:
             extra = dict(f64_rel_err=f64[name], library_f64_rel_err=f64["sdpa"],
                          library_covers="flash_dq + flash_dkv (one backward)")
-        add_row(out, name, QWEN, src, rep + line, err, ms, pms, lms, nbytes,
+        add_row(out, counter, QWEN, FLASH_SRC[rt], rep + line, err, ms, pms, lms, nbytes,
                 flops, "cold", rate=rate, name=name + ("/bf16" if bf else ""),
                 **extra)
+
+
+FLASH_SRC = {"tf32": "src/repro_torch/csrc/flash_attention.cu",
+             "wgmma": "src/repro_torch/csrc/flash_attention_sm90.cu"}
+
+
+def wgmma_routes(flash):
+    """The launches by route that bfloat16 K9-K11 at head_dim 128 make for
+    the pass counts ``flash``: K9 and K11 on wgmma, K10 on tf32."""
+    return {"flash_fwd/wgmma": flash["flash_fwd"], "flash_fwd/tf32": 0,
+            "flash_dq/tf32": flash["flash_dq"], "flash_dkv/wgmma": flash["flash_dkv"],
+            "flash_dkv/tf32": 0}
+
+
+def wgmma_vs_tf32(fa, fn):
+    """Cold-L2 times of ``fn`` on the wgmma route and on the tf32 route
+    (``tf32_route``), in turns (wgmma, tf32, tf32, wgmma): the means of each
+    route's two medians."""
+    a = time_ms(fn, cold_l2=True)
+    with tf32_route(fa):
+        b = time_ms(fn, cold_l2=True) + time_ms(fn, cold_l2=True)
+    a += time_ms(fn, cold_l2=True)
+    return a / 2, b / 2
 
 
 # K9 against a float64 forward, K10 / K11 against a float64 backward
@@ -1109,15 +1147,60 @@ def flash_f64_bf16(fa, q, k, v, do, causal, window, backward=True):
     return res
 
 
+def _sass(name):
+    """The SASS of ``csrc/<name>.cu``'s library (``cuobjdump -sass``)."""
+    from repro_torch.kernels import _build
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    return subprocess.run([cuobjdump, "-sass", str(_build.lib_path(name))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+
+
+def sass_hgmma(name):
+    """{kernel symbol: HGMMA (wgmma) instructions} in the SASS of
+    ``csrc/<name>.cu``'s library."""
+    hgmma, sym = {}, None
+    for line in _sass(name).splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            sym = m.group(1)
+            hgmma[sym] = 0
+        elif sym and "HGMMA" in line:
+            hgmma[sym] += 1
+    for sym, n in hgmma.items():
+        print(f"{name} sass: {sym}: {n} HGMMA")
+    return hgmma
+
+
+def check_wgmma_sass(fa):
+    """Fail unless the wgmma route's K9 and K11 hold HGMMA instructions at
+    every head dim they take."""
+    hgmma = sass_hgmma("flash_attention_sm90")
+    for name in ("flash_fwd_sm90", "flash_dkv_sm90"):
+        for d in fa.WGMMA_HEAD_DIMS:
+            n = [v for sym, v in hgmma.items() if f"{name}ILi{d}E" in sym]
+            if not n or not all(n):
+                raise AssertionError(f"{name} (d={d}): no HGMMA in its SASS")
+
+
+@contextlib.contextmanager
+def tf32_route(fa):
+    """Inside the block every flash launch takes the ``"tf32"`` route
+    (``csrc/flash_attention.cu``, bfloat16 K9 and K11 as they were before
+    the wgmma route): the yardstick of the bfloat16 rows' ``tf32_route_ms``,
+    timed on the same inputs."""
+    saved = fa.route
+    fa.route = lambda which, dtype, d: "tf32"
+    try:
+        yield
+    finally:
+        fa.route = saved
+
+
 def sass_hmma(name):
     """{kernel symbol: [TF32 HMMA, all HMMA]} in the SASS of ``csrc/<name>.cu``'s
     library (``cuobjdump -sass``)."""
-    from repro_torch.kernels import _build
-    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(_build.lib_path(name))],
-                          capture_output=True, text=True, check=True, timeout=300).stdout
     hmma, sym = {}, None
-    for line in sass.splitlines():
+    for line in _sass(name).splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             sym = m.group(1)
@@ -1149,7 +1232,8 @@ def sdpa_yardstick(q, k, v, do, causal):
 def check_flash_modes(gen):
     """K9-K11 on small inputs: non-causal, windows, MQA, G = 4, sequences
     that are not multiples of the tile, Sq != Sk, head dims 16 / 64 / 256,
-    bfloat16."""
+    bfloat16 (at d 64 and 128 the wgmma route's K9 and K11: non-causal,
+    windows 8 and 256, MQA, G = 3, S = 100, Sq < Sk, Sq > Sk)."""
     bf = torch.bfloat16
     for args, kw, tag in (
             ((2, 64, 64, 4, 2, 64), dict(causal=False), "(non-causal)"),
@@ -1168,7 +1252,16 @@ def check_flash_modes(gen):
             ((1, 96, 96, 4, 2, 16), {}, "(d=16)"),
             ((1, 160, 160, 4, 2, 256), {}, "(d=256)"),
             ((2, 128, 128, 4, 2, 128), dict(dtype=bf), "(bf16)"),
-            ((1, 100, 100, 4, 2, 64), dict(dtype=bf, window=32), "(bf16 window)")):
+            ((1, 100, 100, 4, 2, 64), dict(dtype=bf, window=32), "(bf16 window)"),
+            # bfloat16 at d 128 (the wgmma route for K9 and K11)
+            ((2, 64, 64, 4, 2, 128), dict(dtype=bf, causal=False), "(bf16 d=128 non-causal)"),
+            ((1, 64, 64, 2, 2, 128), dict(dtype=bf, window=8), "(bf16 d=128 window 8)"),
+            ((1, 1024, 1024, 4, 2, 128), dict(dtype=bf, window=256), "(bf16 d=128 window 256)"),
+            ((2, 128, 128, 4, 1, 128), dict(dtype=bf), "(bf16 d=128 MQA)"),
+            ((1, 192, 192, 6, 2, 128), dict(dtype=bf), "(bf16 d=128 G=3)"),
+            ((2, 100, 100, 4, 2, 128), dict(dtype=bf), "(bf16 d=128 S=100)"),
+            ((1, 80, 144, 4, 2, 128), dict(dtype=bf), "(bf16 d=128 Sq < Sk)"),
+            ((1, 144, 80, 4, 2, 128), dict(dtype=bf), "(bf16 d=128 Sq > Sk)")):
         check_flash(gen, *args, tag=tag, **kw)
 
 
@@ -1304,7 +1397,7 @@ def _counters():
     from repro_torch.kernels import lstm_scan as ls
     from repro_torch.kernels import slstm_scan as ss
     return (gm.LAUNCHES, ls.LAUNCHES, dsk.LAUNCHES, ss.LAUNCHES, fa.LAUNCHES,
-            gmm.LAUNCHES, gmm.LAUNCHES_BY_SHAPE, k5.LAUNCHES)
+            fa.LAUNCHES_BY_ROUTE, gmm.LAUNCHES, gmm.LAUNCHES_BY_SHAPE, k5.LAUNCHES)
 
 
 def reset_counts():
@@ -1718,6 +1811,7 @@ def drive_transformer():
         assert all(math.isfinite(x) for x in ls_), ls_
         assert all(torch.isfinite(p).all() for p in _leaves(params))
         flash = {k_: c[k_] for k_ in fa.LAUNCHES}
+        by_route = {k_: c[k_] for k_ in fa.LAUNCHES_BY_ROUTE}
         if impl == "flash":
             missing = [k_ for k_, v in flash.items() if v == 0]
             assert not missing, f"flash kernels never launched: {missing}"
@@ -1726,8 +1820,12 @@ def drive_transformer():
             print("  flash launches per step "
                   + ("as expected" if flash == want else
                      f"differ from the expected {want}: {flash}"))
+            # every bfloat16 K9 and K11 of the step on the wgmma route
+            assert by_route == wgmma_routes(flash), by_route
+            print(f"  flash launches by route: {by_route}")
         else:
             assert not any(flash.values()), f"flash kernels launched under xla: {c}"
+            assert not any(by_route.values()), by_route
         assert all(p.dtype == torch.bfloat16 for p in _leaves(params))
         peak[impl] = torch.cuda.max_memory_allocated()
         print(f"  launches per step ({QWEN}/{impl}): "
@@ -2052,10 +2150,10 @@ def drive_moe():
         assert all(math.isfinite(x) for x in ls_), ls_
         assert all(torch.isfinite(p).all() for p in _leaves(params))
         k12 = (M_LAYERS if impl == "pallas" else 0) * STEPS
+        flash = {"flash_fwd": 2 * M_LAYERS * STEPS, "flash_dq": M_LAYERS * STEPS,
+                 "flash_dkv": M_LAYERS * STEPS}
         want = {"grouped_matmul": 6 * k12, f"grouped_matmul/{MD}x{MF}": 4 * k12,
-                f"grouped_matmul/{MF}x{MD}": 2 * k12,
-                "flash_fwd": 2 * M_LAYERS * STEPS, "flash_dq": M_LAYERS * STEPS,
-                "flash_dkv": M_LAYERS * STEPS}
+                f"grouped_matmul/{MF}x{MD}": 2 * k12, **flash, **wgmma_routes(flash)}
         got = {k_: c.get(k_, 0) for k_ in want}
         assert got == want, f"{MIXTRAL}/{impl}: launches {got}, expected {want}"
         assert all(p.dtype == torch.bfloat16 for p in _leaves(params))
@@ -2217,10 +2315,13 @@ def serve_qwen():
         print(f"  {method} prefill of {SQ_CHECK - 1} tokens: {ms:.1f} ms")
     c = read_counts()
     n_native = n_native[0]
-    want = {k_: (36 * n_native if k_ == "flash_fwd" else 0) for k_ in c}
+    # K9 once a layer, on the wgmma route, and nothing else
+    want = {k_: (36 * n_native if k_ in ("flash_fwd", "flash_fwd/wgmma") else 0)
+            for k_ in c}
     off = {k_: v for k_, v in c.items() if v != want[k_]}
     print(f"  launches in {n_native} native prefills: flash_fwd={c['flash_fwd']} "
-          f"({c['flash_fwd'] / n_native:g} a prefill, 36 layers), "
+          f"({c['flash_fwd'] / n_native:g} a prefill, 36 layers; "
+          f"{c['flash_fwd/wgmma'] / n_native:g} on the wgmma route), "
           + ("no other kernel" if not off else f"UNEXPECTED {off}"))
     assert not off, off
     err = compare(f"  first decode logits after native (K9) vs replay prefill of "
@@ -2460,10 +2561,17 @@ def check_flash_prefill(gen, out, dtype=torch.float32):
     tag = " (prefill, bf16)" if bf else " (prefill)"
     err = compare("  flash_fwd" + tag, list(fwd_k()), list(fwd_p()),
                   BF16_TOL if bf else 1e-3)
+    rt = fa.route("flash_fwd", dtype, QD)
+    if rt == "wgmma":
+        ms, prev = wgmma_vs_tf32(fa, fwd_k)
+    else:
+        ms = time_ms(fwd_k, cold_l2=True)
     if bf:
         same_bits("flash_fwd second launch" + tag, list(fwd_k()), lambda: list(fwd_k()))
         f64 = flash_f64_bf16(fa, q, k, v, None, True, None, backward=False)
-        extra = dict(dtype="bfloat16", f64_rel_err=f64["flash_fwd"])
+        extra = dict(dtype="bfloat16", f64_rel_err=f64["flash_fwd"], kernel_route=rt)
+        if rt == "wgmma":
+            extra["tf32_route_ms"] = prev
     else:
         f64 = flash_fwd_f64(fa, q, k, v, True, None)
         extra = dict(f64_rel_err=f64["flash_fwd"], library_f64_rel_err=f64["sdpa_fwd"])
@@ -2476,9 +2584,9 @@ def check_flash_prefill(gen, out, dtype=torch.float32):
     qb, kb = SQB * S * QHQ * QD * es, SQB * S * QHKV * QD * es
     # bfloat16: the products at the bfloat16 rate; float32: 3xTF32
     passes, rate = (1, BF16_FLOPS) if bf else (3, TF32_FLOPS)
-    add_row(out, "flash_fwd", SERVE, "src/repro_torch/csrc/flash_attention.cu",
-            "src/repro/kernels/flash_attention.py:45", err,
-            time_ms(fwd_k, cold_l2=True), time_ms(fwd_p, cold_l2=True), lib,
+    add_row(out, f"flash_fwd/{rt}" if bf else "flash_fwd", SERVE, FLASH_SRC[rt],
+            "src/repro/kernels/flash_attention.py:45", err, ms,
+            time_ms(fwd_p, cold_l2=True), lib,
             qb + 2 * kb + qb + 4 * SQB * QHQ * S, passes * 2 * prod, "cold",
             name="flash_fwd@prefill" + ("/bf16" if bf else ""), rate=rate, **extra)
 

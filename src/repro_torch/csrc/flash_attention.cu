@@ -17,8 +17,10 @@
 //   K11: dv = sum_q p do, dk = sum_q ds q, summed over the group's query
 //        heads inside the kernel (the reference sums per-head float32
 //        results outside it), written in k's type.
-// Inputs are float32 or bfloat16. All three run their products on the TF32
-// tensor cores in split precision, which keeps float32's accuracy (below).
+// Inputs are float32 or bfloat16 (bfloat16 K9 and K11 at head_dim 64 and
+// 128 take csrc/flash_attention_sm90.cu instead). All three run their
+// products on the TF32 tensor cores in split precision, which keeps
+// float32's accuracy (below).
 // Tiles are staged in shared memory as float32.
 //
 // Masked tiles: a kv tile that no row of a warp's 16 query rows can see
@@ -49,11 +51,14 @@
 //     o and dq, one q tile for dk and dv) and that partial tile is added to
 //     the running float32 sums by an FADD, which rounds to nearest (K9 folds
 //     its rescale into it: o = o alpha + partial, one FFMA).
-//   * mma.sync, not wgmma: TF32 wgmma reads both operands K-major from
-//     shared memory, and four of the seven products contract over a
-//     sequence axis whose operand lies d-contiguous (p v, ds k, p^T do,
-//     ds^T q). mma.sync fragments load from shared memory in any
-//     orientation.
+//   * mma.sync, not wgmma, for TF32: TF32 wgmma reads both operands
+//     K-major from shared memory, and four of the seven products contract
+//     over a sequence axis whose operand lies d-contiguous (p v, ds k, p^T
+//     do, ds^T q). mma.sync fragments load from shared memory in any
+//     orientation. The reason holds for TF32 only: 16-bit wgmma reads an
+//     operand MN-major too, and bfloat16 K9 and K11 at head_dim 64 and 128
+//     run on it (csrc/flash_attention_sm90.cu, flash_fwd_sm90 and
+//     flash_dkv_sm90; kernels/flash_attention.py route()).
 //   * Bank conflicts: one float32 copy of each tile, rows of D + 4 floats,
 //     serves both orientations. Where a product contracts over a sequence
 //     axis the 8-wide k-step is paired (k = t is row 2t, k = t + 4 is row
@@ -103,6 +108,7 @@
 
 #include <type_traits>
 
+#include "flash_mask.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -126,30 +132,6 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
   const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
   return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ bool visible(const FlashArgs& a, int qpos, int kpos) {
-  return (!a.causal || qpos >= kpos) && (a.window <= 0 || qpos - kpos < a.window);
-}
-
-// kv range [lo, hi) that rows [q0, q1] can see.
-__device__ __forceinline__ void kv_range(const FlashArgs& a, int q0, int q1, int& lo, int& hi) {
-  hi = a.causal ? min(a.Sk, q1 + 1) : a.Sk;
-  lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
-}
-
-// Whether any (query, key) pair of rows [qa, qb] x keys [ka, kb] is visible
-// (empty ranges are not).
-__device__ __forceinline__ bool block_live(const FlashArgs& a, int qa, int qb, int ka,
-                                           int kb) {
-  return qa <= qb && ka <= kb && (!a.causal || qb >= ka) &&
-         (a.window <= 0 || qa - kb < a.window);
-}
-
-// Whether every (query, key) pair of rows [qa, qb] x keys [ka, kb] is visible.
-__device__ __forceinline__ bool block_full(const FlashArgs& a, int qa, int qb, int ka,
-                                           int kb) {
-  return (!a.causal || qa >= kb) && (a.window <= 0 || qb - ka < a.window);
 }
 
 // R rows [row0, row0 + R) of one (batch, head) slice at `base` (row stride

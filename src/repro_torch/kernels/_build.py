@@ -28,7 +28,8 @@ from typing import Dict, Iterable, Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = ("gather_matmul", "lstm_scan", "decoder_scan", "slstm_scan",
-           "flash_attention", "lstm_pointwise", "grouped_matmul")
+           "flash_attention", "flash_attention_sm90", "lstm_pointwise",
+           "grouped_matmul")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                       "-Xptxas", "-v"]

@@ -9,20 +9,19 @@ float32) are masked to ``-1e30`` in float32 where the causal mask
 drops them, positions counted from 0 in both sequences.
 
 A CUDA tensor goes through ``torch.autograd.Function`` ``_FlashAttention``:
-its forward launches K9 (``csrc/flash_attention.cu``, o and the float32
-log-sum-exp ``lse (B, Hq, Sq)``) and saves (q, k, v, o, lse), as the
-reference's ``_fa_fwd_res``; its backward computes ``delta = rowsum(do * o)``
-in float32 outside the kernels, as ``_flash_bwd``, then launches K10 (dq) and
-K11 (dk, dv, summed over each kv head's group of query heads inside the
-kernel). The kernels take float32 or bfloat16 and head_dim in
-``HEAD_DIMS``; anything else raises. K9, K10 and K11 run their products
+its forward launches K9 (o and the float32 log-sum-exp ``lse (B, Hq,
+Sq)``) and saves (q, k, v, o, lse), as the reference's ``_fa_fwd_res``; its
+backward computes ``delta = rowsum(do * o)`` in float32 outside the
+kernels, as ``_flash_bwd``, then launches K10 (dq) and K11 (dk, dv, summed
+over each kv head's group of query heads inside the kernel). The kernels
+take float32 or bfloat16 and head_dim in ``HEAD_DIMS``; anything else
+raises. On the ``"tf32"`` route (below) K9, K10 and K11 run their products
 on the TF32 tensor cores in split precision (each float32 operand as a
 TF32 hi and lo, three products summed in float32), which keeps float32's
-accuracy, and launch to launch they give the same bits (no atomics). A CPU
-tensor takes the
-plain version: the masked float32 scores materialised and a softmax (the
-reference's test oracle), differentiated by autograd. ``LAUNCHES`` counts
-the kernel launches.
+accuracy; on either route launch to launch they give the same bits (no
+atomics). A CPU tensor takes the plain version: the masked float32
+scores materialised and a softmax (the reference's test oracle),
+differentiated by autograd. ``LAUNCHES`` counts the kernel launches.
 
 ``flash_dq_plain`` and ``flash_dkv_plain`` are K10's and K11's plain
 versions (the same formulas on materialised probabilities
@@ -31,9 +30,20 @@ versions (the same formulas on materialised probabilities
 backward in float64 over one group of query heads, the oracles of the
 kernels' float32 accuracy.
 
+Two routes of kernels (``route``): bfloat16 K9 and K11 at head_dim 64
+and 128 take ``"wgmma"``, ``csrc/flash_attention_sm90.cu`` (Hopper's
+wgmma from shared memory and registers on TMA tiles; K9 with a producer
+warpgroup, K11 with its thread 0 producing; K11's float32 p and ds as two
+bfloat16 terms each); everything else, float32, K10 and bfloat16 at
+head_dim 16, 32 and 256, takes ``"tf32"``, ``csrc/flash_attention.cu``.
+A failed build or launch raises; no route falls back to the other.
+``LAUNCHES_BY_ROUTE`` counts the launches of each (pass, route) beside
+``LAUNCHES``.
+
 Rows that see no key at all (a window with ``Sq > Sk + window - 1``) are
-refused on both routes: the reference's kernel gives them the mean of v in
-the forward and a backward that disagrees with its own oracle there.
+refused on the CPU and on the card: the reference's kernel gives them the
+mean of v in the forward and a backward that disagrees with its own oracle
+there.
 """
 from __future__ import annotations
 
@@ -45,11 +55,27 @@ import torch
 from repro_torch.kernels import _build
 
 LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+LAUNCHES_BY_ROUTE = {"flash_fwd/wgmma": 0, "flash_fwd/tf32": 0,
+                     "flash_dq/tf32": 0, "flash_dkv/wgmma": 0,
+                     "flash_dkv/tf32": 0}
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PASS = {"flash_fwd": 0, "flash_dq": 1, "flash_dkv": 2}
+WGMMA_HEAD_DIMS = (64, 128)
+# the C library and entry point of each route
+_ROUTE_LIB = {"wgmma": ("flash_attention_sm90", "flash_attention_sm90_launch"),
+              "tf32": ("flash_attention", "flash_attention_launch")}
+
+
+def route(which: str, dtype: torch.dtype, d: int) -> str:
+    """The kernel a launch of pass ``which`` takes: ``"wgmma"`` (bfloat16
+    K9 and K11 at head_dim 64 or 128) or ``"tf32"`` (everything else)."""
+    if (which in ("flash_fwd", "flash_dkv") and dtype == torch.bfloat16
+            and d in WGMMA_HEAD_DIMS):
+        return "wgmma"
+    return "tf32"
 
 
 def softmax_scale(d: int) -> float:
@@ -195,29 +221,37 @@ def flash_delta(o, do):
 # ---------------------------------------------------------------------------
 
 
-def _lib():
-    lib = _build.load("flash_attention")
+def _entry(r):
+    """The C entry point of route ``r`` (both take the same arguments)."""
+    name, fn_name = _ROUTE_LIB[r]
+    lib = _build.load(name)
+    fn = getattr(lib, fn_name)
     if not getattr(lib, "_typed", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.flash_attention_launch.argtypes = (
-            [i, i, i] + [p] * 11 + [i] * 5 + [ll] * 12
-            + [i, i, ctypes.c_float, p])
-        lib.flash_attention_launch.restype = i
+        fn.argtypes = ([i, i, i] + [p] * 11 + [i] * 5 + [ll] * 12
+                       + [i, i, ctypes.c_float, p])
+        fn.restype = i
         lib._typed = True
-    return lib
+    return lib, fn
 
 
-def _prep(x):
+def _prep(x, r="tf32"):
     """``x`` with head_dim contiguous, its other strides multiples of 4 and
-    its start aligned for the kernels' vector loads (copied otherwise)."""
-    align = 16 if x.dtype == torch.float32 else 8
-    if (x.stride(-1) != 1 or any(s % 4 for s in x.stride()[:3])
-            or x.data_ptr() % align):
+    its start aligned for the kernels' vector loads (copied otherwise). On
+    the ``"wgmma"`` route, whose tiles TMA reads, every stride is a positive
+    multiple of 16 bytes and the start 16-byte aligned."""
+    if r == "wgmma":
+        unit = 16 // x.element_size()
+        bad = any(s <= 0 or s % unit for s in x.stride()[:3]) or x.data_ptr() % 16
+    else:
+        align = 16 if x.dtype == torch.float32 else 8
+        bad = any(s % 4 for s in x.stride()[:3]) or x.data_ptr() % align
+    if x.stride(-1) != 1 or bad:
         x = x.clone(memory_format=torch.contiguous_format)
     return x
 
 
-def _cuda_inputs(named, dtype):
+def _cuda_inputs(named, dtype, r):
     dev = named[0][1].device
     for name, x in named:
         if x.device != dev or x.device.type != "cuda":
@@ -227,7 +261,7 @@ def _cuda_inputs(named, dtype):
     if dtype not in _DTYPES:
         raise TypeError(f"flash attention kernels take float32 or bfloat16, "
                         f"got {dtype}")
-    return [_prep(x) for _, x in named]
+    return [_prep(x, r) for _, x in named]
 
 
 def _launch(which, q, k, v, do, lse_in, delta, o, lse, dq, dk, dv, causal,
@@ -236,24 +270,27 @@ def _launch(which, q, k, v, do, lse_in, delta, o, lse, dq, dk, dv, causal,
     Sk, Hkv = k.shape[1], k.shape[2]
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
+    r = route(which, q.dtype, d)
     ptr = lambda x: None if x is None else x.data_ptr()
     strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                *(do.stride()[:3] if do is not None else (0, 0, 0))]
-    lib = _lib()
-    code = lib.flash_attention_launch(
+    lib, fn = _entry(r)
+    code = fn(
         _PASS[which], _DTYPES[q.dtype], d, ptr(q), ptr(k), ptr(v), ptr(do),
         ptr(lse_in), ptr(delta), ptr(o), ptr(lse), ptr(dq), ptr(dk), ptr(dv),
         B, Sq, Sk, Hq, Hkv, *strides, int(bool(causal)),
         0 if window is None else int(window), softmax_scale(d),
         torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, code, which)
+    _build.check(lib, code, f"{which} ({r})")
     LAUNCHES[which] += 1
+    LAUNCHES_BY_ROUTE[f"{which}/{r}"] += 1
 
 
 def flash_fwd_cuda(q, k, v, causal=True, window=None):
     """K9: (o (B, Sq, Hq, d) in q's dtype, lse (B, Hq, Sq) float32)."""
     _check(q, k, v, window)
-    q, k, v = _cuda_inputs((("q", q), ("k", k), ("v", v)), q.dtype)
+    q, k, v = _cuda_inputs((("q", q), ("k", k), ("v", v)), q.dtype,
+                           route("flash_fwd", q.dtype, q.shape[3]))
     B, Sq, Hq, d = q.shape
     o = torch.empty((B, Sq, Hq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
@@ -262,7 +299,7 @@ def flash_fwd_cuda(q, k, v, causal=True, window=None):
     return o, lse
 
 
-def _bwd_inputs(q, k, v, do, lse, delta, window):
+def _bwd_inputs(which, q, k, v, do, lse, delta, window):
     _check(q, k, v, window)
     if do.shape != q.shape:
         raise ValueError(f"do {tuple(do.shape)} for q {tuple(q.shape)}")
@@ -272,13 +309,14 @@ def _bwd_inputs(q, k, v, do, lse, delta, window):
                 or x.device != q.device):
             raise ValueError(f"{name} must be float32 {want} on {q.device}")
     q, k, v, do = _cuda_inputs((("q", q), ("k", k), ("v", v), ("do", do)),
-                               q.dtype)
+                               q.dtype, route(which, q.dtype, q.shape[3]))
     return q, k, v, do, lse.contiguous(), delta.contiguous()
 
 
 def flash_dq_cuda(q, k, v, do, lse, delta, causal=True, window=None):
     """K10: dq in q's dtype from (q, k, v, do, lse, delta)."""
-    q, k, v, do, lse, delta = _bwd_inputs(q, k, v, do, lse, delta, window)
+    q, k, v, do, lse, delta = _bwd_inputs("flash_dq", q, k, v, do, lse, delta,
+                                          window)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch("flash_dq", q, k, v, do, lse, delta, None, None, dq, None, None,
             causal, window)
@@ -287,7 +325,8 @@ def flash_dq_cuda(q, k, v, do, lse, delta, causal=True, window=None):
 
 def flash_dkv_cuda(q, k, v, do, lse, delta, causal=True, window=None):
     """K11: (dk, dv) in k's dtype, summed over each kv head's group."""
-    q, k, v, do, lse, delta = _bwd_inputs(q, k, v, do, lse, delta, window)
+    q, k, v, do, lse, delta = _bwd_inputs("flash_dkv", q, k, v, do, lse,
+                                          delta, window)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _launch("flash_dkv", q, k, v, do, lse, delta, None, None, None, dk, dv,

@@ -73,7 +73,7 @@ def main(argv=None):
         raise SystemExit("flash_bench: no CUDA device")
     from repro_torch.device import set_full_fp32
     set_full_fp32()
-    libs = {"repo": fa._lib()}
+    libs = {"repo": _build.load("flash_attention")}   # the float32 (tf32) route
     for spec in args.src:
         name, path = spec.split("=", 1)
         libs[name] = build_lib(Path(path))

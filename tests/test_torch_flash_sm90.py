@@ -1,0 +1,294 @@
+"""The bfloat16 route of the port's flash attention: K9 and K11 on Hopper's
+wgmma and TMA (``csrc/flash_attention_sm90.cu``, ``route() == "wgmma"``).
+
+On the CPU: which kernel each (pass, dtype, head_dim) takes; the copies
+``_prep`` makes for TMA (16-byte bases and strides); K11's split of its
+float32 p and ds into two bfloat16 terms (to 2^-16 of |x|, and dk and dv
+from the split terms, bfloat16 products summed in float32, within 1.5 x
+the bfloat16 plain version's float64 distance); and the plain versions in
+bfloat16 against the JAX reference's Pallas kernel in interpret mode
+(``tests/test_flash.py``'s way) at the new route's small shapes, within
+the reference's bfloat16 tolerance 3e-2 x max(1, |ref|).
+
+The ``cuda``-marked cases hold the new kernels to the plain versions on
+the card (3e-2 x max(1, |ref|)) and to float64 (10 x the bfloat16 plain
+version's distance + 1e-6), to their own bits on a second launch, and on
+strided views that need no copy; they skip here. This module imports JAX
+only inside the reference test, so the card (which has no JAX) runs the
+rest: ``PYTHONPATH=src python -m pytest -q --noconftest -m cuda
+tests/test_torch_flash_sm90.py``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.testing import require_cuda
+
+torch.set_num_threads(1)
+BF16 = torch.bfloat16
+
+
+# ---------------------------------------------------------------------------
+# the route and the copies TMA needs
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("which", ["flash_fwd", "flash_dq", "flash_dkv"])
+def test_route(which, dtype, d):
+    want = ("wgmma" if which != "flash_dq" and dtype == BF16 and d in (64, 128)
+            else "tf32")
+    assert fa.route(which, dtype, d) == want
+    assert f"{which}/{want}" in fa.LAUNCHES_BY_ROUTE
+
+
+def _offset_view(shape, elems):
+    """A bfloat16 (B, S, H, d) view starting ``elems`` elements into its
+    storage."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 64, dtype=BF16)[elems:elems + n].view(shape)
+
+
+@pytest.mark.parametrize("case,copied", [
+    ("aligned", {"wgmma": False, "tf32": False}),
+    ("offset_8_bytes", {"wgmma": True, "tf32": False}),
+    ("stride_24_bytes", {"wgmma": True, "tf32": False}),
+    ("head_slice", {"wgmma": False, "tf32": False}),
+    ("d_not_contiguous", {"wgmma": True, "tf32": True}),
+])
+def test_prep_copies_what_tma_cannot_read(case, copied):
+    base = _offset_view((2, 10, 4, 64), 0)
+    assert base.data_ptr() % 64 == 0
+    x = {"aligned": base,
+         "offset_8_bytes": _offset_view((2, 10, 4, 64), 4),
+         "stride_24_bytes": torch.zeros(2, 10, 1, 12, dtype=BF16)[..., :8],
+         "head_slice": torch.zeros(2, 10, 7, 64, dtype=BF16)[:, :, 1:5],
+         "d_not_contiguous": torch.zeros(2, 64, 4, 10, dtype=BF16).transpose(1, 3)}[case]
+    for r, want in copied.items():
+        got = fa._prep(x, r)
+        assert (got.data_ptr() != x.data_ptr()) == want, r
+        torch.testing.assert_close(got, x, rtol=0, atol=0)
+        if r == "wgmma":
+            assert got.data_ptr() % 16 == 0
+            assert all(s % 8 == 0 for s in got.stride()[:3]) and got.stride(-1) == 1
+
+
+# ---------------------------------------------------------------------------
+# K11's two-term split of p and ds
+# ---------------------------------------------------------------------------
+
+
+def _split(x):
+    """x (float32) = hi + lo, each a bfloat16 value rounded to nearest: the
+    A operands K11's wgmma route issues for p and ds."""
+    hi = x.to(BF16).float()
+    return hi, (x - hi).to(BF16).float()
+
+
+@pytest.mark.parametrize("what", ["p", "ds"])
+def test_two_bfloat16_terms_carry_float32_to_2_16(what):
+    g = torch.Generator().manual_seed(0)
+    if what == "p":
+        x = torch.rand(200_000, generator=g)
+    else:
+        x = (torch.randn(200_000, generator=g)
+             * 10.0 ** (torch.rand(200_000, generator=g) * 10 - 8))
+    assert what == "p" or ((x < 0).any() and (x > 0).any())
+    hi, lo = _split(x)
+    err = ((hi.double() + lo.double()) - x.double()).abs()
+    assert (err <= 2.0 ** -16 * x.double().abs()).all()
+    # one bfloat16 term alone misses it
+    assert ((hi.double() - x.double()).abs() > 2.0 ** -16 * x.double().abs()).any()
+
+
+def _dkv_split(q, k, v, do, lse, delta, causal, window):
+    """dk, dv as K11's wgmma route forms them: p and ds in float32 from the
+    bfloat16 inputs, each split into two bfloat16 terms, every product one of
+    bfloat16 values (exact in float32) summed in float32, rounded to
+    bfloat16 at the end."""
+    p, ds = fa._probs_and_ds(q, k, v, do, lse, delta, causal, window)
+    B, Sk, Hkv, d = k.shape
+    G = q.shape[2] // Hkv
+    out = []
+    for x, y in ((ds, q), (p, do)):
+        hi, lo = _split(x)
+        y = y.float()
+        g = (torch.einsum("bhqk,bqhd->bkhd", hi, y)
+             + torch.einsum("bhqk,bqhd->bkhd", lo, y))
+        out.append(g.reshape(B, Sk, Hkv, G, d).sum(3).to(BF16))
+    return tuple(out)
+
+
+@pytest.mark.parametrize("window", [None, 32])
+def test_split_dk_dv_keep_the_plain_float64_distance(window):
+    g = torch.Generator().manual_seed(1)
+    B, S, Hq, Hkv, d = 1, 100, 4, 2, 64
+    q, k, v, do = (torch.randn(*s, generator=g).to(BF16) for s in (
+        (B, S, Hq, d), (B, S, Hkv, d), (B, S, Hkv, d), (B, S, Hq, d)))
+    G = Hq // Hkv
+    lse = torch.empty(B, Hq, S)
+    delta = torch.empty(B, Hq, S)
+    want = []
+    for hk in range(Hkv):
+        lse64, delta64, _, dk64, dv64 = fa.backward_float64(q, k, v, do, True, window, 0, hk)
+        lse[0, hk * G:(hk + 1) * G], delta[0, hk * G:(hk + 1) * G] = lse64, delta64
+        want.append((dk64, dv64))
+    args = (q, k, v, do, lse, delta, True, window)
+
+    def dist(pair):
+        return max(float((x[0, :, hk].double() - w).abs().max()) / max(1.0, float(w.abs().max()))
+                   for hk, ws in enumerate(want) for x, w in zip(pair, ws))
+
+    split, plain = dist(_dkv_split(*args)), dist(fa.flash_dkv_plain(*args))
+    assert 0 < split <= 1.5 * plain, (split, plain)
+
+
+# ---------------------------------------------------------------------------
+# the plain versions in bfloat16 against the reference at the route's shapes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,d,causal,window,bq,bk", [
+    (1, 100, 100, 6, 2, 64, True, None, 50, 50),      # G 3, S 100
+    (1, 100, 100, 4, 2, 64, True, 32, 50, 50),        # window
+    (1, 80, 144, 4, 2, 128, True, None, 40, 48),      # Sq < Sk
+    (1, 144, 80, 4, 2, 128, False, None, 48, 40),     # Sq > Sk
+])
+def test_plain_bf16_matches_reference(B, Sq, Sk, Hq, Hkv, d, causal, window, bq, bk):
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels.flash_attention import flash_attention as r_flash
+
+    rng = np.random.default_rng(7)
+    q, k, v, do = (rng.standard_normal(s).astype(np.float32) for s in (
+        (B, Sq, Hq, d), (B, Sk, Hkv, d), (B, Sk, Hkv, d), (B, Sq, Hq, d)))
+    jx = [jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)]
+    o_r, vjp = jax.vjp(lambda *a: r_flash(*a, causal, window, bq, bk, True), *jx)
+    _, dk_r, dv_r = vjp(jnp.asarray(do, jnp.bfloat16))
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(BF16) for x in (q, k, v, do))
+    o, lse = fa.attention_plain(tq, tk, tv, causal, window)
+    dk, dv = fa.flash_dkv_plain(tq, tk, tv, tdo, lse, fa.flash_delta(o, tdo), causal, window)
+    for got, ref, name in ((o, o_r, "o"), (dk, dk_r, "dk"), (dv, dv_r, "dv")):
+        assert got.dtype == BF16, name
+        ref = np.asarray(ref, np.float32)
+        scale = max(1.0, float(np.abs(ref).max()))
+        np.testing.assert_allclose(got.float().numpy(), ref, rtol=0, atol=3e-2 * scale,
+                                   err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# the kernels on the card (skip without one)
+# ---------------------------------------------------------------------------
+
+CUDA_CASES = [
+    # B, Sq, Sk, Hq, Hkv, d, causal, window
+    (2, 128, 128, 4, 2, 64, True, None),
+    (2, 128, 128, 4, 2, 128, True, None),
+    (1, 100, 100, 6, 2, 128, True, 40),       # G 3, window, ragged tiles
+    (1, 100, 100, 9, 3, 64, True, 40),
+    (2, 64, 64, 4, 1, 128, False, None),      # MQA, non-causal
+    (1, 80, 144, 4, 2, 64, True, None),       # Sq < Sk
+    (1, 144, 80, 4, 2, 128, True, None),      # Sq > Sk
+    (1, 511, 511, 8, 4, 128, True, None),     # the serving prefill's S
+    (1, 384, 384, 4, 2, 128, False, 256),     # window 256, non-causal
+]
+
+
+def _inputs(dev, B, Sq, Sk, Hq, Hkv, d, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(*s, generator=g).to(dev, BF16) for s in (
+        (B, Sq, Hq, d), (B, Sk, Hkv, d), (B, Sk, Hkv, d), (B, Sq, Hq, d))]
+
+
+def _close(got, want):
+    scale = max(1.0, float(want.detach().float().abs().max()))
+    torch.testing.assert_close(got.detach().float(), want.detach().float(), rtol=0,
+                               atol=3e-2 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,d,causal,window", CUDA_CASES)
+def test_cuda_kernels_match_plain(B, Sq, Sk, Hq, Hkv, d, causal, window):
+    dev = require_cuda()
+    q, k, v, do = _inputs(dev, B, Sq, Sk, Hq, Hkv, d)
+    before = dict(fa.LAUNCHES_BY_ROUTE)
+    o_p, lse_p = fa.attention_plain(q, k, v, causal, window)
+    o, lse = fa.flash_fwd_cuda(q, k, v, causal, window)
+    _close(o, o_p)
+    _close(lse, lse_p)
+    args = (q, k, v, do, lse_p, fa.flash_delta(o_p, do), causal, window)
+    for got, want in zip(fa.flash_dkv_cuda(*args), fa.flash_dkv_plain(*args)):
+        _close(got, want)
+    assert {n: fa.LAUNCHES_BY_ROUTE[n] - before[n] for n in before} == {
+        "flash_fwd/wgmma": 1, "flash_fwd/tf32": 0, "flash_dq/tf32": 0,
+        "flash_dkv/wgmma": 1, "flash_dkv/tf32": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_kernels_keep_the_plain_float64_distance(d):
+    """o, lse, dk and dv of every (batch, kv head) group within 10 x the
+    bfloat16 plain version's distance to float64 + 1e-6 (the chip_smoke
+    gate); the backward takes lse and delta from the float64 forward."""
+    dev = require_cuda()
+    B, S, Hq, Hkv = 1, 700, 4, 2
+    q, k, v, do = _inputs(dev, B, S, S, Hq, Hkv, d, seed=4)
+    G = Hq // Hkv
+    o, lse = fa.flash_fwd_cuda(q, k, v)
+    o_p, lse_p = fa.attention_plain(q, k, v)
+    lse64 = torch.empty(B, Hq, S, device=dev)
+    delta64 = torch.empty_like(lse64)
+    rel = lambda x, w: float((x.double() - w).abs().max()) / max(1.0, float(w.abs().max()))
+    groups = []
+    for hk in range(Hkv):
+        hs = slice(hk * G, (hk + 1) * G)
+        fo, fl = fa.forward_float64(q, k, v, True, None, 0, hk)
+        l64, d64, _, dk64, dv64 = fa.backward_float64(q, k, v, do, True, None, 0, hk)
+        lse64[0, hs], delta64[0, hs] = l64, d64
+        groups.append((hs, hk, fo, fl, dk64, dv64))
+    args = (q, k, v, do, lse64, delta64, True, None)
+    (dk, dv), (dk_p, dv_p) = fa.flash_dkv_cuda(*args), fa.flash_dkv_plain(*args)
+    for hs, hk, fo, fl, dk64, dv64 in groups:
+        for got, plain, ref, name in ((o[0, :, hs], o_p[0, :, hs], fo, "o"),
+                                      (lse[0, hs], lse_p[0, hs], fl, "lse"),
+                                      (dk[0, :, hk], dk_p[0, :, hk], dk64, "dk"),
+                                      (dv[0, :, hk], dv_p[0, :, hk], dv64, "dv")):
+            kernel, yard = rel(got, ref), rel(plain, ref)
+            assert kernel <= 10 * yard + 1e-6, (name, hk, kernel, yard)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_kernels_are_deterministic(d):
+    """Two launches of each give the same bits (no atomics)."""
+    dev = require_cuda()
+    q, k, v, do = _inputs(dev, 2, 300, 300, 8, 2, d, seed=5)
+    o, lse = fa.flash_fwd_cuda(q, k, v)
+    args = (q, k, v, do, lse, fa.flash_delta(o, do), True, None)
+    first = (o, lse, *fa.flash_dkv_cuda(*args))
+    second = (*fa.flash_fwd_cuda(q, k, v), *fa.flash_dkv_cuda(*args))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_kernels_read_strided_views(d):
+    """q, k, v and do as head slices of wider tensors: 16-byte strides and
+    bases, so TMA reads them in place (no copy) through their strides."""
+    dev = require_cuda()
+    g = torch.Generator().manual_seed(2)
+    wide = lambda B, S, H: torch.randn(B, S, H + 3, d, generator=g).to(dev, BF16)[:, :, 1:H + 1]
+    q, do = wide(2, 70, 4), wide(2, 70, 4)
+    k, v = wide(2, 70, 2), wide(2, 70, 2)
+    for x in (q, k, v, do):
+        assert not x.is_contiguous() and fa._prep(x, "wgmma").data_ptr() == x.data_ptr()
+    o_p, lse_p = fa.attention_plain(q, k, v, True, None)
+    o, lse = fa.flash_fwd_cuda(q, k, v, True, None)
+    _close(o, o_p)
+    _close(lse, lse_p)
+    args = (q, k, v, do, lse_p, fa.flash_delta(o_p, do), True, None)
+    for got, want in zip(fa.flash_dkv_cuda(*args), fa.flash_dkv_plain(*args)):
+        _close(got, want)
