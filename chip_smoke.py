@@ -55,11 +55,11 @@ plain PyTorch version at that path's full shapes, and times it:
     non-causal, windowed, MQA, G=4, G=3 (mixtral's group),
     ragged, Sq != Sk, head_dim 16 / 64 / 256 and bfloat16 modes on small
     inputs; and K9-K11 with bfloat16 inputs at that shape, beside SDPA in
-    bfloat16, rows ``flash_*/bf16``: bfloat16 K9 and K11 at head_dim 64
-    and 128 take the wgmma route, ``csrc/flash_attention_sm90.cu``, whose
-    SASS must hold HGMMA instructions, timed in turns with the tf32 route
-    on the same inputs, ``tf32_route_ms``; the launches of the main paths
-    are counted by route and all of bfloat16 K9 and K11 must take wgmma);
+    bfloat16, rows ``flash_*/bf16``: bfloat16 K9, K10 and K11 at head_dim
+    64 and 128 take the wgmma route, ``csrc/flash_attention_sm90.cu``,
+    whose SASS must hold HGMMA instructions, timed in turns with the tf32
+    route on the same inputs, ``tf32_route_ms``; the launches of the main
+    paths are counted by route and all of bfloat16 K9-K11 must take wgmma);
   * mixtral-8x22b (the expert products over the (8 experts x 1280 slots)
     capacity buffer: x (10240, 6144) by w (8, 6144, 16384), and x (10240,
     16384) by w (8, 16384, 6144)): K12 grouped matmul, split-precision
@@ -68,7 +68,10 @@ plain PyTorch version at that path's full shapes, and times it:
     product over one row block by 256 columns, K12 within 1e-5 x max(1,
     |ref|) (float32's accuracy, which single-pass TF32 misses), and the
     float32 instantiation's SASS must hold TF32 HMMA instructions; the same
-    in bfloat16, rows ``grouped_matmul*/bf16`` (also
+    in bfloat16, rows ``grouped_matmul*/bf16``, on the wgmma route
+    (``csrc/grouped_matmul_sm90.cu``, HGMMA in its SASS, timed in turns with
+    the tf32 route on the same inputs, ``tf32_route_ms``; every bfloat16 K12
+    of the mixtral paths must take it) (also
     the reference test's four shapes in float32 and bfloat16, bm not a
     multiple of the tile, an empty expert, unsorted repeated ids and
     ragged T, D, F);
@@ -231,8 +234,10 @@ def time_ms(fn, reps: int = 20, warmup: int = 3, cold_l2: bool = False) -> float
 def device_ms(fn, reps: int = 20, warmup: int = 3, cold_l2: bool = False):
     """Mean device time of the kernels one call of ``fn`` launches, from
     ``torch.profiler`` over ``reps`` calls (with ``cold_l2`` each after the
-    same flush as ``time_ms``, whose own kernels are left out), and None, or
-    where the time is an estimate, each kernel's recorded launches."""
+    same flush as ``time_ms``, whose own kernels are left out), and None,
+    or where the time is an estimate, each kernel's recorded launches, or
+    where the profiler recorded no kernel in five runs, the string
+    "cuda events" beside ``time_ms``'s time, which includes the host's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -254,11 +259,14 @@ def device_ms(fn, reps: int = 20, warmup: int = 3, cold_l2: bool = False):
             _flush_buf.fill_(1.0)
             torch.cuda.synchronize()
         flush = set(kernels(prof))
-    # the profiler has been seen to drop kernel records on the card: a run
-    # whose kernel counts are not a multiple of reps is taken again, and
-    # after three such runs each kernel's mean recorded duration is taken
-    # times its launches a call (its count over reps, rounded)
-    for _ in range(3):
+    # the profiler has been seen to drop kernel records on the card, some of
+    # a run's or all of them: a run whose kernel counts are not a multiple of
+    # reps is taken again; after five such runs the last one that recorded
+    # any kernel gives each kernel's mean recorded duration times its
+    # launches a call (its count over reps, rounded), and where none did,
+    # the CUDA-event time stands in
+    seen = []
+    for _ in range(5):
         with profile(activities=acts) as prof:
             for _ in range(reps):
                 if cold_l2:
@@ -268,13 +276,16 @@ def device_ms(fn, reps: int = 20, warmup: int = 3, cold_l2: bool = False):
         rows = [v for k_, v in kernels(prof).items() if k_ not in flush]
         if rows and all(n % reps == 0 for _, n in rows):
             return sum(us for us, _ in rows) / reps / 1e3, None
-    if not rows:
-        raise RuntimeError("the profiler recorded no kernel in 3 runs")
-    counts = [n for _, n in rows]
-    print(f"  (device_ms: kernel records lost in 3 runs, counts {counts} for "
+        seen = rows or seen
+    if not seen:
+        print("  (device_ms: the profiler recorded no kernel in 5 runs; the "
+              "CUDA-event time stands in)")
+        return time_ms(fn, reps, warmup, cold_l2), "cuda events"
+    counts = [n for _, n in seen]
+    print(f"  (device_ms: kernel records lost in 5 runs, counts {counts} for "
           f"{reps} calls; mean recorded duration x launches a call, an "
           f"estimate)")
-    return sum(us / n * max(1, round(n / reps)) for us, n in rows) / 1e3, counts
+    return sum(us / n * max(1, round(n / reps)) for us, n in seen) / 1e3, counts
 
 
 def bound_ms(nbytes: float, flops, rate: float = F32_FLOPS):
@@ -357,8 +368,8 @@ def check_gather_matmul(gen, out, arch=LM, T=T, B=B, H=H, D=D, P=P,
         pms = time_ms(plain, cold_l2=cold_l2)
         lms = time_ms(lib, cold_l2=cold_l2)
         # device time beside the event time: the difference is the host's
-        # (an estimate, marked with the recorded launches, where the
-        # profiler lost records in three runs)
+        # (an estimate, marked with the recorded launches or "cuda events",
+        # where the profiler lost records in five runs)
         dms, lost = device_ms(fn, cold_l2=cold_l2)
         ldms, llost = device_ms(lib, cold_l2=cold_l2)
         est = {k_: v for k_, v in (("device_ms_estimated_from", lost),
@@ -911,11 +922,13 @@ def f64_gate(name, got, plain, ref):
 
 
 def check_flash(gen, B_, Sq_, Sk_, Hq_, Hkv_, d_, *, causal=True, window=None,
-                dtype=torch.float32, out=None, tag=""):
+                dtype=torch.float32, out=None, tag="", want_route=None):
     """K9 (o, lse), K10 (dq) and K11 (dk, dv) against their plain versions
     on the same inputs; both backward passes take the plain forward's lse
     and delta. float32 within 1e-3 x max(1, |ref|), bfloat16 within 3e-2
-    (the reference's bf16 tolerance). With ``out`` (the main path's shape):
+    (the reference's bf16 tolerance). With ``want_route`` ("wgmma" or
+    "tf32"), each of the three passes must have launched on that route
+    and on no other. With ``out`` (the main path's shape):
     K9 also against a float64 forward and K10 and K11 against a float64
     backward over one (batch, kv head) group within ``FLASH_F64_TOL``
     (SDPA's distances printed beside theirs), all three launched twice for
@@ -938,9 +951,15 @@ def check_flash(gen, B_, Sq_, Sk_, Hq_, Hkv_, d_, *, causal=True, window=None,
     dq_p = lambda: fa.flash_dq_plain(*bargs)
     dkv_k = lambda: fa.flash_dkv_cuda(*bargs)
     dkv_p = lambda: fa.flash_dkv_plain(*bargs)
+    before = read_counts()
     e9 = compare("  flash_fwd " + tag, list(fwd_k()), [o_p, lse_p], tol)
     e10 = compare("  flash_dq " + tag, dq_k(), dq_p(), tol)
     e11 = compare("  flash_dkv " + tag, list(dkv_k()), list(dkv_p()), tol)
+    if want_route is not None:
+        moved = {k_: n - before[k_] for k_, n in read_counts().items()
+                 if k_.startswith("flash_") and "/" in k_ and n != before[k_]}
+        assert moved == {f"{name}/{want_route}": 1 for name in
+                         ("flash_fwd", "flash_dq", "flash_dkv")}, (tag, moved)
     if out is None:
         return
     del o_p
@@ -991,9 +1010,11 @@ def check_flash(gen, B_, Sq_, Sk_, Hq_, Hkv_, d_, *, causal=True, window=None,
             extra = dict(dtype="bfloat16", f64_rel_err=f64[name], kernel_route=rt)
             if rt == "wgmma":
                 extra["tf32_route_ms"] = prev
-            if rt == "wgmma" and name == "flash_dkv":
-                # the route's own work: s^T, dp^T and p, ds in two terms each
-                extra["route_bound_ms"] = bound_ms(nbytes, 6 * prod, BF16_FLOPS)[0]
+            if rt == "wgmma" and name != "flash_fwd":
+                # the route's own work: K10 s, dp and ds in two terms; K11
+                # s^T, dp^T and p, ds in two terms each
+                extra["route_bound_ms"] = bound_ms(
+                    nbytes, (4 if name == "flash_dq" else 6) * prod, BF16_FLOPS)[0]
         elif name == "flash_fwd":
             extra = dict(f64_rel_err=f64[name], library_f64_rel_err=f64["sdpa_fwd"])
         else:
@@ -1009,21 +1030,21 @@ FLASH_SRC = {"tf32": "src/repro_torch/csrc/flash_attention.cu",
 
 
 def wgmma_routes(flash):
-    """The launches by route that bfloat16 K9-K11 at head_dim 128 make for
-    the pass counts ``flash``: K9 and K11 on wgmma, K10 on tf32."""
+    """The launches by route that bfloat16 K9-K11 at head_dim 64 or 128
+    make for the pass counts ``flash``: all on wgmma."""
     return {"flash_fwd/wgmma": flash["flash_fwd"], "flash_fwd/tf32": 0,
-            "flash_dq/tf32": flash["flash_dq"], "flash_dkv/wgmma": flash["flash_dkv"],
-            "flash_dkv/tf32": 0}
+            "flash_dq/wgmma": flash["flash_dq"], "flash_dq/tf32": 0,
+            "flash_dkv/wgmma": flash["flash_dkv"], "flash_dkv/tf32": 0}
 
 
-def wgmma_vs_tf32(fa, fn):
-    """Cold-L2 times of ``fn`` on the wgmma route and on the tf32 route
-    (``tf32_route``), in turns (wgmma, tf32, tf32, wgmma): the means of each
-    route's two medians."""
-    a = time_ms(fn, cold_l2=True)
-    with tf32_route(fa):
-        b = time_ms(fn, cold_l2=True) + time_ms(fn, cold_l2=True)
-    a += time_ms(fn, cold_l2=True)
+def wgmma_vs_tf32(mod, fn, **kw):
+    """Cold-L2 times of ``fn`` on the wgmma route and on the tf32 route of
+    kernel module ``mod`` (``tf32_route``), in turns (wgmma, tf32, tf32,
+    wgmma): the means of each route's two medians (``kw`` to ``time_ms``)."""
+    a = time_ms(fn, cold_l2=True, **kw)
+    with tf32_route(mod):
+        b = time_ms(fn, cold_l2=True, **kw) + time_ms(fn, cold_l2=True, **kw)
+    a += time_ms(fn, cold_l2=True, **kw)
     return a / 2, b / 2
 
 
@@ -1172,10 +1193,10 @@ def sass_hgmma(name):
 
 
 def check_wgmma_sass(fa):
-    """Fail unless the wgmma route's K9 and K11 hold HGMMA instructions at
-    every head dim they take."""
+    """Fail unless the wgmma route's K9, K10 and K11 hold HGMMA
+    instructions at every head dim they take."""
     hgmma = sass_hgmma("flash_attention_sm90")
-    for name in ("flash_fwd_sm90", "flash_dkv_sm90"):
+    for name in ("flash_fwd_sm90", "flash_dq_sm90", "flash_dkv_sm90"):
         for d in fa.WGMMA_HEAD_DIMS:
             n = [v for sym, v in hgmma.items() if f"{name}ILi{d}E" in sym]
             if not n or not all(n):
@@ -1183,17 +1204,18 @@ def check_wgmma_sass(fa):
 
 
 @contextlib.contextmanager
-def tf32_route(fa):
-    """Inside the block every flash launch takes the ``"tf32"`` route
-    (``csrc/flash_attention.cu``, bfloat16 K9 and K11 as they were before
+def tf32_route(mod):
+    """Inside the block every launch of kernel module ``mod`` (flash
+    attention or K12) takes the ``"tf32"`` route (``csrc/flash_attention.cu``
+    or ``csrc/grouped_matmul.cu``, the bfloat16 kernels as they were before
     the wgmma route): the yardstick of the bfloat16 rows' ``tf32_route_ms``,
     timed on the same inputs."""
-    saved = fa.route
-    fa.route = lambda which, dtype, d: "tf32"
+    saved = mod.route
+    mod.route = lambda *args: "tf32"
     try:
         yield
     finally:
-        fa.route = saved
+        mod.route = saved
 
 
 def sass_hmma(name):
@@ -1231,38 +1253,54 @@ def sdpa_yardstick(q, k, v, do, causal):
 
 def check_flash_modes(gen):
     """K9-K11 on small inputs: non-causal, windows, MQA, G = 4, sequences
-    that are not multiples of the tile, Sq != Sk, head dims 16 / 64 / 256,
-    bfloat16 (at d 64 and 128 the wgmma route's K9 and K11: non-causal,
-    windows 8 and 256, MQA, G = 3, S = 100, Sq < Sk, Sq > Sk)."""
+    that are not multiples of the tile, Sq != Sk, head dims 16 / 64 / 256;
+    bfloat16 at head_dim 16, 32 and 256 (the tf32 route: causal, windows,
+    G = 3, S = 100, Sq != Sk) and at 64 and 128 (the wgmma route's K9-K11:
+    non-causal, windows 8 and 256, MQA, G = 3, S = 100, Sq < Sk, Sq > Sk).
+    Each case asserts the route its three passes launched on."""
     bf = torch.bfloat16
-    for args, kw, tag in (
-            ((2, 64, 64, 4, 2, 64), dict(causal=False), "(non-causal)"),
-            ((1, 64, 64, 2, 2, 16), dict(window=8), "(window 8)"),
-            ((1, 64, 64, 2, 2, 16), dict(window=16), "(window 16)"),
-            ((1, 64, 64, 2, 2, 32), dict(causal=False, window=8), "(non-causal window 8)"),
-            ((1, 1024, 1024, 4, 2, 128), dict(window=256), "(window 256)"),
-            ((2, 128, 128, 4, 1, 64), {}, "(MQA)"),
-            ((1, 256, 256, 8, 2, 128), {}, "(G=4)"),
-            ((1, 192, 192, 6, 2, 128), {}, "(G=3, mixtral's group)"),
-            ((1, 100, 100, 9, 3, 64), dict(window=40), "(G=3 window)"),
-            ((1, 48, 48, 4, 2, 64), {}, "(S=48)"),
-            ((2, 100, 100, 4, 2, 128), {}, "(S=100)"),
-            ((1, 80, 144, 4, 2, 64), {}, "(Sq < Sk)"),
-            ((1, 144, 80, 4, 2, 64), {}, "(Sq > Sk)"),
-            ((1, 96, 96, 4, 2, 16), {}, "(d=16)"),
-            ((1, 160, 160, 4, 2, 256), {}, "(d=256)"),
-            ((2, 128, 128, 4, 2, 128), dict(dtype=bf), "(bf16)"),
-            ((1, 100, 100, 4, 2, 64), dict(dtype=bf, window=32), "(bf16 window)"),
-            # bfloat16 at d 128 (the wgmma route for K9 and K11)
-            ((2, 64, 64, 4, 2, 128), dict(dtype=bf, causal=False), "(bf16 d=128 non-causal)"),
-            ((1, 64, 64, 2, 2, 128), dict(dtype=bf, window=8), "(bf16 d=128 window 8)"),
-            ((1, 1024, 1024, 4, 2, 128), dict(dtype=bf, window=256), "(bf16 d=128 window 256)"),
-            ((2, 128, 128, 4, 1, 128), dict(dtype=bf), "(bf16 d=128 MQA)"),
-            ((1, 192, 192, 6, 2, 128), dict(dtype=bf), "(bf16 d=128 G=3)"),
-            ((2, 100, 100, 4, 2, 128), dict(dtype=bf), "(bf16 d=128 S=100)"),
-            ((1, 80, 144, 4, 2, 128), dict(dtype=bf), "(bf16 d=128 Sq < Sk)"),
-            ((1, 144, 80, 4, 2, 128), dict(dtype=bf), "(bf16 d=128 Sq > Sk)")):
-        check_flash(gen, *args, tag=tag, **kw)
+    f32 = (
+        ((2, 64, 64, 4, 2, 64), dict(causal=False), "(non-causal)"),
+        ((1, 64, 64, 2, 2, 16), dict(window=8), "(window 8)"),
+        ((1, 64, 64, 2, 2, 16), dict(window=16), "(window 16)"),
+        ((1, 64, 64, 2, 2, 32), dict(causal=False, window=8), "(non-causal window 8)"),
+        ((1, 1024, 1024, 4, 2, 128), dict(window=256), "(window 256)"),
+        ((2, 128, 128, 4, 1, 64), {}, "(MQA)"),
+        ((1, 256, 256, 8, 2, 128), {}, "(G=4)"),
+        ((1, 192, 192, 6, 2, 128), {}, "(G=3, mixtral's group)"),
+        ((1, 100, 100, 9, 3, 64), dict(window=40), "(G=3 window)"),
+        ((1, 48, 48, 4, 2, 64), {}, "(S=48)"),
+        ((2, 100, 100, 4, 2, 128), {}, "(S=100)"),
+        ((1, 80, 144, 4, 2, 64), {}, "(Sq < Sk)"),
+        ((1, 144, 80, 4, 2, 64), {}, "(Sq > Sk)"),
+        ((1, 96, 96, 4, 2, 16), {}, "(d=16)"),
+        ((1, 160, 160, 4, 2, 256), {}, "(d=256)"))
+    # bfloat16 at the head dims the wgmma route does not take
+    bf_tf32 = (
+        ((2, 96, 96, 4, 2, 16), {}, "(bf16 d=16)"),
+        ((1, 64, 64, 2, 2, 16), dict(window=8), "(bf16 d=16 window 8)"),
+        ((1, 80, 144, 4, 2, 16), {}, "(bf16 d=16 Sq < Sk)"),
+        ((1, 192, 192, 6, 2, 32), {}, "(bf16 d=32 G=3)"),
+        ((1, 64, 64, 2, 2, 32), dict(causal=False, window=8), "(bf16 d=32 non-causal window 8)"),
+        ((1, 144, 80, 4, 2, 32), {}, "(bf16 d=32 Sq > Sk)"),
+        ((1, 160, 160, 4, 2, 256), {}, "(bf16 d=256)"),
+        ((2, 100, 100, 6, 2, 256), dict(window=40), "(bf16 d=256 G=3 S=100 window 40)"))
+    # bfloat16 at d 64 and 128 (the wgmma route)
+    bf_wgmma = (
+        ((2, 128, 128, 4, 2, 128), {}, "(bf16)"),
+        ((1, 100, 100, 4, 2, 64), dict(window=32), "(bf16 window)"),
+        ((2, 64, 64, 4, 2, 128), dict(causal=False), "(bf16 d=128 non-causal)"),
+        ((1, 64, 64, 2, 2, 128), dict(window=8), "(bf16 d=128 window 8)"),
+        ((1, 1024, 1024, 4, 2, 128), dict(window=256), "(bf16 d=128 window 256)"),
+        ((2, 128, 128, 4, 1, 128), {}, "(bf16 d=128 MQA)"),
+        ((1, 192, 192, 6, 2, 128), {}, "(bf16 d=128 G=3)"),
+        ((2, 100, 100, 4, 2, 128), {}, "(bf16 d=128 S=100)"),
+        ((1, 80, 144, 4, 2, 128), {}, "(bf16 d=128 Sq < Sk)"),
+        ((1, 144, 80, 4, 2, 128), {}, "(bf16 d=128 Sq > Sk)"))
+    for cases, dtype, want in ((f32, torch.float32, "tf32"), (bf_tf32, bf, "tf32"),
+                               (bf_wgmma, bf, "wgmma")):
+        for args, kw, tag in cases:
+            check_flash(gen, *args, tag=tag, dtype=dtype, want_route=want, **kw)
 
 
 def nmt_small_batch(cfg, dev):
@@ -1397,7 +1435,8 @@ def _counters():
     from repro_torch.kernels import lstm_scan as ls
     from repro_torch.kernels import slstm_scan as ss
     return (gm.LAUNCHES, ls.LAUNCHES, dsk.LAUNCHES, ss.LAUNCHES, fa.LAUNCHES,
-            fa.LAUNCHES_BY_ROUTE, gmm.LAUNCHES, gmm.LAUNCHES_BY_SHAPE, k5.LAUNCHES)
+            fa.LAUNCHES_BY_ROUTE, gmm.LAUNCHES, gmm.LAUNCHES_BY_ROUTE,
+            gmm.LAUNCHES_BY_SHAPE, k5.LAUNCHES)
 
 
 def reset_counts():
@@ -1541,12 +1580,22 @@ def peak_check(what, peak):
 
 def traced_step(what, step_fn, params, state, batch_fn):
     """One more training step under ``torch.profiler``: the step's
-    device-time split (``launch/profile.py trace_steps``)."""
-    from repro_torch.launch.profile import trace_steps
-    params, state, rep_ = trace_steps(step_fn, params, state,
-                                      lambda s: batch_fn(STEPS + s), 1, 0,
-                                      top=8, label=f"  {what} traced step")
-    return params, state, rep_
+    device-time split (``launch/profile.py trace_steps``). The profiler
+    has been seen to lose every kernel record of a run on the card: such a
+    step is traced again, on the next batch, up to three times, and then the
+    split is reported as not measured (it is a measurement, not a check)."""
+    from repro_torch.launch.profile import NoDeviceTime, trace_steps
+    for attempt in range(3):
+        try:
+            return trace_steps(step_fn, params, state,
+                               lambda s: batch_fn(STEPS + attempt + s), 1, 0,
+                               top=8, label=f"  {what} traced step")
+        except NoDeviceTime:
+            print(f"  {what} traced step: the profiler recorded no device "
+                  f"time (attempt {attempt + 1} of 3)")
+    return params, state, {"engine": f"  {what} traced step", "busy_ms": None,
+                           "not_measured": "the profiler recorded no device "
+                                           "time in 3 traced steps"}
 
 
 def drive_xlstm():
@@ -1685,7 +1734,9 @@ def check_bf16_small(dev="cuda"):
     the reference's own bfloat16 run's too
     (tests/test_torch_bf16_models.py); with the matrices alone rescaled the
     embedding's gradient, 50x through the first norm, still lands ~3e-2
-    off. ``dev="cpu"``
+    off. qwen3 and mixtral run at head_dim 64 (their smoke configs' own is
+    16), so that every bfloat16 K9-K12 launch takes the wgmma route
+    (asserted, none on tf32). ``dev="cpu"``
     runs the bfloat16 steps on the CPU (the kernels' plain versions)."""
     from repro_torch import configs
     from repro_torch.configs import adapters
@@ -1701,13 +1752,19 @@ def check_bf16_small(dev="cuda"):
                                    ("xla", dict(attn_impl="xla"))]),
              MIXTRAL: (tok((2, 24)), [("pallas", dict(attn_impl="flash", moe_impl="pallas")),
                                       ("xla", dict(attn_impl="flash", moe_impl="xla"))])}
+    # the transformers at head_dim 64, where bfloat16 K9-K11 take the
+    # wgmma route (the smoke configs' own is 16); K12's widths 64 and 128
+    # take it too, so no bfloat16 K9-K12 launch may take tf32
+    wg = ("flash_fwd/wgmma", "flash_dq/wgmma", "flash_dkv/wgmma")
     need = {(XLSTM, "fused/pallas"): k6, (XLSTM, "scheduled"): (),
-            (QWEN, "flash"): ("flash_fwd", "flash_dq", "flash_dkv"), (QWEN, "xla"): (),
-            (MIXTRAL, "pallas"): ("flash_fwd", "grouped_matmul"),
-            (MIXTRAL, "xla"): ("flash_fwd",)}
+            (QWEN, "flash"): wg, (QWEN, "xla"): (),
+            (MIXTRAL, "pallas"): (*wg, "grouped_matmul/wgmma"),
+            (MIXTRAL, "xla"): ("flash_fwd/wgmma",)}
+    tf32 = ("flash_fwd/tf32", "flash_dq/tf32", "flash_dkv/tf32", "grouped_matmul/tf32")
     for arch, (batch_cpu, routes) in cases.items():
         spec = configs.get_arch(arch)
-        base = spec.smoke(param_dtype=bf, compute_dtype=bf)
+        base = spec.smoke(param_dtype=bf, compute_dtype=bf,
+                          **({} if arch == XLSTM else {"head_dim": 64}))
         if arch == XLSTM:
             base = adapters.apply_dropout(spec, base, "case3:0.5:bs4:pallas")
         params = adapters.init_params(spec.kind, torch.Generator().manual_seed(0), base)
@@ -1734,6 +1791,7 @@ def check_bf16_small(dev="cuda"):
             c = read_counts()
             if d == "cuda" and name != "oracle":
                 assert all(c.get(k_, 0) > 0 for k_ in need[arch, name]), (arch, name, c)
+                assert not any(c.get(k_, 0) for k_ in tf32), (arch, name, c)
                 if arch == XLSTM and name == "scheduled":
                     assert not any(c.get(k_, 0) for k_ in k6), (arch, name, c)
             assert all(x.dtype == (f64 if name == "oracle" else bf)
@@ -1895,7 +1953,11 @@ def check_grouped(out):
         del x, w, xb
     # the same at the bfloat16 model's dtype: bfloat16 in and out, float32
     # sums; against a float64 product within 10 x the bfloat16 plain
-    # version's distance + 1e-6; bound at the bfloat16 rate
+    # version's distance + 1e-6; bound at the bfloat16 rate; on the wgmma
+    # route (HGMMA in its SASS), timed in turns with the tf32 route
+    hgmma = sass_hgmma("grouped_matmul_sm90")
+    if not [n for k_, n in hgmma.items() if "grouped_mm_sm90" in k_ and n]:
+        raise AssertionError("grouped_mm_sm90: no HGMMA in its SASS")
     for tag, D_, F_ in (("gate/up", MD, MF), ("down", MF, MD)):
         x = torch.randn(T_, D_, device="cuda", generator=g).bfloat16()
         w = (torch.randn(ME, D_, F_, device="cuda", generator=g) * D_ ** -0.5).bfloat16()
@@ -1905,6 +1967,8 @@ def check_grouped(out):
         fp = lambda: gm.grouped_matmul_plain(x, w, blk, bm=MC)
         xb = x.view(ME, MC, D_)
         fl = lambda: torch.bmm(xb, w)
+        rt = gm.route(x.dtype, D_, F_)
+        assert rt == "wgmma", rt
         got, plain = fk(), fp()
         assert got.dtype == torch.bfloat16, got.dtype
         err = compare(f"  grouped_matmul ({tag}, bf16)", got, plain, BF16_TOL)
@@ -1913,20 +1977,22 @@ def check_grouped(out):
         f64_rel = f64_gate(f"  grouped_matmul ({tag}, bf16), {MC} x 256",
                            [got[:MC, :256]], [plain[:MC, :256]], [ref])
         del got, plain, ref
-        ms = time_ms(fk, reps=10, warmup=2, cold_l2=True)
+        ms, prev = wgmma_vs_tf32(gm, fk, reps=10, warmup=2)
         pms = time_ms(fp, reps=10, warmup=2, cold_l2=True)
         lms = time_ms(fl, reps=10, warmup=2, cold_l2=True)
         nbytes = 2 * (T_ * D_ + ME * D_ * F_ + T_ * F_) + 4 * ME
         name = "grouped_matmul" if tag == "gate/up" else "grouped_matmul/down"
-        add_row(out, f"grouped_matmul/{D_}x{F_}", MIXTRAL, src,
+        add_row(out, f"grouped_matmul/{D_}x{F_}", MIXTRAL,
+                "src/repro_torch/csrc/grouped_matmul_sm90.cu",
                 "src/repro/kernels/grouped_matmul.py:31", err, ms, pms, lms,
                 nbytes, 2 * T_ * D_ * F_, "cold", name=name + "/bf16",
-                rate=BF16_FLOPS, f64_rel_err=f64_rel, dtype="bfloat16")
+                rate=BF16_FLOPS, f64_rel_err=f64_rel, dtype="bfloat16",
+                kernel_route=rt, tf32_route_ms=prev)
         del x, w, xb
     torch.cuda.empty_cache()
 
     def small(T_, D_, F_, E_, bm, dtype=torch.float32, blk_=None, zero_rows=None,
-              tag=""):
+              tag="", zero_out=None):
         gc_ = torch.Generator().manual_seed(T_ + D_)
         x = torch.randn(T_, D_, generator=gc_)
         if zero_rows is not None:
@@ -1936,12 +2002,17 @@ def check_grouped(out):
             blk_ = torch.randint(0, E_, (-(-T_ // bm),), generator=gc_)
         args = (x.to("cuda", dtype), w.to("cuda", dtype),
                 blk_.to(torch.int32).cuda())
+        rt = gm.route(dtype, D_, F_)
+        before = gm.LAUNCHES_BY_ROUTE[f"grouped_matmul/{rt}"]
         got = gm.grouped_matmul(*args, bm=bm)
-        compare(f"  grouped_matmul T={T_} D={D_} F={F_} E={E_} bm={bm} {dtype} {tag}",
-                got, gm.grouped_matmul_plain(*args, bm=bm),
+        assert gm.LAUNCHES_BY_ROUTE[f"grouped_matmul/{rt}"] == before + 1, rt
+        compare(f"  grouped_matmul T={T_} D={D_} F={F_} E={E_} bm={bm} {dtype} ({rt}) "
+                f"{tag}", got, gm.grouped_matmul_plain(*args, bm=bm),
                 1e-3 if dtype == torch.float32 else 3e-2)
         if zero_rows is not None and not (got[zero_rows] == 0).all():
             raise AssertionError("grouped_matmul: rows holding no token are not zero")
+        if zero_out is not None and not (got[zero_out] == 0).all():
+            raise AssertionError("grouped_matmul: rows of an out-of-range id are not zero")
 
     print("grouped_matmul small modes")
     for dtype in (torch.float32, torch.bfloat16):
@@ -1955,6 +2026,17 @@ def check_grouped(out):
           tag="(unsorted repeated ids)")
     small(257, 37, 61, 5, 23, tag="(T, D, F tails; scalar loads)")
     small(300, 100, 132, 3, 70, dtype=torch.bfloat16, tag="(bf16 tails)")
+    # the wgmma route (bfloat16, D and F multiples of 8)
+    bf = torch.bfloat16
+    small(600, 96, 160, 3, 200, bf, tag="(bm not a multiple of the tile)")
+    small(512, 64, 96, 4, 128, bf, blk_=torch.tensor([0, 0, 2, 3]),
+          zero_rows=slice(128, 256), tag="(empty expert 1; a block of zero rows)")
+    small(384, 64, 64, 3, 32, bf, blk_=torch.tensor([2, 0, 2, 2, 1, 0, 0, 1, 2, 1, 1, 0]),
+          tag="(unsorted repeated ids)")
+    small(300, 64, 160, 3, 100, bf, blk_=torch.tensor([0, 3, -1]), zero_out=slice(100, 300),
+          tag="(ids 3 and -1 out of range)")
+    small(257, 72, 200, 5, 23, bf, tag="(T, D, F tails, bm 23)")
+    small(700, 136, 264, 4, 300, bf, tag="(D past two k-steps, F past one tile)")
     # the kernel against a float64 product on the host, independent of cuBLAS
     gc_ = torch.Generator().manual_seed(64)
     x = torch.randn(640, 256, generator=gc_)
@@ -2152,8 +2234,10 @@ def drive_moe():
         k12 = (M_LAYERS if impl == "pallas" else 0) * STEPS
         flash = {"flash_fwd": 2 * M_LAYERS * STEPS, "flash_dq": M_LAYERS * STEPS,
                  "flash_dkv": M_LAYERS * STEPS}
+        # every bfloat16 K12 and K9-K11 of the step on the wgmma route
         want = {"grouped_matmul": 6 * k12, f"grouped_matmul/{MD}x{MF}": 4 * k12,
-                f"grouped_matmul/{MF}x{MD}": 2 * k12, **flash, **wgmma_routes(flash)}
+                f"grouped_matmul/{MF}x{MD}": 2 * k12, "grouped_matmul/wgmma": 6 * k12,
+                "grouped_matmul/tf32": 0, **flash, **wgmma_routes(flash)}
         got = {k_: c.get(k_, 0) for k_ in want}
         assert got == want, f"{MIXTRAL}/{impl}: launches {got}, expected {want}"
         assert all(p.dtype == torch.bfloat16 for p in _leaves(params))
@@ -2630,7 +2714,8 @@ def main() -> int:
     print("kernels: K1 gather_matmul, K2 gather_matmul_stepped, "
           "K3 lstm_scan_fwd, K4 lstm_scan_bwd, K5 lstm_pointwise, "
           "K6 slstm_scan_fwd/bwd (+ slstm_wg), K7 decoder_scan_fwd, K8 decoder_scan_bwd, "
-          "K9 flash_fwd, K10 flash_dq, K11 flash_dkv, K12 grouped_matmul")
+          "K9 flash_fwd, K10 flash_dq, K11 flash_dkv (bfloat16 at d 64 / 128: "
+          "flash_*_sm90), K12 grouped_matmul (bfloat16: grouped_mm_sm90)")
 
     gen = torch.Generator().manual_seed(0)
     rows = {}

@@ -17,8 +17,8 @@
 //   K11: dv = sum_q p do, dk = sum_q ds q, summed over the group's query
 //        heads inside the kernel (the reference sums per-head float32
 //        results outside it), written in k's type.
-// Inputs are float32 or bfloat16 (bfloat16 K9 and K11 at head_dim 64 and
-// 128 take csrc/flash_attention_sm90.cu instead). All three run their
+// Inputs are float32 or bfloat16 (bfloat16 K9, K10 and K11 at head_dim 64
+// and 128 take csrc/flash_attention_sm90.cu instead). All three run their
 // products on the TF32 tensor cores in split precision, which keeps
 // float32's accuracy (below).
 // Tiles are staged in shared memory as float32.
@@ -56,9 +56,9 @@
 //     over a sequence axis whose operand lies d-contiguous (p v, ds k, p^T
 //     do, ds^T q). mma.sync fragments load from shared memory in any
 //     orientation. The reason holds for TF32 only: 16-bit wgmma reads an
-//     operand MN-major too, and bfloat16 K9 and K11 at head_dim 64 and 128
-//     run on it (csrc/flash_attention_sm90.cu, flash_fwd_sm90 and
-//     flash_dkv_sm90; kernels/flash_attention.py route()).
+//     operand MN-major too, and bfloat16 K9-K11 at head_dim 64 and 128 run
+//     on it (csrc/flash_attention_sm90.cu, flash_fwd_sm90, flash_dq_sm90
+//     and flash_dkv_sm90; kernels/flash_attention.py route()).
 //   * Bank conflicts: one float32 copy of each tile, rows of D + 4 floats,
 //     serves both orientations. Where a product contracts over a sequence
 //     axis the 8-wide k-step is paired (k = t is row 2t, k = t + 4 is row

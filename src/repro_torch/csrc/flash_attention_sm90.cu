@@ -1,34 +1,41 @@
-// bfloat16 flash attention on Hopper's wgmma and TMA (sm_90a): the forward
-// and the dk/dv pass at head_dim 64 and 128.
+// bfloat16 flash attention on Hopper's wgmma and TMA (sm_90a): the forward,
+// the dq pass and the dk/dv pass at head_dim 64 and 128.
 //
 // Replaces, for bfloat16 inputs at head_dim 64 and 128, the Pallas TPU
 // kernels of repro/kernels/flash_attention.py:
 //   K9  _fwd_kernel via _flash_fwd (pallas_call :107)  -> flash_fwd_sm90
+//   K10 _dq_kernel  via _flash_bwd (pallas_call :218)  -> flash_dq_sm90
 //   K11 _dkv_kernel via _flash_bwd (pallas_call :243)  -> flash_dkv_sm90
-// (kernels/flash_attention.py route() sends every other dtype, head_dim and
-// K10 to csrc/flash_attention.cu). They compute what that file's K9 and
+// (kernels/flash_attention.py route() sends every other dtype and head_dim
+// to csrc/flash_attention.cu). They compute what that file's K9, K10 and
 // K11 compute, on the same layouts, masks and launch orders: q (B, Sq, Hq,
 // D), k / v (B, Sk, Hkv, D) read through their strides, query head h on kv
 // head h / (Hq / Hkv), hidden pairs and keys past Sk p = 0; o and lse (B,
-// Hq, Sq) out of K9, dk and dv summed over each kv head's group of query
-// heads out of K11, in a fixed order (no atomics: the same bits launch to
-// launch).
+// Hq, Sq) out of K9, dq (B, Sq, Hq, D) out of K10, dk and dv summed over
+// each kv head's group of query heads out of K11, in a fixed order (no
+// atomics: the same bits launch to launch). Every query row sees at least
+// one key: the entry point refuses a window that leaves rows with none (Sq
+// > Sk + window - 1), as the wrapper does, since such a row's lse is -inf
+// and K10's and K11's p = 2^(s - lse) would be NaN where the reference
+// gives 1 / Sk.
 //
 // What the reference computes, and so what may run at the bfloat16 rate.
 // s = q . k and dp = do . v are products of bfloat16 values (exact in
 // float32) with float32 sums; K9 rounds p to v's dtype before p v. Those
-// are wgmma.f32.bf16.bf16 products as they stand. K11's p and ds stay
-// float32 in the reference, so dv = p^T do and dk = ds^T q take each of p
-// and ds as two bfloat16 terms, hi = bf16(x) and lo = bf16(x - hi), which
-// carry x to ~2^-17 of |x| (below the 2^-9 of the bfloat16 dk, dv; a third
-// term is not needed: on the card dk's and dv's float64 distance is the
-// bfloat16 plain version's, PERF.md): 6 bfloat16 products a tile.
+// are wgmma.f32.bf16.bf16 products as they stand. K10's and K11's p and ds
+// stay float32 in the reference, so dq = ds k, dv = p^T do and dk = ds^T q
+// take each of p and ds as two bfloat16 terms, hi = bf16(x) and lo = bf16(x
+// - hi), which carry x to ~2^-17 of |x| (below the 2^-9 of the bfloat16 dq,
+// dk, dv; a third term is not needed: on the card dq's, dk's and dv's
+// float64 distance is the bfloat16 plain version's, PERF.md): 4 bfloat16
+// products a tile in K10, 6 in K11.
 //
 // What bounds them on the H100: operations. At qwen3-8b's training shape
 // (B 1, S 4096, 32 query heads over 16, d 128, causal) one product over the
 // causal half is 68.7e9 multiply-adds: K9's two at 989 TFLOP/s take 0.139
-// ms, K11's four 0.278 ms (its own route's six 0.417 ms); the operands are
-// ~70 MB (0.02 ms).
+// ms, K10's three 0.209 ms (its own route's four 0.278 ms), K11's four
+// 0.278 ms (its own route's six 0.417 ms); the operands are ~70 MB (0.02
+// ms).
 //
 // Design (csrc/sm90.cuh holds the PTX):
 //   * Tiles land by TMA in 64-column boxes with the 128-byte swizzle, rows
@@ -37,9 +44,9 @@
 //     empty mbarrier (each consumer warpgroup's thread 0 arrives on empty
 //     when its wgmma that read the stage have completed). wgmma reads them
 //     K-major (contraction over head_dim) or, with the transpose bit,
-//     MN-major (contraction over a sequence axis: v in p v, do in p^T do, q
-//     in ds^T q), so no tile is transposed or copied and one copy of q or
-//     do serves both products.
+//     MN-major (contraction over a sequence axis: v in p v, k in ds k, do in
+//     p^T do, q in ds^T q), so no tile is transposed or copied and one copy
+//     of a tile serves both its products.
 //   * K9: a CTA of 384 threads, two consumer warpgroups and a producer
 //     warpgroup whose one thread issues the loads (setmaxnreg: consumers
 //     232 registers, producer 40), ring of two stages. 128 query rows of one
@@ -56,6 +63,19 @@
 //     = 256 truncations of 2^-23, ~3e-5 of |o|, far below the output's 2^-9,
 //     so the from-zero partial sums and the FADD of the TF32 design are not
 //     needed here.
+//   * K10: a CTA of 256 threads, two consumer warpgroups whose thread 0 also
+//     produces (as K11, below), ring of four stages. 128 query rows of one
+//     (batch, head), 64 a warpgroup, q and do resident; kv tiles of 64 keys
+//     of kv head h / G. s = q k^T and dp = do v^T are wgmma m64n64k16 from
+//     shared memory; p = 2^(s scale log2(e) - lse log2(e)) and ds = p (dp
+//     scale - delta scale) (one FFMA and one MUFU.EX2 a score; lse and
+//     delta of the thread's two rows read once) are formed on the
+//     accumulator layout and split into the A registers of dq += ds k (hi
+//     then lo), k read MN-major. dq stays in registers for the whole loop
+//     (at most 2 x 4096 / 16 accumulating k-steps: ~6e-5 of |dq| in
+//     truncation, under the output's 2^-9) and is written in q's dtype. dq
+//     (D / 2), s, dp (32 each) and the split terms (32) take ~170-190
+//     registers a thread: the register budget of K11, not K9's 168.
 //   * K11: a CTA of 256 threads, two consumer warpgroups whose thread 0 also
 //     produces (below), ring of three stages. 128 keys of one (batch, kv
 //     head), 64 a warpgroup, k and v resident; q and do in tiles of 64
@@ -78,8 +98,8 @@
 //   * Masks: a warpgroup skips the tiles (K11: parts) none of its rows can
 //     see (it still waits for and releases the stage) and masks only tiles
 //     on the diagonal or a window's edge or past Sq / Sk.
-//   * Launch order as csrc/flash_attention.cu: heads fastest; K9 the last q
-//     tiles first, K11 the first kv tiles first.
+//   * Launch order as csrc/flash_attention.cu: heads fastest; K9 and K10 the
+//     last q tiles first, K11 the first kv tiles first.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,13 +112,13 @@ namespace {
 
 constexpr int NT = 384;         // K9: two consumer warpgroups, one producer warpgroup
 constexpr int CONSUMER_REGS = 232, PRODUCER_REGS = 40;
-constexpr int NT_DKV = 256;     // K11: two warpgroups, thread 0 the producer
+constexpr int NT_DKV = 256;     // K10, K11: two warpgroups, thread 0 the producer
 constexpr float NEG = -1e30f;                // masked score, as the reference
 constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
 
 struct Args {
   const float *lse_in, *delta;
-  __nv_bfloat16 *o, *dk, *dv;
+  __nv_bfloat16 *o, *dq, *dk, *dv;
   float* lse;
   int B, Sq, Sk, Hq, Hkv;
   int causal, window;   // window <= 0: none
@@ -286,6 +306,175 @@ __global__ void __launch_bounds__(NT, 1)
         store_bf16x2(row + 8 * j, o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
       if (t == 0) a.lse[((long long)b * a.Hq + h) * a.Sq + qpos] = m[r] * LN2 + logf(lc);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K10: dq
+// ---------------------------------------------------------------------------
+
+template <int D> struct DqSm90 {
+  static constexpr int BQ = 128, BK = 64, ST = 4, NB = D / 64;
+  static constexpr uint32_t Q_BYTES = BQ * D * 2, KV_BYTES = BK * D * 2;
+  // q, do; ST x (k, v); qbar, full[ST], empty[ST]
+  static constexpr uint32_t BAR = 2 * Q_BYTES + ST * 2 * KV_BYTES;
+  static constexpr uint32_t SMEM = BAR + 1024 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(NT_DKV, 1)
+    flash_dq_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                  const Args a) {
+  using TL = DqSm90<D>;
+  constexpr int BQ = TL::BQ, BK = TL::BK, ST = TL::ST, NB = TL::NB;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sd = sq + TL::Q_BYTES;
+  const uint32_t skv = sd + TL::Q_BYTES;     // stage s: k at skv + 2 s KV_BYTES, v after it
+  const uint32_t qbar = sq + TL::BAR;
+  const uint32_t full0 = qbar + 8, empty0 = full0 + 8 * ST;
+  const int qt = gridDim.y - 1 - blockIdx.y, h = blockIdx.x % a.Hq, b = blockIdx.x / a.Hq;
+  const int hk = h / (a.Hq / a.Hkv), q0 = qt * BQ;
+  // kv tiles that rows [q0, q0 + BQ) can see
+  int lo, hi;
+  kv_range(a, q0, min(q0 + BQ, a.Sq) - 1, lo, hi);
+  const int kt0 = lo / BK, n = max(0, (hi + BK - 1) / BK - kt0);
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 2);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  // The producer: thread 0 issues every TMA load, q and do once, then k and
+  // v of tile i into stage i % ST once both warpgroups have released tile
+  // i - ST.
+  const auto load_kv = [&](int i) {
+    const int s = i % ST, k0 = (kt0 + i) * BK;
+    const uint32_t kd = skv + s * 2 * TL::KV_BYTES, vd = kd + TL::KV_BYTES;
+    mbar_expect_tx(full0 + 8 * s, 2 * TL::KV_BYTES);
+#pragma unroll
+    for (int c = 0; c < NB; ++c) {
+      tma_load_4d(kd + c * BK * 128, &tk, full0 + 8 * s, 64 * c, k0, hk, b);
+      tma_load_4d(vd + c * BK * 128, &tv, full0 + 8 * s, 64 * c, k0, hk, b);
+    }
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(qbar, 2 * TL::Q_BYTES);
+#pragma unroll
+    for (int c = 0; c < NB; ++c) {
+      tma_load_4d(sq + c * BQ * 128, &tq, qbar, 64 * c, q0, h, b);
+      tma_load_4d(sd + c * BQ * 128, &tdo, qbar, 64 * c, q0, h, b);
+    }
+    for (int i = 0; i < min(ST, n); ++i) load_kv(i);
+  }
+
+  const int wg = threadIdx.x / 128, tid = threadIdx.x & 127, w = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int qa = q0 + 64 * wg, qz = min(qa + 63, a.Sq - 1);
+  const int r0 = qa + 16 * w + g;          // this thread's rows: r0 and r0 + 8
+  // this warpgroup's 64 rows of q and do as wgmma A operands
+  const uint32_t qrow = sq + 64 * wg * 128, drow = sd + 64 * wg * 128;
+  // the rows' lse log2(e) and delta scale (a row past Sq reads the last
+  // row; its p is masked to 0)
+  float lq[2], dl[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const long long i = ((long long)b * a.Hq + h) * a.Sq + min(r0 + 8 * e, a.Sq - 1);
+    lq[e] = __ldg(a.lse_in + i) * LOG2E;
+    dl[e] = __ldg(a.delta + i) * a.scale;
+  }
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  const float c = a.scale * LOG2E;
+  mbar_wait(qbar, 0);
+  for (int it = 0; it < n; ++it) {
+    // refill the stage of tile it - 1, which this warpgroup has released,
+    // once the other one has too: the ring runs ST - 1 tiles ahead
+    if (threadIdx.x == 0 && it >= 1 && it - 1 + ST < n) {
+      mbar_wait(empty0 + 8 * ((it - 1) % ST), ((it - 1) / ST) & 1);
+      load_kv(it - 1 + ST);
+    }
+    const int s = it % ST;
+    const int k0 = (kt0 + it) * BK, kz = min(k0 + BK, a.Sk) - 1;
+    mbar_wait(full0 + 8 * s, (it / ST) & 1);
+    if (block_live(a, qa, qz, k0, kz)) {
+      const uint32_t kd = skv + s * 2 * TL::KV_BYTES, vd = kd + TL::KV_BYTES;
+      // s = q k^T and dp = do v^T over head_dim
+      float sc[BK / 2], dp[BK / 2];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(sc, kmajor_desc(qrow + (kk >> 2) * BQ * 128 + (kk & 3) * 32),
+                     kmajor_desc(kd + (kk >> 2) * BK * 128 + (kk & 3) * 32), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(dp, kmajor_desc(drow + (kk >> 2) * BQ * 128 + (kk & 3) * 32),
+                     kmajor_desc(vd + (kk >> 2) * BK * 128 + (kk & 3) * 32), kk > 0);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // sc[4 j + e] is (row r0 + 8 (e / 2), key k0 + 8 j + 2 t + e % 2).
+      // Where the tile is not wholly visible to the warpgroup's rows, hidden
+      // pairs, keys past Sk and rows past Sq get s = -inf, p = 0 (the
+      // reference: exp(-1e30 - lse) = 0).
+      if (kz != k0 + BK - 1 || qz != qa + 63 || !block_full(a, qa, qz, k0, kz)) {
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qpos = r0 + 8 * (e >> 1), kpos = k0 + 8 * j + 2 * t + (e & 1);
+            if (kpos >= a.Sk || qpos >= a.Sq || !visible(a, qpos, kpos))
+              sc[4 * j + e] = __int_as_float(0xff800000);
+          }
+      }
+      // ds = p (dp scale - delta scale), split into the hi and lo A
+      // registers of dq += ds k: columns 16 kk .. 16 kk + 15 of the
+      // accumulator are k-step kk
+      uint32_t sh[BK / 16][4], sl[BK / 16][4];
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        float d[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = ex2(fmaf(sc[4 * j + e], c, -lq[e >> 1]));   // 2^-inf = 0
+          d[e] = p * fmaf(dp[4 * j + e], a.scale, -dl[e >> 1]);
+        }
+        const int f = (j & 1) * 2;
+        split_bf16x2(d[0], d[1], sh[j >> 1][f], sl[j >> 1][f]);
+        split_bf16x2(d[2], d[3], sh[j >> 1][f + 1], sl[j >> 1][f + 1]);
+      }
+      // dq += ds k over the tile's keys, k read MN-major
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t bk = mnmajor_desc(kd + kk * 2048, BK * 128);
+        wgmma_rs<D>(dq, sh[kk], bk);
+        wgmma_rs<D>(dq, sl[kk], bk);
+      }
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(dq);
+      fence_regs(sh);
+      fence_regs(sl);
+    }
+    if (tid == 0) mbar_arrive(empty0 + 8 * s);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = r0 + 8 * r;
+    if (qpos >= a.Sq) continue;
+    __nv_bfloat16* row = a.dq + (((long long)b * a.Sq + qpos) * a.Hq + h) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      store_bf16x2(row + 8 * j, dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
   }
 }
 
@@ -490,7 +679,7 @@ __global__ void __launch_bounds__(NT_DKV, 1)
   }
 }
 
-enum Pass { FWD = 0, DKV = 2 };
+enum Pass { FWD = 0, DQ = 1, DKV = 2 };
 
 struct Strides {
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, d_sb, d_ss, d_sh;
@@ -505,11 +694,13 @@ template <int D>
 int launch(int pass, const Args& a, const void* q, const void* k, const void* v, const void* dout,
            const Strides& st, cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tdo;
-  const int qrows = pass == FWD ? FwdSm90<D>::BQ : DkvSm90<D>::BQ;
-  const int krows = pass == FWD ? FwdSm90<D>::BK : DkvSm90<D>::BK;
+  const int qrows = pass == FWD ? FwdSm90<D>::BQ : pass == DQ ? DqSm90<D>::BQ : DkvSm90<D>::BQ;
+  const int krows = pass == FWD ? FwdSm90<D>::BK : pass == DQ ? DqSm90<D>::BK : DkvSm90<D>::BK;
   if (!bf16_map(&tq, q, D, a.Sq, a.Hq, a.B, st.q_ss, st.q_sh, st.q_sb, qrows) ||
       !bf16_map(&tk, k, D, a.Sk, a.Hkv, a.B, st.k_ss, st.k_sh, st.k_sb, krows) ||
-      !bf16_map(&tv, v, D, a.Sk, a.Hkv, a.B, st.v_ss, st.v_sh, st.v_sb, krows))
+      !bf16_map(&tv, v, D, a.Sk, a.Hkv, a.B, st.v_ss, st.v_sh, st.v_sb, krows) ||
+      (pass != FWD &&
+       !bf16_map(&tdo, dout, D, a.Sq, a.Hq, a.B, st.d_ss, st.d_sh, st.d_sb, qrows)))
     return (int)cudaErrorInvalidPitchValue;
   if (pass == FWD) {
     using TL = FwdSm90<D>;
@@ -517,10 +708,14 @@ int launch(int pass, const Args& a, const void* q, const void* k, const void* v,
     if (err) return err;
     const dim3 grid(a.Hq * a.B, (a.Sq + TL::BQ - 1) / TL::BQ);
     flash_fwd_sm90<D><<<grid, NT, TL::SMEM, stream>>>(tq, tk, tv, a);
+  } else if (pass == DQ) {
+    using TL = DqSm90<D>;
+    int err = set_smem(flash_dq_sm90<D>, TL::SMEM);
+    if (err) return err;
+    const dim3 grid(a.Hq * a.B, (a.Sq + TL::BQ - 1) / TL::BQ);
+    flash_dq_sm90<D><<<grid, NT_DKV, TL::SMEM, stream>>>(tq, tk, tv, tdo, a);
   } else {
     using TL = DkvSm90<D>;
-    if (!bf16_map(&tdo, dout, D, a.Sq, a.Hq, a.B, st.d_ss, st.d_sh, st.d_sb, TL::BQ))
-      return (int)cudaErrorInvalidPitchValue;
     int err = set_smem(flash_dkv_sm90<D>, TL::SMEM);
     if (err) return err;
     const dim3 grid(a.Hkv * a.B, (a.Sk + TL::BK - 1) / TL::BK);
@@ -532,8 +727,9 @@ int launch(int pass, const Args& a, const void* q, const void* k, const void* v,
 }  // namespace
 
 // The C interface of csrc/flash_attention.cu's flash_attention_launch, for
-// the passes and types this file covers: pass 0 (K9) or 2 (K11), dtype 1
-// (bfloat16), D 64 or 128; dq is not read. Strides are in elements and
+// the passes and types this file covers: pass 0 (K9), 1 (K10) or 2 (K11),
+// dtype 1 (bfloat16), D 64 or 128; dq is written contiguous (B, Sq, Hq,
+// D). Strides are in elements and
 // must be multiples of 8 (16 bytes) with 16-byte aligned bases, as TMA
 // reads them (the wrapper copies other views); a tensor map the driver
 // refuses returns cudaErrorInvalidPitchValue. Returns cudaGetLastError()
@@ -545,14 +741,14 @@ extern "C" int flash_attention_sm90_launch(
     long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long d_sb, long long d_ss, long long d_sh, int causal, int window,
     float scale, void* stream) {
-  (void)dq;
   cudaGetLastError();  // clear any stale error from an earlier call
   if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0 || dtype != 1 ||
-      (pass != FWD && pass != DKV))
+      (pass != FWD && pass != DQ && pass != DKV) ||
+      (window > 0 && Sq > Sk + window - 1))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.lse_in = lse_in; a.delta = delta;
-  a.o = static_cast<__nv_bfloat16*>(o); a.lse = lse;
+  a.o = static_cast<__nv_bfloat16*>(o); a.lse = lse; a.dq = static_cast<__nv_bfloat16*>(dq);
   a.dk = static_cast<__nv_bfloat16*>(dk); a.dv = static_cast<__nv_bfloat16*>(dv);
   a.B = B; a.Sq = Sq; a.Sk = Sk; a.Hq = Hq; a.Hkv = Hkv;
   a.causal = causal; a.window = window; a.scale = scale;

@@ -6,8 +6,10 @@
 // over expert-sorted rows: row block b (rows b*bm .. b*bm + bm - 1, the last
 // one possibly shorter) multiplies by the weight of expert blk_expert[b].
 // x and w are float32 or bfloat16 (the same type), the sums float32, y is
-// written in x's type. Any bm >= 1 and any T, D, F: ragged edges are masked
-// with zeros. A block whose expert id lies outside [0, E) is written as
+// written in x's type (bfloat16 with D and F multiples of 8 takes
+// csrc/grouped_matmul_sm90.cu instead; kernels/grouped_matmul.py
+// route()). Any bm >= 1 and any T, D, F: ragged edges are masked with
+// zeros. A block whose expert id lies outside [0, E) is written as
 // zeros, never read from outside w. Offsets into w are 64-bit (e * D * F
 // exceeds 2^31 at arctic's widths).
 //
@@ -42,7 +44,9 @@
 //     FADDs a thread per 192 mma.sync a warp (~1e-6 against float64).
 //   * mma.sync and not wgmma: TF32 wgmma reads both operands K-major from
 //     shared memory, and w lies N-major (F contiguous); mma.sync fragments
-//     are loaded from shared memory in any layout.
+//     are loaded from shared memory in any layout. The reason holds for
+//     TF32 only: 16-bit wgmma reads w MN-major through its transpose bit,
+//     which csrc/grouped_matmul_sm90.cu does.
 //   * A CTA of 8 warps owns a 128 x 128 output tile inside ONE row block,
 //     so it reads blk_expert once and every row of its tile uses the same
 //     weight tile (a row block longer than 128 rows is split into several

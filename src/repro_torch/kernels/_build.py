@@ -29,7 +29,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = ("gather_matmul", "lstm_scan", "decoder_scan", "slstm_scan",
            "flash_attention", "flash_attention_sm90", "lstm_pointwise",
-           "grouped_matmul")
+           "grouped_matmul", "grouped_matmul_sm90")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                       "-Xptxas", "-v"]

@@ -30,12 +30,13 @@ versions (the same formulas on materialised probabilities
 backward in float64 over one group of query heads, the oracles of the
 kernels' float32 accuracy.
 
-Two routes of kernels (``route``): bfloat16 K9 and K11 at head_dim 64
-and 128 take ``"wgmma"``, ``csrc/flash_attention_sm90.cu`` (Hopper's
+Two routes of kernels (``route``): bfloat16 K9, K10 and K11 at head_dim
+64 and 128 take ``"wgmma"``, ``csrc/flash_attention_sm90.cu`` (Hopper's
 wgmma from shared memory and registers on TMA tiles; K9 with a producer
-warpgroup, K11 with its thread 0 producing; K11's float32 p and ds as two
-bfloat16 terms each); everything else, float32, K10 and bfloat16 at
-head_dim 16, 32 and 256, takes ``"tf32"``, ``csrc/flash_attention.cu``.
+warpgroup, K10 and K11 with their thread 0 producing; K10's float32 ds and
+K11's p and ds as two bfloat16 terms each); everything else, float32 and
+bfloat16 at head_dim 16, 32 and 256, takes ``"tf32"``,
+``csrc/flash_attention.cu``.
 A failed build or launch raises; no route falls back to the other.
 ``LAUNCHES_BY_ROUTE`` counts the launches of each (pass, route) beside
 ``LAUNCHES``.
@@ -56,8 +57,8 @@ from repro_torch.kernels import _build
 
 LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 LAUNCHES_BY_ROUTE = {"flash_fwd/wgmma": 0, "flash_fwd/tf32": 0,
-                     "flash_dq/tf32": 0, "flash_dkv/wgmma": 0,
-                     "flash_dkv/tf32": 0}
+                     "flash_dq/wgmma": 0, "flash_dq/tf32": 0,
+                     "flash_dkv/wgmma": 0, "flash_dkv/tf32": 0}
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -70,12 +71,10 @@ _ROUTE_LIB = {"wgmma": ("flash_attention_sm90", "flash_attention_sm90_launch"),
 
 
 def route(which: str, dtype: torch.dtype, d: int) -> str:
-    """The kernel a launch of pass ``which`` takes: ``"wgmma"`` (bfloat16
-    K9 and K11 at head_dim 64 or 128) or ``"tf32"`` (everything else)."""
-    if (which in ("flash_fwd", "flash_dkv") and dtype == torch.bfloat16
-            and d in WGMMA_HEAD_DIMS):
-        return "wgmma"
-    return "tf32"
+    """The kernel a launch of pass ``which`` (``"flash_fwd"``,
+    ``"flash_dq"`` or ``"flash_dkv"``) takes: ``"wgmma"`` (bfloat16 at
+    head_dim 64 or 128) or ``"tf32"`` (everything else)."""
+    return "wgmma" if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS else "tf32"
 
 
 def softmax_scale(d: int) -> float:

@@ -11,15 +11,20 @@ edge. ``bf``/``bk`` are the reference's VMEM tile sizes, accepted and
 unused. A block whose expert id lies outside ``[0, E)`` comes out as zeros
 on both routes.
 
-A CUDA tensor launches ``csrc/grouped_matmul.cu`` (float32 or bfloat16,
-y in x's dtype) and bumps ``LAUNCHES`` (and
-``LAUNCHES_BY_SHAPE`` under ``"grouped_matmul/{D}x{F}"``, which tells a
-layer's gate/up products from its down product); a CPU tensor runs
-``grouped_matmul_plain`` (the loop of the reference's test oracle). The
-kernel multiplies on the TF32 tensor cores with float32 sums: a float32
-operand is split into a TF32 high part and a TF32 remainder and each
-product is taken as three TF32 products ("3xTF32"), which keeps float32's
-accuracy; bfloat16 values are TF32 values and take one. The
+A CUDA tensor launches one of two kernels (``route``), y in x's dtype,
+and bumps ``LAUNCHES``, ``LAUNCHES_BY_ROUTE`` and ``LAUNCHES_BY_SHAPE``
+(under ``"grouped_matmul/{D}x{F}"``, which tells a layer's gate/up
+products from its down product); a CPU tensor runs
+``grouped_matmul_plain`` (the loop of the reference's test oracle).
+bfloat16 with D and F positive multiples of 8 (TMA's 16-byte strides)
+takes ``"wgmma"``, ``csrc/grouped_matmul_sm90.cu``: Hopper's wgmma on TMA
+tiles, bfloat16 products with float32 sums, as the reference's. Everything
+else, float32 and bfloat16 of other widths, takes ``"tf32"``,
+``csrc/grouped_matmul.cu``, on the TF32 tensor cores with float32 sums: a
+float32 operand is split into a TF32 high part and a TF32 remainder and
+each product is taken as three TF32 products ("3xTF32"), which keeps
+float32's accuracy; bfloat16 values are TF32 values and take one. A failed
+build, tensor map or launch raises; no route falls back to the other. The
 wrapper is not differentiable: the MoE layer's ``"pallas"`` route wraps it
 in an autograd.Function whose backward is two library products
 (models/transformer.py), as the reference leaves those products to XLA.
@@ -36,9 +41,18 @@ import torch
 from repro_torch.kernels import _build
 
 LAUNCHES = {"grouped_matmul": 0}
+LAUNCHES_BY_ROUTE = {"grouped_matmul/wgmma": 0, "grouped_matmul/tf32": 0}
 LAUNCHES_BY_SHAPE: dict = {}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def route(dtype: torch.dtype, D: int, F: int) -> str:
+    """The kernel a launch takes: ``"wgmma"`` (bfloat16, D and F positive
+    multiples of 8) or ``"tf32"`` (everything else)."""
+    if dtype == torch.bfloat16 and D > 0 and D % 8 == 0 and F % 8 == 0:
+        return "wgmma"
+    return "tf32"
 
 
 def plan_groups(counts: torch.Tensor, bm: int, capacity_blocks: int
@@ -85,14 +99,34 @@ def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor,
     return y
 
 
-def _lib():
-    lib = _build.load("grouped_matmul")
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# the C library, entry point and argument types of each route: (x, w, ids,
+# y, T, D, F, E, bm, stream), the tf32 one led by (dtype, vec)
+_ROUTE_LIB = {"wgmma": ("grouped_matmul_sm90", "grouped_matmul_sm90_launch",
+                        [_P] * 4 + [_I] * 5 + [_P]),
+              "tf32": ("grouped_matmul", "grouped_matmul_launch",
+                       [_I] * 2 + [_P] * 4 + [_I] * 5 + [_P])}
+
+
+def _entry(r):
+    """The C entry point of route ``r``, typed."""
+    name, fn_name, argtypes = _ROUTE_LIB[r]
+    lib = _build.load(name)
+    fn = getattr(lib, fn_name)
     if not getattr(lib, "_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.grouped_matmul_launch.argtypes = [i, i, p, p, p, p, i, i, i, i, i, p]
-        lib.grouped_matmul_launch.restype = i
+        fn.argtypes = argtypes
+        fn.restype = _I
         lib._typed = True
-    return lib
+    return lib, fn
+
+
+def _prep(x, r):
+    """``x`` contiguous; on the ``"wgmma"`` route, whose tiles TMA reads,
+    also on a 16-byte aligned base (copied otherwise)."""
+    x = x.contiguous()
+    if r == "wgmma" and x.data_ptr() % 16:
+        x = x.clone()
+    return x
 
 
 def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor,
@@ -103,21 +137,25 @@ def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"K12 needs CUDA tensors, got {x.device}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"K12 takes float32 or bfloat16, got {x.dtype}")
-    x, w = x.contiguous(), w.contiguous()
-    ids = blk_expert.to(torch.int32).contiguous()
     T, D = x.shape
     E, _, F = w.shape
-    per16 = 16 // x.element_size()          # elements of a 16-byte copy
-    vec = (D % per16 == 0 and F % per16 == 0 and x.data_ptr() % 16 == 0
-           and w.data_ptr() % 16 == 0)
+    r = route(x.dtype, D, F)
+    x, w = _prep(x, r), _prep(w, r)
+    ids = blk_expert.to(torch.int32).contiguous()
     y = torch.empty((T, F), dtype=x.dtype, device=x.device)
-    lib = _lib()
-    code = lib.grouped_matmul_launch(
-        _DTYPES[x.dtype], int(vec), x.data_ptr(), w.data_ptr(), ids.data_ptr(),
-        y.data_ptr(), T, D, F, E, int(bm),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, code, "grouped_matmul")
+    lib, fn = _entry(r)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    ptrs = (x.data_ptr(), w.data_ptr(), ids.data_ptr(), y.data_ptr())
+    if r == "wgmma":
+        code = fn(*ptrs, T, D, F, E, int(bm), stream)
+    else:
+        per16 = 16 // x.element_size()          # elements of a 16-byte copy
+        vec = (D % per16 == 0 and F % per16 == 0 and x.data_ptr() % 16 == 0
+               and w.data_ptr() % 16 == 0)
+        code = fn(_DTYPES[x.dtype], int(vec), *ptrs, T, D, F, E, int(bm), stream)
+    _build.check(lib, code, f"grouped_matmul ({r})")
     LAUNCHES["grouped_matmul"] += 1
+    LAUNCHES_BY_ROUTE[f"grouped_matmul/{r}"] += 1
     key = f"grouped_matmul/{D}x{F}"
     LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
     return y

@@ -117,6 +117,11 @@ def sampling_host_ms(kind: str, cfg, batch: int, seq: int, seed: int,
     return sorted(times)[len(times) // 2]
 
 
+class NoDeviceTime(RuntimeError):
+    """The profiler recorded no device time for a traced run: its CUDA
+    activity records were lost (seen on the card), not a fault of the step."""
+
+
 def trace_steps(step_fn, params, state, batch_fn, n_steps: int, seed: int,
                 top: int = 12, label: str = ""):
     """Trace ``n_steps`` calls of ``step_fn`` (``launch.steps`` signature)
@@ -137,7 +142,7 @@ def trace_steps(step_fn, params, state, batch_fn, n_steps: int, seed: int,
             if getattr(e, "device_type", None) == DeviceType.CUDA]
     rows = [r for r in rows if r[1] > 0]
     if not rows:
-        raise RuntimeError("the profiler recorded no device time")
+        raise NoDeviceTime("the profiler recorded no device time")
     busy = sum(r[1] for r in rows) / n_steps / 1e3
     rows.sort(key=lambda r: -r[1])
     print(f"{label}: wall {wall:.3f} ms/step, device busy "

@@ -1,11 +1,13 @@
-"""The bfloat16 route of the port's flash attention: K9 and K11 on Hopper's
-wgmma and TMA (``csrc/flash_attention_sm90.cu``, ``route() == "wgmma"``).
+"""The bfloat16 route of the port's flash attention: K9, K10 and K11 on
+Hopper's wgmma and TMA (``csrc/flash_attention_sm90.cu``, ``route() ==
+"wgmma"``).
 
 On the CPU: which kernel each (pass, dtype, head_dim) takes; the copies
-``_prep`` makes for TMA (16-byte bases and strides); K11's split of its
-float32 p and ds into two bfloat16 terms (to 2^-16 of |x|, and dk and dv
-from the split terms, bfloat16 products summed in float32, within 1.5 x
-the bfloat16 plain version's float64 distance); and the plain versions in
+``_prep`` makes for TMA (16-byte bases and strides); K10's and K11's split
+of their float32 p and ds into two bfloat16 terms (to 2^-16 of |x|, and
+dq, dk and dv from the split terms, bfloat16 products summed in float32,
+within 1.5 x the bfloat16 plain version's float64 distance); and the plain
+versions in
 bfloat16 against the JAX reference's Pallas kernel in interpret mode
 (``tests/test_flash.py``'s way) at the new route's small shapes, within
 the reference's bfloat16 tolerance 3e-2 x max(1, |ref|).
@@ -38,8 +40,7 @@ BF16 = torch.bfloat16
 @pytest.mark.parametrize("dtype", [torch.float32, BF16])
 @pytest.mark.parametrize("which", ["flash_fwd", "flash_dq", "flash_dkv"])
 def test_route(which, dtype, d):
-    want = ("wgmma" if which != "flash_dq" and dtype == BF16 and d in (64, 128)
-            else "tf32")
+    want = "wgmma" if dtype == BF16 and d in (64, 128) else "tf32"
     assert fa.route(which, dtype, d) == want
     assert f"{which}/{want}" in fa.LAUNCHES_BY_ROUTE
 
@@ -76,13 +77,13 @@ def test_prep_copies_what_tma_cannot_read(case, copied):
 
 
 # ---------------------------------------------------------------------------
-# K11's two-term split of p and ds
+# K10's and K11's two-term split of p and ds
 # ---------------------------------------------------------------------------
 
 
 def _split(x):
     """x (float32) = hi + lo, each a bfloat16 value rounded to nearest: the
-    A operands K11's wgmma route issues for p and ds."""
+    A operands K10's and K11's wgmma route issues for p and ds."""
     hi = x.to(BF16).float()
     return hi, (x - hi).to(BF16).float()
 
@@ -121,8 +122,22 @@ def _dkv_split(q, k, v, do, lse, delta, causal, window):
     return tuple(out)
 
 
-@pytest.mark.parametrize("window", [None, 32])
-def test_split_dk_dv_keep_the_plain_float64_distance(window):
+def _dq_split(q, k, v, do, lse, delta, causal, window):
+    """dq as K10's wgmma route forms it: ds in float32 from the bfloat16
+    inputs, split into two bfloat16 terms, ds_hi k + ds_lo k, every product
+    one of bfloat16 values (exact in float32) summed in float32, rounded to
+    bfloat16 at the end."""
+    _, ds = fa._probs_and_ds(q, k, v, do, lse, delta, causal, window)
+    kr = fa._repeat_kv(k, q.shape[2] // k.shape[2]).float()
+    hi, lo = _split(ds)
+    return (torch.einsum("bhqk,bkhd->bqhd", hi, kr)
+            + torch.einsum("bhqk,bkhd->bqhd", lo, kr)).to(BF16)
+
+
+def _float64_backward(window):
+    """bfloat16 inputs (B 1, S 100, 4 query heads over 2, d 64), the
+    backward's arguments with lse and delta from the float64 forward, and
+    the float64 dq (Sq, G, d), dk and dv (Sk, d) of each kv head."""
     g = torch.Generator().manual_seed(1)
     B, S, Hq, Hkv, d = 1, 100, 4, 2, 64
     q, k, v, do = (torch.randn(*s, generator=g).to(BF16) for s in (
@@ -132,16 +147,37 @@ def test_split_dk_dv_keep_the_plain_float64_distance(window):
     delta = torch.empty(B, Hq, S)
     want = []
     for hk in range(Hkv):
-        lse64, delta64, _, dk64, dv64 = fa.backward_float64(q, k, v, do, True, window, 0, hk)
+        lse64, delta64, dq64, dk64, dv64 = fa.backward_float64(q, k, v, do, True, window, 0, hk)
         lse[0, hk * G:(hk + 1) * G], delta[0, hk * G:(hk + 1) * G] = lse64, delta64
-        want.append((dk64, dv64))
-    args = (q, k, v, do, lse, delta, True, window)
+        want.append((dq64, dk64, dv64))
+    return (q, k, v, do, lse, delta, True, window), want
+
+
+def _rel(x, w):
+    return float((x.double() - w).abs().max()) / max(1.0, float(w.abs().max()))
+
+
+@pytest.mark.parametrize("window", [None, 32])
+def test_split_dk_dv_keep_the_plain_float64_distance(window):
+    args, want = _float64_backward(window)
 
     def dist(pair):
-        return max(float((x[0, :, hk].double() - w).abs().max()) / max(1.0, float(w.abs().max()))
-                   for hk, ws in enumerate(want) for x, w in zip(pair, ws))
+        return max(_rel(x[0, :, hk], w) for hk, ws in enumerate(want)
+                   for x, w in zip(pair, ws[1:]))
 
     split, plain = dist(_dkv_split(*args)), dist(fa.flash_dkv_plain(*args))
+    assert 0 < split <= 1.5 * plain, (split, plain)
+
+
+@pytest.mark.parametrize("window", [None, 32])
+def test_split_dq_keeps_the_plain_float64_distance(window):
+    args, want = _float64_backward(window)
+    G = args[0].shape[2] // args[1].shape[2]
+
+    def dist(dq):
+        return max(_rel(dq[0, :, hk * G:(hk + 1) * G], ws[0]) for hk, ws in enumerate(want))
+
+    split, plain = dist(_dq_split(*args)), dist(fa.flash_dq_plain(*args))
     assert 0 < split <= 1.5 * plain, (split, plain)
 
 
@@ -219,17 +255,20 @@ def test_cuda_kernels_match_plain(B, Sq, Sk, Hq, Hkv, d, causal, window):
     _close(o, o_p)
     _close(lse, lse_p)
     args = (q, k, v, do, lse_p, fa.flash_delta(o_p, do), causal, window)
+    dq = fa.flash_dq_cuda(*args)
+    assert dq.dtype == BF16 and dq.shape == q.shape
+    _close(dq, fa.flash_dq_plain(*args))
     for got, want in zip(fa.flash_dkv_cuda(*args), fa.flash_dkv_plain(*args)):
         _close(got, want)
     assert {n: fa.LAUNCHES_BY_ROUTE[n] - before[n] for n in before} == {
-        "flash_fwd/wgmma": 1, "flash_fwd/tf32": 0, "flash_dq/tf32": 0,
-        "flash_dkv/wgmma": 1, "flash_dkv/tf32": 0}
+        "flash_fwd/wgmma": 1, "flash_fwd/tf32": 0, "flash_dq/wgmma": 1,
+        "flash_dq/tf32": 0, "flash_dkv/wgmma": 1, "flash_dkv/tf32": 0}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 128])
 def test_cuda_kernels_keep_the_plain_float64_distance(d):
-    """o, lse, dk and dv of every (batch, kv head) group within 10 x the
+    """o, lse, dq, dk and dv of every (batch, kv head) group within 10 x the
     bfloat16 plain version's distance to float64 + 1e-6 (the chip_smoke
     gate); the backward takes lse and delta from the float64 forward."""
     dev = require_cuda()
@@ -245,14 +284,16 @@ def test_cuda_kernels_keep_the_plain_float64_distance(d):
     for hk in range(Hkv):
         hs = slice(hk * G, (hk + 1) * G)
         fo, fl = fa.forward_float64(q, k, v, True, None, 0, hk)
-        l64, d64, _, dk64, dv64 = fa.backward_float64(q, k, v, do, True, None, 0, hk)
+        l64, d64, dq64, dk64, dv64 = fa.backward_float64(q, k, v, do, True, None, 0, hk)
         lse64[0, hs], delta64[0, hs] = l64, d64
-        groups.append((hs, hk, fo, fl, dk64, dv64))
+        groups.append((hs, hk, fo, fl, dq64, dk64, dv64))
     args = (q, k, v, do, lse64, delta64, True, None)
+    dq, dq_p = fa.flash_dq_cuda(*args), fa.flash_dq_plain(*args)
     (dk, dv), (dk_p, dv_p) = fa.flash_dkv_cuda(*args), fa.flash_dkv_plain(*args)
-    for hs, hk, fo, fl, dk64, dv64 in groups:
+    for hs, hk, fo, fl, dq64, dk64, dv64 in groups:
         for got, plain, ref, name in ((o[0, :, hs], o_p[0, :, hs], fo, "o"),
                                       (lse[0, hs], lse_p[0, hs], fl, "lse"),
+                                      (dq[0, :, hs], dq_p[0, :, hs], dq64, "dq"),
                                       (dk[0, :, hk], dk_p[0, :, hk], dk64, "dk"),
                                       (dv[0, :, hk], dv_p[0, :, hk], dv64, "dv")):
             kernel, yard = rel(got, ref), rel(plain, ref)
@@ -267,8 +308,9 @@ def test_cuda_kernels_are_deterministic(d):
     q, k, v, do = _inputs(dev, 2, 300, 300, 8, 2, d, seed=5)
     o, lse = fa.flash_fwd_cuda(q, k, v)
     args = (q, k, v, do, lse, fa.flash_delta(o, do), True, None)
-    first = (o, lse, *fa.flash_dkv_cuda(*args))
-    second = (*fa.flash_fwd_cuda(q, k, v), *fa.flash_dkv_cuda(*args))
+    first = (o, lse, fa.flash_dq_cuda(*args), *fa.flash_dkv_cuda(*args))
+    second = (*fa.flash_fwd_cuda(q, k, v), fa.flash_dq_cuda(*args),
+              *fa.flash_dkv_cuda(*args))
     for a, b in zip(first, second):
         assert torch.equal(a, b)
 
@@ -290,5 +332,6 @@ def test_cuda_kernels_read_strided_views(d):
     _close(o, o_p)
     _close(lse, lse_p)
     args = (q, k, v, do, lse_p, fa.flash_delta(o_p, do), True, None)
+    _close(fa.flash_dq_cuda(*args), fa.flash_dq_plain(*args))
     for got, want in zip(fa.flash_dkv_cuda(*args), fa.flash_dkv_plain(*args)):
         _close(got, want)
