@@ -685,8 +685,8 @@ def check_decoder(gen, T_, B_, S_, H_, kind, *, rate=0.5, bs=4, ragged=False,
     uniq = [H_ if t_ is None or d.mode == "dense" else int(torch.unique(t_).numel())
             for d, t_ in zip(descs, tables)]
     ids = sum(0 if t_ is None else t_.numel() for t_ in tables)
-    # the forward's products on FFMA; the backward's on the TF32 tensor
-    # cores (3xTF32), the rest of the readout and the attention on FFMA
+    # the gate products on the TF32 tensor cores in split precision (3xTF32),
+    # the backward's too; the rest of the readout and the attention on FFMA
     from repro_torch.launch import scan_bench
     f_ops = scan_bench.k7_fwd_ops(T_, B_, S_, H_, kept)
     f_flops = [(f_ops["tf32"], TF32_FLOPS), (f_ops["f32"], F32_FLOPS)]
@@ -2055,7 +2055,8 @@ def check_pointwise(out):
     forget_bias 0 and 1, and on odd shapes; timed at (20, 650) with a warm
     L2 (in the scan, the gates were written just before), beside
     ``aten._thnn_fused_lstm_cell`` (the library's fused cell update, held to
-    the plain version too)."""
+    the plain version too), and its device time (``torch.profiler``) beside
+    an empty kernel's on the same grid."""
     from repro_torch.kernels import lstm_pointwise as k5
     print("lstm_pointwise")
     g = torch.Generator().manual_seed(5)
@@ -2082,11 +2083,55 @@ def check_pointwise(out):
                         list(fl()), list(fp()), 1e-5)
                 ms, pms = time_ms(fk, reps=50), time_ms(fp, reps=50)
                 lms = time_ms(fl, reps=50)
+                # K5's device time beside an empty kernel's on K5's grid,
+                # launched the same way (ctypes, the current stream): the
+                # device's launch floor under the CUDA-event time
+                empty = empty_kernel(-(-B_ * H_ // 256), 256)
+                dms, lost = device_ms(fk, reps=50)
+                ems, elost = device_ms(empty, reps=50)
+                est = {k_: v for k_, v in (("device_ms_estimated_from", lost),
+                                           ("empty_device_ms_estimated_from", elost))
+                       if v is not None}
+                print(f"  lstm_pointwise device {dms:.4f} ms, empty kernel on its grid "
+                      f"{ems:.4f} ms ({dms / ems:.2f}x); empty kernel's CUDA-event time "
+                      f"{time_ms(empty, reps=50):.4f} ms")
                 add_row(out, "lstm_pointwise", STACK,
                         "src/repro_torch/csrc/lstm_pointwise.cu",
                         "src/repro/kernels/lstm_pointwise.py:23", err, ms, pms,
                         lms, 4 * (B_ * 4 * H_ + B_ * H_ + 2 * B_ * H_),
-                        16 * B_ * H_, "warm")   # ~16 float32 operations a unit
+                        16 * B_ * H_, "warm",   # ~16 float32 operations a unit
+                        device_ms=dms, empty_kernel_device_ms=ems, **est)
+
+
+EMPTY_SRC = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(int grid, int block, void* stream) {
+  empty_kernel<<<grid, block, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def empty_kernel(grid, block):
+    """A callable that launches an empty kernel of ``grid`` x ``block``
+    threads through ctypes on the current stream, as the port's wrappers
+    launch theirs (built with the port's nvcc flags)."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.launch import scan_bench
+    src = _build.build_dir() / "empty_probe.cu"
+    src.parent.mkdir(parents=True, exist_ok=True)
+    src.write_text(EMPTY_SRC)
+    lib = scan_bench.compile_lib(src, "empty_probe")
+    lib.empty_launch.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.empty_launch.restype = ctypes.c_int
+
+    def run():
+        code = lib.empty_launch(grid, block, torch.cuda.current_stream().cuda_stream)
+        if code:
+            raise RuntimeError(f"empty kernel: CUDA error {code}")
+    return run
 
 
 def drive_lstm_stack():

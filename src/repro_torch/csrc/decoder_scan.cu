@@ -1,7 +1,7 @@
 // Fused teacher-forced seq2seq decoder recurrence on Hopper (sm_90a), float32.
 //
 // Replaces the Pallas TPU kernels of repro/kernels/decoder_scan.py:
-//   K7  _pl_fwd_kernel via _pallas_fwd  -> dec_fwd_kernel
+//   K7  _pl_fwd_kernel via _pallas_fwd  -> dec_fwd_tma
 //   K8  _pl_bwd_kernel via _pallas_bwd  -> dec_bwd_kernel
 // Per step t: nl stacked LSTM layers (layer 0 adds drop(h~_{t-1}) @ W_feed
 // to the hoisted gx0_t, upper layers drop(h_{l-1,t}) @ W_l + b_l), each with
@@ -19,16 +19,16 @@
 // feed) has four dependent phases per step, each far too small to fill the
 // card (B=64 rows x ~358 kept units x 2048 columns per product). Latency per
 // phase (grid barriers, L2 round trips), not FLOPs or HBM bytes, bounds it.
-// Design, extending csrc/lstm_scan.cu: one persistent cooperative launch per
-// direction (at most one CTA per SM, all co-resident), grid.sync() between
-// dependent phases. The kernels take nl = 2 layers (the paper's NMT model).
-// Gate phases are owned by hidden units: CTA owns J units and computes
-// their 4 gate columns for all B rows; its columns of W_feed, U_l, W_l and
-// of w_comb stay in shared memory (H=512: 144 KB), and the compact inputs
-// are staged in 32-row chunks (one warp per row,
-// its lanes along the compact units). Attention is owned by
-// batch rows (encoder memory read through L2). The readout is owned by
-// units again (columns of w_comb). Barriers per step: nl + 2.
+// Design: one persistent launch per direction, every CTA resident, barriers
+// of all CTAs on an L2 counter between dependent phases. The kernels take
+// nl = 2 layers (the paper's NMT model).
+// Forward (K7, dec_fwd_tma below): gate phases are owned by hidden units: a
+// CTA owns J units and computes their 4 gate columns for all B rows; its
+// columns of W_feed, U_l, W_l and of w_comb stay in shared memory (H=512:
+// 144 KB), and its inputs, published by their owners in its compact layout,
+// arrive by TMA. Attention is owned by batch rows (encoder memory read
+// through L2). The readout is owned by units again (columns of w_comb).
+// Barriers per step: nl + 2.
 // Backward (reverse time; K8, dec_bwd_kernel below): the grid of K4's
 // backward (csrc/scan_exchange.cuh: P clusters of Q CTAs, J units a CTA).
 // The readout backward is owned by units (their rows of w_comb resident,
@@ -43,9 +43,9 @@
 // units only, WG over all H units, the dropped ones times zero (1 / (1 - p)
 // times the kept units' FLOPs, csrc/scan_exchange.cuh). The backward takes
 // B <= 256, H % 4 == 0 and at most 8 units a CTA (H <= 960 on 120 CTAs);
-// both entry points refuse a shape whose shared-memory plan does not fit
-// (the wrapper raises). Data written by other
-// CTAs in the same launch is read through L2 only (__ldcg, cp.async.cg).
+// both directions refuse a shape whose plan does not fit (the wrapper
+// raises). Data written by other CTAs in the same launch is read through L2
+// only (__ldcg, cp.async.cg, TMA).
 // No fast-math: score_bias is -1e30 and the softmax subtracts its max.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -53,6 +53,7 @@
 #include <algorithm>
 
 #include "scan_exchange.cuh"
+#include "sm90.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -75,7 +76,7 @@ struct FwdArgs {
   const float *gx0, *us, *ws, *bs, *wf, *wc, *ep, *eo, *sb, *h0, *c0, *f0;
   const int* lens;
   SiteArg sites[2 * NL];
-  float *htil, *alpha, *gates, *hs, *cs, *hcur, *ctx;
+  float *htil, *alpha, *gates, *hs, *cs;
 };
 
 struct BwdArgs {
@@ -92,11 +93,21 @@ struct BwdArgs {
   int Q, J;                   // clusters of Q CTAs, J units a CTA
 };
 
+// K7 (dec_fwd_tma): FwdArgs and the consumer layouts that
+// kernels/decoder_scan.py builds on the device.
+struct TmaArgs {
+  FwdArgs f;
+  const int* inv[2 * NL];   // structured site: (rows, H) 1 + a unit's column in the compact row, 0 dropped
+  float* pub[2 * NL];       // (2, B, kp) the site's input as its product reads it, a slot per step parity
+  int kp[2 * NL];           // the compact width (k, or H for dense / off) rounded up to 4
+  float* rdx;               // (B, 2 Hq) the readout's input [h_top | ctx], Hq = H rounded up to 32
+  unsigned* bar;            // the zeroed grid-barrier counter
+  int Q, J, NS;             // clusters of Q CTAs, J units a CTA, ring stages
+};
+
 namespace {
 
 constexpr int NT = 256;          // threads per CTA
-constexpr int RB = 32;           // forward rows per staged chunk
-constexpr int RBP = RB + 4;      // padded row stride of a staged chunk
 constexpr int RA = 32;           // backward: dpre rows per staged chunk (readout)
 constexpr int KSA = NT / RA;     // backward: K-split of the readout
 constexpr int JMAX = 8;          // backward: most hidden units a CTA owns
@@ -127,307 +138,504 @@ __device__ __forceinline__ const float* site_w(const float* wf, const float* us,
   return i == 0 ? wf : (i <= nl ? us + (size_t)(i - 1) * HG : ws + (size_t)(i - nl - 1) * HG);
 }
 
-// Stage rows [b0, b0+R) of drop(x) (x: (B, H), written in this launch, read
-// through L2) for site st at time row t, compact, transposed: xs[kk*RP+bb].
-// Structured sites gather their kept unit ids (into uid) and fold in the
-// scale; dense ones multiply by mask * scale. Each warp owns R/8 rows and
-// its lanes walk the compact columns, 16 loads in flight per thread and no
-// integer division. Returns the compact width.
-template <int R, int RP>
-__device__ int stage_rows(float* xs, int* uid, const float* x, const SiteArg& st,
-                          int t, int B, int H, int b0) {
-  constexpr int NW = NT / 32;          // warps
-  constexpr int RW = R / NW;           // rows per warp
-  constexpr int KU = 16 / RW;          // columns per lane per batch
+// Luong attention of batch row b at step t, by NTH threads: the scores of
+// the top h (hsrc, H floats written in this launch, staged into cur) against
+// enc_proj[b] plus score_bias into sc (S floats), their softmax into
+// alpha_t[b], the context alpha_t[b] enc_out[b] into ctx (H floats).
+// mark(i) closes phase i of the phase counters.
+template <int NTH, class Mark>
+__device__ __forceinline__ void attend_row(const FwdArgs& a, int t, int b, const float* hsrc,
+                                           float* ctx, float* cur, float* sc, Mark mark) {
+  const int B = a.B, H = a.H, S = a.S;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int mode = st.mode;
-  const int KC = mode == 1 ? st.k : H;
-  const int row = st.rows == 1 ? 0 : t;
-  if (mode == 1)
-    for (int kk = tid; kk < KC; kk += NT) uid[kk] = st.ids[(size_t)row * st.k + kk];
+  for (int h = tid; h < H; h += NTH) cur[h] = __ldcg(hsrc + h);
   __syncthreads();
-  const float sc = mode == 0 ? 1.f : st.scale;
-  const float* mrow = mode == 2 ? st.mask + (size_t)row * B * H : nullptr;
-  for (int k0 = 0; k0 < KC; k0 += 32 * KU) {
-    // all loads of a batch first, unconditional and branch-free (masked-off
-    // lanes read x[0]), so that they are all in flight together
-    float v[RW][KU];
-#pragma unroll
-    for (int i = 0; i < RW; ++i) {
-      const int b = b0 + warp + i * NW;
-#pragma unroll
-      for (int u = 0; u < KU; ++u) {
-        const int kk = k0 + u * 32 + lane;
-        const bool ok = b < B && kk < KC;
-        const int col = ok ? (mode == 1 ? uid[kk] : kk) : 0;
-        v[i][u] = __ldcg(x + (ok ? (size_t)b * H + col : 0));
-      }
+  for (int s = warp; s < S; s += NTH / 32) {
+    const float* e = a.ep + ((size_t)b * S + s) * H;
+    float d = 0.f;
+    for (int h = lane; h < H; h += 32) d = fmaf(cur[h], __ldg(e + h), d);
+    d = warp_sum(d);
+    if (lane == 0) sc[s] = d + __ldg(a.sb + (size_t)b * S + s);
+  }
+  __syncthreads();
+  mark(8);
+  if (warp == 0) {
+    float m = __int_as_float(0xff800000);   // -inf
+    for (int s = lane; s < S; s += 32) m = fmaxf(m, sc[s]);
+    m = warp_max(m);
+    float z = 0.f;
+    for (int s = lane; s < S; s += 32) {
+      const float ex = expf(sc[s] - m);
+      sc[s] = ex;
+      z += ex;
     }
-    if (mode == 2) {
-      float m[RW][KU];
-#pragma unroll
-      for (int i = 0; i < RW; ++i) {
-        const int b = b0 + warp + i * NW;
-#pragma unroll
-        for (int u = 0; u < KU; ++u) {
-          const int kk = k0 + u * 32 + lane;
-          const bool ok = b < B && kk < KC;
-          m[i][u] = __ldg(mrow + (ok ? (size_t)b * H + kk : 0));
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < RW; ++i)
-#pragma unroll
-        for (int u = 0; u < KU; ++u) v[i][u] *= m[i][u];
-    }
-#pragma unroll
-    for (int i = 0; i < RW; ++i) {
-      const bool brow = b0 + warp + i * NW < B;
-#pragma unroll
-      for (int u = 0; u < KU; ++u) {
-        const int kk = k0 + u * 32 + lane;
-        if (kk < KC) xs[(size_t)kk * RP + warp + i * NW] = brow ? v[i][u] * sc : 0.f;
-      }
+    z = warp_sum(z);
+    for (int s = lane; s < S; s += 32) {
+      const float al = sc[s] / z;
+      sc[s] = al;
+      a.alpha[((size_t)t * B + b) * S + s] = al;
     }
   }
   __syncthreads();
-  return KC;
+  mark(9);
+  for (int h = tid; h < H; h += NTH) {
+    float v = 0.f;
+    for (int s = 0; s < S; ++s) v = fmaf(sc[s], __ldg(a.eo + ((size_t)b * S + s) * H + h), v);
+    ctx[h] = v;
+  }
+  __syncthreads();
+  mark(10);
 }
 
-// acc[bb] += sum over kk = s (mod S) of xs[kk*RP+bb] * w[row(kk)*ld + coff].
-template <int R, int RP>
-__device__ __forceinline__ void accum(float (&acc)[R], const float* xs, int KC,
-                                      const int* uid, bool gath, const float* w,
-                                      size_t ld, size_t coff, int s, int S) {
-#pragma unroll 2
-  for (int kk = s; kk < KC; kk += S) {
-    const int row = gath ? uid[kk] : kk;
-    const float wv = w[(size_t)row * ld + coff];
-    const float4* xv = reinterpret_cast<const float4*>(xs + (size_t)kk * RP);
+// ---------------------------------------------------------------------------
+// K7: forward, dec_fwd_tma
+// ---------------------------------------------------------------------------
+//
+// J units a CTA, their columns of W_feed, U_l, W_1 and w_comb resident, four
+// barriers a step, attention by batch rows. Its staging:
+//   * every carry is published by its owner in its consumer's layout:
+//     dropped, scaled and compacted, through the site's inverse map, into a
+//     dense (B, kp) block (TmaArgs::pub, one slot per step parity, so a copy
+//     for step t + 1 never overwrites one a slower CTA still reads in step
+//     t); h_0 (unfrozen) to nr_1 at t, h_0 and h_1 (frozen) to rh_0, rh_1 at
+//     t + 1, h~ (frozen) to the feed at t + 1, h_1 (unfrozen) and ctx densely
+//     into rdx = [h_top | ctx] for the attention and the readout;
+//   * a gate or readout phase reads its inputs as 64-row x 32-column boxes
+//     (8 KB) by TMA, multicast to the Q CTAs of a cluster (CTA r issues the
+//     boxes n with n % Q == r; L2 serves a box once a cluster instead of once
+//     a CTA), into a ring of NS stages that one producer warp keeps filled
+//     while eight consumer warps multiply: the product of box i runs while
+//     the next NS - 1 land. A stage is refilled once the four consumer warps
+//     of every CTA of the cluster have released it (the issuer's `empty`
+//     mbarrier, arrived on across the cluster);
+//   * the gate products run on the TF32 tensor cores in split precision
+//     (3xTF32, hi rounded to nearest: csrc/tf32x3.cuh), A from the ring and
+//     B from the resident weights, split as they are loaded; the readout's
+//     (4 columns a CTA) on FFMA. Warp w takes rows 16 (w % 4) .. + 15 of a
+//     row block and the boxes of parity w / 4; each box's product is summed
+//     from zero and added to the warp's sums, and the two parities' sums
+//     are added in a fixed order: a second launch gives the same bits;
+//   * the barriers between phases are grid_barrier on a zeroed L2 counter.
+// The generic stores of other CTAs that a TMA box reads are ordered before
+// it by the barrier's acquire and a fence.proxy.async in the producer.
+
+constexpr int TNT = 288;             // threads: 8 consumer warps and a producer warp
+constexpr int TNC = 256;             // consumer threads
+constexpr int TMB = 64;              // rows of a box: a row block
+constexpr int TKC = 32;              // columns of a box (128 bytes, the swizzle's width)
+constexpr uint32_t TBOX = TMB * TKC * 4;
+constexpr int TJMAX = 4;             // units a CTA: 16 gate columns, two mma n-tiles
+
+struct alignas(64) TmaMaps {
+  CUtensorMap site[2 * NL][2];       // each site's published block, by slot
+  CUtensorMap rd;                    // rdx
+};
+
+__host__ __device__ inline int rup(int n, int m) { return (n + m - 1) / m * m; }
+
+// Byte offsets of K7's shared memory from its 1024-aligned base:
+// o[0] the ring (NS boxes); o[1] the gate weights (4 sites x H rows x 16
+// columns, column c of a row at 2 (c % 8) + c / 8, so that a lane reads its
+// column of both n-tiles at once); o[2] w_comb's columns (KR rows x 4, in
+// rdx's order: h_top's rows, then ctx's); o[3]
+// the partial sums (TMB x 16) and then the two sites' kept-unit lists (2 x
+// KRG), which the attention's vectors share; o[4] the cell state (NL x B x
+// J); o[5] the mbarriers (full[NS], empty[NS]); o[6] the bytes to ask for,
+// the alignment's slack included.
+__host__ __device__ inline void tma_layout(int B, int H, int S, int J, int NS, size_t (&o)[7]) {
+  const int Hp = rup(H, 4), KR = 2 * rup(H, TKC), KRG = rup(Hp, TKC);
+  const size_t lists = (size_t)TMB * 16 * 4 + (size_t)2 * KRG * 4;
+  const size_t att = (size_t)4 * (Hp + rup(S, 4));
+  o[0] = 0;
+  o[1] = (size_t)NS * TBOX;
+  o[2] = o[1] + (size_t)4 * H * 16 * 4;
+  o[3] = o[2] + (size_t)KR * 4 * 4;
+  o[4] = o[3] + (lists > att ? lists : att);
+  o[5] = o[4] + (size_t)rup(NL * B * J * 4, 16);
+  o[6] = o[5] + (size_t)16 * NS + 1024;
+}
+
+size_t tma_smem(int B, int H, int S, int J, int NS) {
+  size_t o[7];
+  tma_layout(B, H, S, J, NS, o);
+  return o[6];
+}
+
+__device__ __forceinline__ void ldsm4_at(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(TNC) : "memory");
+}
+
+// The A fragment (16 x 8, split) of rows 16 mt .. + 15 and columns 8 kk ..
+// + 7 of the box at `tile` (64 rows of 128 bytes, 16-byte chunk c of row r
+// at c ^ (r % 8): TMA's 128-byte swizzle, so ldmatrix's eight rows fall on
+// eight bank groups).
+__device__ __forceinline__ void box_frag_a(uint32_t tile, int mt, int kk, int lane,
+                                           uint32_t (&h)[4], uint32_t (&l)[4]) {
+  const int m = lane >> 3;
+  uint32_t raw[4];
+  ldsm4_at(raw, tile + (16 * mt + (m & 1) * 8 + (lane & 7)) * 128 +
+                    (((2 * kk + (m >> 1)) ^ (lane & 7)) << 4));
 #pragma unroll
-    for (int v = 0; v < R / 4; ++v) {
-      const float4 x4 = xv[v];
-      acc[4 * v] = fmaf(x4.x, wv, acc[4 * v]);
-      acc[4 * v + 1] = fmaf(x4.y, wv, acc[4 * v + 1]);
-      acc[4 * v + 2] = fmaf(x4.z, wv, acc[4 * v + 2]);
-      acc[4 * v + 3] = fmaf(x4.w, wv, acc[4 * v + 3]);
+  for (int q = 0; q < 4; ++q) split_rn(__uint_as_float(raw[q]), h[q], l[q]);
+}
+
+// acc[nt] += the box's rows 16 mt .. (its 32 compact columns, unit ul[k] of
+// column k) x W's rows ul[k], n-tile nt of the 16 gate columns; the box's
+// terms summed from zero, small terms apart, then added in. (Every load of
+// the box first and four chains a n-tile measured no faster on the card.)
+__device__ __forceinline__ void tma_gate_box(float (&acc)[2][4], uint32_t tile, const float* W,
+                                             const int* ul, int mt, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  float dl[2][4] = {}, dh[2][4] = {};
+#pragma unroll
+  for (int kk = 0; kk < TKC / 8; ++kk) {
+    uint32_t ah[4], al[4], bh[2][2], bl[2][2];
+    box_frag_a(tile, mt, kk, lane, ah, al);
+    const float2 w0 = *reinterpret_cast<const float2*>(W + ul[8 * kk + t] * 16 + 2 * g);
+    const float2 w1 = *reinterpret_cast<const float2*>(W + ul[8 * kk + t + 4] * 16 + 2 * g);
+    split_rn(w0.x, bh[0][0], bl[0][0]);
+    split_rn(w1.x, bh[0][1], bl[0][1]);
+    split_rn(w0.y, bh[1][0], bl[1][0]);
+    split_rn(w1.y, bh[1][1], bl[1][1]);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      mma(dl[nt], al, bh[nt]);
+      mma(dl[nt], ah, bl[nt]);
+      mma(dh[nt], ah, bh[nt]);
     }
   }
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] += dh[nt][e] + dl[nt][e];
 }
 
-// ---------------------------------------------------------------------------
-// K7: forward
-// ---------------------------------------------------------------------------
-
-__host__ __device__ size_t fwd_stage(int H, int S) {
-  size_t n = (size_t)H * RBP;
-  if ((size_t)NT * RB > n) n = (size_t)NT * RB;
-  if ((size_t)H + S > n) n = (size_t)H + S;
-  return al4(n);
+// The readout's box on FFMA: lane l takes row r = 16 mt + l / 2 and the
+// units q = 2 (l % 2), q + 1 of the box's 32 columns against Wc's 32 rows (4
+// columns a row), summed in column order from zero and then added in. (On
+// the TF32 tensor cores half of each 8-column n-tile idles; FFMA measured
+// faster on the card.)
+__device__ __forceinline__ void tma_readout_box(float (&acc)[2], const float* tile, const float* Wc,
+                                                int mt, int lane) {
+  const int r = 16 * mt + (lane >> 1), q = 2 * (lane & 1);
+  const float* row = tile + r * TKC;
+  float d0 = 0.f, d1 = 0.f;
+#pragma unroll
+  for (int c = 0; c < TKC / 4; ++c) {
+    const float4 x = *reinterpret_cast<const float4*>(row + 4 * (c ^ (r & 7)));
+    const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 w = *reinterpret_cast<const float2*>(Wc + (4 * c + e) * 4 + q);
+      d0 = fmaf(xs[e], w.x, d0);
+      d1 = fmaf(xs[e], w.y, d1);
+    }
+  }
+  acc[0] += d0;
+  acc[1] += d1;
 }
 
-size_t fwd_smem(const FwdArgs& a, int J) {
-  const size_t C4 = 4 * (size_t)J;
-  const size_t n = 2 * (size_t)NL * a.H * C4 + al4(2 * (size_t)a.H * J) +
-                   fwd_stage(a.H, a.S) + al4((size_t)NL * a.B * J);
-  return sizeof(float) * n + sizeof(int) * (size_t)a.H;
+// The two box parities' sums of the gate columns into red[row * 16 +
+// column]: the even boxes' plus the odd ones'. Between consumer barriers.
+__device__ __forceinline__ void tma_reduce(float* red, const float (&acc)[2][4], int mt, int kh,
+                                           int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  auto at = [&](int nt, int e) {
+    return red + (16 * mt + g + 8 * (e >> 1)) * 16 + 8 * nt + 2 * t + (e & 1);
+  };
+  if (kh == 1)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) *at(nt, e) = acc[nt][e];
+  consumers_sync();
+  if (kh == 0)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) *at(nt, e) = acc[nt][e] + *at(nt, e);
+  consumers_sync();
 }
 
-// The CTA's columns of every in-scan weight and of w_comb stay resident.
-__global__ void __launch_bounds__(NT) dec_fwd_kernel(FwdArgs a, int J) {
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int T = a.T, B = a.B, H = a.H, S = a.S, G = 4 * H;
+__global__ void __launch_bounds__(TNT, 1)
+    dec_fwd_tma(const __grid_constant__ TmaMaps maps, const __grid_constant__ TmaArgs ta) {
+  const FwdArgs& a = ta.f;
+  const int T = a.T, B = a.B, H = a.H, G = 4 * H, J = ta.J, Q = ta.Q, NS = ta.NS;
   constexpr int nl = NL;
+  const int Hp = rup(H, 4), Hq = rup(H, TKC), H2 = 2 * Hq, KR = H2, KRG = rup(Hp, TKC);
+  const int NRB = (B + TMB - 1) / TMB;
   const size_t HG = (size_t)H * G;
-  const int j0 = blockIdx.x * J;
-  const int Jc = min(J, H - j0);
-  const int C4 = 4 * J;
-  const int tid = threadIdx.x;
-  float* Wsm = smem;                                          // 2nl x H x C4
-  float* Wcs = Wsm + 2 * (size_t)nl * H * C4;                 // 2H x J
-  float* xs = Wcs + al4(2 * (size_t)H * J);                   // staging / partials
-  float* cst = xs + fwd_stage(H, S);                          // nl x B x J cell state
-  int* uid = reinterpret_cast<int*>(cst + al4((size_t)nl * B * J));  // H
+  size_t o[7];
+  tma_layout(B, H, a.S, J, NS, o);
+  extern __shared__ float4 smem4[];
+  const uint32_t raw0 = smem_u32(smem4), base = (raw0 + 1023u) & ~1023u;
+  uint8_t* sm = reinterpret_cast<uint8_t*>(smem4) + (base - raw0);
+  float* Wsm = reinterpret_cast<float*>(sm + o[1]);
+  float* Wcs = reinterpret_cast<float*>(sm + o[2]);
+  float* red = reinterpret_cast<float*>(sm + o[3]);
+  int* uid = reinterpret_cast<int*>(sm + o[3] + (size_t)TMB * 16 * 4);
+  float* cst = reinterpret_cast<float*>(sm + o[4]);
+  const uint32_t ring = base, full0 = base + (uint32_t)o[5], empty0 = full0 + 8 * NS;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int mt = warp & 3, kh = (warp >> 2) & 1;
+  const int rank = (int)cluster_rank();
+  const uint16_t ctas = (uint16_t)((1u << Q) - 1);
+  const int j0 = blockIdx.x * J, Jc = max(0, min(J, H - j0));
 
-  for (int e = tid; e < nl * B * J; e += NT) {
-    const int l = e / (B * J), b = (e / J) % B, q = e % J;
-    if (q < Jc) cst[e] = a.c0[((size_t)l * B + b) * H + j0 + q];
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, Q * 4);   // the four consumer warps of a parity, in each CTA
+    }
+    mbar_init_fence();
   }
   for (int i = 0; i < 2 * nl; ++i) {
     const float* w = site_w(a.wf, a.us, a.ws, nl, i, HG);
-    for (int e = tid; e < H * C4; e += NT) {
-      const int row = e / C4, c = e % C4, q = c % J;
-      Wsm[(size_t)i * H * C4 + e] = q < Jc ? w[(size_t)row * G + (c / J) * H + j0 + q] : 0.f;
+    for (int e = tid; e < H * 16; e += TNT) {
+      const int u = e >> 4, p = e & 15, c = 8 * (p & 1) + (p >> 1), gate = c / J, q = c - gate * J;
+      Wsm[(size_t)i * H * 16 + e] =
+          c < 4 * J && q < Jc ? w[(size_t)u * G + (size_t)gate * H + j0 + q] : 0.f;
     }
   }
-  for (int e = tid; e < 2 * H * J; e += NT) {
-    const int row = e / J, q = e % J;
-    Wcs[e] = q < Jc ? a.wc[(size_t)row * H + j0 + q] : 0.f;
+  for (int e = tid; e < KR * 4; e += TNT) {   // rdx's column k: h_top, then ctx
+    const int k = e >> 2, q = e & 3;
+    const int row = k < H ? H + k : (k >= Hq && k < Hq + H ? k - Hq : -1);
+    Wcs[e] = row >= 0 && q < Jc ? a.wc[(size_t)row * H + j0 + q] : 0.f;
   }
+  for (int e = tid; e < nl * B * J; e += TNT) {
+    const int l = e / (B * J), b = (e / J) % B, q = e % J;
+    cst[e] = q < Jc ? a.c0[((size_t)l * B + b) * H + j0 + q] : 0.f;
+  }
+
+  // where site i's product at step tc reads unit j of row b, with the factor
+  // the unit takes there; null where it is dropped
+  auto pub_slot = [&](int i, int tc, int b, int j, float& f) -> float* {
+    const SiteArg& st = a.sites[i];
+    const int row = st.rows == 1 ? 0 : tc;
+    float* dst = ta.pub[i] + ((size_t)(tc & 1) * B + b) * ta.kp[i];
+    if (st.mode == 1) {
+      const int p = __ldg(ta.inv[i] + (size_t)row * H + j) - 1;
+      f = st.scale;
+      return p < 0 ? nullptr : dst + p;
+    }
+    f = st.mode == 2 ? __ldg(st.mask + ((size_t)row * B + b) * H + j) * st.scale : 1.f;
+    return dst + j;
+  };
+  // the units of the compact columns of sites sa and sb at step t (0 past
+  // the width: those columns read as zeros), by the consumer threads
+  auto load_uids = [&](int t, int sa, int sb) {
+    for (int e = tid; e < 2 * KRG; e += TNC) {
+      const int second = e >= KRG, kk = e - second * KRG;
+      const SiteArg& st = a.sites[second ? sb : sa];
+      uid[e] = st.mode == 1 ? (kk < st.k ? __ldg(st.ids + (size_t)(st.rows == 1 ? 0 : t) * st.k + kk)
+                                         : 0)
+                            : (kk < H ? kk : 0);
+    }
+  };
+  auto boxes = [&](int i) {
+    const SiteArg& st = a.sites[i];
+    return ((st.mode == 1 ? st.k : H) + TKC - 1) / TKC;
+  };
+  // a product phase's boxes, row block by row block: box jc of a row block
+  // from map m1's columns TKC jc while jc < ch1, else from m2's TKC (jc -
+  // ch1)
+  struct Phase {
+    const CUtensorMap *m1, *m2;
+    int ch1, nch;
+  };
+  auto gate_phase = [&](int l, int t) {   // rh_l, then the feed or nr_1
+    const int s1 = 1 + l, s2 = l == 0 ? 0 : nl + l;
+    const int ch1 = boxes(s1);
+    return Phase{&maps.site[s1][t & 1], &maps.site[s2][t & 1], ch1, ch1 + boxes(s2)};
+  };
+  const Phase ro{&maps.rd, &maps.rd, KR / TKC, KR / TKC};   // [h_top | ctx]
+  // the producer: the boxes of the phase whose first box is seq
+  auto produce = [&](int seq, const Phase& ph) {
+    fence_proxy_async();
+    for (int i = 0; i < NRB * ph.nch; ++i) {
+      const int n = seq + i, rb = i / ph.nch, jc = i - rb * ph.nch, s = n % NS;
+      const uint32_t fb = full0 + 8 * s;
+      if (n >= NS) mbar_wait(fb, (n / NS - 1) & 1);   // box n - NS has landed here
+      mbar_expect_tx(fb, TBOX);
+      if (n % Q == rank) {
+        if (n >= NS) mbar_wait(empty0 + 8 * s, (n / NS - 1) & 1);   // and was read
+        const bool first = jc < ph.ch1;
+        tma_load_2d_mc(ring + s * TBOX, first ? ph.m1 : ph.m2, fb,
+                       TKC * (first ? jc : jc - ph.ch1), TMB * rb, ctas);
+      }
+    }
+  };
+  auto take = [&](int n) { mbar_wait(full0 + 8 * (n % NS), (n / NS) & 1); };
+  auto give = [&](int n) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive_remote(empty0 + 8 * (n % NS), n % Q);
+  };
+  const bool producer = warp == TNC / 32 && lane == 0;
+
+  // the initial carries, published for step 0
+  for (int e = tid; e < B * J; e += TNT) {
+    const int b = e / J, q = e - b * J, j = j0 + q;
+    if (q >= Jc) continue;
+    float f, *d;
+    if ((d = pub_slot(0, 0, b, j, f))) *d = a.f0[(size_t)b * H + j] * f;
+    for (int l = 0; l < nl; ++l)
+      if ((d = pub_slot(1 + l, 0, b, j, f))) *d = a.h0[((size_t)l * B + b) * H + j] * f;
+  }
+  if (tid < TNC) load_uids(0, 1, 0);
   __syncthreads();
+  cl_arrive();
+  cl_wait();   // the cluster's mbarriers are initialised
+  unsigned nbar = 0;
+  grid_barrier(ta.bar, ++nbar);
 
-  // gate phases: column c = g*J + q of the owned 4J, K-split s
-  const int cg_ = tid % C4, sg = tid / C4, SG = NT / C4;
-  const bool wg = sg < SG && cg_ % J < Jc;
-  // readout phase: column q of the owned J, K-split s
-  const int cr = tid % J, sr = tid / J, SR = NT / J;
-  const bool wr = sr < SR && cr < Jc;
-  const SiteArg off{0, 0, 1, 1.f, nullptr, nullptr};
-  const int warp = tid >> 5, lane = tid & 31;
-
+  int seq = 0;   // the first box of the phase
   FPHASE_START();
   for (int t = 0; t < T; ++t) {
     const float* feed_prev = t == 0 ? a.f0 : a.htil + (size_t)(t - 1) * B * H;
     // ---- LSTM layers ----
     for (int l = 0; l < nl; ++l) {
+      const Phase ph = gate_phase(l, t);
+      const int s1 = 1 + l, s2 = l == 0 ? 0 : nl + l, total = NRB * ph.nch;
       const float* hprev = t == 0 ? a.h0 + (size_t)l * B * H
                                   : a.hs + ((size_t)l * T + t - 1) * B * H;
-      const int siteA = l == 0 ? 0 : nl + l, siteB = 1 + l;
-      const float* xA = l == 0 ? feed_prev : a.hcur + (size_t)(l - 1) * B * H;
-      for (int b0 = 0; b0 < B; b0 += RB) {
-        float acc[RB];
+      if (warp == TNC / 32) {
+        if (producer) produce(seq, ph);
+      } else {
+        for (int rb = 0; rb < NRB; ++rb) {
+          // this thread's (row, unit) of the pointwise and its inputs, loaded
+          // before the product
+          const int bb = tid / J, q = tid - bb * J, b = TMB * rb + bb, j = j0 + q;
+          const bool pw = bb < TMB && b < B && q < Jc;
+          float base[4] = {0.f, 0.f, 0.f, 0.f}, hold = 0.f, fA = 0.f, fB = 0.f;
+          float *dA = nullptr, *dB = nullptr;
+          bool frozen = false;
+          if (pw) {
 #pragma unroll
-        for (int bb = 0; bb < RB; ++bb) acc[bb] = 0.f;
-        for (int p = 0; p < 2; ++p) {
-          const int site = p == 0 ? siteA : siteB;
-          const SiteArg& st = a.sites[site];
-          const int KC = stage_rows<RB, RBP>(xs, uid, p == 0 ? xA : hprev, st, t, B, H, b0);
-          FPHASE(4 * l);
-          if (wg)
-            accum<RB, RBP>(acc, xs, KC, uid, st.mode == 1, Wsm + (size_t)site * H * C4, C4,
-                           cg_, sg, SG);
-          __syncthreads();
-          FPHASE(4 * l + 1);
-        }
-        if (sg < SG) {
-#pragma unroll
-          for (int bb = 0; bb < RB; ++bb) xs[((size_t)sg * RB + bb) * C4 + cg_] = acc[bb];
-        }
-        __syncthreads();
-        for (int e = tid; e < RB * J; e += NT) {
-          const int bb = e / J, q = e % J, b = b0 + bb;
-          if (b >= B || q >= Jc) continue;
-          const int j = j0 + q;
-          float sum[4] = {0.f, 0.f, 0.f, 0.f};
-          for (int s2 = 0; s2 < SG; ++s2) {
-            const float* pr = xs + ((size_t)s2 * RB + bb) * C4 + q;
-#pragma unroll
-            for (int g2 = 0; g2 < 4; ++g2) sum[g2] += pr[g2 * J];
+            for (int g2 = 0; g2 < 4; ++g2)
+              base[g2] = l == 0 ? __ldg(a.gx0 + ((size_t)t * B + b) * G + (size_t)g2 * H + j)
+                                : __ldg(a.bs + (size_t)(l - 1) * G + (size_t)g2 * H + j);
+            frozen = a.ragged && t >= __ldg(a.lens + b);
+            if (frozen) hold = __ldcg(hprev + (size_t)b * H + j);
+            if (l == 0) dA = pub_slot(nl + 1, t, b, j, fA);       // nr_1, this step
+            if (t + 1 < T) dB = pub_slot(1 + l, t + 1, b, j, fB);  // rh_l, the next
           }
-          float gv[4];
-#pragma unroll
-          for (int g2 = 0; g2 < 4; ++g2) {
-            const float base = l == 0 ? __ldg(a.gx0 + ((size_t)t * B + b) * G + (size_t)g2 * H + j)
-                                      : __ldg(a.bs + (size_t)(l - 1) * G + (size_t)g2 * H + j);
-            gv[g2] = base + sum[g2];
+          float acc[2][4] = {};
+          const bool act = 16 * mt < B - TMB * rb;
+          int n = seq + rb * ph.nch;
+          for (int jc = 0; jc < ph.nch; ++jc, ++n) {
+            if ((jc & 1) != kh) continue;
+            take(n);
+            FPHASE(4 * l);
+            if (act) {
+              const bool first = jc < ph.ch1;
+              tma_gate_box(acc, ring + (n % NS) * TBOX, Wsm + (size_t)(first ? s1 : s2) * H * 16,
+                           uid + (first ? TKC * jc : KRG + TKC * (jc - ph.ch1)), mt, lane);
+            }
+            give(n);
+            FPHASE(4 * l + 1);
           }
-          const float ig = sigm(gv[0]), fg = sigm(gv[1]), gt = tanhf(gv[2]), og = sigm(gv[3]);
-          float* cp = cst + ((size_t)l * B + b) * J + q;
-          const float c_prev = *cp;
-          float c_new = fg * c_prev + ig * gt;
-          float h_new = og * tanhf(c_new);
-          const size_t gofs = (((size_t)l * T + t) * B + b) * G + j;
+          tma_reduce(red, acc, mt, kh, lane);
+          if (pw) {
+            float gv[4];
 #pragma unroll
-          for (int g2 = 0; g2 < 4; ++g2) a.gates[gofs + (size_t)g2 * H] = gv[g2];
-          a.hcur[((size_t)l * B + b) * H + j] = h_new;       // in-step (unfrozen) value
-          if (a.ragged && t >= a.lens[b]) {                  // frozen row: carry t-1
-            h_new = __ldcg(hprev + (size_t)b * H + j);
-            c_new = c_prev;
+            for (int g2 = 0; g2 < 4; ++g2) gv[g2] = base[g2] + red[bb * 16 + g2 * J + q];
+            const float ig = sigm(gv[0]), fg = sigm(gv[1]), gt = tanhf(gv[2]), og = sigm(gv[3]);
+            float* cp = cst + ((size_t)l * B + b) * J + q;
+            const float c_prev = *cp;
+            float c_new = fg * c_prev + ig * gt;
+            float h_new = og * tanhf(c_new);
+            const size_t gofs = (((size_t)l * T + t) * B + b) * G + j;
+#pragma unroll
+            for (int g2 = 0; g2 < 4; ++g2) a.gates[gofs + (size_t)g2 * H] = gv[g2];
+            // the in-step (unfrozen) value: layer 1's input, or the top h
+            if (l == 0) {
+              if (dA) *dA = h_new * fA;
+            } else {
+              ta.rdx[(size_t)b * H2 + j] = h_new;
+            }
+            if (frozen) {   // a frozen row carries t - 1
+              h_new = hold;
+              c_new = c_prev;
+            }
+            *cp = c_new;
+            const size_t hofs = (((size_t)l * T + t) * B + b) * H + j;
+            a.hs[hofs] = h_new;
+            a.cs[hofs] = c_new;
+            if (dB) *dB = h_new * fB;
           }
-          *cp = c_new;
-          const size_t hofs = (((size_t)l * T + t) * B + b) * H + j;
-          a.hs[hofs] = h_new;
-          a.cs[hofs] = c_new;
+          consumers_sync();
+          FPHASE(4 * l + 2);
         }
-        __syncthreads();
-        FPHASE(4 * l + 2);
+        if (l == 0) load_uids(t, 2, nl + 1);   // layer 1's sites
       }
-      __threadfence();
-      grid.sync();
+      seq += total;
+      grid_barrier(ta.bar, ++nbar);
       FPHASE(4 * l + 3);
     }
     // ---- attention: one batch row per CTA ----
-    for (int b = blockIdx.x; b < B; b += gridDim.x) {
-      float* cur = xs;
-      float* sc = xs + H;
-      for (int h = tid; h < H; h += NT) cur[h] = __ldcg(a.hcur + ((size_t)(nl - 1) * B + b) * H + h);
-      __syncthreads();
-      for (int s = warp; s < S; s += NT / 32) {
-        const float* e = a.ep + ((size_t)b * S + s) * H;
-        float d = 0.f;
-        for (int h = lane; h < H; h += 32) d = fmaf(cur[h], __ldg(e + h), d);
-        d = warp_sum(d);
-        if (lane == 0) sc[s] = d + __ldg(a.sb + (size_t)b * S + s);
-      }
-      __syncthreads();
-      FPHASE(8);
-      if (warp == 0) {
-        float m = __int_as_float(0xff800000);   // -inf
-        for (int s = lane; s < S; s += 32) m = fmaxf(m, sc[s]);
-        m = warp_max(m);
-        float z = 0.f;
-        for (int s = lane; s < S; s += 32) {
-          const float ex = expf(sc[s] - m);
-          sc[s] = ex;
-          z += ex;
-        }
-        z = warp_sum(z);
-        for (int s = lane; s < S; s += 32) {
-          const float al = sc[s] / z;
-          sc[s] = al;
-          a.alpha[((size_t)t * B + b) * S + s] = al;
-        }
-      }
-      __syncthreads();
-      FPHASE(9);
-      for (int h = tid; h < H; h += NT) {
-        float v = 0.f;
-        for (int s = 0; s < S; ++s) v = fmaf(sc[s], __ldg(a.eo + ((size_t)b * S + s) * H + h), v);
-        a.ctx[(size_t)b * H + h] = v;
-      }
-      __syncthreads();
-      FPHASE(10);
-    }
-    __threadfence();
-    grid.sync();
-    FPHASE(11);
+    for (int b = blockIdx.x; b < B; b += gridDim.x)
+      attend_row<TNT>(a, t, b, ta.rdx + (size_t)b * H2, ta.rdx + (size_t)b * H2 + Hq, red,
+                      red + Hp, [](int) {});
+    FPHASE(8);
+    grid_barrier(ta.bar, ++nbar);
+    FPHASE(9);
     // ---- readout h~ = tanh([ctx ; h_top] @ w_comb), owned by columns ----
-    for (int b0 = 0; b0 < B; b0 += RB) {
-      float acc[RB];
-#pragma unroll
-      for (int bb = 0; bb < RB; ++bb) acc[bb] = 0.f;
-      for (int p = 0; p < 2; ++p) {
-        const float* x = p == 0 ? a.ctx : a.hcur + (size_t)(nl - 1) * B * H;
-        const int KC = stage_rows<RB, RBP>(xs, uid, x, off, t, B, H, b0);
+    const int total = NRB * ro.nch;
+    if (warp == TNC / 32) {
+      if (producer) produce(seq, ro);
+    } else {
+      for (int rb = 0; rb < NRB; ++rb) {
+        const int bb = tid / J, q = tid - bb * J, b = TMB * rb + bb, j = j0 + q;
+        const bool pw = bb < TMB && b < B && q < Jc;
+        float hold = 0.f, fB = 0.f;
+        float* dB = nullptr;
+        bool frozen = false;
+        if (pw) {
+          frozen = a.ragged && t >= __ldg(a.lens + b);
+          if (frozen) hold = __ldcg(feed_prev + (size_t)b * H + j);
+          if (t + 1 < T) dB = pub_slot(0, t + 1, b, j, fB);   // the feed, the next step
+        }
+        float acc[2] = {0.f, 0.f};
+        const bool act = 16 * mt < B - TMB * rb;
+        int n = seq + rb * ro.nch;
+        for (int jc = 0; jc < ro.nch; ++jc, ++n) {
+          if ((jc & 1) != kh) continue;
+          take(n);
+          FPHASE(10);
+          if (act)
+            tma_readout_box(acc, reinterpret_cast<const float*>(sm + (size_t)(n % NS) * TBOX),
+                            Wcs + (size_t)TKC * jc * 4, mt, lane);
+          give(n);
+          FPHASE(11);
+        }
+        {   // the two parities' sums, in order, into red (row, unit)
+          float* at = red + (16 * mt + (lane >> 1)) * 16 + 2 * (lane & 1);
+          if (kh == 1) at[0] = acc[0], at[1] = acc[1];
+          consumers_sync();
+          if (kh == 0) at[0] = acc[0] + at[0], at[1] = acc[1] + at[1];
+          consumers_sync();
+        }
+        if (pw) {
+          const float v = frozen ? hold : tanhf(red[bb * 16 + q]);
+          a.htil[((size_t)t * B + b) * H + j] = v;
+          if (dB) *dB = v * fB;
+        }
+        consumers_sync();
         FPHASE(12);
-        if (wr) accum<RB, RBP>(acc, xs, KC, uid, false, Wcs + (size_t)p * H * J, J, cr, sr, SR);
-        __syncthreads();
-        FPHASE(13);
       }
-      if (sr < SR) {
-#pragma unroll
-        for (int bb = 0; bb < RB; ++bb) xs[((size_t)sr * RB + bb) * J + cr] = acc[bb];
-      }
-      __syncthreads();
-      for (int e = tid; e < RB * J; e += NT) {
-        const int bb = e / J, q = e % J, b = b0 + bb;
-        if (b >= B || q >= Jc) continue;
-        const int j = j0 + q;
-        float sum = 0.f;
-        for (int s2 = 0; s2 < SR; ++s2) sum += xs[((size_t)s2 * RB + bb) * J + q];
-        float v = tanhf(sum);
-        if (a.ragged && t >= a.lens[b]) v = __ldcg(feed_prev + (size_t)b * H + j);
-        a.htil[((size_t)t * B + b) * H + j] = v;
-      }
-      __syncthreads();
-      FPHASE(13);
+      if (t + 1 < T) load_uids(t + 1, 1, 0);   // layer 0's sites, the next step
     }
-    __threadfence();
-    grid.sync();
-    FPHASE(14);
+    seq += total;
+    grid_barrier(ta.bar, ++nbar);
+    FPHASE(13);
   }
+  cl_arrive();
+  cl_wait();   // no CTA leaves while its cluster may still arrive on its barriers
   FPHASE_END();
 }
 
@@ -975,54 +1183,77 @@ __global__ void __launch_bounds__(NT, 1) dec_bwd_kernel(BwdArgs a, int pre) {
   PHASE(9);
 }
 
-// Grid size and shared-memory opt-in; a CUDA error code (0 = launchable).
-int plan_launch(const void* kernel, size_t smem, int H, int J, int* grid) {
-  int dev = 0, sms = 0, coop = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (!coop) return (int)cudaErrorNotSupported;
-  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT, smem);
-  if (err != cudaSuccess) return (int)err;
-  *grid = (H + J - 1) / J;
-  if (per_sm * sms < *grid) return (int)cudaErrorCooperativeLaunchTooLarge;
-  return 0;
-}
-
-int units_per_cta(int H) {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return (H + sms - 1) / sms;
-}
-
 }  // namespace
 
 // Shapes (all float32, contiguous): gx0 (T, B, 4H); us (nl, H, 4H); ws
 // (nl-1, H, 4H); bs (nl-1, 4H); wf (H, 4H); wc (2H, H); ep, eo (B, S, H);
 // sb (B, S); h0, c0 (nl, B, H); f0 (B, H); lens (B,) int32 when ragged.
 // Outputs htil (T, B, H), alpha (T, B, S), gates (nl, T, B, 4H), hs, cs
-// (nl, T, B, H); hcur (nl, B, H) and ctx (B, H) are scratch.
-extern "C" int decoder_scan_fwd_f32(const FwdArgs* in, void* stream) {
+// (nl, T, B, H).
+//
+// K7's plan for (B, H, S) into *Q (CTAs a cluster), *J (units a CTA), *NS
+// (ring stages) and *smem (bytes); 0, or a CUDA error where no plan fits
+// (more than 4 units a CTA, shared memory past a CTA's, or clusters that
+// cannot all be resident) or the occupancy query fails: the wrapper raises.
+extern "C" int decoder_scan_fwd_tma_plan(int B, int H, int S, int* Q, int* J, int* NS,
+                                         int* smem) {
   cudaGetLastError();
-  FwdArgs a = *in;
-  if (a.T <= 0 || a.B <= 0) return 0;
-  if (a.nl != NL || a.H <= 0 || a.S <= 0) return (int)cudaErrorInvalidValue;
-  int J = units_per_cta(a.H);
-  if (4 * J > NT) return (int)cudaErrorInvalidValue;
-  const void* kernel = (const void*)dec_fwd_kernel;
-  const size_t smem = fwd_smem(a, J);   // plan_launch refuses it past SMEM_MAX
-  int grid = 0;
-  int code = plan_launch(kernel, smem, a.H, J, &grid);
-  if (code) return code;
-  void* args[] = {&a, &J};
-  cudaError_t err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(NT), args, smem,
-                                                (cudaStream_t)stream);
+  *Q = *J = *NS = *smem = 0;
+  if (B <= 0 || H <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int code = (int)cudaErrorInvalidValue;
+  for (int j = (H + sms - 1) / sms; j <= TJMAX; ++j)
+    for (int q = 4; q >= 2; q /= 2)
+      for (int ns = 8; ns >= 4; ns /= 2) {
+        const size_t bytes = tma_smem(B, H, S, j, ns);
+        if (bytes > SMEM_MAX) continue;
+        int mc = 0;
+        const int err = max_clusters((const void*)dec_fwd_tma, q, TNT, bytes, &mc);
+        if (err) return err;
+        if (mc < ((H + j - 1) / j + q - 1) / q) {
+          code = (int)cudaErrorCooperativeLaunchTooLarge;
+          continue;
+        }
+        *Q = q;
+        *J = j;
+        *NS = ns;
+        *smem = (int)bytes;
+        return 0;
+      }
+  return code;
+}
+
+// K7: FwdArgs (shapes above) and the consumer layouts: pub[i] (2, B, kp[i])
+// and rdx (B, 2 Hq) zeroed, inv[i] (rows, H) for structured sites, bar one zeroed word;
+// (Q, J, NS) a plan of decoder_scan_fwd_tma_plan (the launch checks sizes
+// only).
+extern "C" int decoder_scan_fwd_tma_f32(const TmaArgs* in, void* stream) {
+  cudaGetLastError();
+  TmaArgs a = *in;
+  const FwdArgs& f = a.f;
+  if (f.T <= 0 || f.B <= 0) return 0;
+  if (f.nl != NL || f.H <= 0 || f.S <= 0 || a.J < 1 || a.J > TJMAX || (a.Q != 2 && a.Q != 4) ||
+      (a.NS != 4 && a.NS != 8))
+    return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < 2 * NL; ++i) {
+    const int need = f.sites[i].mode == 1 ? f.sites[i].k : f.H;
+    if (a.kp[i] % 4 || a.kp[i] < std::max(need, 1)) return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = tma_smem(f.B, f.H, f.S, a.J, a.NS);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const int Hq = rup(f.H, TKC);
+  TmaMaps maps;
+  for (int i = 0; i < 2 * NL; ++i)
+    for (int s = 0; s < 2; ++s)
+      if (!f32_map_2d(&maps.site[i][s], a.pub[i] + (size_t)s * f.B * a.kp[i], a.kp[i], f.B,
+                      a.kp[i], TMB))
+        return (int)cudaErrorInvalidValue;
+  if (!f32_map_2d(&maps.rd, a.rdx, 2 * Hq, f.B, 2 * Hq, TMB)) return (int)cudaErrorInvalidValue;
+  const int P = ((f.H + a.J - 1) / a.J + a.Q - 1) / a.Q;
+  void* args[] = {&maps, &a};
+  cudaError_t err = launch_clusters((const void*)dec_fwd_tma, P, a.Q, TNT, smem, args, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -1082,9 +1313,9 @@ extern "C" int decoder_scan_phases(unsigned long long* out) {
 }
 
 extern "C" const char* decoder_scan_fwd_phase_names() {
-  return "L0 stage,L0 product,L0 pointwise,L0 grid.sync,L1 stage,L1 product,L1 pointwise,"
-         "L1 grid.sync,attention scores,softmax,ctx,attention grid.sync,readout stage,"
-         "readout product + tanh,readout grid.sync";
+  return "L0 stage wait,L0 product,L0 pointwise,L0 barrier,L1 stage wait,L1 product,"
+         "L1 pointwise,L1 barrier,attention,attention barrier,readout stage wait,"
+         "readout product,readout pointwise,readout barrier";
 }
 
 extern "C" const char* decoder_scan_phase_names() {

@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks of the bfloat16 kernels in
 // csrc/flash_attention_sm90.cu (K9-K11) and csrc/grouped_matmul_sm90.cu
-// (K12): mbarriers, TMA tile loads, wgmma shared-memory descriptors with the
-// 128-byte swizzle, wgmma itself (operands in shared memory or A in
-// registers), register hand-off between warpgroups, and the host's
-// tensor-map encoder. Inline PTX, as csrc/tf32x3.cuh.
+// (K12), and of K7's TMA route in csrc/decoder_scan.cu: mbarriers (also
+// arrived on across a cluster), TMA tile loads (also multicast to a
+// cluster), wgmma shared-memory descriptors with the 128-byte swizzle, wgmma
+// itself (operands in shared memory or A in registers), register hand-off
+// between warpgroups, and the host's tensor-map encoders (bfloat16 and
+// float32). Inline PTX, as csrc/tf32x3.cuh.
 //
 // Layout the helpers assume. A TMA box is 64 bfloat16 (128 bytes) wide,
 // the width of the 128-byte swizzle, and R rows high: row r lies at byte
@@ -106,6 +108,43 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%3, %4}], [%2];\n"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// The same box written to `dst` in every CTA of the cluster whose bit is
+// set in `ctas`, each completing its bytes on its own mbarrier at `bar`
+// (the same shared-memory offsets in each CTA): L2 serves the box once.
+__device__ __forceinline__ void tma_load_2d_mc(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                               int c0, int c1, uint16_t ctas) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%4, %5}], [%2], %3;\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "h"(ctas), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// ---- across the CTAs of a cluster -------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// One arrival on the mbarrier at offset `bar` of cluster CTA `cta` (the
+// consumer's release of a stage that `cta` refills for the cluster: its
+// default .release.cta orders the arriving warp's reads of the stage, after
+// a __syncwarp, before the refill, as CUTLASS's cluster pipelines do; a
+// .release.cluster arrival cost K7's TMA route 0.55 ms of 4.1 on the card).
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 ra;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n"
+      :: "r"(bar), "r"(cta) : "memory");
+}
+// Orders this thread's view of global memory (ordinary stores of other
+// CTAs, acquired by a barrier) before its later TMA reads.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
 }
 
 // ---- registers between warpgroups ------------------------------------------
@@ -375,6 +414,22 @@ inline bool bf16_tiled_map(CUtensorMap* map, const void* base, int rank, const c
   const cuuint32_t one[5] = {1, 1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
             box, one, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A float32 matrix of `rows` x `cols` (row stride `ld` floats, a multiple
+// of 4) read in boxes of 32 columns (128 bytes, the 128-byte swizzle) x
+// `box_rows`; what lies past it reads as zeros. false if refused.
+inline bool f32_map_2d(CUtensorMap* map, const void* base, int cols, int rows, long long ld,
+                       int box_rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 4};
+  const cuuint32_t box[2] = {32, (cuuint32_t)box_rows};
+  const cuuint32_t one[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims, strides, box,
+            one, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -28,16 +28,23 @@ of a row past its length; h~ repeats the last valid readout. The in-step
 math of a frozen row still runs on the unfrozen values (as the reference
 does) and its cotangents are zeroed into the step and passed through.
 
-``impl="pallas"`` launches the hand-written cooperative CUDA kernels
+``impl="pallas"`` launches the hand-written CUDA kernels
 (``csrc/decoder_scan.cu``: K7 forward, K8 backward) for CUDA tensors and
 runs the plain version (``plain_fwd``/``plain_bwd``, the reference's
 ``_xla_fwd``/``_xla_bwd``) for CPU tensors; ``impl="xla"`` always runs the
 plain version. The kernels take float32 and nl = 2 layers only; the
 wrappers raise on other dtypes and depths, on mixed devices, on shapes
-whose shared-memory plan does not fit, and on a non-zero CUDA status after
-a launch. K8 runs on K4's grid of thread-block clusters
-(``lstm_scan.cluster_plan``) with a zeroed exchange ring and scratch that
-the wrapper allocates (``bwd_ring_words``).
+whose plan does not fit, and on a non-zero CUDA status after a launch. K8
+runs on K4's grid of thread-block clusters (``lstm_scan.cluster_plan``)
+with a zeroed exchange ring and scratch that the wrapper allocates
+(``bwd_ring_words``).
+
+In K7 (``dec_fwd_tma``) every carry is published by its owner in its
+consumer's compact layout through inverse maps (``consumer_maps``, built on
+the device once a launch), read by TMA multicast over clusters of CTAs
+into a ring, its gate products on the TF32 tensor cores in split
+precision; ``plain_fwd_published`` is that dataflow in plain PyTorch. Its
+plan (``_tma_plan``) takes at most 4 units a CTA, so H up to 4 x the SMs.
 ``LAUNCHES`` counts the kernel launches.
 """
 from __future__ import annotations
@@ -278,6 +285,126 @@ def plain_bwd(descs, tables, res, dout, us, ws, w_feed, w_comb, enc_proj,
 
 
 # ---------------------------------------------------------------------------
+# K7's dataflow: every carry published in its consumer's layout
+# ---------------------------------------------------------------------------
+
+
+def _pad4(n: int) -> int:
+    return -(-max(n, 1) // 4) * 4
+
+
+def _kp(d: SiteDesc, table, H: int) -> int:
+    """A site's published row width: k, or H for a dense or off site,
+    rounded up to 4 floats."""
+    return _pad4(table.shape[1] if d.mode == "structured" else H)
+
+
+def consumer_maps(descs, tables, H, buf=None):
+    """Per site, ``(inv, kp)``: ``inv`` (rows, H) int32 on the table's
+    device, 1 + the column of each kept unit in the site's compact row and
+    0 for a dropped one (None for a dense or off site, whose row is the
+    dense one); ``kp`` the row's width (k, or H) rounded up to 4 floats, the
+    16-byte row stride TMA needs (the padding stays zero). ``buf``, a zeroed
+    int32 tensor of ``inv_words`` words, holds the maps if given (the
+    kernel's wrapper carves it from its one zeroed scratch allocation)."""
+    out, at, cols = [], 0, None
+    for d, tab in zip(descs, tables):
+        if d.mode != "structured":
+            out.append((None, _kp(d, tab, H)))
+            continue
+        rows, k = tab.shape
+        if cols is None:
+            cols = torch.arange(1, H + 1, dtype=torch.int32, device=tab.device)
+        if buf is None:
+            inv = torch.zeros((rows, H), dtype=torch.int32, device=tab.device)
+        else:
+            inv = buf[at:at + rows * H].view(rows, H)
+            at += _pad4(rows * H)
+        out.append((inv.scatter_(1, tab.long(), cols[:k].expand(rows, k)), _kp(d, tab, H)))
+    return out
+
+
+def inv_words(descs, tables, H) -> int:
+    """int32 words of ``consumer_maps``' inverse maps in one buffer."""
+    return sum(_pad4(tab.shape[0] * H) for d, tab in zip(descs, tables)
+               if d.mode == "structured")
+
+
+def publish(x, d: SiteDesc, table, inv, kp, t):
+    """The (B, kp) block that the owners of x's units (x (B, H)) write for
+    site (d, table) to read at step t: drop(x) compacted, each unit placed
+    through the inverse map ``inv`` (K7's publishing)."""
+    B, H = x.shape
+    out = x.new_zeros((B, kp))
+    if d.mode == "off":
+        out[:, :H] = x
+    elif d.mode == "dense":
+        out[:, :H] = x * (_row(table, d, t) * d.scale)
+    else:
+        col = _row(inv, d, t).long() - 1
+        kept = col >= 0
+        out[:, col[kept]] = x[:, kept] * d.scale
+    return out
+
+
+def plain_fwd_published(descs, tables, gx0, us, ws, bs, w_feed, w_comb,
+                        enc_proj, enc_out, score_bias, h0, c0, feed0, lengths):
+    """``plain_fwd`` (nl = 2) on K7's dataflow: each carry is
+    published by its owner in its consumer's layout (``publish``, a slot
+    per step parity) and each product reads that block: the unfrozen h_0
+    for nr_1 at step t; the frozen h_0, h_1 and h~ for rh_0, rh_1 and the
+    feed at t + 1. Same outputs as ``plain_fwd``."""
+    _check_depth(len(us))
+    T = gx0.shape[0]
+    H = w_feed.shape[0]
+    maps = consumer_maps(descs, tables, H)
+    wts = _site_weights(KERNEL_LAYERS, us, ws, w_feed)
+
+    def pub(i, x, t):
+        return publish(x, descs[i], tables[i], maps[i][0], maps[i][1], t)
+
+    def mm(i, block, t):
+        if descs[i].mode != "structured":
+            return block[:, :H] @ wts[i]
+        ids = _row(tables[i], descs[i], t).long()
+        return block[:, :ids.numel()] @ wts[i].index_select(0, ids)
+
+    slots = [[pub(0, feed0, 0), None], [pub(1, h0[0], 0), None],
+             [pub(2, h0[1], 0), None], [None, None]]
+    hs, cs, feed = list(h0.unbind(0)), list(c0.unbind(0)), feed0
+    o_htil, o_alpha = [], []
+    o_g, o_h, o_c = [[], []], [[], []], [[], []]
+    for t in range(T):
+        act = None if lengths is None else (t < lengths)[:, None]
+        p = t & 1
+        cur = None
+        for l, (sa, sb) in enumerate(((0, 1), (3, 2))):
+            if l == 1:
+                slots[3][p] = pub(3, cur, t)
+            g = (gx0[t] if l == 0 else bs[0]) + mm(sa, slots[sa][p], t) + \
+                mm(sb, slots[sb][p], t)
+            h, c = _pw_fwd(g, cs[l])
+            o_g[l].append(g)
+            cur = h
+            hs[l], cs[l] = _freeze(act, h, hs[l]), _freeze(act, c, cs[l])
+            o_h[l].append(hs[l])
+            o_c[l].append(cs[l])
+            if t + 1 < T:
+                slots[1 + l][1 - p] = pub(1 + l, hs[l], t + 1)
+        scores = torch.einsum("bh,bsh->bs", cur, enc_proj) + score_bias
+        alpha = torch.softmax(scores, dim=-1)
+        ctxv = torch.einsum("bs,bsh->bh", alpha, enc_out)
+        feed = _freeze(act, torch.tanh(ctxv @ w_comb[:H] + cur @ w_comb[H:]), feed)
+        if t + 1 < T:
+            slots[0][1 - p] = pub(0, feed, t + 1)
+        o_htil.append(feed)
+        o_alpha.append(alpha)
+    stack2 = lambda seqs: torch.stack([torch.stack(s) for s in seqs])
+    return (torch.stack(o_htil), stack2(o_g), stack2(o_h), stack2(o_c),
+            torch.stack(o_alpha))
+
+
+# ---------------------------------------------------------------------------
 # CUDA launches (K7, K8). The C entry points take one argument struct each.
 # ---------------------------------------------------------------------------
 
@@ -294,8 +421,13 @@ class _FwdArgs(ctypes.Structure):
                 + [(n, _P) for n in ("gx0", "us", "ws", "bs", "wf", "wc", "ep",
                                      "eo", "sb", "h0", "c0", "f0", "lens")]
                 + [("sites", _SiteArg * (2 * KERNEL_LAYERS))]
-                + [(n, _P) for n in ("htil", "alpha", "gates", "hs", "cs",
-                                     "hcur", "ctx")])
+                + [(n, _P) for n in ("htil", "alpha", "gates", "hs", "cs")])
+
+
+class _TmaArgs(ctypes.Structure):
+    _fields_ = [("f", _FwdArgs), ("inv", _P * (2 * KERNEL_LAYERS)),
+                ("pub", _P * (2 * KERNEL_LAYERS)), ("kp", _I * (2 * KERNEL_LAYERS)),
+                ("rdx", _P), ("bar", _P), ("Q", _I), ("J", _I), ("NS", _I)]
 
 
 class _BwdArgs(ctypes.Structure):
@@ -315,8 +447,10 @@ class _BwdArgs(ctypes.Structure):
 def _lib():
     lib = _build.load("decoder_scan")
     if not getattr(lib, "_typed", False):
-        lib.decoder_scan_fwd_f32.argtypes = [ctypes.POINTER(_FwdArgs), _P]
-        lib.decoder_scan_fwd_f32.restype = _I
+        lib.decoder_scan_fwd_tma_f32.argtypes = [ctypes.POINTER(_TmaArgs), _P]
+        lib.decoder_scan_fwd_tma_f32.restype = _I
+        lib.decoder_scan_fwd_tma_plan.argtypes = [_I] * 3 + [ctypes.POINTER(_I)] * 4
+        lib.decoder_scan_fwd_tma_plan.restype = _I
         lib.decoder_scan_bwd_f32.argtypes = [ctypes.POINTER(_BwdArgs), _P]
         lib.decoder_scan_bwd_f32.restype = _I
         ip = ctypes.POINTER(_I)
@@ -372,10 +506,22 @@ def _stack(ts: Sequence[torch.Tensor], like: torch.Tensor, shape):
         like.new_zeros((0, *shape))
 
 
+@functools.lru_cache(maxsize=None)
+def _tma_plan(device_index: int, B: int, H: int, S: int):
+    """K7's plan on this device, (Q, J, NS): clusters of Q CTAs, J units a
+    CTA, NS ring stages. Raises the CUDA error where no plan fits or the
+    card's occupancy query fails."""
+    lib = _lib()
+    q, j, ns, smem = _I(), _I(), _I(), _I()
+    with torch.cuda.device(device_index):
+        code = lib.decoder_scan_fwd_tma_plan(B, H, S, *(ctypes.byref(x) for x in (q, j, ns, smem)))
+    _build.check(lib, code, "decoder_scan forward plan")
+    return q.value, j.value, ns.value
+
+
 def kernel_fwd(descs, tables, gx0, us, ws, bs, w_feed, w_comb, enc_proj,
                enc_out, score_bias, h0, c0, feed0, lengths):
-    """K7: the whole forward in one cooperative launch; same outputs as
-    ``plain_fwd``."""
+    """K7: the whole forward in one launch; same outputs as ``plain_fwd``."""
     nl = len(us)
     T, B, G = gx0.shape
     H = w_feed.shape[0]
@@ -398,17 +544,31 @@ def kernel_fwd(descs, tables, gx0, us, ws, bs, w_feed, w_comb, enc_proj,
     gates = torch.empty((nl, T, B, G), **f32)
     hs = torch.empty((nl, T, B, H), **f32)
     cs = torch.empty((nl, T, B, H), **f32)
-    hcur = torch.empty((nl, B, H), **f32)         # scratch: unfrozen h_l,t
-    ctxv = torch.empty((B, H), **f32)             # scratch: step's context
+    q, j, ns = _tma_plan(gx0.device.index or 0, B, H, S)
     a = _FwdArgs(T, B, H, S, nl, int(lengths is not None),
                  *(_ptr(x) for x in (gx0, u_st, w_st, b_st, w_feed, w_comb,
                                      enc_proj, enc_out, score_bias, h0, c0,
                                      feed0, lengths)),
                  _site_args(descs, tables, T, B, H, gx0),
-                 *(_ptr(x) for x in (htil, alpha, gates, hs, cs, hcur, ctxv)))
+                 *(_ptr(x) for x in (htil, alpha, gates, hs, cs)))
+    # one zeroed allocation: each site's two published slots (2, B, kp),
+    # rdx = [h_top | ctx] (B, 2 Hq), the barrier word, the inverse maps
+    kps = [_kp(d, tab, H) for d, tab in zip(descs, tables)]
+    sizes = [2 * B * kp for kp in kps] + [B * 2 * (-(-H // 32) * 32), 4]
+    offs = [0]
+    for n_ in sizes:
+        offs.append(offs[-1] + n_)
+    scratch = torch.zeros(offs[-1] + inv_words(descs, tables, H), **f32)
+    pubs = [scratch[offs[i]:offs[i + 1]] for i in range(len(kps))]
+    rdx, bar = scratch[offs[-3]:offs[-2]], scratch[offs[-2]:offs[-1]]
+    maps = consumer_maps(descs, tables, H, scratch[offs[-1]:].view(torch.int32))
+    n = 2 * KERNEL_LAYERS
+    ta = _TmaArgs(a, (_P * n)(*(_ptr(m[0]) for m in maps)),
+                  (_P * n)(*(_ptr(p) for p in pubs)), (_I * n)(*(kp for _, kp in maps)),
+                  _ptr(rdx), _ptr(bar), q, j, ns)
     lib = _lib()
-    code = lib.decoder_scan_fwd_f32(ctypes.byref(a),
-                                    torch.cuda.current_stream(gx0.device).cuda_stream)
+    code = lib.decoder_scan_fwd_tma_f32(ctypes.byref(ta),
+                                        torch.cuda.current_stream(gx0.device).cuda_stream)
     _build.check(lib, code, "decoder_scan forward")
     LAUNCHES["decoder_scan_fwd"] += 1
     return htil, gates, hs, cs, alpha

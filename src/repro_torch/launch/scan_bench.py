@@ -4,7 +4,7 @@ against other builds of their sources.
 
     PYTHONPATH=src python -m repro_torch.launch.scan_bench [--kernels k3,k4,k7,k8]
         [--phases] [--phase-probes] [--no-probes] [--wg-rate P ...]
-        [--src NAME=DIR ...]
+        [--src NAME=DIR ...] [--turns N]
 
 Shapes (inputs from ``chip_smoke.scan_inputs`` / ``chip_smoke.decoder_inputs``):
 K3 and K4 at zaremba-medium (T=35, B=20, H=650, structured p=0.5) and at the
@@ -29,12 +29,14 @@ B=64, S=50, H=512, nl=2, structured per-step sites at p=0.3).
   The cheapest, x T, is the kernel's latency floor (K7's step chains four
   exchanges: T x 4 x the cheapest; K8's at least three, printed beside);
 * each build's kernels, CUDA events, cold L2, median of 20, the builds
-  taken in turns (a, b, ..., b, a) twice; the builds are the repo's
-  ``csrc/lstm_scan.cu`` and ``csrc/decoder_scan.cu`` ("repo") and, for each
-  ``--src NAME=DIR``, the same files in DIR (e.g. a parent commit's
-  ``src/repro_torch/csrc``; its headers must sit beside them), compiled with
-  the same nvcc flags; a build without the redesigns' C interfaces is
-  driven through the first designs';
+  taken in turns (a, b, ..., b, a) ``--turns`` times (2); the builds are
+  the repo's ``csrc/lstm_scan.cu`` and ``csrc/decoder_scan.cu`` ("repo")
+  and, for each ``--src NAME=DIR``, the same files in DIR (e.g. a parent
+  commit's ``src/repro_torch/csrc``; its headers must sit beside them),
+  compiled with the same nvcc flags; a build without the redesigns' C
+  interfaces is driven through the first designs' (K7's first design,
+  ``dec_fwd_kernel``, through ``decoder_scan_fwd_f32``); each row's median
+  over the turns is printed beside its best;
 * each build's distance to a float64 run of the plain version (the
   backwards on the float32 forward's residuals), max |err| / max(1, |ref|)
   over the outputs, beside the float32 plain version's own;
@@ -42,7 +44,8 @@ B=64, S=50, H=512, nl=2, structured per-step sites at p=0.3).
   sources built with ``-DLSTM_PHASES`` / ``-DDEC_PHASES`` (thread 0 of
   each CTA counts the cycles between the step's barriers), as shares of the
   step and as us a step at the uninstrumented build's time (a phase after
-  the scan, as us a step over T);
+  the scan, as us a step over T; K7's: each product phase's waits for its
+  boxes, products, pointwise and barrier);
 * with ``--phase-probes``, pieces of K4's step alone at its two shapes on
   its grid (``PHASE_PROBE_SRC``): a site's BP partials with and without
   their stores, the cluster gather, a ``cluster.sync()``;
@@ -452,11 +455,13 @@ def k3_fwd_ops(T: int, B: int, H: int, k: int) -> dict:
 
 
 def k7_fwd_ops(T: int, B: int, S: int, H: int, kept) -> dict:
-    """K7's FLOPs, all on FFMA, ``kept`` the kept units a step of each of
-    the four sites: each site's product (2 B k 4H), the attention's scores
-    and context (2 B S H each) and the readout (2 B 2H H) a step."""
-    return {"tf32": 0, "f32": T * (sum(2 * B * k * 4 * H for k in kept) + 2 * 2 * B * S * H
-                                   + 2 * B * 2 * H * H)}
+    """K7's FLOPs by the units that run them, ``kept`` the kept units a step
+    of each of the four sites: each site's gate product (2 B k 4H) a step on
+    the TF32 tensor cores in split precision (three products for each
+    float32 one); the readout (2 B 2H H) and the attention's scores and
+    context (2 B S H each) on FFMA."""
+    gates = T * sum(2 * B * k * 4 * H for k in kept)
+    return {"tf32": 3 * gates, "f32": T * (2 * B * 2 * H * H + 2 * 2 * B * S * H)}
 
 
 def k4_bwd_ops(T: int, B: int, H: int, k: int) -> dict:
@@ -555,6 +560,21 @@ def _redesigned(lib, name) -> bool:
     return hasattr(lib, f"{name}_bwd_clusters")
 
 
+def _type_decoder(lib):
+    """Types ``lib``'s ``csrc/decoder_scan.cu`` interface for the wrappers:
+    ``decoder_scan._lib`` types the repo's; a build of K7's first design (no
+    ``decoder_scan_fwd_tma_f32``; ``k7_call`` drives its K7 directly) gets
+    its K8 interface typed here."""
+    if hasattr(lib, "decoder_scan_fwd_tma_f32"):
+        lib._typed = False
+        return
+    lib.decoder_scan_bwd_f32.argtypes = [ctypes.POINTER(ds._BwdArgs), ds._P]
+    lib.decoder_scan_bwd_f32.restype = ds._I
+    lib.decoder_scan_bwd_clusters.argtypes = [ds._I] * 5 + [ctypes.POINTER(ds._I)] * 3
+    lib.decoder_scan_bwd_clusters.restype = ds._I
+    lib._typed = True
+
+
 def _type_lstm(lib):
     """Types ``lib``'s ``csrc/lstm_scan.cu`` interface for the wrappers:
     ``lstm_scan._lib`` types the repo's; a build of the first K3 design
@@ -630,7 +650,7 @@ def k8_call(lib, bargs):
     returning its outputs as a flat list."""
     flat = lambda g: [x for v in g for x in (v if isinstance(v, list) else [v])]
     if _redesigned(lib, "decoder_scan"):
-        lib._typed = False
+        _type_decoder(lib)
 
         def run():
             with using("decoder_scan", lib):
@@ -697,14 +717,47 @@ def k3_call(lib, x):
     return run
 
 
+class _FirstFwdArgs(ctypes.Structure):
+    """The first K7 design's argument struct."""
+    _fields_ = ([(n, ds._I) for n in ("T", "B", "H", "S", "nl", "ragged")]
+                + [(n, ds._P) for n in ("gx0", "us", "ws", "bs", "wf", "wc", "ep", "eo", "sb",
+                                        "h0", "c0", "f0", "lens")]
+                + [("sites", ds._SiteArg * (2 * ds.KERNEL_LAYERS))]
+                + [(n, ds._P) for n in ("htil", "alpha", "gates", "hs", "cs", "hcur", "ctx")])
+
+
 def k7_call(lib, fargs):
     """K7 of build ``lib`` on ``kernel_fwd``'s arguments: a callable
     returning (htil, gates, hs, cs, alpha)."""
-    lib._typed = False
+    if hasattr(lib, "decoder_scan_fwd_tma_f32"):
+        lib._typed = False
+
+        def run():
+            with using("decoder_scan", lib):
+                return list(ds.kernel_fwd(*fargs))
+        return run
+    lib.decoder_scan_fwd_f32.argtypes = [ctypes.POINTER(_FirstFwdArgs), ds._P]
+    lib.decoder_scan_fwd_f32.restype = ds._I
+    (descs, tables, gx0, us, ws, bs, w_feed, w_comb, enc_proj, enc_out, score_bias, h0, c0,
+     feed0, lengths) = fargs
+    nl = len(us)
+    T, B, G = gx0.shape
+    H, S = w_feed.shape[0], enc_out.shape[1]
+    u_st, w_st, b_st = torch.stack(list(us)), torch.stack(list(ws)), torch.stack(list(bs))
 
     def run():
-        with using("decoder_scan", lib):
-            return list(ds.kernel_fwd(*fargs))
+        e = lambda *shape: torch.empty(shape, device="cuda")
+        outs = [e(T, B, H), e(T, B, S), e(nl, T, B, G), e(nl, T, B, H), e(nl, T, B, H),
+                e(nl, B, H), e(B, H)]      # htil, alpha, gates, hs, cs; scratch hcur, ctx
+        a = _FirstFwdArgs(T, B, H, S, nl, int(lengths is not None),
+                          *(ds._ptr(t) for t in (gx0, u_st, w_st, b_st, w_feed, w_comb, enc_proj,
+                                                 enc_out, score_bias, h0, c0, feed0, lengths)),
+                          ds._site_args(descs, tables, T, B, H, gx0),
+                          *(ds._ptr(t) for t in outs))
+        code = lib.decoder_scan_fwd_f32(ctypes.byref(a), torch.cuda.current_stream().cuda_stream)
+        assert code == 0, code
+        htil, alpha, gates, hs, cs = outs[:5]
+        return [htil, gates, hs, cs, alpha]
     return run
 
 
@@ -824,6 +877,8 @@ def main(argv=None):
     ap.add_argument("--wg-rate", type=float, action="append", default=[], metavar="P",
                     help="also K4 at zaremba-medium's shape with RH rate P (WG runs dense "
                          "over the units, BP over the kept ones)")
+    ap.add_argument("--turns", type=int, default=2,
+                    help="rounds of the builds in turns (a, b, ..., b, a)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("scan_bench: no CUDA device")
@@ -896,12 +951,14 @@ def main(argv=None):
     for row, r in rows.items():
         for n, fn in r["fns"].items():
             out["f64_dist"][row][n] = f64_dist(fn(), r["ref"])
-    out["ms"] = {row: {n: [] for n in libs} for row in rows}
-    turns = list(libs) + list(reversed(libs))
-    for _ in range(2):
+    out["ms"] = {row: {n: [] for n in r["fns"]} for row, r in rows.items()}
+    names = list(dict.fromkeys(n for r in rows.values() for n in r["fns"]))
+    turns = names + list(reversed(names))
+    for _ in range(args.turns):
         for n in turns:
             for row, r in rows.items():
-                out["ms"][row][n].append(cs.time_ms(r["fns"][n], cold_l2=True))
+                if n in r["fns"]:
+                    out["ms"][row][n].append(cs.time_ms(r["fns"][n], cold_l2=True))
     if args.phases:
         out["phases"] = {}
         for row, r in rows.items():

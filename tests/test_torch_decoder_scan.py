@@ -8,8 +8,12 @@ assignment) x time pattern (per-step / FIXED one-row) x ragged target
 included: the forward (h~ sequence, h/c/feed finals) and the gradients of
 every differentiable operand. ``decoder_scan_ref`` has no ``lengths``, so
 ragged cases are held to the reference's ``xla`` impl only. One tiny case
-runs the reference's Pallas kernels in interpret mode. The ``cuda``-marked
-tests (skipped without a GPU) hold the CUDA kernels to the plain version.
+runs the reference's Pallas kernels in interpret mode. K7's dataflow is
+held on the CPU: the blocks its owners publish in
+each consumer's compact layout (``consumer_maps``, ``publish``) equal a
+plain gather at every step, and ``plain_fwd_published`` equals
+``plain_fwd`` in float64. The ``cuda``-marked tests (skipped without a
+GPU) hold the CUDA kernels to the plain version.
 
 Tolerances (float32, same arithmetic in a different summation order):
 forward and gradients rtol 1e-4 with atol 1e-6. Kernel vs plain on the
@@ -242,6 +246,63 @@ def test_kernels_reject_other_depths(nl):
 
 
 # ---------------------------------------------------------------------------
+# K7's dataflow: the consumer layouts its owners publish (CPU)
+# ---------------------------------------------------------------------------
+
+
+# (kind, lengths, H, block size): every site mode, PER_STEP and FIXED,
+# mixed, ragged; H = 18 at block size 1 pads both the compact (k = 9) and
+# the dense (H) rows to 4 floats
+PUBLISHED = [(k, None, H, 4) for k in KINDS] + [("mixed", [T, 2, 0], H, 4),
+                                                 ("sp", [T, 2, 0], 18, 1),
+                                                 ("dp", None, 18, 1)]
+
+
+@pytest.mark.parametrize("kind,lengths,H_,bs", PUBLISHED)
+def test_published_layout_is_the_gather_and_feeds_the_plain_forward(kind, lengths, H_, bs):
+    """``publish`` through ``consumer_maps``' inverse maps (alone or in one
+    buffer) gives each site's
+    compact row at every step: a plain gather of x[:, ids[t]] x scale
+    (dense x mask x scale, off x), zeros past it; and the plain forward fed
+    from those blocks (``plain_fwd_published``) equals ``plain_fwd`` in
+    float64."""
+    d64 = lambda v: [torch.from_numpy(x).double() for x in v] if isinstance(v, list) \
+        else torch.from_numpy(v).double()
+    args = {k: d64(v) for k, v in _inputs(T, B, S, H_, seed=41).items()}
+    pairs = [t_ds._mk_site(None if kb is None else torch.from_numpy(kb),
+                           None if dm is None else torch.from_numpy(dm).double(), b, sc)
+             for kb, dm, b, sc in _sites(kind, T, B, H_, bs=bs, seed=42)]
+    descs = tuple(p[0] for p in pairs)
+    tables = tuple(p[1] for p in pairs)
+    maps = t_ds.consumer_maps(descs, tables, H_)
+    # the same maps built into one zeroed buffer, as the kernel's wrapper does
+    buf = torch.zeros(t_ds.inv_words(descs, tables, H_), dtype=torch.int32)
+    for (inv, kp), (inv2, kp2) in zip(maps, t_ds.consumer_maps(descs, tables, H_, buf)):
+        assert kp == kp2 and (inv is None) == (inv2 is None)
+        assert inv is None or torch.equal(inv, inv2)
+    x = torch.from_numpy(np.random.default_rng(43).standard_normal((B, H_)))
+    for i, (d, tab, (inv, kp)) in enumerate(zip(descs, tables, maps)):
+        assert kp % 4 == 0
+        for t in range(T):
+            row = 0 if d.fixed else t
+            if d.mode == "structured":
+                want = x[:, tab[row].long()] * d.scale
+            else:
+                want = x * (tab[row] * d.scale if d.mode == "dense" else 1.0)
+            got = t_ds.publish(x, d, tab, inv, kp, t)
+            assert got.shape == (B, kp), (i, t)
+            torch.testing.assert_close(got[:, :want.shape[1]], want, rtol=0, atol=0)
+            assert not got[:, want.shape[1]:].any(), (i, t)
+    keys = ("gx0", "us", "ws", "bs", "w_feed", "w_comb", "enc_proj", "enc_out",
+            "score_bias", "h0", "c0", "feed0")
+    lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32)
+    fargs = (descs, tables, *(args[k] for k in keys), lens)
+    for g, w, n in zip(t_ds.plain_fwd_published(*fargs), t_ds.plain_fwd(*fargs),
+                       ("htil", "gates", "hs", "cs", "alpha")):
+        torch.testing.assert_close(g, w, rtol=1e-12, atol=1e-12, msg=n)
+
+
+# ---------------------------------------------------------------------------
 # CUDA kernels (K7/K8) against the plain version, on the card
 # ---------------------------------------------------------------------------
 
@@ -423,8 +484,9 @@ def _k7_case(dev, kind, T_, B_, S_, H_, lengths=None, bs=1, rate=0.3, drop_low_a
              seed=31):
     """K7's operands on the card: sites of ``kind`` at ``rate`` (structured
     ones keep an exact count a row; row ``drop_low_at`` keeps none of the
-    units below H/2), callables for the kernel and the plain forward in
-    float32 and float64 (flat outputs: htil, gates, hs, cs, alpha)."""
+    units below H/2), callables for the kernel and the plain
+    forward in float32 and float64 (flat outputs: htil, gates, hs, cs,
+    alpha)."""
     args = _inputs(T_, B_, S_, H_, seed=seed, w_std=0.05)
     rng = np.random.default_rng(seed + 1)
     sites = []
@@ -503,9 +565,21 @@ def test_cuda_forward_edge_cases_match_plain(kw):
 @pytest.mark.parametrize("B_", [192, 256])
 def test_cuda_forward_at_large_batch(B_):
     """At H=512 a large batch still matches the plain forward and gives the
-    same bits again."""
+    same bits again (in row blocks of 64)."""
     case = _k7_case(require_cuda(), "sp", 4, B_, 8, 512)
     _assert_k7_matches_plain(case)
     first, again = case["kernel"](), case["kernel"]()
     for a, b in zip(first, again):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_forward_refuses_a_shape_without_a_plan():
+    """H = 1024 needs 8 units a CTA on the card, past K7's 4: its plan and
+    a launch raise a CUDA error."""
+    dev = require_cuda()
+    with pytest.raises(RuntimeError, match="decoder_scan forward plan"):
+        t_ds._tma_plan(dev.index or 0, 64, 1024, 8)
+    case = _k7_case(dev, "sp", 2, 64, 8, 1024)
+    with pytest.raises(RuntimeError, match="decoder_scan forward plan"):
+        case["kernel"]()

@@ -84,15 +84,17 @@ def test_fwd_probe_cases_move_the_forwards_words(B, H, k):
 
 
 def test_fwd_ops_count_every_product_on_ffma():
-    """K3: 2 B k 4H a step; K7: each site's 2 B k 4H, the scores and the
-    context (2 B S H each) and the readout (2 B 2H H) a step; no TF32."""
+    """K3: 2 B k 4H a step, all on FFMA; K7: each site's 2 B k 4H a step on
+    the TF32 tensor cores in split precision (three products for each), the
+    scores and the context (2 B S H each) and the readout (2 B 2H H) a step
+    on FFMA."""
     T, B, H, k = 35, 20, 650, 325
     assert sb.k3_fwd_ops(T, B, H, k) == {"tf32": 0, "f32": T * 2 * B * k * 4 * H}
     T, B, S, H = 50, 64, 50, 512
     kept = [358, 358, 358, 100]
     ops = sb.k7_fwd_ops(T, B, S, H, kept)
-    assert ops["tf32"] == 0
-    assert ops["f32"] == T * (2 * B * 4 * H * sum(kept) + 4 * B * S * H + 4 * B * H * H)
+    assert ops["tf32"] == 3 * T * 2 * B * 4 * H * sum(kept)
+    assert ops["f32"] == T * (4 * B * S * H + 4 * B * H * H)
 
 
 def test_k7_floor_is_four_exchanges_a_step():

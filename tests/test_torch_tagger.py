@@ -299,7 +299,7 @@ def test_profile_groups_port_kernels_only():
     table lookups) also sits in an anonymous namespace."""
     from repro_torch.launch import profile as t_profile
     assert {"lstm_fwd_kernel", "lstm_bwd_kernel", "gather_mm_kernel",
-            "dec_fwd_kernel", "flash_fwd_kernel"} <= t_profile.port_kernels()
+            "dec_fwd_tma", "flash_fwd_kernel"} <= t_profile.port_kernels()
     group = t_profile.kernel_group
     assert group("void (anonymous namespace)::lstm_bwd_kernel<true>(float "
                  "const*)") == "lstm_bwd_kernel"
