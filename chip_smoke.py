@@ -76,7 +76,15 @@ plain PyTorch version at that path's full shapes, and times it:
     multiple of the tile, an empty expert, unsorted repeated ids and
     ragged T, D, F);
   * zaremba-medium's cell update (B=20, H=650, and H=1500): K5 fused LSTM
-    pointwise, with forget_bias 0 and 1 and odd shapes.
+    pointwise, with forget_bias 0 and 1 and odd shapes;
+  * gemma-2b (B=1, S=4096, 8 query heads over its one kv head repeated 8
+    times, head_dim 256, causal: bfloat16 on the tf32 route) and
+    whisper-base (8 heads of 64 on the wgmma route: the encoder non-causal
+    at B=32 over its 1500 frames, the decoder causal over 448 tokens):
+    bfloat16 K9-K11 held to their plain versions, to float64 over every
+    group, to their own bits, and timed beside SDPA (rows
+    ``flash_*@gemma-2b/bf16``, ``@whisper-enc``, ``@whisper-dec``), after
+    small modes at d 64 non-causal over S 100 and 1500 and causal over 448.
 
 Then it checks on small inputs that the kernel engines agree with the plain
 stepwise oracle (the four recurrent models; bilstm-ner on a masked and a
@@ -111,6 +119,17 @@ bilstm-ner fused from a checkpoint (2 steps, save, restore into fresh
 tensors, 2 more) and requires the losses and final parameters of 4
 straight steps, bit for bit.
 
+Then the reference's remaining transformer configs (``drive_configs``),
+each at full width in its bfloat16 with flash attention, 5 steps and one
+traced step, asserting the K9-K11 launches the code implies on the route of
+its head_dim and 8 GB of the card free: gemma-2b whole (18 of 18 layers,
+batch 1 x 4096; K9 36, K10 18, K11 18 a step on the tf32 route) with remat
+"full" and again with "dots", whisper-base whole (6 + 6 layers, batch 32,
+1500 frames, 448 tokens; K9 18, K10 6, K11 6 a step on wgmma: the encoder's
+forward once a layer and no encoder backward, since, as in the reference,
+the loss does not read the encoder), and minitron-8b, qwen1.5-32b and
+pixtral-12b (random embeddings) cut to ``CUT_LAYERS`` at batch 1 x 4096.
+
 Then the serving phase (``drive_serving``, under ``torch.inference_mode()``,
 random weights from a CUDA generator seeded 0), every model whole:
 qwen3-8b (36 of 36 layers, bfloat16, ``attn_impl="flash"``) prefills batch 8
@@ -124,9 +143,12 @@ slots through ``serve()`` twice (the same tokens; admission and decode
 time apart), then rectangular at batch 8 (graph loop = python loop);
 luong-nmt prefills 64 sentences of 50 source tokens and an 8-token target
 prefix through ``DecodeEngine.prefill`` and generates 50 tokens (graph loop
-= python loop). Each model's graph loop runs once more under
+= python loop); gemma-2b (18 layers) serves as qwen3-8b does (K9 18 times a
+prefill, tf32 route); whisper-base prefills 8 x 3 tokens over 8 x 1500
+frames through ``DecodeEngine.prefill`` (K9 12 times: 6 encoder, 6 decoder
+layers) and generates 64 tokens (graph loop = python loop). Each model's graph loop runs once more under
 ``torch.profiler`` (device-busy ms a token). At smoke width, for the three
-families, the card's greedy tokens equal the CPU's and a small trace gives
+families and whisper, the card's greedy tokens equal the CPU's and a small trace gives
 the same outputs in two arrival orders, on the card and on the CPU. K9 is
 also held to its plain version and a float64 forward and timed at the
 prefill's shape (B=8, S=511; row ``flash_fwd@prefill``, its launches the
@@ -190,6 +212,20 @@ LM, NMT, XLSTM, QWEN = "zaremba-medium", "luong-nmt", "xlstm-1.3b", "qwen3-8b"
 NER = "bilstm-ner"
 ES, EB, EH, EP = 64, 32, 200, 0.5                # bilstm-ner: seq, batch, H, p
 MIXTRAL, STACK = "mixtral-8x22b", "lstm_stack"
+# the reference's remaining transformer configs, at full width in their
+# bfloat16 with flash attention: gemma-2b and whisper-base whole, the others
+# cut to the deepest depth whose measured peak leaves FREE_BYTES free
+GEMMA, WHISPER = "gemma-2b", "whisper-base"
+MINITRON, QWEN15, PIXTRAL = "minitron-8b", "qwen1.5-32b", "pixtral-12b"
+WB, WT, WS = 32, 1500, 448     # whisper-base: batch, frames (enc_seq), tokens
+CUT_LAYERS = {MINITRON: 16, QWEN15: 6, PIXTRAL: 15}
+FULL_LAYERS = {GEMMA: 18, WHISPER: 6, MINITRON: 32, QWEN15: 64, PIXTRAL: 40}
+# (d_model, query heads, kv heads after kv_repeat, head_dim, d_ff, vocab)
+WIDTHS = {GEMMA: (2048, 8, 8, 256, 16384, 256000),
+          WHISPER: (512, 8, 8, 64, 2048, 51865),
+          MINITRON: (4096, 32, 16, 128, 16384, 256000),
+          QWEN15: (5120, 40, 40, 128, 27392, 152064),
+          PIXTRAL: (5120, 32, 16, 128, 14336, 131072)}
 
 
 def smi_line() -> str:
@@ -922,7 +958,8 @@ def f64_gate(name, got, plain, ref):
 
 
 def check_flash(gen, B_, Sq_, Sk_, Hq_, Hkv_, d_, *, causal=True, window=None,
-                dtype=torch.float32, out=None, tag="", want_route=None):
+                dtype=torch.float32, out=None, tag="", want_route=None, arch=QWEN,
+                label=""):
     """K9 (o, lse), K10 (dq) and K11 (dk, dv) against their plain versions
     on the same inputs; both backward passes take the plain forward's lse
     and delta. float32 within 1e-3 x max(1, |ref|), bfloat16 within 3e-2
@@ -933,7 +970,9 @@ def check_flash(gen, B_, Sq_, Sk_, Hq_, Hkv_, d_, *, causal=True, window=None,
     backward over one (batch, kv head) group within ``FLASH_F64_TOL``
     (SDPA's distances printed beside theirs), all three launched twice for
     the same bits, timed beside SDPA, and their SASS must hold TF32 HMMA at
-    every head dim."""
+    every head dim (bfloat16: HGMMA on the wgmma route). A bfloat16 row on
+    the tf32 route also carries ``route_bound_ms``, its products at the
+    TF32 rate (that route's one TF32 product each)."""
     from repro_torch.kernels import flash_attention as fa
     r = lambda *shape: torch.randn(*shape, generator=gen).to("cuda", dtype)
     q, k, v, do = (r(B_, Sq_, Hq_, d_), r(B_, Sk_, Hkv_, d_),
@@ -1015,13 +1054,16 @@ def check_flash(gen, B_, Sq_, Sk_, Hq_, Hkv_, d_, *, causal=True, window=None,
                 # s^T, dp^T and p, ds in two terms each
                 extra["route_bound_ms"] = bound_ms(
                     nbytes, (4 if name == "flash_dq" else 6) * prod, BF16_FLOPS)[0]
+            if rt == "tf32":
+                extra["route_bound_ms"] = bound_ms(nbytes, flops, TF32_FLOPS)[0]
         elif name == "flash_fwd":
             extra = dict(f64_rel_err=f64[name], library_f64_rel_err=f64["sdpa_fwd"])
         else:
             extra = dict(f64_rel_err=f64[name], library_f64_rel_err=f64["sdpa"],
                          library_covers="flash_dq + flash_dkv (one backward)")
-        add_row(out, counter, QWEN, FLASH_SRC[rt], rep + line, err, ms, pms, lms, nbytes,
-                flops, "cold", rate=rate, name=name + ("/bf16" if bf else ""),
+        add_row(out, counter, arch, FLASH_SRC[rt], rep + line, err, ms, pms, lms, nbytes,
+                flops, "cold", rate=rate,
+                name=name + (f"@{label}" if label else "") + ("/bf16" if bf else ""),
                 **extra)
 
 
@@ -1256,7 +1298,8 @@ def check_flash_modes(gen):
     that are not multiples of the tile, Sq != Sk, head dims 16 / 64 / 256;
     bfloat16 at head_dim 16, 32 and 256 (the tf32 route: causal, windows,
     G = 3, S = 100, Sq != Sk) and at 64 and 128 (the wgmma route's K9-K11:
-    non-causal, windows 8 and 256, MQA, G = 3, S = 100, Sq < Sk, Sq > Sk).
+    non-causal, windows 8 and 256, MQA, G = 3, S = 100, Sq < Sk, Sq > Sk;
+    d 64 non-causal at S 100 and 1500 and causal at S 448, whisper-base's).
     Each case asserts the route its three passes launched on."""
     bf = torch.bfloat16
     f32 = (
@@ -1296,7 +1339,12 @@ def check_flash_modes(gen):
         ((1, 192, 192, 6, 2, 128), {}, "(bf16 d=128 G=3)"),
         ((2, 100, 100, 4, 2, 128), {}, "(bf16 d=128 S=100)"),
         ((1, 80, 144, 4, 2, 128), {}, "(bf16 d=128 Sq < Sk)"),
-        ((1, 144, 80, 4, 2, 128), {}, "(bf16 d=128 Sq > Sk)"))
+        ((1, 144, 80, 4, 2, 128), {}, "(bf16 d=128 Sq > Sk)"),
+        # whisper-base's: the encoder non-causal over sequences that are no
+        # multiple of the tile, the decoder causal over its 448 tokens
+        ((1, 100, 100, 4, 2, 64), dict(causal=False), "(bf16 d=64 non-causal S=100)"),
+        ((1, 1500, 1500, 2, 2, 64), dict(causal=False), "(bf16 d=64 non-causal S=1500)"),
+        ((1, 448, 448, 4, 2, 64), {}, "(bf16 d=64 causal S=448)"))
     for cases, dtype, want in ((f32, torch.float32, "tf32"), (bf_tf32, bf, "tf32"),
                                (bf_wgmma, bf, "wgmma")):
         for args, kw, tag in cases:
@@ -1583,12 +1631,14 @@ def traced_step(what, step_fn, params, state, batch_fn):
     device-time split (``launch/profile.py trace_steps``). The profiler
     has been seen to lose every kernel record of a run on the card: such a
     step is traced again, on the next batch, up to three times, and then the
-    split is reported as not measured (it is a measurement, not a check)."""
+    split is reported as not measured (it is a measurement, not a check).
+    The batch is drawn before the trace, so its draw is no part of the
+    split."""
     from repro_torch.launch.profile import NoDeviceTime, trace_steps
     for attempt in range(3):
+        batch = batch_fn(STEPS + attempt)    # drawn before the trace starts
         try:
-            return trace_steps(step_fn, params, state,
-                               lambda s: batch_fn(STEPS + attempt + s), 1, 0,
+            return trace_steps(step_fn, params, state, lambda s, b=batch: b, 1, 0,
                                top=8, label=f"  {what} traced step")
         except NoDeviceTime:
             print(f"  {what} traced step: the profiler recorded no device "
@@ -1805,18 +1855,22 @@ def check_bf16_small(dev="cuda"):
         compare(f"  {a} vs {b}/{dev} (loss + grads)", results[a], results[b], BF16_TOL)
 
 
-def _fan_in_init(params, num_layers):
-    """The transformer's block matrices redrawn at std fan_in ** -0.5 in
-    place of the reference's (layer count) ** -0.5, and the embedding at
-    std 1 in place of 0.02 (a residual stream of rms 1, which the first
-    norm does not amplify 50x): the same normal draws, rescaled in float32
-    and rounded to the leaf's dtype once."""
+def _fan_in_init(params, num_layers,
+                 keys=("wq", "wk", "wv", "wo", "router", "we_gate", "we_up"),
+                 embed=True):
+    """The transformer's block matrices ``keys`` redrawn at std fan_in **
+    -0.5 in place of the reference's (layer count) ** -0.5, and (with
+    ``embed``) the embedding at std 1 in place of 0.02 (a residual stream of
+    rms 1, which the first norm does not amplify 50x): the same normal
+    draws, rescaled in float32 and rounded to the leaf's dtype once."""
     blocks = dict(params["blocks"])
-    for k_ in ("wq", "wk", "wv", "wo", "router", "we_gate", "we_up"):
+    for k_ in keys:
         w = blocks[k_]
         blocks[k_] = (w.float() * (num_layers ** 0.5 * w.shape[-2] ** -0.5)).to(w.dtype)
-    embed = (params["embed"].float() / 0.02).to(params["embed"].dtype)
-    return {**params, "blocks": blocks, "embed": embed}
+    out = {**params, "blocks": blocks}
+    if embed:
+        out["embed"] = (params["embed"].float() / 0.02).to(params["embed"].dtype)
+    return out
 
 
 def drive_transformer():
@@ -2303,6 +2357,209 @@ def drive_moe():
     return totals, step_ms, peak, losses, split
 
 
+def flash_launches(cfg):
+    """K9-K11 launches of STEPS flash training steps under remat "full"
+    or "dots": K9 twice a decoder layer (its forward and the backward's
+    recompute: the flash output is no saved product), K10 and K11 once; an
+    encoder-decoder's encoder adds one K9 a layer and no backward, since,
+    as in the reference, the decoder's cross-attention projects its keys
+    and values from the decoder's own stream and the loss does not read the
+    encoder."""
+    L = cfg.num_layers
+    enc = cfg.enc_layers if cfg.is_encoder_decoder else 0
+    return {"flash_fwd": (2 * L + enc) * STEPS, "flash_dq": L * STEPS,
+            "flash_dkv": L * STEPS}
+
+
+def drive_config(arch, layers, batch, seq, **kw):
+    """One of the reference's remaining transformer configs at full width in
+    its bfloat16, ``layers`` deep, batch x seq (whisper: seq target tokens
+    over its 1500 frames; pixtral: random (B, S, D) embeddings), its own
+    plan, ``attn_impl="flash"`` (``kw`` more overrides, e.g. remat): STEPS
+    training steps through ``steps.make_train_step`` with the trainer's
+    batches, then one traced step. Asserts finite losses and parameters,
+    the K9-K11 launches the code implies (``flash_launches``), every one on
+    the route that bfloat16 at the config's head_dim takes, and 8 GB of the
+    card free. Returns (counts, [ms], peak bytes, device split, losses)."""
+    from repro_torch import configs
+    from repro_torch.configs import adapters
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps, train
+    spec = configs.get_arch(arch)
+    dev = torch.device("cuda")
+    cfg = spec.full(num_layers=layers, attn_impl="flash", **kw)
+    assert (cfg.d_model, cfg.n_heads, cfg.n_kv_eff, cfg.hd, cfg.d_ff, cfg.vocab,
+            cfg.param_dtype, cfg.compute_dtype) == (*WIDTHS[arch], torch.bfloat16,
+                                                    torch.bfloat16), cfg
+    what = f"{arch}" + "".join(f"/{k_}={v}" for k_, v in kw.items())
+    print(f"main path: {what}, {layers} of {FULL_LAYERS[arch]} layers"
+          + (f" + {cfg.enc_layers} encoder layers over {cfg.enc_seq} frames"
+             if cfg.is_encoder_decoder else "")
+          + f", bfloat16, batch {batch}, seq {seq}, plan {cfg.plan.to_dict()}, "
+          f"remat {cfg.remat}, flash, {STEPS} steps")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = adapters.init_params(
+        spec.kind, torch.Generator(device="cuda").manual_seed(0), cfg, device=dev)
+    n_params = sum(p.numel() for p in _leaves(params))
+    opt = steps.default_opt(1e-3)
+    state = opt.init(params)
+    step_fn = steps.make_train_step(spec, cfg, opt)
+    batch_fn = train.make_batch_fn(spec.kind, cfg, batch, seq, 0, dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    ms, ls_, draw_ms = [], [], []
+    for step in range(STEPS):
+        # the trainer's batch (whisper: 1500 frames a row, pixtral: the
+        # embeddings, drawn by numpy) is timed on its own, outside the step
+        t0 = time.perf_counter()
+        b = batch_fn(step)
+        torch.cuda.synchronize()
+        draw_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        params, state, loss = step_fn(params, state, b, step, 0)
+        ls_.append(float(loss))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        print(f"  step {step}: loss {ls_[-1]:.4f}  {ms[-1]:.1f} ms (batch drawn "
+              f"before it in {draw_ms[-1]:.1f} ms)")
+        del b
+    c = read_counts()
+    assert all(math.isfinite(x) for x in ls_), ls_
+    assert all(torch.isfinite(p).all() for p in _leaves(params))
+    assert all(p.dtype == torch.bfloat16 for p in _leaves(params))
+    flash = flash_launches(cfg)
+    rt = fa.route("flash_fwd", torch.bfloat16, cfg.hd)
+    want = {**flash, **{f"{k_}/{r}": (flash[k_] if r == rt else 0)
+                        for k_ in flash for r in ("wgmma", "tf32")}}
+    got = {k_: v for k_, v in c.items() if v}
+    assert got == {k_: v for k_, v in want.items() if v}, \
+        f"{what}: launches {got}, expected {want} and no other kernel"
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {n_params} parameters; launches per step as expected, all on the "
+          f"{rt} route: " + ", ".join(f"{k_}={v / STEPS:g}" for k_, v in got.items()))
+    print(f"  {what}: steady median {steady_median(ms):.2f} ms a step without the "
+          f"batch's draw, {steady_median(draw_ms):.2f} ms the draw, "
+          f"{steady_median([a + b_ for a, b_ in zip(ms, draw_ms)]):.2f} ms both")
+    peak_check(what, peak)
+    params, state, split = traced_step(what, step_fn, params, state, batch_fn)
+    del params, state
+    return c, ms, peak, split, ls_
+
+
+def check_dots_backward():
+    """gemma-2b whole (18 layers, batch 1 x 4096, bfloat16, flash, its own
+    plan): under remat "none", "full" and "dots", one loss and backward to
+    warm up, then one more whose backward runs under a dispatch mode that
+    counts ``aten.mm`` / ``aten.addmm`` and under ``torch.profiler``.
+    Fails unless "dots" calls them as often as "none" (no saved product is
+    recomputed) and "full" more often. Prints each backward's
+    matrix-product and busy device time, the memory the forward leaves
+    saved, the peak above the parameters, and the kernels whose backward
+    time differs most between "full" and "dots" (the forward's products
+    that "full" recomputes). Returns {remat: numbers}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch import configs
+    from repro_torch.configs import adapters
+    from repro_torch.launch import train
+    from repro_torch.launch.profile import _device_us, kernel_group
+    from repro_torch.models import transformer
+    from repro_torch.optim import tree_leaves
+
+    class CountDots(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += func in transformer._SAVED_DOTS
+            return func(*args, **(kwargs or {}))
+
+    spec = configs.get_arch(GEMMA)
+    res, by_kernel = {}, {}
+    print(f"remat against the backward's matrix products: {GEMMA}, 18 layers, "
+          "bfloat16, batch 1 x 4096, flash")
+    for remat in ("none", "full", "dots"):
+        cfg = spec.full(attn_impl="flash", remat=remat)
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = adapters.init_params(
+            spec.kind, torch.Generator(device="cuda").manual_seed(0), cfg,
+            device=torch.device("cuda"))
+        leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+        batch = train.make_batch_fn(spec.kind, cfg, 1, 4096, 0, torch.device("cuda"))(0)
+        loss = lambda: transformer.loss_fn(params, batch, cfg, seed=0, step=0)
+        torch.autograd.grad(loss(), leaves)          # warm-up
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        value = loss()
+        torch.cuda.synchronize()
+        saved = torch.cuda.memory_allocated() - base
+        mode = CountDots()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with mode:
+                torch.autograd.grad(value, leaves)
+            torch.cuda.synchronize()
+        dev = {}
+        for e in prof.key_averages():
+            if getattr(e, "device_type", None) == DeviceType.CUDA:
+                dev[e.key] = dev.get(e.key, 0.0) + _device_us(e) / 1e3
+        by_kernel[remat] = dev
+        r = dict(mm_addmm=mode.n, saved_bytes=saved,
+                 peak_bytes=torch.cuda.max_memory_allocated() - base,
+                 gemm_ms=sum(ms for k_, ms in dev.items()
+                             if kernel_group(k_) == "matrix products"),
+                 busy_ms=sum(dev.values()))
+        res[remat] = r
+        print(f"  {remat}: backward mm + addmm {r['mm_addmm']}, matrix products "
+              f"{r['gemm_ms']:.3f} of {r['busy_ms']:.3f} ms device-busy; forward left "
+              f"{saved} bytes saved, peak {r['peak_bytes']} bytes above the parameters")
+        del params, leaves, value, batch
+    full, dots = by_kernel["full"], by_kernel["dots"]
+    for k_ in sorted(set(full) | set(dots),
+                     key=lambda k_: -abs(full.get(k_, 0.0) - dots.get(k_, 0.0)))[:4]:
+        print(f"  backward, full against dots: {full.get(k_, 0.0):.3f} against "
+              f"{dots.get(k_, 0.0):.3f} ms [{kernel_group(k_)}] {k_[:90]}")
+    ok = res["dots"]["mm_addmm"] == res["none"]["mm_addmm"] < res["full"]["mm_addmm"]
+    print(f"  dots recomputes no saved product ({res['dots']['mm_addmm']} calls as "
+          f"without remat, {res['full']['mm_addmm']} under full): {ok}")
+    assert ok, res
+    return res
+
+
+def drive_configs():
+    """gemma-2b whole (18 of 18 layers, batch 1 x 4096) with remat "full"
+    and then "dots"; whisper-base whole (6 + 6 layers, batch WB, WS target
+    tokens over WT frames); minitron-8b, qwen1.5-32b and pixtral-12b cut to
+    ``CUT_LAYERS`` at batch 1 x 4096. Returns ({arch: {variant: counts}},
+    {key: [ms]}, {key: peak}, {key: split}, depths)."""
+    runs = [(GEMMA, "full", 18, 1, 4096, {}),
+            (GEMMA, "dots", 18, 1, 4096, dict(remat="dots")),
+            (WHISPER, "flash", 6, WB, WS, {}),
+            *((a, "flash", CUT_LAYERS[a], 1, 4096, {}) for a in (MINITRON, QWEN15, PIXTRAL))]
+    counts, step_ms, peak, split = {}, {}, {}, {}
+    for arch, variant, layers, batch, seq, kw in runs:
+        c, ms, pk, sp, _ = drive_config(arch, layers, batch, seq, **kw)
+        counts.setdefault(arch, {})[variant] = c
+        key = f"{arch}/{variant}"
+        step_ms[key], peak[key], split[key] = ms, pk, sp
+        print(f"{key}: steady median {steady_median(ms):.2f} ms/step, "
+              f"{batch * seq / steady_median(ms) * 1e3:.1f} tokens/s, peak memory "
+              f"{pk} bytes ({pk / 2**30:.2f} GiB)")
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"{GEMMA} remat dots against full: peak {peak[GEMMA + '/dots']} against "
+          f"{peak[GEMMA + '/full']} bytes, steady median "
+          f"{steady_median(step_ms[GEMMA + '/dots']):.2f} against "
+          f"{steady_median(step_ms[GEMMA + '/full']):.2f} ms/step")
+    depths = {GEMMA: 18, WHISPER: 6, **CUT_LAYERS}
+    return counts, step_ms, peak, split, depths
+
+
 # ---------------------------------------------------------------------------
 # serving: the decode engine, prefill and the continuous-batching scheduler
 # ---------------------------------------------------------------------------
@@ -2398,22 +2655,35 @@ def _loops(eng, prefill, n_gen, B_, what):
     return res
 
 
-def serve_qwen():
-    """qwen3-8b, 36 of 36 layers, in its config's bfloat16 (bfloat16 KV
-    cache, float32 logits), ``attn_impl="flash"``: prefill
-    SQB x (SQP - 1) tokens natively (K9 once a layer, no K10 / K11, no other
-    kernel), then SQG tokens by the graph loop and by the python loop;
-    native against replay prefill at SQ_CHECK tokens on the first decode
-    logits. Returns (numbers, counts, native prefills)."""
+def serve_qwen(arch=QWEN):
+    """qwen3-8b (or gemma-2b), every layer, in its config's bfloat16
+    (bfloat16 KV cache, float32 logits), ``attn_impl="flash"``: prefill
+    SQB x (SQP - 1) tokens natively (K9 once a layer on the route of the
+    config's head_dim, no K10 / K11, no other kernel), then SQG tokens by
+    the graph loop and by the python loop; native against replay prefill at
+    SQ_CHECK tokens on the first decode logits. Returns (numbers, counts,
+    native prefills)."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import transformer
     from repro_torch.serving import DecodeEngine, prompt_prefill
+    widths = {QWEN: (36, 4096, QHQ, QHKV, QD, 12288, 151936),
+              GEMMA: (FULL_LAYERS[GEMMA], *WIDTHS[GEMMA])}[arch]
     spec, cfg, params = _serve_model(
-        QWEN, lambda c: (c.num_layers, c.d_model, c.n_heads, c.n_kv_eff, c.hd,
-                         c.d_ff, c.vocab) == (36, 4096, QHQ, QHKV, QD, 12288, 151936),
-        attn_impl="flash")
+        arch, lambda c: (c.num_layers, c.d_model, c.n_heads, c.n_kv_eff, c.hd,
+                         c.d_ff, c.vocab) == widths, attn_impl="flash")
+    L, rt = cfg.num_layers, fa.route("flash_fwd", cfg.compute_dtype, cfg.hd)
+    if arch == GEMMA:
+        # the reference's init draws gemma's stacked matrices at std 18 **
+        # -0.5, so without qk-norm its attention logits reach ~1e3: a
+        # near-one-hot softmax whose winners flip under bfloat16 rounding
+        # over 18 layers, and native and replay prefill cannot agree. The
+        # serving run draws them at std fan_in ** -0.5 (logits of std ~1);
+        # its embedding, scaled by sqrt(d_model), already gives rms ~1.
+        params = _fan_in_init(params, L, ("wq", "wk", "wv", "wo", "w_gate", "w_up"),
+                              embed=False)
     n_params = sum(p.numel() for p in _leaves(params))
     assert cfg.param_dtype == cfg.compute_dtype == torch.bfloat16, cfg
-    print(f"serving: {QWEN}, 36 of 36 layers ({n_params} parameters, "
+    print(f"serving: {arch}, {L} of {L} layers ({n_params} parameters, "
           f"{str(cfg.param_dtype)[6:]}), flash, batch {SQB}, prompt {SQP}, "
           f"{SQG} generated, chunk {SQC}")
     eng = DecodeEngine(spec=spec, cfg=cfg, params=params, max_seq=SQP + SQG,
@@ -2434,7 +2704,7 @@ def serve_qwen():
     assert all(v.dtype == torch.bfloat16 for v in eng.state.values()), \
         "the KV cache is not bfloat16"
     reset_counts()
-    res = _loops(eng, prefill, SQG, SQB, QWEN)
+    res = _loops(eng, prefill, SQG, SQB, arch)
     res["peak_bytes"] = torch.cuda.max_memory_allocated()
     logits = {}
     for method in ("native", "replay"):
@@ -2444,13 +2714,13 @@ def serve_qwen():
         print(f"  {method} prefill of {SQ_CHECK - 1} tokens: {ms:.1f} ms")
     c = read_counts()
     n_native = n_native[0]
-    # K9 once a layer, on the wgmma route, and nothing else
-    want = {k_: (36 * n_native if k_ in ("flash_fwd", "flash_fwd/wgmma") else 0)
+    # K9 once a layer, on the head_dim's route, and nothing else
+    want = {k_: (L * n_native if k_ in ("flash_fwd", f"flash_fwd/{rt}") else 0)
             for k_ in c}
     off = {k_: v for k_, v in c.items() if v != want[k_]}
     print(f"  launches in {n_native} native prefills: flash_fwd={c['flash_fwd']} "
-          f"({c['flash_fwd'] / n_native:g} a prefill, 36 layers; "
-          f"{c['flash_fwd/wgmma'] / n_native:g} on the wgmma route), "
+          f"({c['flash_fwd'] / n_native:g} a prefill, {L} layers; "
+          f"{c[f'flash_fwd/{rt}'] / n_native:g} on the {rt} route), "
           + ("no other kernel" if not off else f"UNEXPECTED {off}"))
     assert not off, off
     err = compare(f"  first decode logits after native (K9) vs replay prefill of "
@@ -2559,20 +2829,70 @@ def serve_nmt():
     return res
 
 
+SWB, SWP, SWG = 8, 4, 64     # whisper-base serving: batch, prompt, generated
+
+
+def serve_whisper():
+    """whisper-base whole (6 + 6 layers) in its config's bfloat16,
+    ``attn_impl="flash"``: ``DecodeEngine.prefill`` of SWB x (SWP - 1)
+    prompt tokens over SWB x WT random frames (x 0.02, as the reference's
+    CLI), which encodes them (K9 non-causal once an encoder layer) into the
+    cross K/V and prefills the decoder (K9 once a layer), then SWG tokens by
+    the graph loop and by the python loop, token for token equal."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serving import DecodeEngine
+    spec, cfg, params = _serve_model(
+        WHISPER, lambda c: (c.num_layers, c.enc_layers, c.enc_seq, c.d_model, c.n_heads,
+                            c.n_kv_eff, c.hd, c.d_ff, c.vocab)
+        == (6, 6, WT, *WIDTHS[WHISPER]), attn_impl="flash")
+    print(f"serving: {WHISPER}, 6 + 6 layers, {str(cfg.param_dtype)[6:]}, flash, "
+          f"batch {SWB}, {WT} frames, prompt {SWP}, {SWG} generated, chunk 16")
+    eng = DecodeEngine(spec=spec, cfg=cfg, params=params, max_seq=SWP + SWG,
+                       batch=SWB, chunk=16)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    prompt = torch.randint(3, cfg.vocab, (SWB, SWP), generator=g, device="cuda",
+                           dtype=torch.int32)
+    frames = (torch.randn(SWB, WT, cfg.d_model, generator=g, device="cuda") * 0.02
+              ).to(cfg.compute_dtype)
+    n = [0]
+
+    def prefill():
+        eng.reset()
+        n[0] += 1
+        eng.prefill({"tokens": prompt[:, :-1], "frames": frames})
+        return prompt[:, -1:], SWP - 1
+
+    reset_counts()
+    res = _loops(eng, prefill, SWG, SWB, WHISPER)
+    c = read_counts()
+    rt = fa.route("flash_fwd", cfg.compute_dtype, cfg.hd)
+    want = {k_: (12 * n[0] if k_ in ("flash_fwd", f"flash_fwd/{rt}") else 0) for k_ in c}
+    off = {k_: v for k_, v in c.items() if v != want[k_]}
+    print(f"  launches in {n[0]} prefills: flash_fwd={c['flash_fwd']} (12 a prefill: "
+          f"6 encoder, 6 decoder layers, on the {rt} route), "
+          + ("no other kernel" if not off else f"UNEXPECTED {off}"))
+    assert not off, off
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del eng, params
+    return res, c, n[0]
+
+
 def serve_smoke_card_vs_cpu():
-    """At smoke width (qwen3 with ``attn_impl="flash"``, head dim 16, which
-    K9 takes; xlstm; luong-nmt), the same params and prompts give the same
-    greedy tokens on the card (graph loop) as on the CPU, and a small trace
-    served in two arrival orders gives the same per-request outputs on the
-    card, and the CPU's (the transformer's trace is rectangular: equal
-    prompt lengths, policy "batch")."""
+    """At smoke width (qwen3 and whisper with ``attn_impl="flash"``, head dim
+    16, which K9 takes; xlstm; luong-nmt), the same params and prompts (and
+    whisper's frames) give the same greedy tokens on the card (graph loop)
+    as on the CPU, and a small trace served in two arrival orders gives the
+    same per-request outputs on the card, and the CPU's (the transformer's
+    trace is rectangular: equal prompt lengths, policy "batch"; whisper has
+    no trace: admission replays decode steps, which read no frames)."""
     from repro_torch import configs
     from repro_torch.configs import adapters
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.optim import tree_map
     from repro_torch.serving import DecodeEngine, Request, serve
     from repro_torch.testing import serve_rectangular
-    for arch, kw in ((QWEN, dict(attn_impl="flash")), (XLSTM, {}), (NMT, {})):
+    for arch, kw in ((QWEN, dict(attn_impl="flash")), (WHISPER, dict(attn_impl="flash")),
+                     (XLSTM, {}), (NMT, {})):
         spec = configs.get_arch(arch)
         cfg = spec.smoke(**kw)
         if spec.kind == "transformer":
@@ -2585,21 +2905,31 @@ def serve_smoke_card_vs_cpu():
         reqs = [Request(rid=i, prompt=rng.integers(3, vocab, n), max_new=m)
                 for i, (n, m) in enumerate(zip(plens, [6, 3, 8, 4, 7, 5]))]
         policy = "batch" if spec.kind == "transformer" else "continuous"
+        enc_dec = spec.kind == "transformer" and cfg.is_encoder_decoder
+        frames = (torch.from_numpy(rng.standard_normal((3, cfg.enc_seq, cfg.d_model))
+                                   .astype(np.float32) * 0.02) if enc_dec else None)
         got = {}
         for dev in ("cpu", "cuda"):
             params = p_cpu if dev == "cpu" else tree_map(lambda a: a.cuda(), p_cpu)
-            got[dev] = serve_rectangular(spec, cfg, params, prompt.to(dev),
-                                         chunk=4)
+            got[dev] = serve_rectangular(
+                spec, cfg, params, prompt.to(dev), chunk=4,
+                frames=None if frames is None else frames.to(dev))
+            if enc_dec:
+                continue
             eng = DecodeEngine(spec=spec, cfg=cfg, params=params, max_seq=32,
                                batch=3, chunk=4)
             got[f"{dev}/trace"] = serve(eng, reqs, policy=policy)
             got[f"{dev}/trace reversed"] = serve(eng, reqs[::-1], policy=policy)
         same = np.array_equal(got["cpu"], got["cuda"])
-        orders = all(np.array_equal(got["cuda/trace"][r.rid], got[k_][r.rid])
-                     for r in reqs for k_ in ("cuda/trace reversed", "cpu/trace"))
+        if enc_dec:
+            orders, said = True, ("no trace served: admission replays decode "
+                                  "steps, which read no frames")
+        else:
+            orders = all(np.array_equal(got["cuda/trace"][r.rid], got[k_][r.rid])
+                         for r in reqs for k_ in ("cuda/trace reversed", "cpu/trace"))
+            said = f"trace outputs equal across arrival orders and the CPU's: {orders}"
         print(f"serving smoke ({cfg.name}): card graph loop tokens equal the "
-              f"CPU's: {same}; trace outputs equal across arrival orders and "
-              f"the CPU's: {orders}")
+              f"CPU's: {same}; {said}")
         assert same and orders, (got["cpu"], got["cuda"])
 
 
@@ -2656,68 +2986,98 @@ def decode_dtypes():
 
 def drive_serving():
     """The serving phase, under ``torch.inference_mode()``: qwen3-8b,
-    xlstm-1.3b and luong-nmt served whole at full width, then card against
-    CPU at smoke width. Returns ({arch: numbers}, {"prefill": counts},
-    native prefills)."""
+    gemma-2b, whisper-base, xlstm-1.3b and luong-nmt served whole at full
+    width, then card against CPU at smoke width. Returns ({arch: numbers},
+    {"prefill": counts}, qwen3-8b's native prefills, {arch: (counts,
+    prefills)} of gemma-2b and whisper-base)."""
     with torch.inference_mode():
         q, counts, n_native = serve_qwen()
-        out = {QWEN: q, XLSTM: serve_xlstm(), NMT: serve_nmt()}
+        gm, g_counts, g_native = serve_qwen(GEMMA)
+        w, w_counts, w_native = serve_whisper()
+        out = {QWEN: q, GEMMA: gm, WHISPER: w, XLSTM: serve_xlstm(), NMT: serve_nmt()}
         serve_smoke_card_vs_cpu()
         out["decode_dtypes"] = decode_dtypes()
-    return out, {"prefill": counts}, n_native
+    return (out, {"prefill": counts}, n_native,
+            {GEMMA: ({"prefill": g_counts}, g_native),
+             WHISPER: ({"prefill": w_counts}, w_native)})
 
 
-def check_flash_prefill(gen, out, dtype=torch.float32):
-    """K9 at qwen3-8b's serving prefill (B=SQB, Sq=Sk=SQP-1, 32 query heads
-    over 16 kv heads of 128, causal), timed beside the plain version and
-    SDPA's forward, cold L2; the row takes its launches from the serving
-    phase, which runs the bfloat16 instantiation. float32: against its
-    plain version (1e-3 x max(1, |ref|)) and a float64 forward over one
-    (batch, kv head) group (``FLASH_F64_TOL``). bfloat16 (the serving
-    path's dtype): against its plain version within BF16_TOL and, over
-    every group, against float64 within 10 x the bfloat16 plain version's
-    distance + 1e-6 (``flash_f64_bf16``)."""
+def prefill_shapes():
+    """K9's serving prefill shapes: {label: (B, S, Hq, Hkv after kv_repeat,
+    d, causal, the row's launch counts, K9 launches of this shape a
+    prefill)}. qwen3-8b and gemma-2b prefill SQB x (SQP - 1) prompt tokens
+    causally; whisper-base encodes SWB x WT frames (non-causal) and
+    prefills SWB x (SWP - 1) tokens (causal), 6 layers each."""
+    return {"prefill": (SQB, SQP - 1, QHQ, QHKV, QD, True, SERVE, 36),
+            f"prefill-{GEMMA}": (SQB, SQP - 1, *WIDTHS[GEMMA][1:4], True,
+                                 f"{SERVE}/{GEMMA}", FULL_LAYERS[GEMMA]),
+            "prefill-whisper-enc": (SWB, WT, *WIDTHS[WHISPER][1:4], False,
+                                    f"{SERVE}/{WHISPER}", 6),
+            "prefill-whisper-dec": (SWB, SWP - 1, *WIDTHS[WHISPER][1:4], True,
+                                    f"{SERVE}/{WHISPER}", 6)}
+
+
+def check_flash_prefill(gen, out, dtype=torch.float32, label="prefill"):
+    """K9 at a serving prefill's shape (``prefill_shapes``; qwen3-8b's:
+    B=SQB, Sq=Sk=SQP-1, 32 query heads over 16 kv heads of 128, causal),
+    timed beside the plain version and SDPA's forward, cold L2; the row
+    takes its launches from that model's serving phase, which runs the
+    bfloat16 instantiation. float32: against its plain version (1e-3 x
+    max(1, |ref|)) and a float64 forward over one (batch, kv head) group
+    (``FLASH_F64_TOL``). bfloat16 (the serving path's dtype): launched on
+    the route bfloat16 at its head_dim takes and on no other, against its
+    plain version within BF16_TOL, the same bits from a second launch and,
+    over every group, against float64 within 10 x the bfloat16 plain
+    version's distance + 1e-6 (``flash_f64_bf16``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    S = SQP - 1
+    B_, S, Hq, Hkv, d_, causal, arch, per_prefill = prefill_shapes()[label]
     bf = dtype == torch.bfloat16
     r = lambda *shape: torch.randn(*shape, generator=gen).to("cuda", dtype)
-    q, k, v = r(SQB, S, QHQ, QD), r(SQB, S, QHKV, QD), r(SQB, S, QHKV, QD)
-    print(f"flash_attention forward at the serving prefill: B={SQB} S={S} "
-          f"Hq={QHQ} Hkv={QHKV} d={QD} causal {dtype}")
-    fwd_k = lambda: fa.flash_fwd_cuda(q, k, v, True)
-    fwd_p = lambda: fa.attention_plain(q, k, v, True)
-    tag = " (prefill, bf16)" if bf else " (prefill)"
+    q, k, v = r(B_, S, Hq, d_), r(B_, S, Hkv, d_), r(B_, S, Hkv, d_)
+    print(f"flash_attention forward at the serving {label}: B={B_} S={S} "
+          f"Hq={Hq} Hkv={Hkv} d={d_} {'causal' if causal else 'full'} {dtype}")
+    fwd_k = lambda: fa.flash_fwd_cuda(q, k, v, causal)
+    fwd_p = lambda: fa.attention_plain(q, k, v, causal)
+    tag = f" ({label}, bf16)" if bf else f" ({label})"
+    rt = fa.route("flash_fwd", dtype, d_)
+    before = read_counts()
     err = compare("  flash_fwd" + tag, list(fwd_k()), list(fwd_p()),
                   BF16_TOL if bf else 1e-3)
-    rt = fa.route("flash_fwd", dtype, QD)
+    if bf:
+        moved = {k_: n - before[k_] for k_, n in read_counts().items()
+                 if k_.startswith("flash_") and n != before[k_]}
+        assert moved == {"flash_fwd": 1, f"flash_fwd/{rt}": 1}, (tag, moved)
     if rt == "wgmma":
         ms, prev = wgmma_vs_tf32(fa, fwd_k)
     else:
         ms = time_ms(fwd_k, cold_l2=True)
     if bf:
         same_bits("flash_fwd second launch" + tag, list(fwd_k()), lambda: list(fwd_k()))
-        f64 = flash_f64_bf16(fa, q, k, v, None, True, None, backward=False)
-        extra = dict(dtype="bfloat16", f64_rel_err=f64["flash_fwd"], kernel_route=rt)
+        f64 = flash_f64_bf16(fa, q, k, v, None, causal, None, backward=False)
+        extra = dict(dtype="bfloat16", f64_rel_err=f64["flash_fwd"], kernel_route=rt,
+                     shape_launches_per_prefill=per_prefill)
         if rt == "wgmma":
             extra["tf32_route_ms"] = prev
     else:
-        f64 = flash_fwd_f64(fa, q, k, v, True, None)
+        f64 = flash_fwd_f64(fa, q, k, v, causal, None)
         extra = dict(f64_rel_err=f64["flash_fwd"], library_f64_rel_err=f64["sdpa_fwd"])
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     lib = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), cold_l2=True)
-    pairs = S * (S + 1) // 2
-    prod = 2 * SQB * QHQ * pairs * QD
+        qt, kt, vt, is_causal=causal, enable_gqa=True), cold_l2=True)
+    pairs = S * (S + 1) // 2 if causal else S * S
+    prod = 2 * B_ * Hq * pairs * d_
     es = torch.finfo(dtype).bits // 8
-    qb, kb = SQB * S * QHQ * QD * es, SQB * S * QHKV * QD * es
+    qb, kb = B_ * S * Hq * d_ * es, B_ * S * Hkv * d_ * es
+    nbytes = qb + 2 * kb + qb + 4 * B_ * Hq * S
     # bfloat16: the products at the bfloat16 rate; float32: 3xTF32
     passes, rate = (1, BF16_FLOPS) if bf else (3, TF32_FLOPS)
-    add_row(out, f"flash_fwd/{rt}" if bf else "flash_fwd", SERVE, FLASH_SRC[rt],
+    if bf and rt == "tf32":
+        extra["route_bound_ms"] = bound_ms(nbytes, 2 * prod, TF32_FLOPS)[0]
+    add_row(out, f"flash_fwd/{rt}" if bf else "flash_fwd", arch, FLASH_SRC[rt],
             "src/repro/kernels/flash_attention.py:45", err, ms,
-            time_ms(fwd_p, cold_l2=True), lib,
-            qb + 2 * kb + qb + 4 * SQB * QHQ * S, passes * 2 * prod, "cold",
-            name="flash_fwd@prefill" + ("/bf16" if bf else ""), rate=rate, **extra)
+            time_ms(fwd_p, cold_l2=True), lib, nbytes, passes * 2 * prod, "cold",
+            name=f"flash_fwd@{label}" + ("/bf16" if bf else ""), rate=rate, **extra)
 
 
 def steady_median(ms):
@@ -2747,6 +3107,13 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s); "
           f"tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}")
+    start = time.perf_counter()
+
+    def phase(name):
+        """Where the script's own time goes (it runs under a time limit)."""
+        print(f"[phase] {name}: {time.perf_counter() - start:.1f} s since the start",
+              flush=True)
+
     t0 = time.perf_counter()
     built = _build.build()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s "
@@ -2764,6 +3131,7 @@ def main() -> int:
 
     gen = torch.Generator().manual_seed(0)
     rows = {}
+    phase("kernel checks")
     check_gather_matmul(gen, rows)
     check_scan(gen, T, B, H, P, "structured", out=rows, tag="(main path)")
     check_scan(gen, 6, 3, 40, 0.5, "dense", tag="(dense)")
@@ -2824,14 +3192,32 @@ def main() -> int:
                 tag="(one head of 2048, bf16)", **bf)
     # qwen3-8b: K9-K11 at the attention's shape, then every mode on small
     # inputs
+    phase("flash checks")
     check_flash(gen, QB, QS, QS, QHQ, QHKV, QD, out=rows, tag="(main path)")
     check_flash(gen, QB, QS, QS, QHQ, QHKV, QD, out=rows, tag="(main path, bf16)",
                 dtype=torch.bfloat16)
     check_flash_prefill(gen, rows)
     check_flash_prefill(gen, rows, torch.bfloat16)
+    # gemma-2b's and whisper-base's serving prefills: gemma's K9 on the tf32
+    # route at d 256, whisper's encoder (non-causal) and decoder on wgmma
+    for label in (f"prefill-{GEMMA}", "prefill-whisper-enc", "prefill-whisper-dec"):
+        check_flash_prefill(gen, rows, torch.bfloat16, label)
     check_flash_modes(gen)
+    # gemma-2b (8 query heads over its one kv head repeated 8 times, head_dim
+    # 256: the tf32 route) and whisper-base (8 heads of 64, the encoder
+    # non-causal over its 1500 frames, the decoder causal over 448 tokens:
+    # the wgmma route), bfloat16, at their training shapes
+    bf16 = dict(dtype=torch.bfloat16, out=rows)
+    check_flash(gen, 1, 4096, 4096, 8, 8, 256, arch=GEMMA, label=GEMMA,
+                want_route="tf32", tag="(gemma-2b, bf16)", **bf16)
+    check_flash(gen, WB, WT, WT, 8, 8, 64, causal=False, arch=WHISPER,
+                label="whisper-enc", want_route="wgmma",
+                tag="(whisper-base encoder, bf16)", **bf16)
+    check_flash(gen, WB, WS, WS, 8, 8, 64, arch=WHISPER, label="whisper-dec",
+                want_route="wgmma", tag="(whisper-base decoder, bf16)", **bf16)
     # mixtral-8x22b: K12 at the expert products' shapes, then small modes;
     # K5 at zaremba-medium's cell
+    phase("K12, K5 and small-input checks")
     check_grouped(rows)
     check_pointwise(rows)
     check_engines_small()
@@ -2843,6 +3229,7 @@ def main() -> int:
     check_mixtral_small()
     check_bf16_small()
 
+    phase("training: the paper's models")
     counts, step_ms, path_peak = drive_main_path()
     crf_ms = time_crf()
     for engine in ("fused", "scheduled"):
@@ -2855,6 +3242,7 @@ def main() -> int:
     counts[STACK] = drive_lstm_stack()
     gc.collect()
     torch.cuda.empty_cache()
+    phase("training: xlstm-1.3b")
     x_counts, x_ms, x_peak, _, x_split = drive_xlstm()
     counts[XLSTM] = x_counts
     for engine, ms in x_ms.items():
@@ -2865,6 +3253,7 @@ def main() -> int:
               f"{x_peak[engine]} bytes ({x_peak[engine] / 2**30:.2f} GiB)")
     gc.collect()
     torch.cuda.empty_cache()
+    phase("training: qwen3-8b")
     q_counts, q_ms, q_peak, q_split = drive_transformer()
     counts[QWEN] = q_counts
     for impl, ms in q_ms.items():
@@ -2875,6 +3264,7 @@ def main() -> int:
               f"{q_peak[impl]} bytes ({q_peak[impl] / 2**30:.2f} GiB)")
     gc.collect()
     torch.cuda.empty_cache()
+    phase("training: mixtral-8x22b")
     m_counts, m_ms, m_peak, _, m_split = drive_moe()
     counts[MIXTRAL] = m_counts
     for impl, ms in m_ms.items():
@@ -2885,9 +3275,23 @@ def main() -> int:
               f"{m_peak[impl]} bytes ({m_peak[impl] / 2**30:.2f} GiB)")
     gc.collect()
     torch.cuda.empty_cache()
-    serving, counts[SERVE], n_native = drive_serving()
+    phase("training: the remaining transformer configs")
+    c_counts, c_ms, c_peak, c_split, c_depths = drive_configs()
+    counts.update(c_counts)
+    step_ms.update(c_ms)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dots = check_dots_backward()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("serving")
+    serving, counts[SERVE], n_native, more = drive_serving()
+    prefills = {SERVE: n_native}
+    for a, (c, n) in more.items():
+        counts[f"{SERVE}/{a}"], prefills[f"{SERVE}/{a}"] = c, n
     for key, ms in step_ms.items():
         print(f"step ms ({key}): " + ", ".join(f"{x:.2f}" for x in ms))
+    phase("report")
     kernels = []
     for name, r in rows.items():
         arch = r.pop("arch")
@@ -2896,8 +3300,8 @@ def main() -> int:
         r["launches"] = sum(c.get(counter, 0) for c in per.values())
         if arch == STACK:       # one lstm_stack forward per engine
             r["launches_per_call"] = {e: c.get(counter, 0) for e, c in per.items()}
-        elif arch == SERVE:     # qwen3-8b's native prefills
-            r["launches_per_prefill"] = r["launches"] / n_native
+        elif arch in prefills:  # native prefills of that model's serving
+            r["launches_per_prefill"] = r["launches"] / prefills[arch]
         else:
             r["launches_per_step"] = {e: c.get(counter, 0) / STEPS
                                       for e, c in per.items()}
@@ -2913,9 +3317,12 @@ def main() -> int:
                       "xlstm_peak_bytes": x_peak,
                       "qwen3_peak_bytes": q_peak,
                       "mixtral_peak_bytes": m_peak,
-                      "depths": {XLSTM: {"fused": X_LAYERS, "scheduled": XS_LAYERS}, QWEN: Q_LAYERS, MIXTRAL: M_LAYERS},
+                      "configs_peak_bytes": c_peak,
+                      "remat_backward": dots,
+                      "depths": {XLSTM: {"fused": X_LAYERS, "scheduled": XS_LAYERS},
+                                 QWEN: Q_LAYERS, MIXTRAL: M_LAYERS, **c_depths},
                       "device_split": {XLSTM: x_split, QWEN: q_split,
-                                       MIXTRAL: m_split},
+                                       MIXTRAL: m_split, **c_split},
                       "serving": serving}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

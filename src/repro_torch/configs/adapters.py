@@ -39,6 +39,11 @@ def loss_fn(kind: str):
     return _MODULES[kind].loss_fn
 
 
+def unused_in_loss(kind: str, cfg) -> tuple:
+    """The top-level parameter subtrees the training loss may not read."""
+    return getattr(_MODULES[kind], "unused_in_loss", lambda cfg: ())(cfg)
+
+
 def dropout_override(kind: str, text: str) -> DropoutPlan:
     return DropoutPlan.parse(text, sites=DROPOUT_SITES[kind])
 
@@ -103,11 +108,21 @@ def has_native_prefill(spec: ArchSpec) -> bool:
 
 
 def prefill_fn(spec: ArchSpec):
-    """(params, batch, cfg, state) -> (features or None, state): the
-    transformer and xlstm read ``batch["tokens"]``, NMT an encoder batch
-    {"src", "tgt_in", ["src_mask"]}."""
+    """(params, batch, cfg, state) -> (features or None, state): xlstm reads
+    ``batch["tokens"]``, the transformer ``batch["tokens"]`` or, with
+    ``embeds_in``, ``batch["embeds"]`` (B, S, D), and an encoder-decoder
+    also encodes ``batch["frames"]`` (B, enc_seq, D) into its cross K/V;
+    NMT takes an encoder batch {"src", "tgt_in", ["src_mask"]}."""
     mod = _serving(spec)
     if spec.kind == "nmt":
         return mod.prefill
-    return lambda params, batch, cfg, state: mod.prefill(
-        params, batch["tokens"], cfg, state)
+    if spec.kind == "xlstm":
+        return lambda params, batch, cfg, state: mod.prefill(
+            params, batch["tokens"], cfg, state)
+
+    def f(params, batch, cfg, state):
+        memory = (mod.encode(params, batch["frames"], cfg)
+                  if cfg.is_encoder_decoder else None)
+        inputs = batch["embeds"] if cfg.embeds_in else batch["tokens"]
+        return mod.prefill(params, inputs, cfg, state, memory=memory)
+    return f

@@ -13,7 +13,7 @@ gives the float32 model.
 """
 import torch
 
-from repro_torch.configs.base import ArchSpec
+from repro_torch.configs.base import FULL_ATTN_SKIP, ArchSpec
 from repro_torch.core.dropout_plan import DropoutPlan
 from repro_torch.core.sdrop import DropoutSpec
 from repro_torch.models.transformer import TransformerConfig
@@ -44,4 +44,4 @@ def smoke(**kw):
 
 
 SPEC = ArchSpec(name="qwen3-8b", family="dense", kind="transformer", full=full,
-                smoke=smoke)
+                smoke=smoke, skip_shapes={"long_500k": FULL_ATTN_SKIP})

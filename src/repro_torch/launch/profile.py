@@ -81,14 +81,16 @@ def kernel_group(name: str) -> str:
     """The port's kernels (each in the top-level anonymous namespace of its
     csrc/*.cu) by their function name; cuBLAS/CUTLASS products as "matrix
     products"; everything else (PyTorch's own kernels, some of which sit in
-    an anonymous namespace too) as "other"."""
+    an anonymous namespace too) as "other". cuBLAS's own Hopper kernels
+    are named ``nvjet_*``, with no "gemm" in the name."""
     tag = "(anonymous namespace)::"
     name = name.removeprefix("void ")     # a template kernel's name has it
     if name.startswith(tag):
         fn = name[len(tag):].split("<", 1)[0].split("(", 1)[0]
         if fn in port_kernels():
             return fn
-    return "matrix products" if "gemm" in name.lower() else "other"
+    gemm = "gemm" in name.lower() or name.startswith("nvjet")
+    return "matrix products" if gemm else "other"
 
 
 def sampling_host_ms(kind: str, cfg, batch: int, seq: int, seed: int,

@@ -16,6 +16,14 @@ on the card) for the per-token host loop. ``--trace N`` serves N synthetic
 ragged requests through the continuous-batching scheduler instead of one
 rectangular batch and reports the tokens per second.
 
+whisper-base and pixtral-12b build their own prefill batch, as the
+reference's CLI: pixtral prefills ``prompt-len - 1`` random embeddings and
+stops (it decodes from embeddings, not token ids); whisper prefills
+``prompt[:, :-1]`` with ``enc_seq`` random frames (x 0.02) through
+``DecodeEngine.prefill``, which encodes them into the cross K/V, then
+decodes from ``prompt[:, -1:]``; both draw from the prompt's generator,
+after the prompt.
+
 luong-nmt's rectangular path has no source sentence: a token prompt cannot
 feed its encoder, so it stops with a ``ValueError`` naming the encoder
 batch ``DecodeEngine.prefill`` takes (``--trace`` replays the target
@@ -108,8 +116,28 @@ def run(argv=None) -> dict:
         rng.integers(3, vocab, size=(args.batch, args.prompt_len)),
         dtype=torch.int32).to(device)
     t0 = time.perf_counter()
-    engine.state, tok0, pos0 = prompt_prefill(spec, cfg, params, prompt,
-                                              state=engine.state)
+    if spec.kind == "transformer" and (cfg.embeds_in or cfg.is_encoder_decoder):
+        batch = {"tokens": prompt[:, :-1]}
+        if cfg.embeds_in:
+            batch = {"embeds": torch.from_numpy(rng.standard_normal(
+                (args.batch, args.prompt_len - 1, cfg.d_model))).to(
+                    device, cfg.compute_dtype)}
+        if cfg.is_encoder_decoder:
+            batch["frames"] = torch.from_numpy(rng.standard_normal(
+                (args.batch, cfg.enc_seq, cfg.d_model)) * 0.02).to(
+                    device, cfg.compute_dtype)
+        engine.prefill(batch)
+        _sync(device)
+        if cfg.embeds_in:
+            print(f"prefill {args.prompt_len - 1} embeddings: "
+                  f"{(time.perf_counter() - t0) * 1e3:.0f} ms on {device}; "
+                  "embeds-in archs decode from embeddings, not token ids: "
+                  "no token decode loop to run")
+            return {"tokens": None, "ms": ((time.perf_counter() - t0) * 1e3, 0.0)}
+        tok0, pos0 = prompt[:, -1:], args.prompt_len - 1
+    else:
+        engine.state, tok0, pos0 = prompt_prefill(spec, cfg, params, prompt,
+                                                  state=engine.state)
     _sync(device)
     t_prefill = time.perf_counter() - t0
     t0 = time.perf_counter()

@@ -25,7 +25,8 @@ def make_train_step(spec: ArchSpec, cfg, opt: optim.Optimizer, *,
     averages their losses and gradients before the one update."""
     lfn = adapters.loss_fn(spec.kind)
     grad_fn = optim.gradient_accumulation(
-        lambda p, b, **kw: lfn(p, b, cfg, **kw), n_micro)
+        lambda p, b, **kw: lfn(p, b, cfg, **kw), n_micro,
+        adapters.unused_in_loss(spec.kind, cfg))
 
     def train_step(params, opt_state, batch, step, seed, **loss_kw):
         loss, grads = grad_fn(params, batch,

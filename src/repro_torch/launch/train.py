@@ -9,6 +9,8 @@
         --engine fused
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b \
         --layers 4 --batch 1 --seq 4096
+    PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-base \
+        --batch 32 --seq 448
     PYTHONPATH=src python -m repro_torch.launch.train --arch bilstm-ner \
         --batch 32 --seq 64 --dropout case3:0.5:pallas --engine fused \
         --ckpt-dir /path/to/ckpt --resume auto
@@ -21,8 +23,9 @@ kernels' plain versions). Without a GPU and without ``--device cpu`` it
 raises. Prints each step's loss and wall time (ms, ending in a device
 synchronisation) and, on the card, the run's peak device memory
 (``torch.cuda.max_memory_allocated``). Configs train in their own dtypes:
-the full xlstm-1.3b, qwen3-8b and mixtral-8x22b in bfloat16 (float32
-moments), the smoke configs and the paper's models in float32.
+the full transformers and xlstm-1.3b in bfloat16 (float32 moments), the
+smoke configs and the paper's models in float32. ``--seq`` of whisper-base
+is its decoder's token count; its encoder always takes ``enc_seq`` frames.
 
 Checkpoints as the reference trainer: with ``--ckpt-dir``, every
 ``--ckpt-every`` steps, at the last step, and at the step boundary after a
@@ -65,10 +68,14 @@ def _to_device(d: dict, device) -> dict:
 def make_batch_fn(kind: str, cfg, batch: int, seq: int, seed: int, device):
     """step -> the batch dict the reference trainer makes for ``kind``:
     lstm_lm, xlstm and transformer {"tokens", "labels"} (B, S) int32,
-    contiguous windows of a deterministic ``lm_stream``; nmt
-    ``nmt_pairs(batch, ..., max_len=seq, seed=seed + step)`` (src, tgt_in,
-    tgt_out and their bool masks); tagger ``ner_examples(batch, ...,
-    seq=seq, seed=seed + step)`` (words, chars, tags, mask)."""
+    contiguous windows of a deterministic ``lm_stream`` (an ``embeds_in``
+    transformer gets {"embeds" (B, S, d_model) float32, "labels"} and an
+    encoder-decoder also "frames" (B, enc_seq, d_model) float32 x 0.02,
+    each drawn by ``np.random.default_rng(seed + step)``, as the
+    reference's); nmt ``nmt_pairs(batch, ..., max_len=seq, seed=seed +
+    step)`` (src, tgt_in, tgt_out and their bool masks); tagger
+    ``ner_examples(batch, ..., seq=seq, seed=seed + step)`` (words, chars,
+    tags, mask)."""
     if kind == "nmt":
         return lambda step: _to_device(synthetic.nmt_pairs(
             batch, cfg.src_vocab, cfg.tgt_vocab, max_len=seq,
@@ -84,9 +91,19 @@ def make_batch_fn(kind: str, cfg, batch: int, seq: int, seed: int, device):
     def fn(step):
         n = batch * (seq + 1)
         off = (step * n) % (len(stream) - n - 1)
-        chunk = _to_device({"c": stream[off:off + n].reshape(batch, seq + 1)},
-                           device)["c"]
-        return {"tokens": chunk[:, :-1], "labels": chunk[:, 1:]}
+        d = {"c": stream[off:off + n].reshape(batch, seq + 1)}
+        if getattr(cfg, "embeds_in", False):
+            d["embeds"] = np.random.default_rng(seed + step).standard_normal(
+                (batch, seq, cfg.d_model), dtype=np.float32)
+        if getattr(cfg, "is_encoder_decoder", False):
+            d["frames"] = np.random.default_rng(seed + step).standard_normal(
+                (batch, cfg.enc_seq, cfg.d_model), dtype=np.float32) * 0.02
+        d = _to_device(d, device)
+        chunk = d.pop("c")
+        d["labels"] = chunk[:, 1:]
+        if "embeds" not in d:
+            d["tokens"] = chunk[:, :-1]
+        return d
     return fn
 
 

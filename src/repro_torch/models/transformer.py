@@ -1,25 +1,32 @@
-"""Decoder-only transformer — port of the training path of
-``repro.models.transformer`` (qwen3 / minitron / gemma / qwen1.5 style:
-GQA/MQA, qk-norm, QKV bias, SwiGLU / GeGLU, rope; mixtral / arctic style
-mixture-of-experts FFN).
+"""Config-driven transformer — port of ``repro.models.transformer``:
+qwen3 / minitron / gemma / qwen1.5 (dense, GQA/MQA, qk-norm, QKV bias,
+SwiGLU / GeGLU / ReLU^2 / GELU), mixtral / arctic (mixture-of-experts FFN,
+sliding window, dense-residual MoE), pixtral (embeddings in) and whisper
+(encoder-decoder, sinusoidal positions, cross-attention).
 
 Parameters are plain dicts of stacked ``(L, ...)`` tensors in the
 reference's tree, so they convert leaf for leaf; the layer stack is a
 Python loop with ``torch.utils.checkpoint`` per block for ``remat="full"``
-(the reference's ``lax.scan`` + ``jax.checkpoint``).
+(the reference's ``lax.scan`` + ``jax.checkpoint``) and a selective
+checkpoint for ``remat="dots"`` (the reference's
+``dots_with_no_batch_dims_saveable``: the outputs of the matrix products
+without a batch dimension, ``aten.mm`` and ``aten.addmm``, are saved, the
+rest is recomputed).
 
 The paper's Case-III structured dropout runs on the non-recurrent
 direction: the normalised residual-stream input of each sub-layer (sites
-``attn/nr`` and ``mlp/nr``, time axis = layer index) is consumed through
-``sdrop_matmul`` by the QKV and FFN-up projections, so their FP/BP/WG run at
-(1-p) FLOPs; ``mlp/ffn_inner`` is the optional structured drop over the FFN
-inner dimension. The masks of layer l are drawn before its checkpointed
-block, so the recompute sees the same kept blocks.
+``attn/nr`` and ``mlp/nr``, time axis = layer index; ``enc/attn/nr`` and
+``enc/mlp/nr`` in the encoder) is consumed through ``sdrop_matmul`` by the
+QKV and FFN-up projections, so their FP/BP/WG run at (1-p) FLOPs;
+``mlp/ffn_inner`` is the optional structured drop over the FFN inner
+dimension. The masks of layer l are drawn before its checkpointed block,
+so the recompute sees the same kept blocks.
 
 Attention: ``attn_impl="xla"`` (the config's default) is the chunked
 online-softmax attention in plain PyTorch (windowed span included);
 ``"flash"`` runs ``kernels/flash_attention.py`` (K9 forward, K10/K11
-backward on the card).
+backward on the card); ``"identity"`` is the reference's roofline probe,
+``q * repeat(v)`` with no mixing.
 
 MoE (``moe``, a ``MoEConfig``): ``moe_ffn`` is the reference's sort-based
 capacity routing (static shapes, per-shard with ``local_shards``), with the
@@ -28,18 +35,29 @@ three expert products picked by the port-only field ``moe_impl``: ``"xla"``
 capacity buffer, ``"pallas"`` runs K12 (``kernels/grouped_matmul.py``) on
 the flattened buffer, one row block of C rows per (shard, expert).
 
-Serving (``init_cache``, ``prefill``, ``decode_step``): the KV cache is a
-dict of stacked ``(L, B, Smax, KVeff, hd)`` tensors that ``prefill`` and
-``decode_step`` write IN PLACE, at positions held in device tensors (the
-reference's ``dynamic_update_slice``, clamped as it clamps), so a decode
-step runs inside a captured CUDA graph (``serving/engine.py``). Prefill
-attends within the fresh span through ``_attend`` (K9 under ``flash``);
-decode attends over the whole cache through ``decode_attention`` (plain
-PyTorch, float32 scores, as the reference's).
+Encoder-decoder (``is_encoder_decoder``): ``encode`` runs the encoder stack
+(non-causal, sinusoidal positions, its own final norm) over (B, T, D)
+frames; each decoder block has a cross-attention sub-layer (``lnx``,
+``xq``, ``xk``, ``xv``, ``xo``) between its self-attention and its FFN.
+As in the reference, the training and prefill forwards only use the
+encoder output to switch that sub-layer on: its keys and values are
+projected from the decoder's own normalised stream and attended
+non-causally through the chunked attention (never flash), so the loss
+does not depend on the encoder and its gradients are zero; decode attends
+over the cross K/V that ``prefill`` projects from the encoder output.
 
-Not ported (raise ``NotImplementedError``): the whisper
-encoder-decoder (``is_encoder_decoder``), embeddings in (``embeds_in``),
-``pos="sinusoidal"``, ``remat="dots"`` and ``attn_impl="identity"``.
+Serving (``init_cache``, ``prefill``, ``decode_step``): the KV cache is a
+dict of stacked ``(L, B, Smax, KVeff, hd)`` tensors (plus the cross K/V
+``xk`` / ``xv``, ``(L, B, enc_seq, KVeff, hd)``, of an encoder-decoder)
+that ``prefill`` and ``decode_step`` write IN PLACE, at positions held in
+device tensors (the reference's ``dynamic_update_slice``, clamped as it
+clamps), so a decode step runs inside a captured CUDA graph
+(``serving/engine.py``). Prefill attends within the fresh span through
+``_attend`` (K9 under ``flash``); decode attends over the whole cache
+through ``decode_attention`` (plain PyTorch, float32 scores, as the
+reference's). ``embeds_in`` models (pixtral) take (B, S, D) embeddings in
+place of token ids in ``forward``, ``loss_fn`` (``batch["embeds"]``),
+``prefill`` and ``decode_step``, and have no ``embed`` leaf.
 """
 from __future__ import annotations
 
@@ -49,7 +67,8 @@ from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.core import layers as L
 from repro_torch.core import metrics
@@ -85,38 +104,37 @@ class TransformerConfig:
     norm: str = "rmsnorm"        # rmsnorm | layernorm
     qk_norm: bool = False        # qwen3
     qkv_bias: bool = False       # qwen1.5
-    pos: str = "rope"            # rope | none (sinusoidal not ported)
+    pos: str = "rope"            # rope | sinusoidal | none
     rope_theta: float = 10000.0
     window: Optional[int] = None          # sliding-window attention
     moe: Optional[MoEConfig] = None
     tie_embeddings: bool = False
     scale_embed: bool = False    # gemma: embed * sqrt(d_model)
-    max_seq: int = 4096
-    is_encoder_decoder: bool = False      # not ported
+    max_seq: int = 4096          # positional table length (sinusoidal)
+    # enc-dec (whisper)
+    is_encoder_decoder: bool = False
     enc_layers: int = 0
-    enc_seq: int = 1500
-    embeds_in: bool = False               # not ported
+    enc_seq: int = 1500          # audio-frame count (frontend stub)
+    # frontend stub: inputs are precomputed embeddings, not token ids (pixtral)
+    embeds_in: bool = False
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.float32
-    attn_impl: str = "xla"       # xla (chunked online softmax) | flash (kernels)
+    attn_impl: str = "xla"       # xla (chunked online softmax) | flash (kernels) | identity
     q_chunk: int = 512
     kv_chunk: int = 512
     loss_chunks: int = 8
-    remat: str = "full"          # full | none ("dots" not ported)
+    remat: str = "full"          # full | dots | none
     plan: DropoutPlan = DropoutPlan()
     kv_repeat: int = 1           # replicate kv heads (as the reference)
     moe_impl: str = "xla"        # port only: xla (torch.matmul) | pallas (K12)
 
     def __post_init__(self):
-        for field, bad in (("is_encoder_decoder", self.is_encoder_decoder),
-                           ("embeds_in", self.embeds_in),
-                           ("pos='sinusoidal'", self.pos == "sinusoidal"),
-                           ("remat='dots'", self.remat == "dots")):
-            if bad:
-                raise NotImplementedError(
-                    f"TransformerConfig {field} is not ported (ROADMAP A8)")
-        if self.attn_impl not in ("xla", "flash"):
-            raise NotImplementedError(f"attn_impl={self.attn_impl!r} is not ported")
+        for field, allowed in (("attn_impl", ("xla", "flash", "identity")),
+                               ("remat", ("full", "dots", "none")),
+                               ("pos", ("rope", "sinusoidal", "none"))):
+            if getattr(self, field) not in allowed:
+                raise ValueError(f"{field}={getattr(self, field)!r}: expected "
+                                 f"one of {allowed}")
         if self.moe_impl not in ("xla", "pallas"):
             raise ValueError(f"moe_impl={self.moe_impl!r}: expected xla or pallas")
 
@@ -149,6 +167,24 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
                      dim=-1).to(x.dtype)
+
+
+def sinusoidal(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """Rows ``positions`` (any shape, integer) of the reference's
+    ``sinusoidal_table``, float32 (..., dim): sin at the even columns, cos
+    at the odd ones, of ``pos * exp(i * -log(10000) / dim)`` for i = 0, 2,
+    ... The same float32 operations as the table, one row at a time, so a
+    decode step at position ``pos`` builds one row, not ``max_seq``."""
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32,
+                                 device=positions.device)
+                    * (-math.log(10000.0) / dim))
+    ang = positions.float()[..., None] * div
+    return torch.stack([torch.sin(ang), torch.cos(ang)], -1).flatten(-2)
+
+
+def sinusoidal_table(max_len: int, dim: int, device="cpu") -> torch.Tensor:
+    """(max_len, dim) float32: the reference's ``sinusoidal_table``."""
+    return sinusoidal(torch.arange(max_len, device=device), dim)
 
 
 def norm_apply(kind, g, b, x, eps=1e-6):
@@ -278,9 +314,10 @@ def _dense_init(gen, shape, cfg, device, scale=None):
 
 
 def init_block_params(gen, cfg: TransformerConfig, num_layers: int,
-                      device="cpu"):
-    """Stacked (L, ...) block params: attention, then the dense FFN or the
-    MoE router, experts and optional dense-residual FFN."""
+                      device="cpu", cross_attn: bool = False):
+    """Stacked (L, ...) block params: attention, the cross-attention of a
+    decoder block (``cross_attn``), then the dense FFN or the MoE router,
+    experts and optional dense-residual FFN."""
     D, H, KV, hd, F_ = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff
     L = num_layers
     pd = dict(dtype=cfg.param_dtype, device=device)
@@ -303,6 +340,14 @@ def init_block_params(gen, cfg: TransformerConfig, num_layers: int,
     if cfg.qk_norm:
         p["qn"] = torch.ones((L, hd), **pd)
         p["kn"] = torch.ones((L, hd), **pd)
+    if cross_attn:
+        p["lnx"] = {"g": torch.ones((L, D), **pd)}
+        if cfg.norm == "layernorm":
+            p["lnx"]["b"] = torch.zeros((L, D), **pd)
+        p["xq"] = w((L, D, H * hd))
+        p["xk"] = w((L, D, KV * hd))
+        p["xv"] = w((L, D, KV * hd))
+        p["xo"] = w((L, H * hd, D))
     if cfg.moe is not None:
         E = cfg.moe.num_experts
         p["router"] = w((L, D, E))
@@ -323,11 +368,18 @@ def init_block_params(gen, cfg: TransformerConfig, num_layers: int,
 
 
 def init_params(gen: torch.Generator, cfg: TransformerConfig, *, device="cpu"):
-    p = {"blocks": init_block_params(gen, cfg, cfg.num_layers, device),
-         "ln_f": init_norm(cfg, cfg.d_model, device),
-         "embed": _dense_init(gen, (cfg.vocab, cfg.d_model), cfg, device, 0.02)}
+    """The reference's tree: blocks, ln_f, embed (not with ``embeds_in``),
+    lm_head (untied), enc_blocks and enc_ln_f (encoder-decoder)."""
+    p = {"blocks": init_block_params(gen, cfg, cfg.num_layers, device,
+                                     cross_attn=cfg.is_encoder_decoder),
+         "ln_f": init_norm(cfg, cfg.d_model, device)}
+    if not cfg.embeds_in:
+        p["embed"] = _dense_init(gen, (cfg.vocab, cfg.d_model), cfg, device, 0.02)
     if not cfg.tie_embeddings:
         p["lm_head"] = _dense_init(gen, (cfg.d_model, cfg.vocab), cfg, device)
+    if cfg.is_encoder_decoder:
+        p["enc_blocks"] = init_block_params(gen, cfg, cfg.enc_layers, device)
+        p["enc_ln_f"] = init_norm(cfg, cfg.d_model, device)
     return p
 
 
@@ -492,12 +544,16 @@ def _mlp(pl, h, cfg, drop_state, inner=None, residual=None):
     return (_act(cfg, gt, up) @ pl["w_down"]).to(h.dtype)
 
 
-def _qkv(pl, h, cfg, drop_state, positions):
+def _qkv(pl, h, cfg, drop_state, positions, prefix="w"):
+    """q (B, S, H, hd), k, v (B, S, KVeff, hd) of h; ``prefix="x"`` takes the
+    cross-attention weights (``xq``, ``xk``, ``xv``: no bias, no dropout,
+    no positions), as the reference's ``_qkv(..., prefix="x")``."""
     B, S, _ = h.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = _proj_sdrop(h, pl["wq"], pl.get("bq"), drop_state).reshape(B, S, H, hd)
-    k = _proj_sdrop(h, pl["wk"], pl.get("bk"), drop_state).reshape(B, S, KV, hd)
-    v = _proj_sdrop(h, pl["wv"], pl.get("bv"), drop_state).reshape(B, S, KV, hd)
+    bias = (lambda n: pl.get(n)) if prefix == "w" else (lambda n: None)
+    q = _proj_sdrop(h, pl[prefix + "q"], bias("bq"), drop_state).reshape(B, S, H, hd)
+    k = _proj_sdrop(h, pl[prefix + "k"], bias("bk"), drop_state).reshape(B, S, KV, hd)
+    v = _proj_sdrop(h, pl[prefix + "v"], bias("bv"), drop_state).reshape(B, S, KV, hd)
     if cfg.qk_norm:             # RMSNorm over head_dim, before rope
         q = norm_apply("rmsnorm", pl["qn"], None, q)
         k = norm_apply("rmsnorm", pl["kn"], None, k)
@@ -514,6 +570,9 @@ def _attend(q, k, v, cfg, causal):
     if cfg.attn_impl == "flash":
         return flash_attention(q, k, v, causal, cfg.window, cfg.q_chunk,
                                cfg.kv_chunk)
+    if cfg.attn_impl == "identity":
+        # the reference's roofline probe: no mixing across positions
+        return q * v.repeat_interleave(q.shape[2] // k.shape[2], dim=2)
     return chunked_attention(q, k, v, causal=causal, window=cfg.window,
                              q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
 
@@ -531,9 +590,29 @@ def _write_kv(entry, k, v, pos):
     entry["v"].index_copy_(1, idx, v.to(entry["v"].dtype))
 
 
+def _cross_attention(pl, x, cfg, memory, cache):
+    """x plus the cross-attention sub-layer of a decoder block. With
+    ``memory`` (training, prefill) its q, k and v are projected from the
+    normalised x itself and attended non-causally by the chunked attention,
+    as the reference's ``block_apply`` (the encoder output only switches the
+    sub-layer on); with a decode ``cache`` holding the cross K/V (``xk``,
+    ``xv``, (B, T, KVeff, hd)) the token's q attends over all T of them."""
+    B, S, _ = x.shape
+    hx = _norm(cfg, pl["lnx"], x)
+    if memory is not None:
+        qx, kx, vx = _qkv(pl, hx, cfg, None, None, prefix="x")
+        ax = chunked_attention(qx, kx, vx, causal=False, window=None,
+                               q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+    else:
+        qx = (hx @ pl["xq"]).to(hx.dtype).reshape(B, S, cfg.n_heads, cfg.hd)
+        ax = decode_attention(qx, cache["xk"], cache["xv"],
+                              cache["xk"].shape[1] - 1, window=None)
+    return _residual_mm(x, ax.reshape(B, S, cfg.n_heads * cfg.hd), pl["xo"])
+
+
 def block_apply(pl, x, cfg: TransformerConfig, *, causal: bool,
                 drop_states=(None, None, None), positions=None, cache=None,
-                cache_pos=None):
+                cache_pos=None, memory=None):
     """One transformer block; ``drop_states`` = (attention-in, mlp-in,
     FFN-inner) DropoutStates or None. With ``moe`` the FFN is ``moe_ffn``
     (plus the dense-residual FFN, which consumes the mlp-in state, when
@@ -542,7 +621,9 @@ def block_apply(pl, x, cfg: TransformerConfig, *, causal: bool,
     With ``cache`` (one layer's {"k", "v"}, (B, Smax, KVeff, hd)) the
     block's K and V are written into it in place at ``cache_pos`` (a 0-dim
     device tensor); a single token (S == 1) then attends over the cache,
-    a prefill span attends within itself through ``_attend``."""
+    a prefill span attends within itself through ``_attend``. A decoder
+    block of an encoder-decoder (``xq`` in ``pl``) runs its cross-attention
+    when given ``memory`` or a cache with ``xk`` (``_cross_attention``)."""
     B, S, D = x.shape
     d_attn, d_mlp, inner = drop_states
     h = _norm(cfg, pl["ln1"], x)
@@ -556,6 +637,8 @@ def block_apply(pl, x, cfg: TransformerConfig, *, causal: bool,
         attn = _attend(q, k, v, cfg, causal)
     attn = attn.reshape(B, S, cfg.n_heads * cfg.hd)
     x = _residual_mm(x, attn, pl["wo"])
+    if "xq" in pl and (memory is not None or (cache is not None and "xk" in cache)):
+        x = _cross_attention(pl, x, cfg, memory, cache)
     h2 = _norm(cfg, pl["ln2"], x)
     if cfg.moe is None:
         return _mlp(pl, h2, cfg, d_mlp, inner, residual=x)
@@ -571,44 +654,77 @@ def block_apply(pl, x, cfg: TransformerConfig, *, causal: bool,
 # ---------------------------------------------------------------------------
 
 
-def _layer_drop_states(ctx, cfg: TransformerConfig, layer_idx: int, bs_shape):
+def _layer_drop_states(ctx, cfg: TransformerConfig, layer_idx: int, bs_shape,
+                       prefix: str = ""):
     """(attention-in, mlp-in, FFN-inner) states of one layer: NR states
     over d_model (kept-block ids, or a per-token mask for the random
     baseline) and the FFN-inner kept blocks over d_ff when that site is
     structured. The layer index is the time axis: PER_STEP specs re-sample
     per layer, FIXED ones share one mask across the depth. A MoE layer draws
     the mlp-in state even when nothing consumes it (no ``dense_ff``), as the
-    reference, and never an FFN-inner one."""
+    reference, and never an FFN-inner one. ``prefix`` ("enc/") separates the
+    encoder stack's streams from the decoder's."""
     if ctx is None or ctx.deterministic:
         return (None, None, None)
-    inner = fit_block(ctx.spec("mlp/ffn_inner"), cfg.d_ff)
-    if not (ctx.spec("attn/nr").active or ctx.spec("mlp/nr").active
-            or inner.structured):
+    inner = fit_block(ctx.spec(prefix + "mlp/ffn_inner"), cfg.d_ff)
+    if not (ctx.spec(prefix + "attn/nr").active
+            or ctx.spec(prefix + "mlp/nr").active or inner.structured):
         return (None, None, None)
-    st_a = ctx.state("attn/nr", bs_shape, cfg.d_model, t=layer_idx)
-    st_m = ctx.state("mlp/nr", bs_shape, cfg.d_model, t=layer_idx)
-    st_i = (ctx.state("mlp/ffn_inner", bs_shape, cfg.d_ff, t=layer_idx)
+    st_a = ctx.state(prefix + "attn/nr", bs_shape, cfg.d_model, t=layer_idx)
+    st_m = ctx.state(prefix + "mlp/nr", bs_shape, cfg.d_model, t=layer_idx)
+    st_i = (ctx.state(prefix + "mlp/ffn_inner", bs_shape, cfg.d_ff, t=layer_idx)
             if inner.structured and cfg.moe is None else None)
     return (st_a, st_m, st_i)
 
 
 def dropout_sites(cfg: TransformerConfig, batch: int, seq: int):
     """Every dropout application a forward makes, as (name, "state_t",
-    layer index, batch, dim)."""
+    layer index, batch, dim): the encoder's (``enc/`` sites over (batch,
+    enc_seq)) first, then the decoder's."""
     inner = (fit_block(cfg.plan.spec("mlp/ffn_inner"), cfg.d_ff).structured
              and cfg.moe is None)
+    stacks = [("", cfg.num_layers, seq)]
+    if cfg.is_encoder_decoder:
+        stacks.insert(0, ("enc/", cfg.enc_layers, cfg.enc_seq))
     sites = []
-    for li in range(cfg.num_layers):
-        sites.append(("attn/nr", "state_t", li, (batch, seq), cfg.d_model))
-        sites.append(("mlp/nr", "state_t", li, (batch, seq), cfg.d_model))
-        if inner:
-            sites.append(("mlp/ffn_inner", "state_t", li, (batch, seq), cfg.d_ff))
+    for pre, layers, s in stacks:
+        for li in range(layers):
+            sites.append((pre + "attn/nr", "state_t", li, (batch, s), cfg.d_model))
+            sites.append((pre + "mlp/nr", "state_t", li, (batch, s), cfg.d_model))
+            if inner:
+                sites.append((pre + "mlp/ffn_inner", "state_t", li, (batch, s),
+                              cfg.d_ff))
     return sites
 
 
 # ---------------------------------------------------------------------------
 # Full model
 # ---------------------------------------------------------------------------
+
+# remat="dots": the outputs of the matrix products without a batch dimension
+# are saved (the reference's dots_with_no_batch_dims_saveable; attention's
+# and the experts' batched products are bmm, recomputed)
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def _remat(body, x, cfg):
+    """``body(x)`` under the config's rematerialisation: recomputed whole in
+    the backward ("full"), recomputed but for its saved matrix products
+    ("dots"), or kept ("none", or with no autograd)."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return body(x)
+    if cfg.remat == "dots":
+        return checkpoint(body, x, use_reentrant=False, context_fn=_dots_context)
+    return checkpoint(body, x, use_reentrant=False)
 
 
 def _embed_tokens(params, tokens, cfg):
@@ -618,26 +734,56 @@ def _embed_tokens(params, tokens, cfg):
     return x
 
 
-def _run_stack(blocks, x, cfg, *, causal, positions, ctx=None):
-    """The layer loop; each block recomputed in the backward when
-    ``remat="full"``. Layer l's masks are drawn outside its checkpoint."""
-    for li in range(cfg.num_layers):
+def _inputs(params, inputs, cfg):
+    """The residual stream's input: (B, S, D) embeddings as they are
+    (``embeds_in``), or the embedded token ids (B, S)."""
+    if cfg.embeds_in:
+        return inputs.to(cfg.compute_dtype)
+    return _embed_tokens(params, inputs, cfg)
+
+
+def _run_stack(blocks, x, cfg, *, causal, positions, ctx=None, prefix="",
+               num_layers=None, memory=None):
+    """The layer loop, each block under ``_remat``. Layer l's masks are
+    drawn outside its checkpoint."""
+    for li in range(num_layers or cfg.num_layers):
         pl = tree_map(lambda a: a[li], blocks)
-        ds = _layer_drop_states(ctx, cfg, li, tuple(x.shape[:2]))
+        ds = _layer_drop_states(ctx, cfg, li, tuple(x.shape[:2]), prefix)
         body = lambda x_, pl=pl, ds=ds: block_apply(
-            pl, x_, cfg, causal=causal, drop_states=ds, positions=positions)
-        x = (checkpoint(body, x, use_reentrant=False)
-             if cfg.remat == "full" and torch.is_grad_enabled() else body(x))
+            pl, x_, cfg, causal=causal, drop_states=ds, positions=positions,
+            memory=memory)
+        x = _remat(body, x, cfg)
     return x
 
 
-def forward(params, tokens, cfg: TransformerConfig, *, ctx=None):
-    """tokens (B, S) -> final-norm features (B, S, D)."""
-    x = _embed_tokens(params, tokens, cfg)
+def encode(params, frames, cfg: TransformerConfig, *, ctx=None):
+    """The encoder: frames (B, T, D) from the frontend stub, plus sinusoidal
+    positions, through the encoder stack (non-causal, sites ``enc/``) and
+    its final norm -> (B, T, D)."""
+    pos = sinusoidal_table(frames.shape[1], cfg.d_model, frames.device)
+    x = frames.to(cfg.compute_dtype) + pos.to(cfg.compute_dtype)[None]
+    x = _run_stack(params["enc_blocks"], x, cfg, causal=False, positions=None,
+                   ctx=ctx, prefix="enc/", num_layers=cfg.enc_layers)
+    return _norm(cfg, params["enc_ln_f"], x)
+
+
+def _positions(x, cfg):
+    """x plus the sinusoidal table's first S rows (``pos="sinusoidal"``,
+    no rope positions), or x and the rope positions 0 .. S-1."""
     B, S = x.shape[:2]
-    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    if cfg.pos == "sinusoidal":
+        tab = sinusoidal_table(S, cfg.d_model, x.device)
+        return x + tab.to(x.dtype)[None], None
+    return x, torch.arange(S, device=x.device)[None].expand(B, S)
+
+
+def forward(params, inputs, cfg: TransformerConfig, *, ctx=None, memory=None):
+    """tokens (B, S) or embeddings (B, S, D) (``embeds_in``) -> final-norm
+    features (B, S, D); ``memory`` (the encoder output) switches on the
+    decoder blocks' cross-attention."""
+    x, positions = _positions(_inputs(params, inputs, cfg), cfg)
     x = _run_stack(params["blocks"], x, cfg, causal=True, positions=positions,
-                   ctx=ctx)
+                   ctx=ctx, memory=memory)
     return _norm(cfg, params["ln_f"], x)
 
 
@@ -646,13 +792,30 @@ def lm_logits(params, feats, cfg):
     return feats.float() @ w.float()
 
 
+def unused_in_loss(cfg: TransformerConfig) -> tuple:
+    """The parameter subtrees ``loss_fn`` may not read, as paths: an
+    encoder-decoder's encoder, as in the reference, whose decoder
+    cross-attention projects its keys and values from the decoder's own
+    stream in training (the encoder output only switches it on); and under
+    ``attn_impl="identity"`` (q times v) the key projections."""
+    out = ("enc_blocks", "enc_ln_f") if cfg.is_encoder_decoder else ()
+    if cfg.attn_impl == "identity":
+        out += ("blocks/wk", "blocks/bk", "blocks/xk", "enc_blocks/wk",
+                "enc_blocks/bk")
+    return out
+
+
 def loss_fn(params, batch, cfg: TransformerConfig, *, seed: Optional[int] = None,
             step: int = 0, injected=None):
-    """Mean next-token NLL. ``seed=None`` runs without dropout; ``injected``
-    serves precomputed masks per site (core/dropout_plan.py)."""
-    ctx = cfg.plan.bind(seed, step, device=params["embed"].device,
+    """Mean next-token NLL over batch {"tokens" | "embeds", "labels",
+    ["frames"]}. ``seed=None`` runs without dropout; ``injected`` serves
+    precomputed masks per site (core/dropout_plan.py)."""
+    ctx = cfg.plan.bind(seed, step, device=params["ln_f"]["g"].device,
                         injected=injected)
-    feats = forward(params, batch["tokens"], cfg, ctx=ctx)
+    memory = (encode(params, batch["frames"], cfg, ctx=ctx)
+              if cfg.is_encoder_decoder else None)
+    inputs = batch["embeds"] if cfg.embeds_in else batch["tokens"]
+    feats = forward(params, inputs, cfg, ctx=ctx, memory=memory)
     return metrics.lm_loss(lambda f: lm_logits(params, f, cfg), feats,
                            batch["labels"], cfg.loss_chunks)
 
@@ -664,43 +827,74 @@ def loss_fn(params, batch, cfg: TransformerConfig, *, seed: Optional[int] = None
 
 def init_cache(cfg: TransformerConfig, batch: int, max_seq: int, dtype=None,
                *, device="cpu"):
-    """KV cache: {"k", "v"} stacked (L, B, Smax, KVeff, hd), zeros in
-    ``compute_dtype``."""
+    """KV cache: {"k", "v"} stacked (L, B, Smax, KVeff, hd), and for an
+    encoder-decoder the cross K/V {"xk", "xv"} (L, B, enc_seq, KVeff, hd),
+    zeros in ``compute_dtype``."""
     dtype = dtype or cfg.compute_dtype
     shape = (cfg.num_layers, batch, max_seq, cfg.n_kv_eff, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    c = {"k": torch.zeros(shape, dtype=dtype, device=device),
+         "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if cfg.is_encoder_decoder:
+        xshape = (cfg.num_layers, batch, cfg.enc_seq, cfg.n_kv_eff, cfg.hd)
+        c["xk"] = torch.zeros(xshape, dtype=dtype, device=device)
+        c["xv"] = torch.zeros(xshape, dtype=dtype, device=device)
+    return c
 
 
-def _serve_stack(params, x, cfg, cache, pos, positions, causal):
+def _serve_stack(params, x, cfg, cache, pos, positions, memory=None):
     for li in range(cfg.num_layers):
         pl = tree_map(lambda a: a[li], params["blocks"])
-        entry = {"k": cache["k"][li], "v": cache["v"][li]}
-        x = block_apply(pl, x, cfg, causal=causal, positions=positions,
-                        cache=entry, cache_pos=pos)
+        entry = {k: v[li] for k, v in cache.items()}
+        x = block_apply(pl, x, cfg, causal=True, positions=positions,
+                        cache=entry, cache_pos=pos, memory=memory)
     return _norm(cfg, params["ln_f"], x)
 
 
-def prefill(params, tokens, cfg: TransformerConfig, cache):
-    """Forward pass over tokens (B, S) that also writes their K/V into
-    ``cache`` at positions 0 .. S-1 (in place; attention within the span
-    through ``_attend``, so K9 under ``flash``). Returns (final-norm
-    features (B, S, D), cache)."""
-    x = _embed_tokens(params, tokens, cfg)
-    B, S = x.shape[:2]
-    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+def _write_cross_kv(params, cfg, cache, memory):
+    """The cross K/V of every decoder layer, projected from the encoder
+    output ``memory`` (B, T, D), into ``cache["xk"]`` / ``cache["xv"]`` in
+    place (the decode graphs hold their addresses)."""
+    B, T, _ = memory.shape
+    if T != cache["xk"].shape[2]:
+        raise ValueError(f"{T} encoder frames do not fit a cross cache of "
+                         f"{cache['xk'].shape[2]} (enc_seq)")
+    blocks = params["blocks"]
+    for li in range(cfg.num_layers):
+        for name in ("xk", "xv"):
+            kv = (memory @ blocks[name][li]).reshape(B, T, cfg.n_kv_heads, cfg.hd)
+            if cfg.kv_repeat > 1:
+                kv = kv.repeat_interleave(cfg.kv_repeat, dim=2)
+            cache[name][li].copy_(kv)
+
+
+def prefill(params, inputs, cfg: TransformerConfig, cache, *, memory=None):
+    """Forward pass over tokens (B, S) (or embeddings (B, S, D) with
+    ``embeds_in``) that also writes their K/V into ``cache`` at positions
+    0 .. S-1 (in place; attention within the span through ``_attend``, so
+    K9 under ``flash``). With ``memory`` (an encoder-decoder's encoder
+    output) the cross K/V are written too. Returns (final-norm features
+    (B, S, D), cache)."""
+    x, positions = _positions(_inputs(params, inputs, cfg), cfg)
+    if memory is not None:
+        _write_cross_kv(params, cfg, cache, memory)
     pos = torch.zeros((), dtype=torch.long, device=x.device)
-    return _serve_stack(params, x, cfg, cache, pos, positions, True), cache
+    return _serve_stack(params, x, cfg, cache, pos, positions, memory), cache
 
 
 def decode_step(params, cfg: TransformerConfig, cache, tokens, pos):
-    """One decode step: tokens (B, 1) at position ``pos`` (an int or a 0-dim
-    integer tensor, one position for every row). Writes K/V into ``cache``
-    in place and returns (logits (B, 1, V) float32, cache). With a tensor
-    ``pos`` nothing reads back to the host, so the step can be captured in
-    a CUDA graph."""
-    x = _embed_tokens(params, tokens, cfg)
+    """One decode step: tokens (B, 1) (or embeddings (B, 1, D) with
+    ``embeds_in``) at position ``pos`` (an int or a 0-dim integer tensor,
+    one position for every row). Writes K/V into ``cache`` in place and
+    returns (logits (B, 1, V) float32, cache). With a tensor ``pos``
+    nothing reads back to the host, so the step can be captured in a CUDA
+    graph; a sinusoidal model adds the one row ``pos`` of the table (the
+    reference's row of a ``max_seq`` table, clamped as its slice)."""
+    x = _inputs(params, tokens, cfg)
     pos = torch.as_tensor(pos, device=x.device).reshape(()).long()
-    positions = pos.expand(x.shape[0], 1)
-    feats = _serve_stack(params, x, cfg, cache, pos, positions, True)
+    if cfg.pos == "sinusoidal":
+        row = sinusoidal(pos.clamp(0, cfg.max_seq - 1), cfg.d_model)
+        x, positions = x + row.to(x.dtype), None
+    else:
+        positions = pos.expand(x.shape[0], 1)
+    feats = _serve_stack(params, x, cfg, cache, pos, positions)
     return lm_logits(params, feats, cfg), cache

@@ -15,20 +15,46 @@ import torch
 from repro_torch.optim.optimizers import tree_leaves, tree_map
 
 
-def value_and_grad(loss_fn):
-    """(params, batch, **kw) -> (loss, grads) with grads in params' tree."""
+def _paths(tree, pre=""):
+    """The leaves' paths ("blocks/wk"), in ``tree_leaves`` order."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _paths(tree[k], f"{pre}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, x in enumerate(tree) for p in _paths(x, f"{pre}{i}/")]
+    return [pre[:-1]]
+
+
+def value_and_grad(loss_fn, unused=()):
+    """(params, batch, **kw) -> (loss, grads) with grads in params' tree.
+    The subtrees whose paths ("enc_blocks", "blocks/wk") ``unused`` names
+    may go unread by the loss (the encoder of the reference's
+    encoder-decoder, whose training loss does not depend on it): their
+    unread leaves get zeros, as JAX's grad gives them. Any other leaf the
+    loss does not read raises."""
     def run(params, batch, **kw):
         req = tree_map(lambda p: p.detach().requires_grad_(True), params)
         loss = loss_fn(req, batch, **kw)
-        leaves = torch.autograd.grad(loss, tree_leaves(req))
-        it = iter(leaves)
+        leaves = tree_leaves(req)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=bool(unused))
+        if unused:
+            bad = [p for p, g in zip(_paths(req), grads) if g is None and not any(
+                p == u or p.startswith(u + "/") for u in unused)]
+            if bad:
+                raise RuntimeError(f"the loss does not read {bad}, and only "
+                                   f"{sorted(unused)} may go unread")
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(leaves, grads)]
+        it = iter(grads)
         return loss.detach(), tree_map(lambda _: next(it), req)
     return run
 
 
-def gradient_accumulation(loss_fn, n_micro: int):
-    """loss_fn(params, batch, **kw) -> scalar. Returns a (loss, grads) fn."""
-    simple = value_and_grad(loss_fn)
+def gradient_accumulation(loss_fn, n_micro: int, unused=()):
+    """loss_fn(params, batch, **kw) -> scalar. Returns a (loss, grads) fn;
+    ``unused`` as ``value_and_grad``'s."""
+    simple = value_and_grad(loss_fn, unused)
     if n_micro <= 1:
         return simple
 

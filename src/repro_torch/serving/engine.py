@@ -19,7 +19,10 @@
 Every decode buffer (the state, ``tok``, ``pos``, ``gen_left``, ``active``)
 is allocated once and updated in place, so the graphs' addresses stay
 valid: ``reset`` refills them, and a state handed in by rebinding
-``engine.state`` is copied into them before the next step. Sampled
+``engine.state`` is copied into them before the next step. An
+encoder-decoder's state holds its cross K/V (``xk``, ``xv``) among these
+buffers: ``prefill`` encodes the batch's frames into them in place, and
+every decode step reads them. Sampled
 decoding draws from the engine's own generator (registered with each
 graph, so replays advance it); greedy decoding draws nothing.
 
@@ -142,8 +145,9 @@ class DecodeEngine:
     @torch.no_grad()
     def prefill(self, batch) -> None:
         """Native prefill of every slot from ``batch``: {"tokens"} for the
-        transformer and xlstm, the encoder batch {"src", "tgt_in",
-        ["src_mask"]} for NMT."""
+        transformer and xlstm ({"embeds"} for an embeddings-in transformer,
+        {"tokens", "frames"} for an encoder-decoder), the encoder batch
+        {"src", "tgt_in", ["src_mask"]} for NMT."""
         self._own_state()
         adapters.prefill_fn(self.spec)(self.params, batch, self.cfg, self.state)
 

@@ -7,7 +7,9 @@ Two ways to turn a prompt into decode state:
     through ``adapters.prefill_fn`` (the transformer fills its KV cache in
     one attention pass, K9 under ``attn_impl="flash"``; xlstm runs its
     block stack and keeps every final state). Every row must be a
-    full-length prompt.
+    full-length prompt. An encoder-decoder's or an embeddings-in
+    transformer's prefill batch is not a token prompt: it goes through
+    ``DecodeEngine.prefill`` (frames, embeddings), as ``launch/serve.py``.
   * ``replay_prefill``: ``decode_step`` over the (padded) prompt tokens
     with per-row lengths, so a RAGGED group prefills in one batched pass:
     each row's final state is the one after its own last token, as a

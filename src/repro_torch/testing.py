@@ -84,17 +84,21 @@ def require_cuda() -> torch.device:
 
 
 def serve_rectangular(spec, cfg, params, prompt, loop="device", n=10, *,
-                      batch=None, max_seq=32, **kw):
+                      batch=None, max_seq=32, frames=None, **kw):
     """Greedy (or ``kw``-configured) continuation of a rectangular prompt
     (B, L) on a fresh ``DecodeEngine``: NMT prefills the encoder batch
-    {"src": prompt, "tgt_in": prompt[:, :-1]}, the others ``prompt_prefill``.
+    {"src": prompt, "tgt_in": prompt[:, :-1]}, an encoder-decoder
+    transformer {"tokens": prompt[:, :-1], "frames": frames} (B, enc_seq,
+    D), the others ``prompt_prefill``.
     ``loop`` "device" is ``generate`` (chunked; CUDA graphs on the card),
     "python" ``generate_python``. Returns (B, n) numpy tokens."""
     from repro_torch.serving import DecodeEngine, prompt_prefill
     eng = DecodeEngine(spec=spec, cfg=cfg, params=params, max_seq=max_seq,
                        batch=batch or prompt.shape[0], **kw)
-    if spec.kind == "nmt":
-        eng.prefill({"src": prompt, "tgt_in": prompt[:, :-1]})
+    if spec.kind == "nmt" or frames is not None:
+        eng.prefill({"src": prompt, "tgt_in": prompt[:, :-1]}
+                    if spec.kind == "nmt" else
+                    {"tokens": prompt[:, :-1], "frames": frames})
         tok0, pos0 = prompt[:, -1:], prompt.shape[1] - 1
     else:
         eng.state, tok0, pos0 = prompt_prefill(spec, cfg, params, prompt,

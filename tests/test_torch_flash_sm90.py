@@ -15,7 +15,9 @@ the reference's bfloat16 tolerance 3e-2 x max(1, |ref|).
 The ``cuda``-marked cases hold the new kernels to the plain versions on
 the card (3e-2 x max(1, |ref|)) and to float64 (10 x the bfloat16 plain
 version's distance + 1e-6), to their own bits on a second launch, and on
-strided views that need no copy; they skip here. This module imports JAX
+strided views that need no copy, and bfloat16 K9-K11 at whisper-base's
+and gemma-2b's attention shapes (the latter on the tf32 route) the same
+way; they skip here. This module imports JAX
 only inside the reference test, so the card (which has no JAX) runs the
 rest: ``PYTHONPATH=src python -m pytest -q --noconftest -m cuda
 tests/test_torch_flash_sm90.py``.
@@ -335,3 +337,70 @@ def test_cuda_kernels_read_strided_views(d):
     _close(fa.flash_dq_cuda(*args), fa.flash_dq_plain(*args))
     for got, want in zip(fa.flash_dkv_cuda(*args), fa.flash_dkv_plain(*args)):
         _close(got, want)
+
+
+# whisper-base's attention (8 heads of 64, the encoder non-causal over
+# sequences that are no multiple of the tile, up to its 1500 frames, the
+# decoder causal over its 448 tokens: the wgmma route) and gemma-2b's (8
+# query heads over its one kv head repeated 8 times, head_dim 256, S 4096:
+# bfloat16 on the tf32 route), and their serving prefills (gemma-2b 8 x 511
+# prompt tokens, whisper-base's decoder 8 x 3)
+MODEL_CASES = [
+    # B, S, Hq, Hkv, d, causal, route
+    (1, 100, 8, 8, 64, False, "wgmma"),
+    (1, 1500, 8, 8, 64, False, "wgmma"),
+    (2, 448, 8, 8, 64, True, "wgmma"),
+    (1, 4096, 8, 8, 256, True, "tf32"),
+    (8, 511, 8, 8, 256, True, "tf32"),
+    (8, 3, 8, 8, 64, True, "wgmma"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,Hq,Hkv,d,causal,route", MODEL_CASES)
+def test_cuda_model_shapes(B, S, Hq, Hkv, d, causal, route):
+    """At whisper-base's and gemma-2b's shapes: every pass on its route; o,
+    lse, dq, dk and dv within 3e-2 x max(1, |ref|) of the plain version and,
+    over every (batch, kv head) group, within 10 x the bfloat16 plain
+    version's distance to float64 + 1e-6 (the backward on the float64
+    forward's lse and delta); a second launch gives the same bits."""
+    dev = require_cuda()
+    q, k, v, do = _inputs(dev, B, S, S, Hq, Hkv, d, seed=6)
+    before = dict(fa.LAUNCHES_BY_ROUTE)
+    o, lse = fa.flash_fwd_cuda(q, k, v, causal, None)
+    o_p, lse_p = fa.attention_plain(q, k, v, causal, None)
+    _close(o, o_p)
+    _close(lse, lse_p)
+    G = Hq // Hkv
+    lse64 = torch.empty(B, Hq, S, device=dev)
+    delta64 = torch.empty_like(lse64)
+    rel = lambda x, w: float((x.double() - w).abs().max()) / max(1.0, float(w.abs().max()))
+    groups = []
+    for b in range(B):
+        for hk in range(Hkv):
+            hs = slice(hk * G, (hk + 1) * G)
+            fo, fl = fa.forward_float64(q, k, v, causal, None, b, hk)
+            l64, d64, dq64, dk64, dv64 = fa.backward_float64(q, k, v, do, causal, None, b, hk)
+            lse64[b, hs], delta64[b, hs] = l64, d64
+            groups.append((b, hs, hk, fo, fl, dq64, dk64, dv64))
+    args = (q, k, v, do, lse64, delta64, causal, None)
+    dq, dq_p = fa.flash_dq_cuda(*args), fa.flash_dq_plain(*args)
+    (dk, dv), (dk_p, dv_p) = fa.flash_dkv_cuda(*args), fa.flash_dkv_plain(*args)
+    assert {n: fa.LAUNCHES_BY_ROUTE[n] - before[n] for n in before} == {
+        f"{p}/{r}": int(r == route) for p in ("flash_fwd", "flash_dq", "flash_dkv")
+        for r in ("wgmma", "tf32")}
+    _close(dq, dq_p)
+    for got, want in ((dk, dk_p), (dv, dv_p)):
+        _close(got, want)
+    for b, hs, hk, fo, fl, dq64, dk64, dv64 in groups:
+        for got, plain, ref, name in ((o[b, :, hs], o_p[b, :, hs], fo, "o"),
+                                      (lse[b, hs], lse_p[b, hs], fl, "lse"),
+                                      (dq[b, :, hs], dq_p[b, :, hs], dq64, "dq"),
+                                      (dk[b, :, hk], dk_p[b, :, hk], dk64, "dk"),
+                                      (dv[b, :, hk], dv_p[b, :, hk], dv64, "dv")):
+            kernel, yard = rel(got, ref), rel(plain, ref)
+            assert kernel <= 10 * yard + 1e-6, (name, b, hk, kernel, yard)
+    again = (*fa.flash_fwd_cuda(q, k, v, causal, None), fa.flash_dq_cuda(*args),
+             *fa.flash_dkv_cuda(*args))
+    for a, b_ in zip((o, lse, dq, dk, dv), again):
+        assert torch.equal(a, b_)

@@ -17,9 +17,9 @@ has no source sentence and raises a ``ValueError`` naming the encoder batch.
 
 ``cuda``-marked tests (no JAX here, so they run on a card machine with
 ``--noconftest -m cuda``) hold the engine's captured CUDA-graph loop to the
-per-token host loop on the card and to the CPU, greedy, for xlstm, qwen3
-and luong-nmt, and check that sampled decoding in a graph is seeded; they
-skip without a card.
+per-token host loop on the card and to the CPU, greedy, for xlstm, qwen3,
+luong-nmt and whisper (prefilled over frames), and check that sampled
+decoding in a graph is seeded; they skip without a card.
 """
 import os
 import subprocess
@@ -279,3 +279,25 @@ def test_sampled_graph_loop_is_seeded():
     b = serve_rectangular(spec, cfg, params, prompt, "device", **kw)
     np.testing.assert_array_equal(a, b)
     assert a.min() >= 0 and a.max() < cfg.vocab
+
+
+@pytest.mark.cuda
+def test_whisper_graph_loop_matches_host_loop_and_cpu():
+    """whisper smoke, ``attn_impl="flash"``: ``DecodeEngine.prefill`` of a
+    prompt over frames (the cross K/V written in place into the engine's
+    buffers, which the captured graphs read), then greedy tokens of the
+    graph loop equal to the host loop's and the CPU's."""
+    dev = require_cuda()
+    spec = configs.get_arch("whisper-base")
+    cfg = spec.smoke(attn_impl="flash")
+    params = adapters.init_params(spec.kind, torch.Generator().manual_seed(0), cfg)
+    g = torch.Generator().manual_seed(7)
+    prompt = torch.randint(3, cfg.vocab, (2, 9), dtype=torch.int32, generator=g)
+    frames = torch.randn(2, cfg.enc_seq, cfg.d_model, generator=g) * 0.02
+    cpu = serve_rectangular(spec, cfg, params, prompt, "device", chunk=4, frames=frames)
+    on_card = tree_map(lambda a: a.to(dev), params)
+    kw = dict(chunk=4, frames=frames.to(dev))
+    graph = serve_rectangular(spec, cfg, on_card, prompt.to(dev), "device", **kw)
+    host = serve_rectangular(spec, cfg, on_card, prompt.to(dev), "python", **kw)
+    np.testing.assert_array_equal(graph, host)
+    np.testing.assert_array_equal(graph, cpu)

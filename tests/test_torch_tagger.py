@@ -306,3 +306,4 @@ def test_profile_groups_port_kernels_only():
     assert group("void (anonymous namespace)::indexing_backward_kernel_small_"
                  "stride<float>(long const*)") == "other"
     assert group("sm90_xmma_gemm_f32f32_f32f32") == "matrix products"
+    assert group("nvjet_tst_320x128_64x3_1x2_h_bz_coopB_NNT") == "matrix products"
