@@ -56,10 +56,12 @@ plain PyTorch version at that path's full shapes, and times it:
     ragged, Sq != Sk, head_dim 16 / 64 / 256 and bfloat16 modes on small
     inputs; and K9-K11 with bfloat16 inputs at that shape, beside SDPA in
     bfloat16, rows ``flash_*/bf16``: bfloat16 K9, K10 and K11 at head_dim
-    64 and 128 take the wgmma route, ``csrc/flash_attention_sm90.cu``,
+    64 and 128, and K9 and K11 at 256, take the wgmma route,
+    ``csrc/flash_attention_sm90.cu``,
     whose SASS must hold HGMMA instructions, timed in turns with the tf32
     route on the same inputs, ``tf32_route_ms``; the launches of the main
-    paths are counted by route and all of bfloat16 K9-K11 must take wgmma);
+    paths are counted by route and each bfloat16 pass must take its
+    route);
   * mixtral-8x22b (the expert products over the (8 experts x 1280 slots)
     capacity buffer: x (10240, 6144) by w (8, 6144, 16384), and x (10240,
     16384) by w (8, 16384, 6144)): K12 grouped matmul, split-precision
@@ -78,7 +80,9 @@ plain PyTorch version at that path's full shapes, and times it:
   * zaremba-medium's cell update (B=20, H=650, and H=1500): K5 fused LSTM
     pointwise, with forget_bias 0 and 1 and odd shapes;
   * gemma-2b (B=1, S=4096, 8 query heads over its one kv head repeated 8
-    times, head_dim 256, causal: bfloat16 on the tf32 route) and
+    times, head_dim 256, causal: bfloat16 K9 and K11 on the wgmma route,
+    K10 on the tf32 route; the small d 256 modes also for the same bits and
+    against float64 over every group) and
     whisper-base (8 heads of 64 on the wgmma route: the encoder non-causal
     at B=32 over its 1500 frames, the decoder causal over 448 tokens):
     bfloat16 K9-K11 held to their plain versions, to float64 over every
@@ -105,8 +109,8 @@ words of 12 chars) under ``case3:0.5:pallas`` (its launches a step
 asserted: K3/K4 2 + 2 fused, K1 128 + 128 scheduled, nothing else; the
 CRF's loss and backward timed beside the step), and
 ``launch.steps.make_train_step`` on the three configs in their
-bfloat16: xlstm-1.3b at all 48 blocks (batch 2 x 2048, its own plan with
-``impl="pallas"``) with the fused engine, qwen3-8b cut to 19 of 36 layers
+bfloat16: xlstm-1.3b cut to 16 of 48 blocks (batch 2 x 2048, its own plan
+with ``impl="pallas"``) with the fused engine, qwen3-8b cut to 19 of 36 layers
 (batch 1 x 4096, its own plan) with ``attn_impl="flash"`` and then
 ``"xla"``, and mixtral-8x22b cut to 1 of 56 layers (batch 1 x 4096, its
 own plan, flash attention) with ``moe_impl="pallas"`` and then ``"xla"``
@@ -123,7 +127,7 @@ Then the reference's remaining transformer configs (``drive_configs``),
 each at full width in its bfloat16 with flash attention, 5 steps and one
 traced step, asserting the K9-K11 launches the code implies on the route of
 its head_dim and 8 GB of the card free: gemma-2b whole (18 of 18 layers,
-batch 1 x 4096; K9 36, K10 18, K11 18 a step on the tf32 route) with remat
+batch 1 x 4096; K9 36 and K11 18 a step on wgmma, K10 18 on tf32) with remat
 "full" and again with "dots", whisper-base whole (6 + 6 layers, batch 32,
 1500 frames, 448 tokens; K9 18, K10 6, K11 6 a step on wgmma: the encoder's
 forward once a layer and no encoder backward, since, as in the reference,
@@ -131,20 +135,21 @@ the loss does not read the encoder), and minitron-8b, qwen1.5-32b and
 pixtral-12b (random embeddings) cut to ``CUT_LAYERS`` at batch 1 x 4096.
 
 Then the serving phase (``drive_serving``, under ``torch.inference_mode()``,
-random weights from a CUDA generator seeded 0), every model whole:
+random weights from a CUDA generator seeded 0), every model whole but
+xlstm-1.3b:
 qwen3-8b (36 of 36 layers, bfloat16, ``attn_impl="flash"``) prefills batch 8
 x 511 tokens natively (K9 36 times a prefill and no other kernel,
 asserted), then generates 64 tokens by the engine's captured-CUDA-graph
 loop (chunks of 16; twice, the first run capturing) and by the per-token
 python loop, token for token equal, and the first decode logits after a
 native and a replay prefill of 63 tokens agree within ``BF16_TOL``;
-xlstm-1.3b (48 of 48 blocks, bfloat16) serves a trace of 32 ragged requests over 8
-slots through ``serve()`` twice (the same tokens; admission and decode
+xlstm-1.3b (cut to 16 of 48 blocks, bfloat16) serves a trace of 32 ragged
+requests over 8 slots through ``serve()`` twice (the same tokens; admission and decode
 time apart), then rectangular at batch 8 (graph loop = python loop);
 luong-nmt prefills 64 sentences of 50 source tokens and an 8-token target
 prefix through ``DecodeEngine.prefill`` and generates 50 tokens (graph loop
 = python loop); gemma-2b (18 layers) serves as qwen3-8b does (K9 18 times a
-prefill, tf32 route); whisper-base prefills 8 x 3 tokens over 8 x 1500
+prefill, wgmma route); whisper-base prefills 8 x 3 tokens over 8 x 1500
 frames through ``DecodeEngine.prefill`` (K9 12 times: 6 encoder, 6 decoder
 layers) and generates 64 tokens (graph loop = python loop). Each model's graph loop runs once more under
 ``torch.profiler`` (device-busy ms a token). At smoke width, for the three
@@ -196,7 +201,8 @@ BF16_FLOPS = 989e12
 T, B, H, D, P = 35, 20, 650, 650, 0.5          # zaremba-medium
 NT_, NB, NH, NS, NP = 50, 64, 512, 50, 0.3      # luong-nmt: T=S, B, H=E, p
 XT, XB, XNH, XDH, XBS, XP = 2048, 2, 4, 512, 64, 0.25   # xlstm-1.3b sLSTM
-X_LAYERS = 48                                           # depth cut from 48
+# depth cut from 48 to 16 (two sLSTM blocks) to keep the script's time
+X_LAYERS = 16
 XS_LAYERS = 8      # the scheduled engine's cut: one sLSTM block (host-bound)
 QB, QS, QHQ, QHKV, QD = 1, 4096, 32, 16, 128   # qwen3-8b attention (kv_repeat 2)
 Q_LAYERS = 19                                   # depth cut from 36
@@ -959,13 +965,17 @@ def f64_gate(name, got, plain, ref):
 
 def check_flash(gen, B_, Sq_, Sk_, Hq_, Hkv_, d_, *, causal=True, window=None,
                 dtype=torch.float32, out=None, tag="", want_route=None, arch=QWEN,
-                label=""):
+                label="", gates=False):
     """K9 (o, lse), K10 (dq) and K11 (dk, dv) against their plain versions
     on the same inputs; both backward passes take the plain forward's lse
     and delta. float32 within 1e-3 x max(1, |ref|), bfloat16 within 3e-2
     (the reference's bf16 tolerance). With ``want_route`` ("wgmma" or
-    "tf32"), each of the three passes must have launched on that route
-    and on no other. With ``out`` (the main path's shape):
+    "tf32", or {pass: route}), each of the three passes must have launched
+    on its route and on no other. With ``gates`` (bfloat16 on small
+    inputs), also the same bits from a second launch and, over every
+    (batch, kv head) group, float64 within 10 x the bfloat16 plain
+    version's distance + 1e-6 (``flash_f64_bf16``). With ``out`` (the main
+    path's shape):
     K9 also against a float64 forward and K10 and K11 against a float64
     backward over one (batch, kv head) group within ``FLASH_F64_TOL``
     (SDPA's distances printed beside theirs), all three launched twice for
@@ -995,11 +1005,11 @@ def check_flash(gen, B_, Sq_, Sk_, Hq_, Hkv_, d_, *, causal=True, window=None,
     e10 = compare("  flash_dq " + tag, dq_k(), dq_p(), tol)
     e11 = compare("  flash_dkv " + tag, list(dkv_k()), list(dkv_p()), tol)
     if want_route is not None:
+        want = passes_on(want_route)
         moved = {k_: n - before[k_] for k_, n in read_counts().items()
                  if k_.startswith("flash_") and "/" in k_ and n != before[k_]}
-        assert moved == {f"{name}/{want_route}": 1 for name in
-                         ("flash_fwd", "flash_dq", "flash_dkv")}, (tag, moved)
-    if out is None:
+        assert moved == {f"{name}/{r}": 1 for name, r in want.items()}, (tag, moved)
+    if out is None and not gates:
         return
     del o_p
     bf = dtype == torch.bfloat16
@@ -1007,6 +1017,8 @@ def check_flash(gen, B_, Sq_, Sk_, Hq_, Hkv_, d_, *, causal=True, window=None,
               lambda: [*fwd_k(), dq_k(), *dkv_k()])
     if bf:
         f64 = flash_f64_bf16(fa, q, k, v, do, causal, window)
+        if out is None:
+            return
         check_wgmma_sass(fa)
     else:
         f64 = flash_f64(fa, q, k, v, do, causal, window)
@@ -1069,6 +1081,17 @@ def check_flash(gen, B_, Sq_, Sk_, Hq_, Hkv_, d_, *, causal=True, window=None,
 
 FLASH_SRC = {"tf32": "src/repro_torch/csrc/flash_attention.cu",
              "wgmma": "src/repro_torch/csrc/flash_attention_sm90.cu"}
+FLASH_PASSES = ("flash_fwd", "flash_dq", "flash_dkv")
+# bfloat16 at head_dim 256 (gemma-2b): K9 and K11 on wgmma, K10 on tf32
+D256_ROUTES = {"flash_fwd": "wgmma", "flash_dq": "tf32", "flash_dkv": "wgmma"}
+
+
+def passes_on(want_route):
+    """{pass: route} of a ``want_route`` given as one route for all three
+    passes or as {pass: route}."""
+    if isinstance(want_route, str):
+        return {name: want_route for name in FLASH_PASSES}
+    return dict(want_route)
 
 
 def wgmma_routes(flash):
@@ -1238,11 +1261,11 @@ def check_wgmma_sass(fa):
     """Fail unless the wgmma route's K9, K10 and K11 hold HGMMA
     instructions at every head dim they take."""
     hgmma = sass_hgmma("flash_attention_sm90")
-    for name in ("flash_fwd_sm90", "flash_dq_sm90", "flash_dkv_sm90"):
-        for d in fa.WGMMA_HEAD_DIMS:
-            n = [v for sym, v in hgmma.items() if f"{name}ILi{d}E" in sym]
+    for name in FLASH_PASSES:
+        for d in fa.WGMMA_HEAD_DIMS[name]:
+            n = [v for sym, v in hgmma.items() if f"{name}_sm90ILi{d}E" in sym]
             if not n or not all(n):
-                raise AssertionError(f"{name} (d={d}): no HGMMA in its SASS")
+                raise AssertionError(f"{name}_sm90 (d={d}): no HGMMA in its SASS")
 
 
 @contextlib.contextmanager
@@ -1296,8 +1319,11 @@ def sdpa_yardstick(q, k, v, do, causal):
 def check_flash_modes(gen):
     """K9-K11 on small inputs: non-causal, windows, MQA, G = 4, sequences
     that are not multiples of the tile, Sq != Sk, head dims 16 / 64 / 256;
-    bfloat16 at head_dim 16, 32 and 256 (the tf32 route: causal, windows,
-    G = 3, S = 100, Sq != Sk) and at 64 and 128 (the wgmma route's K9-K11:
+    bfloat16 at head_dim 16 and 32 (the tf32 route: causal, windows, G = 3,
+    Sq != Sk), at 256 (K9 and K11 on wgmma, K10 on tf32: S 100 and 160,
+    Sq < Sk, Sq > Sk, windows, G = 3, MQA, non-causal; each also for the
+    same bits and against float64 over every group) and at 64 and 128 (the
+    wgmma route's K9-K11:
     non-causal, windows 8 and 256, MQA, G = 3, S = 100, Sq < Sk, Sq > Sk;
     d 64 non-causal at S 100 and 1500 and causal at S 448, whisper-base's).
     Each case asserts the route its three passes launched on."""
@@ -1325,9 +1351,20 @@ def check_flash_modes(gen):
         ((1, 80, 144, 4, 2, 16), {}, "(bf16 d=16 Sq < Sk)"),
         ((1, 192, 192, 6, 2, 32), {}, "(bf16 d=32 G=3)"),
         ((1, 64, 64, 2, 2, 32), dict(causal=False, window=8), "(bf16 d=32 non-causal window 8)"),
-        ((1, 144, 80, 4, 2, 32), {}, "(bf16 d=32 Sq > Sk)"),
-        ((1, 160, 160, 4, 2, 256), {}, "(bf16 d=256)"),
-        ((2, 100, 100, 6, 2, 256), dict(window=40), "(bf16 d=256 G=3 S=100 window 40)"))
+        ((1, 144, 80, 4, 2, 32), {}, "(bf16 d=32 Sq > Sk)"))
+    # bfloat16 at d 256 (gemma-2b's head_dim: K9 and K11 on wgmma, K10 on
+    # tf32), each case also for the same bits and against float64 over
+    # every (batch, kv head) group
+    bf_d256 = (
+        ((1, 160, 160, 4, 2, 256), {}, "(bf16 d=256 S=160)"),
+        ((2, 100, 100, 4, 2, 256), {}, "(bf16 d=256 S=100)"),
+        ((1, 80, 144, 4, 2, 256), {}, "(bf16 d=256 Sq < Sk)"),
+        ((1, 144, 80, 4, 2, 256), {}, "(bf16 d=256 Sq > Sk)"),
+        ((1, 200, 200, 4, 2, 256), dict(window=64), "(bf16 d=256 window 64)"),
+        ((2, 100, 100, 6, 2, 256), dict(window=40), "(bf16 d=256 G=3 S=100 window 40)"),
+        ((1, 192, 192, 6, 2, 256), {}, "(bf16 d=256 G=3)"),
+        ((2, 128, 128, 4, 2, 256), dict(causal=False), "(bf16 d=256 non-causal)"),
+        ((1, 144, 80, 4, 1, 256), dict(causal=False), "(bf16 d=256 MQA non-causal Sq > Sk)"))
     # bfloat16 at d 64 and 128 (the wgmma route)
     bf_wgmma = (
         ((2, 128, 128, 4, 2, 128), {}, "(bf16)"),
@@ -1346,9 +1383,10 @@ def check_flash_modes(gen):
         ((1, 1500, 1500, 2, 2, 64), dict(causal=False), "(bf16 d=64 non-causal S=1500)"),
         ((1, 448, 448, 4, 2, 64), {}, "(bf16 d=64 causal S=448)"))
     for cases, dtype, want in ((f32, torch.float32, "tf32"), (bf_tf32, bf, "tf32"),
-                               (bf_wgmma, bf, "wgmma")):
+                               (bf_d256, bf, D256_ROUTES), (bf_wgmma, bf, "wgmma")):
         for args, kw, tag in cases:
-            check_flash(gen, *args, tag=tag, dtype=dtype, want_route=want, **kw)
+            check_flash(gen, *args, tag=tag, dtype=dtype, want_route=want,
+                        gates=cases is bf_d256, **kw)
 
 
 def nmt_small_batch(cfg, dev):
@@ -2430,15 +2468,17 @@ def drive_config(arch, layers, batch, seq, **kw):
     assert all(torch.isfinite(p).all() for p in _leaves(params))
     assert all(p.dtype == torch.bfloat16 for p in _leaves(params))
     flash = flash_launches(cfg)
-    rt = fa.route("flash_fwd", torch.bfloat16, cfg.hd)
-    want = {**flash, **{f"{k_}/{r}": (flash[k_] if r == rt else 0)
+    routes = {k_: fa.route(k_, torch.bfloat16, cfg.hd) for k_ in flash}
+    if cfg.hd == 256:
+        assert routes == D256_ROUTES, routes
+    want = {**flash, **{f"{k_}/{r}": (flash[k_] if r == routes[k_] else 0)
                         for k_ in flash for r in ("wgmma", "tf32")}}
     got = {k_: v for k_, v in c.items() if v}
     assert got == {k_: v for k_, v in want.items() if v}, \
         f"{what}: launches {got}, expected {want} and no other kernel"
     peak = torch.cuda.max_memory_allocated()
-    print(f"  {n_params} parameters; launches per step as expected, all on the "
-          f"{rt} route: " + ", ".join(f"{k_}={v / STEPS:g}" for k_, v in got.items()))
+    print(f"  {n_params} parameters; launches per step as expected, each pass on "
+          f"its route: " + ", ".join(f"{k_}={v / STEPS:g}" for k_, v in got.items()))
     print(f"  {what}: steady median {steady_median(ms):.2f} ms a step without the "
           f"batch's draw, {steady_median(draw_ms):.2f} ms the draw, "
           f"{steady_median([a + b_ for a, b_ in zip(ms, draw_ms)]):.2f} ms both")
@@ -2567,6 +2607,9 @@ def drive_configs():
 SERVE = "serving"
 SQB, SQP, SQG, SQC, SQ_CHECK = 8, 512, 64, 16, 64    # qwen3-8b rectangular
 SXB, SXN, SXP, SXG = 8, 32, 64, 64     # xlstm-1.3b trace: slots, requests, max prompt, max budget
+# the xlstm-1.3b server's depth, cut from 48 (its trace's eager admission
+# replay, ~100 s of the script at 48, scales with it)
+SX_LAYERS = 16
 SNB, SNS, SNT, SNG = 64, 50, 8, 50     # luong-nmt: batch, source, target prefix, generated
 # native (K9) vs replay prefill of qwen3-8b: the first decode logits agree
 # within this x max(1, |ref|) (float32 products in other orders over 36
@@ -2734,7 +2777,7 @@ def serve_qwen(arch=QWEN):
 
 
 def serve_xlstm():
-    """xlstm-1.3b, 48 of 48 blocks, in its config's bfloat16 (float32
+    """xlstm-1.3b, SX_LAYERS of 48 blocks, in its config's bfloat16 (float32
     recurrent state, bfloat16 conv ring): a continuous-batching trace of
     SXN requests over SXB slots (prompts 2..SXP, budgets SXG // 4..SXG, the
     reference's ``_ragged_trace`` with seed 0), chunk 16, run twice in the
@@ -2744,14 +2787,15 @@ def serve_xlstm():
     from repro_torch.serving import DecodeEngine, prompt_prefill, serve
     spec, cfg, params = _serve_model(
         XLSTM, lambda c: (c.num_layers, c.d_model, c.n_heads, c.inner, c.vocab,
-                          c.slstm_every) == (48, 2048, 4, 4096, 50304, 8))
+                          c.slstm_every) == (SX_LAYERS, 2048, 4, 4096, 50304, 8),
+        num_layers=SX_LAYERS)
     eng = DecodeEngine(spec=spec, cfg=cfg, params=params, max_seq=SXP + SXG,
                        batch=SXB, chunk=16)
     state_bytes = sum(v.numel() * v.element_size() for v in eng.state.values())
     assert cfg.param_dtype == cfg.compute_dtype == torch.bfloat16, cfg
     assert eng.state["m_C"].dtype == torch.float32 and eng.state["m_conv"].dtype == \
         torch.bfloat16, {k_: v.dtype for k_, v in eng.state.items()}
-    print(f"serving: {XLSTM}, 48 of 48 blocks, {str(cfg.param_dtype)[6:]}, {SXB} slots "
+    print(f"serving: {XLSTM}, {SX_LAYERS} of 48 blocks, {str(cfg.param_dtype)[6:]}, {SXB} slots "
           f"({state_bytes / SXB / 2**30:.3f} GiB of decode state a slot)")
     reqs = ragged_trace(SXN, cfg.vocab, SXP, SXG, 0)
     # host time in the engine's two calls (each ends in a device sync)
@@ -3017,7 +3061,7 @@ def prefill_shapes():
                                     f"{SERVE}/{WHISPER}", 6)}
 
 
-def check_flash_prefill(gen, out, dtype=torch.float32, label="prefill"):
+def check_flash_prefill(gen, out, dtype=torch.float32, label="prefill", want_route=None):
     """K9 at a serving prefill's shape (``prefill_shapes``; qwen3-8b's:
     B=SQB, Sq=Sk=SQP-1, 32 query heads over 16 kv heads of 128, causal),
     timed beside the plain version and SDPA's forward, cold L2; the row
@@ -3028,7 +3072,8 @@ def check_flash_prefill(gen, out, dtype=torch.float32, label="prefill"):
     the route bfloat16 at its head_dim takes and on no other, against its
     plain version within BF16_TOL, the same bits from a second launch and,
     over every group, against float64 within 10 x the bfloat16 plain
-    version's distance + 1e-6 (``flash_f64_bf16``)."""
+    version's distance + 1e-6 (``flash_f64_bf16``). With ``want_route``,
+    K9 must take that route."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     B_, S, Hq, Hkv, d_, causal, arch, per_prefill = prefill_shapes()[label]
@@ -3041,6 +3086,7 @@ def check_flash_prefill(gen, out, dtype=torch.float32, label="prefill"):
     fwd_p = lambda: fa.attention_plain(q, k, v, causal)
     tag = f" ({label}, bf16)" if bf else f" ({label})"
     rt = fa.route("flash_fwd", dtype, d_)
+    assert want_route in (None, rt), (label, rt)
     before = read_counts()
     err = compare("  flash_fwd" + tag, list(fwd_k()), list(fwd_p()),
                   BF16_TOL if bf else 1e-3)
@@ -3109,11 +3155,17 @@ def main() -> int:
           f"cudnn={torch.backends.cudnn.allow_tf32}")
     start = time.perf_counter()
 
-    def phase(name):
-        """Where the script's own time goes (it runs under a time limit)."""
-        print(f"[phase] {name}: {time.perf_counter() - start:.1f} s since the start",
-              flush=True)
+    last = [start, None]
 
+    def phase(name):
+        """Where the script's own time goes (it runs under a time limit): the
+        seconds since the start and those of the phase before."""
+        now = time.perf_counter()
+        took = "" if last[1] is None else f"; {last[1]} took {now - last[0]:.1f} s"
+        print(f"[phase] {name}: {now - start:.1f} s since the start{took}", flush=True)
+        last[:] = [now, name]
+
+    phase("kernel build")
     t0 = time.perf_counter()
     built = _build.build()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s "
@@ -3126,8 +3178,9 @@ def main() -> int:
     print("kernels: K1 gather_matmul, K2 gather_matmul_stepped, "
           "K3 lstm_scan_fwd, K4 lstm_scan_bwd, K5 lstm_pointwise, "
           "K6 slstm_scan_fwd/bwd (+ slstm_wg), K7 decoder_scan_fwd, K8 decoder_scan_bwd, "
-          "K9 flash_fwd, K10 flash_dq, K11 flash_dkv (bfloat16 at d 64 / 128: "
-          "flash_*_sm90), K12 grouped_matmul (bfloat16: grouped_mm_sm90)")
+          "K9 flash_fwd, K10 flash_dq, K11 flash_dkv (bfloat16 at d 64 / 128, and "
+          "K9 / K11 at d 256: flash_*_sm90), K12 grouped_matmul (bfloat16: "
+          "grouped_mm_sm90)")
 
     gen = torch.Generator().manual_seed(0)
     rows = {}
@@ -3198,18 +3251,18 @@ def main() -> int:
                 dtype=torch.bfloat16)
     check_flash_prefill(gen, rows)
     check_flash_prefill(gen, rows, torch.bfloat16)
-    # gemma-2b's and whisper-base's serving prefills: gemma's K9 on the tf32
-    # route at d 256, whisper's encoder (non-causal) and decoder on wgmma
+    # gemma-2b's and whisper-base's serving prefills, all on wgmma: gemma's
+    # K9 at d 256, whisper's encoder (non-causal) and decoder at d 64
     for label in (f"prefill-{GEMMA}", "prefill-whisper-enc", "prefill-whisper-dec"):
-        check_flash_prefill(gen, rows, torch.bfloat16, label)
+        check_flash_prefill(gen, rows, torch.bfloat16, label, want_route="wgmma")
     check_flash_modes(gen)
     # gemma-2b (8 query heads over its one kv head repeated 8 times, head_dim
-    # 256: the tf32 route) and whisper-base (8 heads of 64, the encoder
-    # non-causal over its 1500 frames, the decoder causal over 448 tokens:
-    # the wgmma route), bfloat16, at their training shapes
+    # 256: K9 and K11 on wgmma, K10 on tf32) and whisper-base (8 heads of
+    # 64, the encoder non-causal over its 1500 frames, the decoder causal
+    # over 448 tokens: the wgmma route), bfloat16, at their training shapes
     bf16 = dict(dtype=torch.bfloat16, out=rows)
     check_flash(gen, 1, 4096, 4096, 8, 8, 256, arch=GEMMA, label=GEMMA,
-                want_route="tf32", tag="(gemma-2b, bf16)", **bf16)
+                want_route=D256_ROUTES, tag="(gemma-2b, bf16)", **bf16)
     check_flash(gen, WB, WT, WT, 8, 8, 64, causal=False, arch=WHISPER,
                 label="whisper-enc", want_route="wgmma",
                 tag="(whisper-base encoder, bf16)", **bf16)

@@ -2,22 +2,23 @@
 Hopper's wgmma and TMA (``csrc/flash_attention_sm90.cu``, ``route() ==
 "wgmma"``).
 
-On the CPU: which kernel each (pass, dtype, head_dim) takes; the copies
-``_prep`` makes for TMA (16-byte bases and strides); K10's and K11's split
-of their float32 p and ds into two bfloat16 terms (to 2^-16 of |x|, and
-dq, dk and dv from the split terms, bfloat16 products summed in float32,
-within 1.5 x the bfloat16 plain version's float64 distance); and the plain
-versions in
-bfloat16 against the JAX reference's Pallas kernel in interpret mode
-(``tests/test_flash.py``'s way) at the new route's small shapes, within
-the reference's bfloat16 tolerance 3e-2 x max(1, |ref|).
+On the CPU: which kernel each (pass, dtype, head_dim) takes (bfloat16 at
+head_dim 256: K9 and K11 on wgmma, K10 on tf32); the copies ``_prep``
+makes for TMA (16-byte bases and strides); K10's and K11's split of their
+float32 p and ds into two bfloat16 terms (to 2^-16 of |x|, and dq, dk and
+dv from the split terms, bfloat16 products summed in float32, within 1.5 x
+the bfloat16 plain version's float64 distance, K11 at head_dim 64 and
+256); and the plain versions in bfloat16 against the JAX reference's
+Pallas kernel in interpret mode (``tests/test_flash.py``'s way) at the new
+route's small shapes, within the reference's bfloat16 tolerance 3e-2 x
+max(1, |ref|).
 
 The ``cuda``-marked cases hold the new kernels to the plain versions on
 the card (3e-2 x max(1, |ref|)) and to float64 (10 x the bfloat16 plain
 version's distance + 1e-6), to their own bits on a second launch, and on
-strided views that need no copy, and bfloat16 K9-K11 at whisper-base's
-and gemma-2b's attention shapes (the latter on the tf32 route) the same
-way; they skip here. This module imports JAX
+strided views that need no copy, at head_dim 64, 128 and 256, and
+bfloat16 K9-K11 at whisper-base's and gemma-2b's attention shapes (the
+latter's K10 on the tf32 route) the same way; they skip here. This module imports JAX
 only inside the reference test, so the card (which has no JAX) runs the
 rest: ``PYTHONPATH=src python -m pytest -q --noconftest -m cuda
 tests/test_torch_flash_sm90.py``.
@@ -42,7 +43,8 @@ BF16 = torch.bfloat16
 @pytest.mark.parametrize("dtype", [torch.float32, BF16])
 @pytest.mark.parametrize("which", ["flash_fwd", "flash_dq", "flash_dkv"])
 def test_route(which, dtype, d):
-    want = "wgmma" if dtype == BF16 and d in (64, 128) else "tf32"
+    wgmma = (64, 128) if which == "flash_dq" else (64, 128, 256)
+    want = "wgmma" if dtype == BF16 and d in wgmma else "tf32"
     assert fa.route(which, dtype, d) == want
     assert f"{which}/{want}" in fa.LAUNCHES_BY_ROUTE
 
@@ -136,12 +138,12 @@ def _dq_split(q, k, v, do, lse, delta, causal, window):
             + torch.einsum("bhqk,bkhd->bqhd", lo, kr)).to(BF16)
 
 
-def _float64_backward(window):
-    """bfloat16 inputs (B 1, S 100, 4 query heads over 2, d 64), the
-    backward's arguments with lse and delta from the float64 forward, and
-    the float64 dq (Sq, G, d), dk and dv (Sk, d) of each kv head."""
+def _float64_backward(window, d=64):
+    """bfloat16 inputs (B 1, S 100, 4 query heads over 2, head_dim ``d``),
+    the backward's arguments with lse and delta from the float64 forward,
+    and the float64 dq (Sq, G, d), dk and dv (Sk, d) of each kv head."""
     g = torch.Generator().manual_seed(1)
-    B, S, Hq, Hkv, d = 1, 100, 4, 2, 64
+    B, S, Hq, Hkv = 1, 100, 4, 2
     q, k, v, do = (torch.randn(*s, generator=g).to(BF16) for s in (
         (B, S, Hq, d), (B, S, Hkv, d), (B, S, Hkv, d), (B, S, Hq, d)))
     G = Hq // Hkv
@@ -159,9 +161,15 @@ def _rel(x, w):
     return float((x.double() - w).abs().max()) / max(1.0, float(w.abs().max()))
 
 
+@pytest.mark.parametrize("d", [64, 256])
 @pytest.mark.parametrize("window", [None, 32])
-def test_split_dk_dv_keep_the_plain_float64_distance(window):
-    args, want = _float64_backward(window)
+def test_split_dk_dv_keep_the_plain_float64_distance(window, d):
+    """At head_dim 256 K11's two warpgroups split the work by role: the
+    first forms p, hands it to the second in float32 through shared memory
+    and accumulates dv from p's two terms, the second forms ds from that p
+    and accumulates dk from ds's two terms. The hand-off is exact, so the
+    terms and products are ``_dkv_split``'s at every head_dim."""
+    args, want = _float64_backward(window, d)
 
     def dist(pair):
         return max(_rel(x[0, :, hk], w) for hk, ws in enumerate(want)
@@ -193,6 +201,7 @@ def test_split_dq_keeps_the_plain_float64_distance(window):
     (1, 100, 100, 4, 2, 64, True, 32, 50, 50),        # window
     (1, 80, 144, 4, 2, 128, True, None, 40, 48),      # Sq < Sk
     (1, 144, 80, 4, 2, 128, False, None, 48, 40),     # Sq > Sk
+    (1, 64, 64, 2, 1, 256, True, None, 32, 32),       # head_dim 256, G 2
 ])
 def test_plain_bf16_matches_reference(B, Sq, Sk, Hq, Hkv, d, causal, window, bq, bk):
     jax = pytest.importorskip("jax")
@@ -231,7 +240,19 @@ CUDA_CASES = [
     (1, 144, 80, 4, 2, 128, True, None),      # Sq > Sk
     (1, 511, 511, 8, 4, 128, True, None),     # the serving prefill's S
     (1, 384, 384, 4, 2, 128, False, 256),     # window 256, non-causal
+    (2, 128, 128, 4, 2, 256, True, None),     # head_dim 256: K10 on tf32
+    (1, 100, 100, 6, 2, 256, True, 40),       # G 3, window, ragged tiles
+    (1, 80, 144, 4, 2, 256, True, None),      # Sq < Sk
+    (1, 144, 80, 4, 2, 256, False, None),     # Sq > Sk, non-causal
 ]
+
+
+def _routes(d):
+    """{pass/route: launches} of one forward, dq and dk/dv at head_dim d in
+    bfloat16: K10 at 256 takes the tf32 route, everything else wgmma."""
+    want = {"flash_fwd": "wgmma", "flash_dq": "tf32" if d == 256 else "wgmma",
+            "flash_dkv": "wgmma"}
+    return {f"{p}/{r}": int(want[p] == r) for p in want for r in ("wgmma", "tf32")}
 
 
 def _inputs(dev, B, Sq, Sk, Hq, Hkv, d, seed=0):
@@ -262,13 +283,11 @@ def test_cuda_kernels_match_plain(B, Sq, Sk, Hq, Hkv, d, causal, window):
     _close(dq, fa.flash_dq_plain(*args))
     for got, want in zip(fa.flash_dkv_cuda(*args), fa.flash_dkv_plain(*args)):
         _close(got, want)
-    assert {n: fa.LAUNCHES_BY_ROUTE[n] - before[n] for n in before} == {
-        "flash_fwd/wgmma": 1, "flash_fwd/tf32": 0, "flash_dq/wgmma": 1,
-        "flash_dq/tf32": 0, "flash_dkv/wgmma": 1, "flash_dkv/tf32": 0}
+    assert {n: fa.LAUNCHES_BY_ROUTE[n] - before[n] for n in before} == _routes(d)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_cuda_kernels_keep_the_plain_float64_distance(d):
     """o, lse, dq, dk and dv of every (batch, kv head) group within 10 x the
     bfloat16 plain version's distance to float64 + 1e-6 (the chip_smoke
@@ -303,7 +322,7 @@ def test_cuda_kernels_keep_the_plain_float64_distance(d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_cuda_kernels_are_deterministic(d):
     """Two launches of each give the same bits (no atomics)."""
     dev = require_cuda()
@@ -318,7 +337,7 @@ def test_cuda_kernels_are_deterministic(d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_cuda_kernels_read_strided_views(d):
     """q, k, v and do as head slices of wider tensors: 16-byte strides and
     bases, so TMA reads them in place (no copy) through their strides."""
@@ -343,23 +362,25 @@ def test_cuda_kernels_read_strided_views(d):
 # sequences that are no multiple of the tile, up to its 1500 frames, the
 # decoder causal over its 448 tokens: the wgmma route) and gemma-2b's (8
 # query heads over its one kv head repeated 8 times, head_dim 256, S 4096:
-# bfloat16 on the tf32 route), and their serving prefills (gemma-2b 8 x 511
-# prompt tokens, whisper-base's decoder 8 x 3)
+# K9 and K11 on wgmma, K10 on tf32), and their serving prefills (gemma-2b 8
+# x 511 prompt tokens, whisper-base's decoder 8 x 3)
+WGMMA = ("wgmma", "wgmma", "wgmma")
+GEMMA = ("wgmma", "tf32", "wgmma")
 MODEL_CASES = [
-    # B, S, Hq, Hkv, d, causal, route
-    (1, 100, 8, 8, 64, False, "wgmma"),
-    (1, 1500, 8, 8, 64, False, "wgmma"),
-    (2, 448, 8, 8, 64, True, "wgmma"),
-    (1, 4096, 8, 8, 256, True, "tf32"),
-    (8, 511, 8, 8, 256, True, "tf32"),
-    (8, 3, 8, 8, 64, True, "wgmma"),
+    # B, S, Hq, Hkv, d, causal, route of (flash_fwd, flash_dq, flash_dkv)
+    (1, 100, 8, 8, 64, False, WGMMA),
+    (1, 1500, 8, 8, 64, False, WGMMA),
+    (2, 448, 8, 8, 64, True, WGMMA),
+    (1, 4096, 8, 8, 256, True, GEMMA),
+    (8, 511, 8, 8, 256, True, GEMMA),
+    (8, 3, 8, 8, 64, True, WGMMA),
 ]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,Hq,Hkv,d,causal,route", MODEL_CASES)
 def test_cuda_model_shapes(B, S, Hq, Hkv, d, causal, route):
-    """At whisper-base's and gemma-2b's shapes: every pass on its route; o,
+    """At whisper-base's and gemma-2b's shapes: each pass on its route; o,
     lse, dq, dk and dv within 3e-2 x max(1, |ref|) of the plain version and,
     over every (batch, kv head) group, within 10 x the bfloat16 plain
     version's distance to float64 + 1e-6 (the backward on the float64
@@ -387,7 +408,7 @@ def test_cuda_model_shapes(B, S, Hq, Hkv, d, causal, route):
     dq, dq_p = fa.flash_dq_cuda(*args), fa.flash_dq_plain(*args)
     (dk, dv), (dk_p, dv_p) = fa.flash_dkv_cuda(*args), fa.flash_dkv_plain(*args)
     assert {n: fa.LAUNCHES_BY_ROUTE[n] - before[n] for n in before} == {
-        f"{p}/{r}": int(r == route) for p in ("flash_fwd", "flash_dq", "flash_dkv")
+        f"{p}/{r}": int(r == rt) for p, rt in zip(("flash_fwd", "flash_dq", "flash_dkv"), route)
         for r in ("wgmma", "tf32")}
     _close(dq, dq_p)
     for got, want in ((dk, dk_p), (dv, dv_p)):
