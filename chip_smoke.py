@@ -56,8 +56,7 @@ plain PyTorch version at that path's full shapes, and times it:
     ragged, Sq != Sk, head_dim 16 / 64 / 256 and bfloat16 modes on small
     inputs; and K9-K11 with bfloat16 inputs at that shape, beside SDPA in
     bfloat16, rows ``flash_*/bf16``: bfloat16 K9, K10 and K11 at head_dim
-    64 and 128, and K9 and K11 at 256, take the wgmma route,
-    ``csrc/flash_attention_sm90.cu``,
+    64, 128 and 256 take the wgmma route, ``csrc/flash_attention_sm90.cu``,
     whose SASS must hold HGMMA instructions, timed in turns with the tf32
     route on the same inputs, ``tf32_route_ms``; the launches of the main
     paths are counted by route and each bfloat16 pass must take its
@@ -80,9 +79,9 @@ plain PyTorch version at that path's full shapes, and times it:
   * zaremba-medium's cell update (B=20, H=650, and H=1500): K5 fused LSTM
     pointwise, with forget_bias 0 and 1 and odd shapes;
   * gemma-2b (B=1, S=4096, 8 query heads over its one kv head repeated 8
-    times, head_dim 256, causal: bfloat16 K9 and K11 on the wgmma route,
-    K10 on the tf32 route; the small d 256 modes also for the same bits and
-    against float64 over every group) and
+    times, head_dim 256, causal: bfloat16 K9-K11 on the wgmma route, K10
+    also timed in turns with the tf32 route; the small d 256 modes also for
+    the same bits and against float64 over every group) and
     whisper-base (8 heads of 64 on the wgmma route: the encoder non-causal
     at B=32 over its 1500 frames, the decoder causal over 448 tokens):
     bfloat16 K9-K11 held to their plain versions, to float64 over every
@@ -127,7 +126,7 @@ Then the reference's remaining transformer configs (``drive_configs``),
 each at full width in its bfloat16 with flash attention, 5 steps and one
 traced step, asserting the K9-K11 launches the code implies on the route of
 its head_dim and 8 GB of the card free: gemma-2b whole (18 of 18 layers,
-batch 1 x 4096; K9 36 and K11 18 a step on wgmma, K10 18 on tf32) with remat
+batch 1 x 4096; K9 36, K10 and K11 18 a step, all on wgmma) with remat
 "full" and again with "dots", whisper-base whole (6 + 6 layers, batch 32,
 1500 frames, 448 tokens; K9 18, K10 6, K11 6 a step on wgmma: the encoder's
 forward once a layer and no encoder backward, since, as in the reference,
@@ -159,9 +158,10 @@ also held to its plain version and a float64 forward and timed at the
 prefill's shape (B=8, S=511; row ``flash_fwd@prefill``, its launches the
 serving phase's).
 
-K1/K2 rows carry the kernel's and the library call's device time from
-``torch.profiler`` (``device_ms``, ``library_device_ms``) beside their
-CUDA-event times, and the wrapper's launch plan; the cluster-split K1 BP
+K1/K2 rows and the bfloat16 flash rows carry the kernel's and the library
+call's device time from ``torch.profiler`` (``device_ms``,
+``library_device_ms``) beside their CUDA-event times, K1/K2 also the
+wrapper's launch plan; the cluster-split K1 BP
 is launched twice at the zaremba-medium shape and must give the same bits.
 
 Prints the card's name and power limit, one JSON line of per-kernel
@@ -330,6 +330,22 @@ def device_ms(fn, reps: int = 20, warmup: int = 3, cold_l2: bool = False):
     return sum(us / n * max(1, round(n / reps)) for us, n in seen) / 1e3, counts
 
 
+def device_times(fn, lib, cold_l2: bool = False):
+    """A row's device times beside its CUDA-event times (the difference is
+    the host's): ``device_ms`` of ``fn`` and of its library call ``lib`` as
+    ``device_ms`` and ``library_device_ms``, and where the profiler lost
+    records in five runs and a time is an estimate, what it was estimated
+    from (``*_estimated_from``: the recorded launches or "cuda events").
+    ``lib`` may also be the library call's ``device_ms`` result, where rows
+    share one library call."""
+    dms, lost = device_ms(fn, cold_l2=cold_l2)
+    ldms, llost = lib if isinstance(lib, tuple) else device_ms(lib, cold_l2=cold_l2)
+    return dict(device_ms=dms, library_device_ms=ldms,
+                **{k_: v for k_, v in (("device_ms_estimated_from", lost),
+                                       ("library_device_ms_estimated_from", llost))
+                   if v is not None})
+
+
 def bound_ms(nbytes: float, flops, rate: float = F32_FLOPS):
     """The larger of the bytes' time and the operations' time: ``flops`` at
     ``rate``, or (flops, rate) pairs, one for each kind of unit the work
@@ -409,17 +425,9 @@ def check_gather_matmul(gen, out, arch=LM, T=T, B=B, H=H, D=D, P=P,
         ms = time_ms(fn, cold_l2=cold_l2)
         pms = time_ms(plain, cold_l2=cold_l2)
         lms = time_ms(lib, cold_l2=cold_l2)
-        # device time beside the event time: the difference is the host's
-        # (an estimate, marked with the recorded launches or "cuda events",
-        # where the profiler lost records in five runs)
-        dms, lost = device_ms(fn, cold_l2=cold_l2)
-        ldms, llost = device_ms(lib, cold_l2=cold_l2)
-        est = {k_: v for k_, v in (("device_ms_estimated_from", lost),
-                                   ("library_device_ms_estimated_from", llost))
-               if v is not None}
         add_row(out, name, arch, route_src, replaces, err, ms, pms, lms,
-                nbytes, flops, "cold" if cold_l2 else "warm", device_ms=dms,
-                library_device_ms=ldms, **est,
+                nbytes, flops, "cold" if cold_l2 else "warm",
+                **device_times(fn, lib, cold_l2),
                 plan=dict(bm=plan.bm, bn=plan.bn, split=plan.split,
                           ctas=math.prod(plan.grid)))
 
@@ -970,9 +978,9 @@ def check_flash(gen, B_, Sq_, Sk_, Hq_, Hkv_, d_, *, causal=True, window=None,
     on the same inputs; both backward passes take the plain forward's lse
     and delta. float32 within 1e-3 x max(1, |ref|), bfloat16 within 3e-2
     (the reference's bf16 tolerance). With ``want_route`` ("wgmma" or
-    "tf32", or {pass: route}), each of the three passes must have launched
-    on its route and on no other. With ``gates`` (bfloat16 on small
-    inputs), also the same bits from a second launch and, over every
+    "tf32"), each of the three passes must have launched on that route and
+    on no other. With ``gates`` (bfloat16 on small inputs), also the same
+    bits from a second launch and, over every
     (batch, kv head) group, float64 within 10 x the bfloat16 plain
     version's distance + 1e-6 (``flash_f64_bf16``). With ``out`` (the main
     path's shape):
@@ -980,9 +988,10 @@ def check_flash(gen, B_, Sq_, Sk_, Hq_, Hkv_, d_, *, causal=True, window=None,
     backward over one (batch, kv head) group within ``FLASH_F64_TOL``
     (SDPA's distances printed beside theirs), all three launched twice for
     the same bits, timed beside SDPA, and their SASS must hold TF32 HMMA at
-    every head dim (bfloat16: HGMMA on the wgmma route). A bfloat16 row on
-    the tf32 route also carries ``route_bound_ms``, its products at the
-    TF32 rate (that route's one TF32 product each)."""
+    every head dim (bfloat16: HGMMA on the wgmma route). A bfloat16 row
+    also carries the tf32 route's time on the same inputs, in turns
+    (``wgmma_vs_tf32``), and the kernel's and SDPA's device times
+    (``device_times``)."""
     from repro_torch.kernels import flash_attention as fa
     r = lambda *shape: torch.randn(*shape, generator=gen).to("cuda", dtype)
     q, k, v, do = (r(B_, Sq_, Hq_, d_), r(B_, Sk_, Hkv_, d_),
@@ -1005,10 +1014,9 @@ def check_flash(gen, B_, Sq_, Sk_, Hq_, Hkv_, d_, *, causal=True, window=None,
     e10 = compare("  flash_dq " + tag, dq_k(), dq_p(), tol)
     e11 = compare("  flash_dkv " + tag, list(dkv_k()), list(dkv_p()), tol)
     if want_route is not None:
-        want = passes_on(want_route)
         moved = {k_: n - before[k_] for k_, n in read_counts().items()
                  if k_.startswith("flash_") and "/" in k_ and n != before[k_]}
-        assert moved == {f"{name}/{r}": 1 for name, r in want.items()}, (tag, moved)
+        assert moved == {f"{name}/{want_route}": 1 for name in FLASH_PASSES}, (tag, moved)
     if out is None and not gates:
         return
     del o_p
@@ -1036,38 +1044,39 @@ def check_flash(gen, B_, Sq_, Sk_, Hq_, Hkv_, d_, *, causal=True, window=None,
     qb, kb = B_ * Sq_ * Hq_ * d_ * es, B_ * Sk_ * Hkv_ * d_ * es
     rows = 4 * B_ * Hq_ * Sq_                     # one float32 per query row
     assert window is None, "the library yardstick has no window"
-    lib_f, lib_b = sdpa_yardstick(q, k, v, do, causal)
+    sdpa_f, sdpa_b = sdpa_calls(q, k, v, do, causal)
+    lib_f, lib_b = time_ms(sdpa_f, cold_l2=True), time_ms(sdpa_b, cold_l2=True)
+    # SDPA's device times, once: K10's and K11's rows share its backward
+    dev_f, dev_b = ((device_ms(sdpa_f, cold_l2=True), device_ms(sdpa_b, cold_l2=True))
+                    if bf else (None, None))
     rep = "src/repro/kernels/flash_attention.py:"
     # float32: on the TF32 tensor cores, three TF32 products for each
     # float32 product (3xTF32); bfloat16 inputs: the products themselves at
     # the bfloat16 rate, the route-independent least
     passes, rate = (1, BF16_FLOPS) if bf else (3, TF32_FLOPS)
-    for name, fk, fp, err, nbytes, flops, lms, line in (
+    for name, fk, fp, err, nbytes, flops, lms, ldev, line in (
             ("flash_fwd", fwd_k, fwd_p, e9, qb + 2 * kb + qb + rows, passes * 2 * prod,
-             lib_f, "45"),
+             lib_f, dev_f, "45"),
             ("flash_dq", dq_k, dq_p, e10, 3 * qb + 2 * kb + 2 * rows, passes * 3 * prod,
-             lib_b, "127"),
+             lib_b, dev_b, "127"),
             ("flash_dkv", dkv_k, dkv_p, e11, 2 * qb + 4 * kb + 2 * rows,
-             passes * 4 * prod, lib_b, "158")):
+             passes * 4 * prod, lib_b, dev_b, "158")):
         rt = fa.route(name, dtype, d_)
         counter = f"{name}/{rt}" if bf else name
-        # once per layer and pass, after other work: cold L2
-        if rt == "wgmma":
-            ms, prev = wgmma_vs_tf32(fa, fk)
-        else:
-            ms = time_ms(fk, cold_l2=True)
+        # once per layer and pass, after other work: cold L2; bfloat16 at the
+        # main paths' head dims takes the wgmma route, timed in turns with
+        # the tf32 route
+        assert rt == ("wgmma" if bf else "tf32"), (name, rt)
+        ms, prev = wgmma_vs_tf32(fa, fk) if bf else (time_ms(fk, cold_l2=True), None)
         pms = time_ms(fp, cold_l2=True)
         if bf:
-            extra = dict(dtype="bfloat16", f64_rel_err=f64[name], kernel_route=rt)
-            if rt == "wgmma":
-                extra["tf32_route_ms"] = prev
-            if rt == "wgmma" and name != "flash_fwd":
+            extra = dict(dtype="bfloat16", f64_rel_err=f64[name], kernel_route=rt,
+                         tf32_route_ms=prev, **device_times(fk, ldev, cold_l2=True))
+            if name != "flash_fwd":
                 # the route's own work: K10 s, dp and ds in two terms; K11
                 # s^T, dp^T and p, ds in two terms each
                 extra["route_bound_ms"] = bound_ms(
                     nbytes, (4 if name == "flash_dq" else 6) * prod, BF16_FLOPS)[0]
-            if rt == "tf32":
-                extra["route_bound_ms"] = bound_ms(nbytes, flops, TF32_FLOPS)[0]
         elif name == "flash_fwd":
             extra = dict(f64_rel_err=f64[name], library_f64_rel_err=f64["sdpa_fwd"])
         else:
@@ -1082,21 +1091,11 @@ def check_flash(gen, B_, Sq_, Sk_, Hq_, Hkv_, d_, *, causal=True, window=None,
 FLASH_SRC = {"tf32": "src/repro_torch/csrc/flash_attention.cu",
              "wgmma": "src/repro_torch/csrc/flash_attention_sm90.cu"}
 FLASH_PASSES = ("flash_fwd", "flash_dq", "flash_dkv")
-# bfloat16 at head_dim 256 (gemma-2b): K9 and K11 on wgmma, K10 on tf32
-D256_ROUTES = {"flash_fwd": "wgmma", "flash_dq": "tf32", "flash_dkv": "wgmma"}
-
-
-def passes_on(want_route):
-    """{pass: route} of a ``want_route`` given as one route for all three
-    passes or as {pass: route}."""
-    if isinstance(want_route, str):
-        return {name: want_route for name in FLASH_PASSES}
-    return dict(want_route)
 
 
 def wgmma_routes(flash):
-    """The launches by route that bfloat16 K9-K11 at head_dim 64 or 128
-    make for the pass counts ``flash``: all on wgmma."""
+    """The launches by route that bfloat16 K9-K11 at head_dim 64, 128 or
+    256 make for the pass counts ``flash``: all on wgmma."""
     return {"flash_fwd/wgmma": flash["flash_fwd"], "flash_fwd/tf32": 0,
             "flash_dq/wgmma": flash["flash_dq"], "flash_dq/tf32": 0,
             "flash_dkv/wgmma": flash["flash_dkv"], "flash_dkv/tf32": 0}
@@ -1262,7 +1261,7 @@ def check_wgmma_sass(fa):
     instructions at every head dim they take."""
     hgmma = sass_hgmma("flash_attention_sm90")
     for name in FLASH_PASSES:
-        for d in fa.WGMMA_HEAD_DIMS[name]:
+        for d in fa.WGMMA_HEAD_DIMS:
             n = [v for sym, v in hgmma.items() if f"{name}_sm90ILi{d}E" in sym]
             if not n or not all(n):
                 raise AssertionError(f"{name}_sm90 (d={d}): no HGMMA in its SASS")
@@ -1301,11 +1300,10 @@ def sass_hmma(name):
     return hmma
 
 
-def sdpa_yardstick(q, k, v, do, causal):
-    """Cold-L2 times of ``scaled_dot_product_attention``'s forward and of
-    its backward (dq, dk, dv together) on (B, H, S, d) views of the same
-    inputs, grouped-query through ``enable_gqa``; used nowhere in the
-    port."""
+def sdpa_calls(q, k, v, do, causal):
+    """``scaled_dot_product_attention``'s forward and its backward (dq, dk,
+    dv together) on (B, H, S, d) views of the same inputs, grouped-query
+    through ``enable_gqa``, as calls to time; used nowhere in the port."""
     import torch.nn.functional as F
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
     fwd = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
@@ -1313,17 +1311,16 @@ def sdpa_yardstick(q, k, v, do, causal):
     o = fwd()
     bwd = lambda: torch.autograd.grad(o, (qt, kt, vt), do.transpose(1, 2),
                                       retain_graph=True)
-    return time_ms(fwd, cold_l2=True), time_ms(bwd, cold_l2=True)
+    return fwd, bwd
 
 
 def check_flash_modes(gen):
     """K9-K11 on small inputs: non-causal, windows, MQA, G = 4, sequences
     that are not multiples of the tile, Sq != Sk, head dims 16 / 64 / 256;
     bfloat16 at head_dim 16 and 32 (the tf32 route: causal, windows, G = 3,
-    Sq != Sk), at 256 (K9 and K11 on wgmma, K10 on tf32: S 100 and 160,
-    Sq < Sk, Sq > Sk, windows, G = 3, MQA, non-causal; each also for the
-    same bits and against float64 over every group) and at 64 and 128 (the
-    wgmma route's K9-K11:
+    Sq != Sk), at 256 (the wgmma route: S 100 and 160, Sq < Sk, Sq > Sk,
+    windows, G = 3, MQA, non-causal; each also for the same bits and
+    against float64 over every group) and at 64 and 128 (the wgmma route:
     non-causal, windows 8 and 256, MQA, G = 3, S = 100, Sq < Sk, Sq > Sk;
     d 64 non-causal at S 100 and 1500 and causal at S 448, whisper-base's).
     Each case asserts the route its three passes launched on."""
@@ -1352,9 +1349,8 @@ def check_flash_modes(gen):
         ((1, 192, 192, 6, 2, 32), {}, "(bf16 d=32 G=3)"),
         ((1, 64, 64, 2, 2, 32), dict(causal=False, window=8), "(bf16 d=32 non-causal window 8)"),
         ((1, 144, 80, 4, 2, 32), {}, "(bf16 d=32 Sq > Sk)"))
-    # bfloat16 at d 256 (gemma-2b's head_dim: K9 and K11 on wgmma, K10 on
-    # tf32), each case also for the same bits and against float64 over
-    # every (batch, kv head) group
+    # bfloat16 at d 256 (gemma-2b's head_dim), each case also for the same
+    # bits and against float64 over every (batch, kv head) group
     bf_d256 = (
         ((1, 160, 160, 4, 2, 256), {}, "(bf16 d=256 S=160)"),
         ((2, 100, 100, 4, 2, 256), {}, "(bf16 d=256 S=100)"),
@@ -1383,7 +1379,7 @@ def check_flash_modes(gen):
         ((1, 1500, 1500, 2, 2, 64), dict(causal=False), "(bf16 d=64 non-causal S=1500)"),
         ((1, 448, 448, 4, 2, 64), {}, "(bf16 d=64 causal S=448)"))
     for cases, dtype, want in ((f32, torch.float32, "tf32"), (bf_tf32, bf, "tf32"),
-                               (bf_d256, bf, D256_ROUTES), (bf_wgmma, bf, "wgmma")):
+                               (bf_d256, bf, "wgmma"), (bf_wgmma, bf, "wgmma")):
         for args, kw, tag in cases:
             check_flash(gen, *args, tag=tag, dtype=dtype, want_route=want,
                         gates=cases is bf_d256, **kw)
@@ -2417,8 +2413,8 @@ def drive_config(arch, layers, batch, seq, **kw):
     training steps through ``steps.make_train_step`` with the trainer's
     batches, then one traced step. Asserts finite losses and parameters,
     the K9-K11 launches the code implies (``flash_launches``), every one on
-    the route that bfloat16 at the config's head_dim takes, and 8 GB of the
-    card free. Returns (counts, [ms], peak bytes, device split, losses)."""
+    the wgmma route, and 8 GB of the card free. Returns (counts, [ms], peak
+    bytes, device split, losses)."""
     from repro_torch import configs
     from repro_torch.configs import adapters
     from repro_torch.kernels import flash_attention as fa
@@ -2468,11 +2464,8 @@ def drive_config(arch, layers, batch, seq, **kw):
     assert all(torch.isfinite(p).all() for p in _leaves(params))
     assert all(p.dtype == torch.bfloat16 for p in _leaves(params))
     flash = flash_launches(cfg)
-    routes = {k_: fa.route(k_, torch.bfloat16, cfg.hd) for k_ in flash}
-    if cfg.hd == 256:
-        assert routes == D256_ROUTES, routes
-    want = {**flash, **{f"{k_}/{r}": (flash[k_] if r == routes[k_] else 0)
-                        for k_ in flash for r in ("wgmma", "tf32")}}
+    assert all(fa.route(k_, torch.bfloat16, cfg.hd) == "wgmma" for k_ in flash), cfg.hd
+    want = {**flash, **wgmma_routes(flash)}
     got = {k_: v for k_, v in c.items() if v}
     assert got == {k_: v for k_, v in want.items() if v}, \
         f"{what}: launches {got}, expected {want} and no other kernel"
@@ -3072,8 +3065,10 @@ def check_flash_prefill(gen, out, dtype=torch.float32, label="prefill", want_rou
     the route bfloat16 at its head_dim takes and on no other, against its
     plain version within BF16_TOL, the same bits from a second launch and,
     over every group, against float64 within 10 x the bfloat16 plain
-    version's distance + 1e-6 (``flash_f64_bf16``). With ``want_route``,
-    K9 must take that route."""
+    version's distance + 1e-6 (``flash_f64_bf16``), and the kernel's and
+    SDPA's device times beside their CUDA-event times (``device_times``:
+    at these short shapes the event times swing with the host's). With
+    ``want_route``, K9 must take that route."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     B_, S, Hq, Hkv, d_, causal, arch, per_prefill = prefill_shapes()[label]
@@ -3109,8 +3104,11 @@ def check_flash_prefill(gen, out, dtype=torch.float32, label="prefill", want_rou
         f64 = flash_fwd_f64(fa, q, k, v, causal, None)
         extra = dict(f64_rel_err=f64["flash_fwd"], library_f64_rel_err=f64["sdpa_fwd"])
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    lib = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=causal, enable_gqa=True), cold_l2=True)
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                  enable_gqa=True)
+    lib = time_ms(sdpa, cold_l2=True)
+    if bf:
+        extra.update(device_times(fwd_k, sdpa, cold_l2=True))
     pairs = S * (S + 1) // 2 if causal else S * S
     prod = 2 * B_ * Hq * pairs * d_
     es = torch.finfo(dtype).bits // 8
@@ -3118,8 +3116,6 @@ def check_flash_prefill(gen, out, dtype=torch.float32, label="prefill", want_rou
     nbytes = qb + 2 * kb + qb + 4 * B_ * Hq * S
     # bfloat16: the products at the bfloat16 rate; float32: 3xTF32
     passes, rate = (1, BF16_FLOPS) if bf else (3, TF32_FLOPS)
-    if bf and rt == "tf32":
-        extra["route_bound_ms"] = bound_ms(nbytes, 2 * prod, TF32_FLOPS)[0]
     add_row(out, f"flash_fwd/{rt}" if bf else "flash_fwd", arch, FLASH_SRC[rt],
             "src/repro/kernels/flash_attention.py:45", err, ms,
             time_ms(fwd_p, cold_l2=True), lib, nbytes, passes * 2 * prod, "cold",
@@ -3178,8 +3174,8 @@ def main() -> int:
     print("kernels: K1 gather_matmul, K2 gather_matmul_stepped, "
           "K3 lstm_scan_fwd, K4 lstm_scan_bwd, K5 lstm_pointwise, "
           "K6 slstm_scan_fwd/bwd (+ slstm_wg), K7 decoder_scan_fwd, K8 decoder_scan_bwd, "
-          "K9 flash_fwd, K10 flash_dq, K11 flash_dkv (bfloat16 at d 64 / 128, and "
-          "K9 / K11 at d 256: flash_*_sm90), K12 grouped_matmul (bfloat16: "
+          "K9 flash_fwd, K10 flash_dq, K11 flash_dkv (bfloat16 at d 64 / 128 / 256: "
+          "flash_*_sm90), K12 grouped_matmul (bfloat16: "
           "grouped_mm_sm90)")
 
     gen = torch.Generator().manual_seed(0)
@@ -3257,12 +3253,12 @@ def main() -> int:
         check_flash_prefill(gen, rows, torch.bfloat16, label, want_route="wgmma")
     check_flash_modes(gen)
     # gemma-2b (8 query heads over its one kv head repeated 8 times, head_dim
-    # 256: K9 and K11 on wgmma, K10 on tf32) and whisper-base (8 heads of
-    # 64, the encoder non-causal over its 1500 frames, the decoder causal
-    # over 448 tokens: the wgmma route), bfloat16, at their training shapes
+    # 256) and whisper-base (8 heads of 64, the encoder non-causal over its
+    # 1500 frames, the decoder causal over 448 tokens), bfloat16 on the
+    # wgmma route, at their training shapes
     bf16 = dict(dtype=torch.bfloat16, out=rows)
     check_flash(gen, 1, 4096, 4096, 8, 8, 256, arch=GEMMA, label=GEMMA,
-                want_route=D256_ROUTES, tag="(gemma-2b, bf16)", **bf16)
+                want_route="wgmma", tag="(gemma-2b, bf16)", **bf16)
     check_flash(gen, WB, WT, WT, 8, 8, 64, causal=False, arch=WHISPER,
                 label="whisper-enc", want_route="wgmma",
                 tag="(whisper-base encoder, bf16)", **bf16)

@@ -1,15 +1,14 @@
 // bfloat16 flash attention on Hopper's wgmma and TMA (sm_90a): the forward,
-// the dq pass and the dk/dv pass at head_dim 64 and 128, and the forward and
-// the dk/dv pass at head_dim 256.
+// the dq pass and the dk/dv pass at head_dim 64, 128 and 256.
 //
 // Replaces, for bfloat16 inputs at those head dims, the Pallas TPU kernels
 // of repro/kernels/flash_attention.py:
 //   K9  _fwd_kernel via _flash_fwd (pallas_call :107)  -> flash_fwd_sm90
 //   K10 _dq_kernel  via _flash_bwd (pallas_call :218)  -> flash_dq_sm90
 //   K11 _dkv_kernel via _flash_bwd (pallas_call :243)  -> flash_dkv_sm90
-// (kernels/flash_attention.py route() sends every other dtype, head_dim and
-// pass, K10 at 256 among them, to csrc/flash_attention.cu). They compute what
-// that file's K9, K10 and K11 compute, on the same layouts, masks and launch
+// (kernels/flash_attention.py route() sends every other dtype and head_dim
+// to csrc/flash_attention.cu). They compute what that file's K9, K10 and
+// K11 compute, on the same layouts, masks and launch
 // orders: q (B, Sq, Hq, D), k / v (B, Sk, Hkv, D) read through their strides,
 // query head h on kv head h / (Hq / Hkv), hidden pairs and keys past Sk p =
 // 0; o and lse (B, Hq, Sq) out of K9, dq (B, Sq, Hq, D) out of K10, dk and dv
@@ -33,19 +32,22 @@
 //
 // What bounds them on the H100: operations. At qwen3-8b's training shape
 // (B 1, S 4096, 32 query heads over 16, d 128, causal) one product over the
-// causal half is 68.7e9 multiply-adds: K9's two at 989 TFLOP/s take 0.139
-// ms, K10's three 0.209 ms (its own route's four 0.278 ms), K11's four
-// 0.278 ms (its own route's six 0.417 ms); the operands are ~70 MB (0.02
-// ms). At gemma-2b's (B 1, S 4096, 8 query heads over 8 kv heads after
-// kv_repeat, d 256, causal) one product is 34.4e9: K9's two 0.0695 ms,
-// K11's four 0.139 ms (its own route's six 0.209 ms).
+// causal half is 68.7e9 FLOP: K9's two at 989 TFLOP/s take 0.139 ms, K10's
+// three 0.209 ms (its own route's four 0.278 ms), K11's four 0.278 ms (its
+// own route's six 0.417 ms); the operands are ~70 MB (0.02 ms). At
+// gemma-2b's (B 1, S 4096, 8 query heads over 8 kv heads after kv_repeat, d
+// 256, causal) one product is 34.4e9 FLOP: K9's two 0.0695 ms, K10's three
+// 0.104 ms (its own route's four 0.139 ms), K11's four 0.139 ms (its own
+// route's six 0.209 ms).
 //
 // Design (csrc/sm90.cuh holds the PTX):
 //   * Tiles land by TMA in 64-column boxes with the 128-byte swizzle, rows
 //     past the tensor zero-filled (the ragged last tiles: the serving
-//     prefill has S 511), into a ring of stages, each with a full and an
-//     empty mbarrier (each consumer warpgroup's thread 0 arrives on empty
-//     when its wgmma that read the stage have completed). wgmma reads them
+//     prefill has S 511), into a ring of stages, each with a full mbarrier
+//     and either an empty mbarrier, on which each consumer warpgroup's
+//     thread 0 arrives when its wgmma that read the stage have completed,
+//     or a count of those releases in shared memory, whose second releaser
+//     refills the stage (release_and_refill). wgmma reads them
 //     K-major (contraction over head_dim) or, with the transpose bit,
 //     MN-major (contraction over a sequence axis: v in p v, k in ds k, do in
 //     p^T do, q in ds^T q), so no tile is transposed or copied and one copy
@@ -68,18 +70,25 @@
 //     so the from-zero partial sums and the FADD of the TF32 design are not
 //     needed here.
 //   * K10: a CTA of 256 threads, two consumer warpgroups whose thread 0 also
-//     produces (as K11, below), ring of four stages. 128 query rows of one
-//     (batch, head), 64 a warpgroup, q and do resident; kv tiles of 64 keys
-//     of kv head h / G. s = q k^T and dp = do v^T are wgmma m64n64k16 from
-//     shared memory; p = 2^(s scale log2(e) - lse log2(e)) and ds = p (dp
-//     scale - delta scale) (one FFMA and one MUFU.EX2 a score; lse and
-//     delta of the thread's two rows read once) are formed on the
-//     accumulator layout and split into the A registers of dq += ds k (hi
-//     then lo), k read MN-major. dq stays in registers for the whole loop
-//     (at most 2 x 4096 / 16 accumulating k-steps: ~6e-5 of |dq| in
-//     truncation, under the output's 2^-9) and is written in q's dtype. dq
-//     (D / 2), s, dp (32 each) and the split terms (32) take ~170-190
-//     registers a thread: the register budget of K11, not K9's 168.
+//     produces (as K11, below). 128 query rows of one (batch, head), 64 a
+//     warpgroup, q and do resident; kv tiles of kv head h / G. s = q k^T and
+//     dp = do v^T are wgmma m64nBKk16 from shared memory; p = 2^(s scale
+//     log2(e) - lse log2(e)) and ds = p (dp scale - delta scale) (one FFMA
+//     and one MUFU.EX2 a score; lse and delta of the thread's two rows read
+//     once) are formed on the accumulator layout and split into the A
+//     registers of dq += ds k (hi then lo), k read MN-major. dq stays in
+//     registers for the whole loop (at most 2 x 4096 / 16 accumulating
+//     k-steps: ~6e-5 of |dq| in truncation, under the output's 2^-9) and is
+//     written in q's dtype. Thread 0 loads q, do and the first tiles; the
+//     second warpgroup to release a stage loads the tile ST on into it, as
+//     K9's at D 256. At D 64, 128: kv tiles of 64 keys in a ring of four
+//     stages; dq (D / 2), s, dp (32 each) and the split terms (32) take
+//     ~170-190 registers a thread: the register budget of K11, not K9's
+//     168. At D 256 q and do alone are 128 KB, and four stages of 64 keys
+//     would be 256 KB more: kv tiles of 32 keys in a ring of three stages
+//     (3 x 32 KB, 226 KB in all). dq is 128 registers a thread, s and dp
+//     (m64n32) 16 each, the split terms 16. The terms and their order are
+//     the same at every D: a k-step of 16 keys, hi then lo, in key order.
 //   * K11 at D 64, 128: a CTA of 256 threads, two consumer warpgroups whose
 //     thread 0 also produces (below), ring of three stages. 128 keys of one
 //     (batch, kv
@@ -106,8 +115,8 @@
 //     stages (64 + 2 x 64 KB). Thread 0 loads q and the first two tiles;
 //     then the second warpgroup to release a stage (a shared counter of
 //     releases) loads the tile two on into it, so neither waits for the
-//     other (a thread 0 that waits for both, as K10's, holds its warpgroup
-//     in lockstep with the other). s = q k^T is wgmma m64n64k16 (16
+//     other (a thread 0 that waits for both, as K11's at D 64, 128, holds
+//     its warpgroup in lockstep with the other). s = q k^T is wgmma m64n64k16 (16
 //     k-steps), o += p v m64n256k16 with p in registers (4 k-steps a
 //     tile). o takes D / 2 = 128 registers a thread, s 32, p's A fragments
 //     16: ptxas gives 204 registers and no spill.
@@ -169,11 +178,27 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   else wgmma_rs_n64(d, a, db);
 }
 
-// wgmma with both operands in shared memory, N keys (K9) or queries (K11)
+// wgmma with both operands in shared memory, N keys (K9, K10) or queries (K11)
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
   if constexpr (N == 128) wgmma_ss_n128(d, da, db, scale_d);
-  else wgmma_ss_n64(d, da, db, scale_d);
+  else if constexpr (N == 64) wgmma_ss_n64(d, da, db, scale_d);
+  else wgmma_ss_n32(d, da, db, scale_d);
+}
+
+// A warpgroup's release of a stage, by its thread 0, once the wgmma that
+// read the stage have completed: ``count`` (a shared word, zero at the
+// start) counts the stage's releases, and the second of the two warpgroups
+// to release it loads tile ``next`` into it (``load(next)``) if there is
+// one, so neither warpgroup waits for the other
+template <typename Load>
+__device__ __forceinline__ void release_and_refill(uint32_t count, int next, int n,
+                                                   const Load& load) {
+  __threadfence_block();
+  if ((atom_add_shared(count, 1) & 1) && next < n) {
+    __threadfence_block();
+    load(next);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -357,13 +382,7 @@ __global__ void __launch_bounds__(FwdSm90<D>::NT, 1)
         if constexpr (TL::PWG) {
           mbar_arrive(empty0 + 8 * s);
         } else {
-          // D 256: the second warpgroup to release the stage refills it
-          // with tile it + ST, so neither waits for the other
-          __threadfence_block();
-          if ((atom_add_shared(rel0 + 4 * s, 1) & 1) && it + ST < n) {
-            __threadfence_block();
-            load_kv(it + ST);
-          }
+          release_and_refill(rel0 + 4 * s, it + ST, n, load_kv);   // D 256
         }
       }
     }
@@ -389,11 +408,14 @@ __global__ void __launch_bounds__(FwdSm90<D>::NT, 1)
 // ---------------------------------------------------------------------------
 
 template <int D> struct DqSm90 {
-  static constexpr int BQ = 128, BK = 64, ST = 4, NB = D / 64;
+  // D 64, 128: kv tiles of 64 keys in four stages; D 256: tiles of 32 keys
+  // in three stages (q and do 128 KB + 3 x 32 KB)
+  static constexpr int BQ = 128, BK = D == 256 ? 32 : 64, ST = D == 256 ? 3 : 4, NB = D / 64;
   static constexpr uint32_t Q_BYTES = BQ * D * 2, KV_BYTES = BK * D * 2;
-  // q, do; ST x (k, v); qbar, full[ST], empty[ST]
+  // q, do; ST x (k, v); qbar, full[ST], each stage's releases so far
   static constexpr uint32_t BAR = 2 * Q_BYTES + ST * 2 * KV_BYTES;
   static constexpr uint32_t SMEM = BAR + 1024 + 1024;
+  static_assert(SMEM <= 232448, "a block's shared memory on the H100");
 };
 
 template <int D>
@@ -408,7 +430,7 @@ __global__ void __launch_bounds__(NT_DKV, 1)
   const uint32_t sd = sq + TL::Q_BYTES;
   const uint32_t skv = sd + TL::Q_BYTES;     // stage s: k at skv + 2 s KV_BYTES, v after it
   const uint32_t qbar = sq + TL::BAR;
-  const uint32_t full0 = qbar + 8, empty0 = full0 + 8 * ST;
+  const uint32_t full0 = qbar + 8, rel0 = full0 + 8 * ST;
   const int qt = gridDim.y - 1 - blockIdx.y, h = blockIdx.x % a.Hq, b = blockIdx.x / a.Hq;
   const int hk = h / (a.Hq / a.Hkv), q0 = qt * BQ;
   // kv tiles that rows [q0, q0 + BQ) can see
@@ -419,14 +441,13 @@ __global__ void __launch_bounds__(NT_DKV, 1)
     mbar_init(qbar, 1);
     for (int s = 0; s < ST; ++s) {
       mbar_init(full0 + 8 * s, 1);
-      mbar_init(empty0 + 8 * s, 2);
+      sts_u32(rel0 + 4 * s, 0);
     }
     mbar_init_fence();
   }
   __syncthreads();
-  // The producer: thread 0 issues every TMA load, q and do once, then k and
-  // v of tile i into stage i % ST once both warpgroups have released tile
-  // i - ST.
+  // Thread 0 issues q and do once and the first ST tiles; then the second
+  // warpgroup to release a stage loads k and v of the tile ST on into it.
   const auto load_kv = [&](int i) {
     const int s = i % ST, k0 = (kt0 + i) * BK;
     const uint32_t kd = skv + s * 2 * TL::KV_BYTES, vd = kd + TL::KV_BYTES;
@@ -468,12 +489,6 @@ __global__ void __launch_bounds__(NT_DKV, 1)
   const float c = a.scale * LOG2E;
   mbar_wait(qbar, 0);
   for (int it = 0; it < n; ++it) {
-    // refill the stage of tile it - 1, which this warpgroup has released,
-    // once the other one has too: the ring runs ST - 1 tiles ahead
-    if (threadIdx.x == 0 && it >= 1 && it - 1 + ST < n) {
-      mbar_wait(empty0 + 8 * ((it - 1) % ST), ((it - 1) / ST) & 1);
-      load_kv(it - 1 + ST);
-    }
     const int s = it % ST;
     const int k0 = (kt0 + it) * BK, kz = min(k0 + BK, a.Sk) - 1;
     mbar_wait(full0 + 8 * s, (it / ST) & 1);
@@ -484,11 +499,11 @@ __global__ void __launch_bounds__(NT_DKV, 1)
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_n64(sc, kmajor_desc(qrow + (kk >> 2) * BQ * 128 + (kk & 3) * 32),
+        wgmma_ss<BK>(sc, kmajor_desc(qrow + (kk >> 2) * BQ * 128 + (kk & 3) * 32),
                      kmajor_desc(kd + (kk >> 2) * BK * 128 + (kk & 3) * 32), kk > 0);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_n64(dp, kmajor_desc(drow + (kk >> 2) * BQ * 128 + (kk & 3) * 32),
+        wgmma_ss<BK>(dp, kmajor_desc(drow + (kk >> 2) * BQ * 128 + (kk & 3) * 32),
                      kmajor_desc(vd + (kk >> 2) * BK * 128 + (kk & 3) * 32), kk > 0);
       wg_commit();
       wg_wait<0>();
@@ -539,7 +554,7 @@ __global__ void __launch_bounds__(NT_DKV, 1)
       fence_regs(sh);
       fence_regs(sl);
     }
-    if (tid == 0) mbar_arrive(empty0 + 8 * s);
+    if (tid == 0) release_and_refill(rel0 + 4 * s, it + ST, n, load_kv);
   }
 
 #pragma unroll
@@ -937,13 +952,7 @@ __device__ __forceinline__ void dkv_roles(const CUtensorMap& tq, const CUtensorM
       fence_regs(th);
       fence_regs(tl);
     }
-    if (tid == 0) {
-      __threadfence_block();
-      if ((atom_add_shared(rel0 + 4 * s, 1) & 1) && it + ST < n_it) {
-        __threadfence_block();
-        load_qdo(it + ST);
-      }
-    }
+    if (tid == 0) release_and_refill(rel0 + 4 * s, it + ST, n_it, load_qdo);
   }
   // every arrival on a named barrier is waited for: warpgroup 0 waits out
   // warpgroup 1's release of the last two buffers
@@ -1003,16 +1012,12 @@ int launch(int pass, const Args& a, const void* q, const void* k, const void* v,
     const dim3 grid(a.Hq * a.B, (a.Sq + TL::BQ - 1) / TL::BQ);
     flash_fwd_sm90<D><<<grid, TL::NT, TL::SMEM, stream>>>(tq, tk, tv, a);
   } else if (pass == DQ) {
-    if constexpr (D == 256) {
-      return (int)cudaErrorInvalidValue;    // K10 at D 256: csrc/flash_attention.cu
-    } else {
-      using TL = DqSm90<D>;
-      if (!maps(TL::BQ, TL::BK)) return (int)cudaErrorInvalidPitchValue;
-      int err = set_smem(flash_dq_sm90<D>, TL::SMEM);
-      if (err) return err;
-      const dim3 grid(a.Hq * a.B, (a.Sq + TL::BQ - 1) / TL::BQ);
-      flash_dq_sm90<D><<<grid, NT_DKV, TL::SMEM, stream>>>(tq, tk, tv, tdo, a);
-    }
+    using TL = DqSm90<D>;
+    if (!maps(TL::BQ, TL::BK)) return (int)cudaErrorInvalidPitchValue;
+    int err = set_smem(flash_dq_sm90<D>, TL::SMEM);
+    if (err) return err;
+    const dim3 grid(a.Hq * a.B, (a.Sq + TL::BQ - 1) / TL::BQ);
+    flash_dq_sm90<D><<<grid, NT_DKV, TL::SMEM, stream>>>(tq, tk, tv, tdo, a);
   } else {
     using TL = DkvSm90<D>;
     if (!maps(TL::BQ, TL::BK)) return (int)cudaErrorInvalidPitchValue;
@@ -1027,10 +1032,9 @@ int launch(int pass, const Args& a, const void* q, const void* k, const void* v,
 }  // namespace
 
 // The C interface of csrc/flash_attention.cu's flash_attention_launch, for
-// the passes and types this file covers: dtype 1 (bfloat16), pass 0 (K9)
-// and 2 (K11) at D 64, 128 and 256, pass 1 (K10) at D 64 and 128 (K10 at D
-// 256 returns cudaErrorInvalidValue: csrc/flash_attention.cu takes it); dq
-// is written contiguous (B, Sq, Hq, D). Strides are in elements and
+// the passes and types this file covers: dtype 1 (bfloat16), passes 0 (K9),
+// 1 (K10) and 2 (K11) at D 64, 128 and 256; dq is written contiguous (B,
+// Sq, Hq, D). Strides are in elements and
 // must be multiples of 8 (16 bytes) with 16-byte aligned bases, as TMA
 // reads them (the wrapper copies other views); a tensor map the driver
 // refuses returns cudaErrorInvalidPitchValue. Returns cudaGetLastError()
@@ -1044,8 +1048,7 @@ extern "C" int flash_attention_sm90_launch(
     float scale, void* stream) {
   cudaGetLastError();  // clear any stale error from an earlier call
   if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0 || dtype != 1 ||
-      (pass != FWD && pass != DQ && pass != DKV) || (D == 256 && pass == DQ) ||
-      (window > 0 && Sq > Sk + window - 1))
+      (pass != FWD && pass != DQ && pass != DKV) || (window > 0 && Sq > Sk + window - 1))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.lse_in = lse_in; a.delta = delta;

@@ -30,23 +30,23 @@ versions (the same formulas on materialised probabilities
 backward in float64 over one group of query heads, the oracles of the
 kernels' float32 accuracy.
 
-Two routes of kernels (``route``), by pass, dtype and head_dim:
+Two routes of kernels (``route``), by dtype and head_dim, the same for
+all three passes:
 
-===================  =============  =============  =============
-dtype, head_dim      ``flash_fwd``  ``flash_dq``   ``flash_dkv``
-===================  =============  =============  =============
-bfloat16, 64 / 128   wgmma          wgmma          wgmma
-bfloat16, 256        wgmma          tf32           wgmma
-bfloat16, 16 / 32    tf32           tf32           tf32
-float32, any         tf32           tf32           tf32
-===================  =============  =============  =============
+========================  =========================================
+dtype, head_dim           ``flash_fwd``, ``flash_dq``, ``flash_dkv``
+========================  =========================================
+bfloat16, 64 / 128 / 256  wgmma
+bfloat16, 16 / 32         tf32
+float32, any              tf32
+========================  =========================================
 
 ``"wgmma"`` is ``csrc/flash_attention_sm90.cu`` (Hopper's wgmma from
 shared memory and registers on TMA tiles; K9 with a producer warpgroup at
 head_dim 64 and 128 and its thread 0 producing at 256, K10 and K11 with
-their thread 0 producing, K11 at 256 split by role between its two
-warpgroups; K10's float32 ds and K11's p and ds as two bfloat16 terms
-each); ``"tf32"`` is ``csrc/flash_attention.cu``.
+their thread 0 producing, K10 at 256 on kv tiles of 32 keys, K11 at 256
+split by role between its two warpgroups; K10's float32 ds and K11's p and
+ds as two bfloat16 terms each); ``"tf32"`` is ``csrc/flash_attention.cu``.
 A failed build or launch raises; no route falls back to the other.
 ``LAUNCHES_BY_ROUTE`` counts the launches of each (pass, route) beside
 ``LAUNCHES``.
@@ -74,9 +74,8 @@ NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PASS = {"flash_fwd": 0, "flash_dq": 1, "flash_dkv": 2}
-# the bfloat16 head dims each pass takes on the wgmma route
-WGMMA_HEAD_DIMS = {"flash_fwd": (64, 128, 256), "flash_dq": (64, 128),
-                   "flash_dkv": (64, 128, 256)}
+# the bfloat16 head dims that take the wgmma route, in every pass
+WGMMA_HEAD_DIMS = (64, 128, 256)
 # the C library and entry point of each route
 _ROUTE_LIB = {"wgmma": ("flash_attention_sm90", "flash_attention_sm90_launch"),
               "tf32": ("flash_attention", "flash_attention_launch")}
@@ -84,10 +83,10 @@ _ROUTE_LIB = {"wgmma": ("flash_attention_sm90", "flash_attention_sm90_launch"),
 
 def route(which: str, dtype: torch.dtype, d: int) -> str:
     """The kernel a launch of pass ``which`` (``"flash_fwd"``,
-    ``"flash_dq"`` or ``"flash_dkv"``) takes: ``"wgmma"`` (bfloat16 at the
-    pass's ``WGMMA_HEAD_DIMS``) or ``"tf32"`` (everything else)."""
-    return ("wgmma" if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS[which]
-            else "tf32")
+    ``"flash_dq"`` or ``"flash_dkv"``) takes: ``"wgmma"`` (bfloat16 at
+    ``WGMMA_HEAD_DIMS``, every pass alike) or ``"tf32"`` (everything
+    else)."""
+    return "wgmma" if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS else "tf32"
 
 
 def softmax_scale(d: int) -> float:

@@ -3,12 +3,12 @@ Hopper's wgmma and TMA (``csrc/flash_attention_sm90.cu``, ``route() ==
 "wgmma"``).
 
 On the CPU: which kernel each (pass, dtype, head_dim) takes (bfloat16 at
-head_dim 256: K9 and K11 on wgmma, K10 on tf32); the copies ``_prep``
-makes for TMA (16-byte bases and strides); K10's and K11's split of their
+head_dim 64, 128 and 256: all three on wgmma); the copies ``_prep`` makes
+for TMA (16-byte bases and strides); K10's and K11's split of their
 float32 p and ds into two bfloat16 terms (to 2^-16 of |x|, and dq, dk and
 dv from the split terms, bfloat16 products summed in float32, within 1.5 x
-the bfloat16 plain version's float64 distance, K11 at head_dim 64 and
-256); and the plain versions in bfloat16 against the JAX reference's
+the bfloat16 plain version's float64 distance, at head_dim 64 and 256);
+and the plain versions in bfloat16 against the JAX reference's
 Pallas kernel in interpret mode (``tests/test_flash.py``'s way) at the new
 route's small shapes, within the reference's bfloat16 tolerance 3e-2 x
 max(1, |ref|).
@@ -17,11 +17,10 @@ The ``cuda``-marked cases hold the new kernels to the plain versions on
 the card (3e-2 x max(1, |ref|)) and to float64 (10 x the bfloat16 plain
 version's distance + 1e-6), to their own bits on a second launch, and on
 strided views that need no copy, at head_dim 64, 128 and 256, and
-bfloat16 K9-K11 at whisper-base's and gemma-2b's attention shapes (the
-latter's K10 on the tf32 route) the same way; they skip here. This module imports JAX
-only inside the reference test, so the card (which has no JAX) runs the
-rest: ``PYTHONPATH=src python -m pytest -q --noconftest -m cuda
-tests/test_torch_flash_sm90.py``.
+bfloat16 K9-K11 at whisper-base's and gemma-2b's attention shapes the same
+way; they skip here. This module imports JAX only inside the reference
+test, so the card (which has no JAX) runs the rest: ``PYTHONPATH=src
+python -m pytest -q --noconftest -m cuda tests/test_torch_flash_sm90.py``.
 """
 import numpy as np
 import pytest
@@ -43,8 +42,7 @@ BF16 = torch.bfloat16
 @pytest.mark.parametrize("dtype", [torch.float32, BF16])
 @pytest.mark.parametrize("which", ["flash_fwd", "flash_dq", "flash_dkv"])
 def test_route(which, dtype, d):
-    wgmma = (64, 128) if which == "flash_dq" else (64, 128, 256)
-    want = "wgmma" if dtype == BF16 and d in wgmma else "tf32"
+    want = "wgmma" if dtype == BF16 and d in (64, 128, 256) else "tf32"
     assert fa.route(which, dtype, d) == want
     assert f"{which}/{want}" in fa.LAUNCHES_BY_ROUTE
 
@@ -128,14 +126,19 @@ def _dkv_split(q, k, v, do, lse, delta, causal, window):
 
 def _dq_split(q, k, v, do, lse, delta, causal, window):
     """dq as K10's wgmma route forms it: ds in float32 from the bfloat16
-    inputs, split into two bfloat16 terms, ds_hi k + ds_lo k, every product
-    one of bfloat16 values (exact in float32) summed in float32, rounded to
-    bfloat16 at the end."""
+    inputs, split into two bfloat16 terms; dq summed in float32 over
+    k-steps of 16 keys in key order, ds_hi k then ds_lo k in each (every
+    product one of bfloat16 values, exact in float32), rounded to bfloat16
+    at the end."""
     _, ds = fa._probs_and_ds(q, k, v, do, lse, delta, causal, window)
     kr = fa._repeat_kv(k, q.shape[2] // k.shape[2]).float()
     hi, lo = _split(ds)
-    return (torch.einsum("bhqk,bkhd->bqhd", hi, kr)
-            + torch.einsum("bhqk,bkhd->bqhd", lo, kr)).to(BF16)
+    dq = torch.zeros(q.shape)
+    for k0 in range(0, k.shape[1], 16):
+        ks = slice(k0, k0 + 16)
+        for term in (hi, lo):
+            dq += torch.einsum("bhqk,bkhd->bqhd", term[..., ks], kr[:, ks])
+    return dq.to(BF16)
 
 
 def _float64_backward(window, d=64):
@@ -179,9 +182,14 @@ def test_split_dk_dv_keep_the_plain_float64_distance(window, d):
     assert 0 < split <= 1.5 * plain, (split, plain)
 
 
+@pytest.mark.parametrize("d", [64, 256])
 @pytest.mark.parametrize("window", [None, 32])
-def test_split_dq_keeps_the_plain_float64_distance(window):
-    args, want = _float64_backward(window)
+def test_split_dq_keeps_the_plain_float64_distance(window, d):
+    """K10's kv tiles hold 64 keys at head_dim 64 and 128 and 32 at 256
+    (q and do take 128 KB of shared memory there); each warpgroup keeps its
+    64 rows' dq in registers and adds the k-steps of 16 keys in key order,
+    hi then lo, at every head_dim: ``_dq_split``'s terms and order."""
+    args, want = _float64_backward(window, d)
     G = args[0].shape[2] // args[1].shape[2]
 
     def dist(dq):
@@ -240,19 +248,17 @@ CUDA_CASES = [
     (1, 144, 80, 4, 2, 128, True, None),      # Sq > Sk
     (1, 511, 511, 8, 4, 128, True, None),     # the serving prefill's S
     (1, 384, 384, 4, 2, 128, False, 256),     # window 256, non-causal
-    (2, 128, 128, 4, 2, 256, True, None),     # head_dim 256: K10 on tf32
+    (2, 128, 128, 4, 2, 256, True, None),     # head_dim 256
     (1, 100, 100, 6, 2, 256, True, 40),       # G 3, window, ragged tiles
     (1, 80, 144, 4, 2, 256, True, None),      # Sq < Sk
     (1, 144, 80, 4, 2, 256, False, None),     # Sq > Sk, non-causal
 ]
 
 
-def _routes(d):
-    """{pass/route: launches} of one forward, dq and dk/dv at head_dim d in
-    bfloat16: K10 at 256 takes the tf32 route, everything else wgmma."""
-    want = {"flash_fwd": "wgmma", "flash_dq": "tf32" if d == 256 else "wgmma",
-            "flash_dkv": "wgmma"}
-    return {f"{p}/{r}": int(want[p] == r) for p in want for r in ("wgmma", "tf32")}
+# {pass/route: launches} of one forward, dq and dk/dv in bfloat16 at head_dim
+# 64, 128 or 256: all on wgmma
+WGMMA_ONCE = {f"{p}/{r}": int(r == "wgmma") for p in ("flash_fwd", "flash_dq", "flash_dkv")
+              for r in ("wgmma", "tf32")}
 
 
 def _inputs(dev, B, Sq, Sk, Hq, Hkv, d, seed=0):
@@ -283,7 +289,7 @@ def test_cuda_kernels_match_plain(B, Sq, Sk, Hq, Hkv, d, causal, window):
     _close(dq, fa.flash_dq_plain(*args))
     for got, want in zip(fa.flash_dkv_cuda(*args), fa.flash_dkv_plain(*args)):
         _close(got, want)
-    assert {n: fa.LAUNCHES_BY_ROUTE[n] - before[n] for n in before} == _routes(d)
+    assert {n: fa.LAUNCHES_BY_ROUTE[n] - before[n] for n in before} == WGMMA_ONCE
 
 
 @pytest.mark.cuda
@@ -360,27 +366,25 @@ def test_cuda_kernels_read_strided_views(d):
 
 # whisper-base's attention (8 heads of 64, the encoder non-causal over
 # sequences that are no multiple of the tile, up to its 1500 frames, the
-# decoder causal over its 448 tokens: the wgmma route) and gemma-2b's (8
-# query heads over its one kv head repeated 8 times, head_dim 256, S 4096:
-# K9 and K11 on wgmma, K10 on tf32), and their serving prefills (gemma-2b 8
-# x 511 prompt tokens, whisper-base's decoder 8 x 3)
-WGMMA = ("wgmma", "wgmma", "wgmma")
-GEMMA = ("wgmma", "tf32", "wgmma")
+# decoder causal over its 448 tokens) and gemma-2b's (8 query heads over its
+# one kv head repeated 8 times, head_dim 256, S 4096), and their serving
+# prefills (gemma-2b 8 x 511 prompt tokens, whisper-base's decoder 8 x 3):
+# every pass on the wgmma route
 MODEL_CASES = [
-    # B, S, Hq, Hkv, d, causal, route of (flash_fwd, flash_dq, flash_dkv)
-    (1, 100, 8, 8, 64, False, WGMMA),
-    (1, 1500, 8, 8, 64, False, WGMMA),
-    (2, 448, 8, 8, 64, True, WGMMA),
-    (1, 4096, 8, 8, 256, True, GEMMA),
-    (8, 511, 8, 8, 256, True, GEMMA),
-    (8, 3, 8, 8, 64, True, WGMMA),
+    # B, S, Hq, Hkv, d, causal
+    (1, 100, 8, 8, 64, False),
+    (1, 1500, 8, 8, 64, False),
+    (2, 448, 8, 8, 64, True),
+    (1, 4096, 8, 8, 256, True),
+    (8, 511, 8, 8, 256, True),
+    (8, 3, 8, 8, 64, True),
 ]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,Hq,Hkv,d,causal,route", MODEL_CASES)
-def test_cuda_model_shapes(B, S, Hq, Hkv, d, causal, route):
-    """At whisper-base's and gemma-2b's shapes: each pass on its route; o,
+@pytest.mark.parametrize("B,S,Hq,Hkv,d,causal", MODEL_CASES)
+def test_cuda_model_shapes(B, S, Hq, Hkv, d, causal):
+    """At whisper-base's and gemma-2b's shapes: each pass on wgmma; o,
     lse, dq, dk and dv within 3e-2 x max(1, |ref|) of the plain version and,
     over every (batch, kv head) group, within 10 x the bfloat16 plain
     version's distance to float64 + 1e-6 (the backward on the float64
@@ -407,9 +411,7 @@ def test_cuda_model_shapes(B, S, Hq, Hkv, d, causal, route):
     args = (q, k, v, do, lse64, delta64, causal, None)
     dq, dq_p = fa.flash_dq_cuda(*args), fa.flash_dq_plain(*args)
     (dk, dv), (dk_p, dv_p) = fa.flash_dkv_cuda(*args), fa.flash_dkv_plain(*args)
-    assert {n: fa.LAUNCHES_BY_ROUTE[n] - before[n] for n in before} == {
-        f"{p}/{r}": int(r == rt) for p, rt in zip(("flash_fwd", "flash_dq", "flash_dkv"), route)
-        for r in ("wgmma", "tf32")}
+    assert {n: fa.LAUNCHES_BY_ROUTE[n] - before[n] for n in before} == WGMMA_ONCE
     _close(dq, dq_p)
     for got, want in ((dk, dk_p), (dv, dv_p)):
         _close(got, want)
